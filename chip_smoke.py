@@ -20,7 +20,16 @@ Phases, each raising on failure (the exit code is then non-zero):
    real YOLO graph ran; 20 frames through ``step``, then 20 through
    ``step_batch`` in chunks of 5; equal snapshots, visible tracks, finite
    Kalman state, and the OSBlock kernel launched 6 times per association
-   frame.
+   frame;
+7. detector zoo: every registered YOLO and SSD with random weights at its
+   full input size on a 1280x720 frame: raw head shapes, finite values,
+   the median time of the whole detector; SSDMobileNetV1 and YOLOv4-tiny
+   also against the same module on the CPU;
+8. SSD postprocess: the synthetic decoded rows of tests/test_detector.py
+   through ``SSDDetector._postprocess_device`` on the card and on the
+   CPU, equal;
+9. SSD main path: phase 6 with ``detector_type='SSD'`` (SSDInceptionV2 in
+   a 4x2 tiling of 300x300 tiles, cfg/mot.json's ``ssd_detector_cfg``).
 
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -45,6 +54,9 @@ BLOCK_SHAPES = ((16, 64, 64, 32), (64, 64, 64, 32), (64, 96, 32, 16),
 BATCH = 64
 MAX_REL, MEAN_REL = 0.04, 0.004        # tests/test_osnet_block.py bounds
 OSNET_MAX_REL = 0.05
+# bf16 nets, card against CPU: one-ulp roundings that differ between cuDNN
+# and the CPU's conv sums propagate through 20-30 layers
+ZOO_MAX_REL = 0.05
 
 
 def log(*args):
@@ -65,6 +77,21 @@ def cuda_ms(fn, n=20, warmup=3):
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def wall_ms(fn, n=5, warmup=2):
+    """Median host-clock time of ``fn`` with a device sync on each side
+    (the detectors sync inside their NMS loops)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
 
@@ -250,7 +277,7 @@ def phase_reference():
     log(f'reference: GPU == CPU on {len(cpu)} frames, {n_rows} track rows')
 
 
-def phase_main_path():
+def phase_main_path(detector_type='YOLO', tag='main path'):
     from fastmot_tpu_torch import MOT
     from fastmot_tpu_torch.detector import MAX_DETS, make_detections
     from fastmot_tpu_torch.ops.osnet_block import osblock
@@ -258,12 +285,14 @@ def phase_main_path():
 
     with open(ROOT / 'cfg' / 'mot.json') as f:
         mot_cfg = json.load(f, cls=ConfigDecoder)['mot_cfg']
+    mot_cfg['detector_type'] = detector_type
     mot = MOT(SIZE, device='cuda', **mot_cfg)
     skip = mot.detector_frame_skip
     frames = textured_frames(SIZE, 20)
 
-    # splice synthetic detections after the real YOLO graph ran (random
-    # weights detect nothing), staged on the device like real output
+    # splice synthetic detections after the real detector graph ran
+    # (random weights detect nothing), staged on the device like real
+    # output
     det = mot.detector
     real_post, real_post_dev = det.postprocess, det.postprocess_device
     staged = {}
@@ -321,27 +350,125 @@ def phase_main_path():
     launches = osblock.launches
 
     n_assoc = 2 * sum(1 for i in range(1, len(frames)) if i % skip == 0)
-    log('main path step ms per frame:',
-        ' '.join(f'{t:.1f}' for t in step_ms))
+    log(f'{tag} step ms per frame:', ' '.join(f'{t:.1f}' for t in step_ms))
     gap = [t for i, t in enumerate(step_ms) if i % skip]
     assoc = [t for i, t in enumerate(step_ms) if i and i % skip == 0]
-    log(f'main path step ms median {statistics.median(step_ms):.3f} '
+    log(f'{tag} step ms median {statistics.median(step_ms):.3f} '
         f'(gap frames {statistics.median(gap):.3f}, association frames '
         f'{statistics.median(assoc):.3f})')
-    log('main path step_batch ms per 5-frame chunk:',
+    log(f'{tag} step_batch ms per 5-frame chunk:',
         ' '.join(f'{t:.1f}' for t in batch_ms))
-    log(f'main path: visible tracks {visible}, association frames '
+    log(f'{tag}: visible tracks {visible}, association frames '
         f'{n_assoc}, osblock launches {launches}')
     if snap_step != snap_batch:
-        raise AssertionError('step and step_batch snapshots differ')
+        raise AssertionError(f'{tag}: step and step_batch snapshots differ')
     if not visible:
-        raise AssertionError('no visible tracks')
+        raise AssertionError(f'{tag}: no visible tracks')
     if not finite:
-        raise AssertionError('non-finite Kalman state')
+        raise AssertionError(f'{tag}: non-finite Kalman state')
     if launches != 6 * n_assoc:
-        raise AssertionError(f'osblock launched {launches} times, expected '
-                             f'{6 * n_assoc}')
+        raise AssertionError(f'{tag}: osblock launched {launches} times, '
+                             f'expected {6 * n_assoc}')
     return launches
+
+
+def _zoo_raw_checks(name, det, raw):
+    """Shapes and finiteness of a detector's raw network output."""
+    c, ih, iw = det.model.INPUT_SHAPE
+    if hasattr(det.model, 'TOPK'):                        # SSD
+        n = det.batch_size
+        want = [(n, 1917, 4), (n, 1917, det.model.NUM_CLASSES)]
+    else:
+        want = [(1, ih // f, iw // f,
+                 len(a) // 2 * (5 + det.model.NUM_CLASSES))
+                for f, a in zip(det.model.LAYER_FACTORS, det.model.ANCHORS)]
+    got = [tuple(t.shape) for t in raw]
+    if got != want:
+        raise AssertionError(f'{name}: raw output shapes {got}, want {want}')
+    if not all(bool(torch.isfinite(t).all()) for t in raw):
+        raise AssertionError(f'{name}: raw output is not finite')
+
+
+def phase_zoo():
+    """Every registered detector at its full input size on one frame."""
+    from fastmot_tpu_torch.detector import MAX_DETS, SSDDetector, \
+        YOLODetector
+    from fastmot_tpu_torch.models import registry
+    frame = torch.from_numpy(textured_frames(SIZE, 1, seed=5)[0]).cuda()
+    zoo = [(YOLODetector, registry.YOLOModel.get_model(n))
+           for n in sorted(registry._YOLO_REGISTRY)] + \
+        [(SSDDetector, registry.SSDModel.get_model(n))
+         for n in sorted(registry._SSD_REGISTRY)]
+    for cls, model in zoo:
+        name = model.__name__
+        person = min(1, model.NUM_CLASSES - 1)     # class 0 if single-class
+        det = cls(SIZE, (person,), model=name, device='cuda')
+        with torch.no_grad():
+            x = det.preprocess(frame)
+            raw = det.module(x)
+            torch.cuda.synchronize()
+            _zoo_raw_checks(name, det, raw)
+            out = det.run(frame)
+            if [tuple(t.shape)[0] for t in out] != [MAX_DETS] * 4:
+                raise AssertionError(f'{name}: padded output shapes '
+                                     f'{[tuple(t.shape) for t in out]}')
+            ms = wall_ms(lambda: det.run(frame))
+            line = (f'zoo {name} {tuple(x.shape)}: detector {ms:.3f} ms, '
+                    f'{int(out[3].sum())} detections')
+            if name in ('SSDMobileNetV1', 'YOLOv4Tiny'):
+                ref = det.model.init_params('cpu')(x.cpu())
+                worst = max(rel_err(g.cpu(), r)[0] for g, r in zip(raw, ref))
+                line += f'; card vs CPU max-rel {worst:.2e}'
+                if not worst < ZOO_MAX_REL:
+                    raise AssertionError(f'{name}: card output disagrees '
+                                         f'with the CPU: {worst}')
+        log(line)
+        del det, raw, out
+        torch.cuda.empty_cache()
+
+
+def synthetic_ssd_rows(rng):
+    """The decoded rows of tests/test_detector.py (four tiles, cross-tile
+    and same-tile duplicates, a cross-label overlap)."""
+    n_tiles, topk = 4, 20
+    det_out = np.zeros((n_tiles, topk, 7), np.float32)
+    for t in range(n_tiles):
+        conf = np.sort(rng.uniform(0, 1, topk))[::-1]
+        label = rng.choice([1, 1, 1, 2], topk)
+        x1 = rng.uniform(0, 0.8, topk)
+        y1 = rng.uniform(0, 0.8, topk)
+        w = rng.uniform(0.05, 0.3, topk)
+        h = rng.uniform(0.05, 0.3, topk)
+        det_out[t] = np.stack([np.zeros(topk), label, conf,
+                               x1, y1, x1 + w, y1 + h], -1)
+    det_out[0, 0] = [0, 1, 0.95, 0.80, 0.30, 0.95, 0.55]
+    det_out[1, 0] = [0, 1, 0.90, 0.05, 0.31, 0.21, 0.56]
+    det_out[0, 1] = [0, 1, 0.93, 0.81, 0.31, 0.96, 0.56]
+    det_out[0, 2] = [0, 1, 0.88, 0.79, 0.29, 0.94, 0.54]
+    det_out[0, 3] = [0, 2, 0.87, 0.80, 0.30, 0.95, 0.55]
+    det_out[3, 0] = [0, 1, 0.92, 0.10, 0.10, 0.30, 0.40]
+    det_out[3, 1] = [0, 1, 0.91, 0.11, 0.12, 0.31, 0.42]
+    tiles = np.array([[0, 0, 299, 299], [225, 0, 524, 299],
+                      [0, 225, 299, 524], [225, 225, 524, 524]], np.float32)
+    scale = np.array([1.5, 1.2], np.float32)
+    label_mask = np.zeros(91, bool)
+    label_mask[1] = True
+    return det_out, tiles, scale, label_mask
+
+
+def phase_ssd_postprocess():
+    from fastmot_tpu_torch.detector import SSDDetector
+    arrays = synthetic_ssd_rows(np.random.default_rng(42))
+    outs = [SSDDetector._postprocess_device(
+        *(torch.as_tensor(a, device=dev) for a in arrays),
+        0.5, 120000, 0.6, 0.5) for dev in ('cpu', 'cuda')]
+    for a, b in zip(*outs):
+        if not torch.equal(a, b.cpu()):
+            raise AssertionError('SSD postprocess: card and CPU differ')
+    n = int(outs[0][3].sum())
+    if not n:
+        raise AssertionError('SSD postprocess kept nothing')
+    log(f'ssd postprocess: card == CPU, {n} detections')
 
 
 def main():
@@ -351,6 +478,9 @@ def main():
     phase_osnet()
     phase_reference()
     launches = phase_main_path()
+    phase_zoo()
+    phase_ssd_postprocess()
+    launches += phase_main_path('SSD', 'ssd main path')
     print(json.dumps({'kernels': [{
         'name': 'osblock', 'route': 'cuda',
         'source': 'fastmot_tpu_torch/csrc/osnet_block.cu',

@@ -1,11 +1,11 @@
-"""Object detectors: YOLO (torch network + decode + NMS on the device) and
-the MOT-Challenge public-detection replay.
+"""Object detectors: YOLO and SSD (torch network + decode + NMS on the
+device) and the MOT-Challenge public-detection replay.
 
 Port of ``fastmot_tpu/detector.py``. ``detect_async`` runs the resize,
 the network, the head decode and the NMS on the detector's device;
 ``postprocess`` returns a host recarray, ``postprocess_device`` the padded
 device tensors ``(tlbr, label, conf, valid)`` that the association
-consumes without a host round trip. The SSD detector is not ported yet.
+consumes without a host round trip.
 """
 from __future__ import annotations
 
@@ -67,6 +67,47 @@ def _padded_to_host(padded) -> np.recarray:
                            conf[valid].astype(float))
 
 
+def _resize_bilinear(img: torch.Tensor, out_hw) -> torch.Tensor:
+    """Bilinear resize of an HWC float image with half-pixel centres and
+    edge clamping, the JAX package's ``_resize_bilinear_rgb``."""
+    return F.interpolate(img.permute(2, 0, 1)[None], size=tuple(out_hw),
+                         mode='bilinear', align_corners=False,
+                         antialias=False)[0].permute(1, 2, 0)
+
+
+class _NetworkDetector(Detector):
+    """A detector whose ``run`` does the whole detection on ``device``;
+    ``detect_async`` stores its padded result until it is read."""
+
+    def __init__(self, size, model, class_ids, device):
+        super().__init__(size)
+        self.model = model
+        self.device = torch.device(device)
+        label_mask = np.zeros(model.NUM_CLASSES, dtype=bool)
+        try:
+            label_mask[tuple(class_ids),] = True
+        except IndexError as err:
+            raise ValueError('Unsupported class IDs') from err
+        self.label_mask = torch.as_tensor(label_mask, device=self.device)
+        self._pending = None
+
+    @abc.abstractmethod
+    def run(self, frame: torch.Tensor):
+        raise NotImplementedError
+
+    def detect_async(self, frame):
+        self._pending = self.run(torch.as_tensor(frame, device=self.device))
+
+    def postprocess(self):
+        out, self._pending = self._pending, None
+        return _padded_to_host(out)
+
+    def postprocess_device(self):
+        """The padded (tlbr, label, conf, valid) device tensors."""
+        out, self._pending = self._pending, None
+        return out
+
+
 def nms_and_gate(det_out, label_mask, conf_thresh, nms_thresh, max_area,
                  min_ar, scale_wh, offset):
     """Fused postprocess after the head decode: confidence filter, pixel
@@ -108,7 +149,7 @@ def nms_and_gate(det_out, label_mask, conf_thresh, nms_thresh, max_area,
             (c_obj * c_cls)[order], final[order])
 
 
-class YOLODetector(Detector):
+class YOLODetector(_NetworkDetector):
     """YOLO detector: letterbox/resize, network, decode and NMS on the
     device."""
 
@@ -120,10 +161,9 @@ class YOLODetector(Detector):
                  max_area=800000,
                  min_aspect_ratio=1.2,
                  device='cpu'):
-        super().__init__(size)
         from .models import registry
-        self.model = registry.YOLOModel.get_model(model)
-        self.device = torch.device(device)
+        super().__init__(size, registry.YOLOModel.get_model(model),
+                         class_ids, device)
         assert 0 <= conf_thresh <= 1
         self.conf_thresh = conf_thresh
         assert 0 <= nms_thresh <= 1
@@ -132,13 +172,6 @@ class YOLODetector(Detector):
         self.max_area = max_area
         assert min_aspect_ratio >= 0
         self.min_aspect_ratio = min_aspect_ratio
-
-        label_mask = np.zeros(self.model.NUM_CLASSES, dtype=bool)
-        try:
-            label_mask[tuple(class_ids),] = True
-        except IndexError as err:
-            raise ValueError('Unsupported class IDs') from err
-        self.label_mask = torch.as_tensor(label_mask, device=self.device)
         self.module = self.model.init_params(self.device)
 
         # letterbox geometry
@@ -162,7 +195,17 @@ class YOLODetector(Detector):
             device=self.device)
         self._offset = torch.tensor(bbox_offset, dtype=torch.float32,
                                     device=self.device)
-        self._pending = None
+
+    def preprocess(self, frame: torch.Tensor) -> torch.Tensor:
+        """``[H, W, 3]`` BGR frame -> the letterboxed ``[1, ih, iw, 3]``
+        network input in [0, 1]."""
+        c, ih, iw = self.model.INPUT_SHAPE
+        oy, ox, rh, rw = self._roi
+        rgb = frame.float().flip(-1) / 255.0
+        canvas = torch.full((ih, iw, c), 0.5, dtype=torch.float32,
+                            device=frame.device)
+        canvas[oy:oy + rh, ox:ox + rw] = _resize_bilinear(rgb, (rh, rw))
+        return canvas[None]
 
     @torch.no_grad()
     def run(self, frame: torch.Tensor):
@@ -170,15 +213,7 @@ class YOLODetector(Detector):
         padded (tlbr, label, conf, valid) tensors."""
         from .models.yolo import decode_heads
         c, ih, iw = self.model.INPUT_SHAPE
-        oy, ox, rh, rw = self._roi
-        rgb = frame.float().flip(-1) / 255.0
-        resized = F.interpolate(rgb.permute(2, 0, 1)[None], size=(rh, rw),
-                                mode='bilinear', align_corners=False,
-                                antialias=False)[0].permute(1, 2, 0)
-        canvas = torch.full((ih, iw, c), 0.5, dtype=torch.float32,
-                            device=frame.device)
-        canvas[oy:oy + rh, ox:ox + rw] = resized
-        heads = self.module(canvas[None])
+        heads = self.module(self.preprocess(frame))
         det_out = decode_heads(heads, self.model.ANCHORS, self.model.SCALES,
                                (ih, iw), self.model.NEW_COORDS)[0]
         return nms_and_gate(det_out, self.label_mask, self.conf_thresh,
@@ -186,17 +221,160 @@ class YOLODetector(Detector):
                             self.min_aspect_ratio, self._scale_wh,
                             self._offset)
 
-    def detect_async(self, frame):
-        self._pending = self.run(torch.as_tensor(frame, device=self.device))
 
-    def postprocess(self):
-        out, self._pending = self._pending, None
-        return _padded_to_host(out)
+class SSDDetector(_NetworkDetector):
+    """SSD detector: the frame is resized to a tiling region, cut into a
+    grid of overlapping tiles that run as one batch, and the per-tile
+    detections are NMS'd and merged across tiles on the device."""
 
-    def postprocess_device(self):
-        """The padded (tlbr, label, conf, valid) device tensors."""
-        out, self._pending = self._pending, None
-        return out
+    def __init__(self, size,
+                 class_ids,
+                 model='SSDInceptionV2',
+                 tile_overlap=0.25,
+                 tiling_grid=(4, 2),
+                 conf_thresh=0.5,
+                 merge_thresh=0.6,
+                 max_area=120000,
+                 device='cpu'):
+        from .models import registry
+        from .models.ssd import generate_anchors
+        super().__init__(size, registry.SSDModel.get_model(model),
+                         class_ids, device)
+        assert 0 <= tile_overlap <= 1
+        self.tile_overlap = tile_overlap
+        assert tiling_grid[0] >= 1 and tiling_grid[1] >= 1
+        self.tiling_grid = tuple(tiling_grid)
+        assert 0 <= conf_thresh <= 1
+        self.conf_thresh = conf_thresh
+        assert 0 <= merge_thresh <= 1
+        self.merge_thresh = merge_thresh
+        assert max_area >= 0
+        self.max_area = max_area
+
+        self.batch_size = int(np.prod(self.tiling_grid))
+        self.tiles, self.tiling_region_sz = self._generate_tiles()
+        self.scale_factor = np.array(self.size) / self.tiling_region_sz
+        self._tiles_f = torch.as_tensor(self.tiles, device=self.device)
+        self._scale = torch.tensor(self.scale_factor, dtype=torch.float32,
+                                   device=self.device)
+        self._anchors = torch.as_tensor(generate_anchors(),
+                                        device=self.device)
+        self.module = self.model.init_params(self.device)
+
+    def _generate_tiles(self):
+        """Tile layout over a slightly upscaled region."""
+        c, ih, iw = self.model.INPUT_SHAPE
+        tile_size = np.array([iw, ih])
+        tiling_grid = np.array(self.tiling_grid)
+        step_size = (1 - self.tile_overlap) * tile_size
+        total_size = np.rint((tiling_grid - 1) * step_size
+                             + tile_size).astype(int)
+        tiles = np.array([
+            geom.to_tlbr(torch.tensor(
+                [c_i * step_size[0], r * step_size[1], iw, ih],
+                dtype=torch.float32)).numpy()
+            for r in range(tiling_grid[1]) for c_i in range(tiling_grid[0])])
+        return tiles.astype(np.float32), tuple(total_size)
+
+    def preprocess(self, frame: torch.Tensor) -> torch.Tensor:
+        """``[H, W, 3]`` BGR frame -> the ``[n_tiles, ih, iw, 3]`` batch of
+        RGB tiles scaled to [-1, 1]."""
+        c, ih, iw = self.model.INPUT_SHAPE
+        rw, rh = self.tiling_region_sz
+        region = _resize_bilinear(frame.float().flip(-1), (rh, rw))
+        crops = []
+        for x0, y0 in self.tiles[:, :2].astype(int):
+            # start indices clamped like lax.dynamic_slice
+            y0 = min(max(y0, 0), rh - ih)
+            x0 = min(max(x0, 0), rw - iw)
+            crops.append(region[y0:y0 + ih, x0:x0 + iw])
+        return torch.stack(crops) * (2.0 / 255.0) - 1.0
+
+    @torch.no_grad()
+    def run(self, frame: torch.Tensor):
+        """Tiling + network + decode + NMS + cross-tile merge on the
+        device; returns the padded (tlbr, label, conf, valid) tensors."""
+        from .models.ssd import decode_ssd
+        locs, confs = self.module(self.preprocess(frame))
+        det_out = decode_ssd(locs, confs, self._anchors, self.model.TOPK)
+        return self._postprocess_device(
+            det_out, self._tiles_f, self._scale, self.label_mask,
+            self.conf_thresh, self.max_area, self.merge_thresh,
+            self.model.NMS_THRESH)
+
+    @staticmethod
+    def _postprocess_device(det_out, tiles_f, scale, label_mask,
+                            conf_thresh, max_area, merge_thresh,
+                            nms_thresh=0.5):
+        """Filter, pixel scaling, per-tile class-aware NMS, and the
+        cross-tile IoM merge, as padded tensor ops.
+
+        The per-tile NMS is one ``greedy_suppress`` over all rows with the
+        overlap masked to the same tile and label: suppression acts only
+        on overlapping pairs, so this is the JAX package's per-tile vmap.
+        The merge takes connected components of the symmetric relation
+        "other tile, same label, IoM >= merge_thresh" by min-label
+        propagation to a fixpoint (one host sync per round); each component
+        collapses onto its lowest-index member with the enclosing box and
+        the highest confidence."""
+        n_tiles, topk = det_out.shape[0], det_out.shape[1]
+        n = n_tiles * topk
+        dev = det_out.device
+        rows = det_out.reshape(n, 7)
+        tile_id = torch.arange(n_tiles, device=dev).repeat_interleave(topk)
+        label = rows[:, 1].to(torch.int32)
+        conf = rows[:, 2]
+        t = tiles_f[tile_id]
+        tw = t[:, 2] - t[:, 0] + 1.0
+        th = t[:, 3] - t[:, 1] + 1.0
+        xy_scale = torch.stack([tw, th, tw, th], -1)
+        off = torch.stack([t[:, 0], t[:, 1], t[:, 0], t[:, 1]], -1)
+        sc = torch.cat([scale, scale])
+        tlbr = torch.round((rows[:, 3:7] * xy_scale + off) * sc[None, :])
+        area = geom.area(tlbr)
+        valid = (conf >= conf_thresh) & \
+            label_mask[torch.clamp(label, 0, label_mask.shape[0] - 1).long()] \
+            & (area > 0) & (area <= max_area)
+
+        same_label = label[:, None] == label[None, :]
+        same_tile = tile_id[:, None] == tile_id[None, :]
+        overlap = torch.where(same_tile & same_label,
+                              geom.bbox_ious(tlbr, tlbr),
+                              torch.zeros((), device=dev))
+        valid = valid & geom.greedy_suppress(overlap, conf, valid,
+                                             nms_thresh)
+
+        edge = (geom.iom_matrix(tlbr) >= merge_thresh) & ~same_tile & \
+            same_label & valid[:, None] & valid[None, :]
+        idx = torch.arange(n, device=dev)
+        lbl = torch.where(valid, idx, n)
+        while True:
+            nbr_min = torch.where(edge, lbl[None, :], n).amin(dim=1)
+            new = torch.minimum(lbl, nbr_min)
+            if not bool((new != lbl).any()):
+                break
+            lbl = new
+
+        # collapse each component onto its representative; row n takes
+        # the invalid rows and is dropped (scatter mode='drop')
+        safe = torch.where(valid, lbl, n)
+        tl = torch.full((n + 1, 2), float('inf'), device=dev).scatter_reduce(
+            0, safe[:, None].expand(n, 2), tlbr[:, :2], 'amin')[:n]
+        br = torch.full((n + 1, 2), -float('inf'), device=dev) \
+            .scatter_reduce(0, safe[:, None].expand(n, 2), tlbr[:, 2:],
+                            'amax')[:n]
+        cmax = torch.zeros(n + 1, device=dev).scatter_reduce(
+            0, safe, conf, 'amax')[:n]
+        keep = valid & (lbl == idx)
+        out_tlbr = torch.where(keep[:, None], torch.cat([tl, br], 1),
+                               torch.zeros((), device=dev))
+        out_conf = torch.where(keep, cmax, torch.zeros((), device=dev))
+
+        # class ascending, then index, padded to MAX_DETS
+        order_key = torch.where(keep, label.float() * n + idx.float(),
+                                torch.full((), float('inf'), device=dev))
+        order = torch.argsort(order_key, stable=True)[:MAX_DETS]
+        return out_tlbr[order], label[order], out_conf[order], keep[order]
 
 
 class PublicDetector(Detector):

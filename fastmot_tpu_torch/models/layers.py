@@ -11,6 +11,12 @@ these reproduce their semantics in torch:
   * scale) + bias`` computed in float32 and cast to the layer's dtype.
 - A conv with a compute dtype casts input and kernel to it, and adds its
   bias in that dtype after the conv, as ``nn.Conv(dtype=...)`` does.
+- ``DepthwiseConv3x3`` is the JAX package's shifted-tap depthwise layer:
+  pad (1, 1), nine bf16 products each cast to f32 and summed in f32, then
+  every ``stride``-th output. Its stride-2 outputs sit where a symmetric
+  ``padding=1`` conv puts them, not where 'SAME' (0, 1) would.
+- Pools are Flax's 'SAME' pools: max pads with -inf, average pads with
+  zeros and divides by the full window (``count_include_pad=True``).
 
 Random init is seeded through an explicit ``torch.Generator``: convs and
 dense layers lecun-normal (truncated at two standard deviations), BN at
@@ -62,15 +68,56 @@ class Conv(nn.Module):
         self.weight = nn.Parameter(torch.empty(cout, cin // groups, k, k))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
-    def forward(self, x):
+    def forward(self, x, f32_sum=False):
+        """``f32_sum``: round input and kernel to ``dtype`` but keep the
+        float32 sum of their products (``preferred_element_type=f32``)."""
         if self.padding == 'SAME':
             x = pad_same(x, self.k, self.stride)
-        y = F.conv2d(nchw(x.to(self.dtype)), self.weight.to(self.dtype),
-                     stride=self.stride, groups=self.groups)
-        y = nhwc(y)
+        x, w = x.to(self.dtype), self.weight.to(self.dtype)
+        if f32_sum:
+            x, w = x.float(), w.float()
+        y = nhwc(F.conv2d(nchw(x), w, stride=self.stride,
+                          groups=self.groups))
         if self.bias is not None:
-            y = y + self.bias.to(self.dtype)
+            y = y + self.bias.to(y.dtype)
         return y
+
+
+class DepthwiseConv3x3(nn.Module):
+    """3x3 depthwise conv on NHWC input; weight ``[C, 1, 3, 3]``; bf16 out.
+
+    Each tap's product is rounded to bf16 before the f32 sum, as in the
+    Flax layer, so the two agree to the last bit of the f32 sum order."""
+
+    def __init__(self, c, stride=1):
+        super().__init__()
+        self.stride = stride
+        self.weight = nn.Parameter(torch.empty(c, 1, 3, 3))
+
+    def forward(self, x):
+        s = self.stride
+        h, w = x.shape[1], x.shape[2]
+        xp = F.pad(x.to(torch.bfloat16), (0, 0, 1, 1, 1, 1))
+        wt = self.weight.to(torch.bfloat16)
+        out = None
+        for dy in range(3):
+            for dx in range(3):
+                tap = (xp[:, dy:dy + h:s, dx:dx + w:s, :]
+                       * wt[:, 0, dy, dx]).float()
+                out = tap if out is None else out + tap
+        return out.to(torch.bfloat16)
+
+
+def max_pool_same(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
+    """k x k max pool with stride s on NHWC input, Flax 'SAME'."""
+    xp = pad_same(x, k, s, value=-float('inf'))
+    return nhwc(F.max_pool2d(nchw(xp), k, s))
+
+
+def avg_pool_same(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
+    """k x k average pool with stride s on NHWC input, Flax 'SAME': the
+    zero padding counts in the divisor."""
+    return nhwc(F.avg_pool2d(nchw(pad_same(x, k, s)), k, s))
 
 
 class BatchNorm(nn.Module):
@@ -94,13 +141,18 @@ class BatchNorm(nn.Module):
 def random_init_(module: nn.Module, generator: torch.Generator):
     """Flax-default random init, drawn from ``generator`` in module order."""
     for m in module.modules():
-        if isinstance(m, (Conv, nn.Linear)):
+        if isinstance(m, (Conv, DepthwiseConv3x3, nn.Linear)):
             w = m.weight
             fan_in = w[0].numel()
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
-                                  generator=generator)
-            if m.bias is not None:
+            # truncated normal by inverse CDF, as torch 2.11's
+            # nn.init.trunc_normal_ draws it; torch 2.13's redraws rejected
+            # values, which gives other weights for a seed and takes 5x as
+            # long (9 s against 1.7 s for YOLOv4-P6's 127M weights)
+            b = math.erf(math.sqrt(2.0))
+            w.uniform_(-b, b, generator=generator).erfinv_() \
+                .mul_(std * math.sqrt(2.0)).clamp_(-2 * std, 2 * std)
+            if getattr(m, 'bias', None) is not None:
                 m.bias.zero_()
         elif isinstance(m, BatchNorm):
             m.weight.fill_(1.0)

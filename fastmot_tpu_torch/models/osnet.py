@@ -15,7 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.osnet_block import fold_osblock, osblock
-from .layers import BatchNorm, Conv, pad_same
+from .layers import BatchNorm, Conv, max_pool_same
 from .registry import ReIDModel, register_reid
 
 BF16 = torch.bfloat16
@@ -107,9 +107,7 @@ class OSNet(nn.Module):
     def forward(self, x):
         x = self.ConvBNReLU_0(x)
         # 3x3/2 max pool, 'SAME' padded with -inf (exact in f32)
-        x = pad_same(x.float(), 3, 2, value=-float('inf'))
-        x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2).permute(0, 2, 3, 1)
-        x = x.to(BF16)
+        x = max_pool_same(x.float(), 3, 2).to(BF16)
         for names in self.stages:
             for name in names:
                 x = getattr(self, name)(x)

@@ -18,11 +18,17 @@ WEIGHTS_DIR = Path(__file__).resolve().parents[2] / 'fastmot_tpu' / \
     'models' / 'weights'
 
 _YOLO_REGISTRY: dict[str, type] = {}
+_SSD_REGISTRY: dict[str, type] = {}
 _REID_REGISTRY: dict[str, type] = {}
 
 
 def register_yolo(cls):
     _YOLO_REGISTRY[cls.__name__] = cls
+    return cls
+
+
+def register_ssd(cls):
+    _SSD_REGISTRY[cls.__name__] = cls
     return cls
 
 
@@ -62,6 +68,16 @@ class YOLOModel(_ModelBase):
     @classmethod
     def get_model(cls, name: str):
         return _YOLO_REGISTRY[name]
+
+
+class SSDModel(_ModelBase):
+    NUM_CLASSES: int
+    TOPK: int = 100
+    NMS_THRESH: float = 0.5   # NMS_TRT nmsThreshold (reference ssd.py:105)
+
+    @classmethod
+    def get_model(cls, name: str):
+        return _SSD_REGISTRY[name]
 
 
 class ReIDModel(_ModelBase):

@@ -61,8 +61,11 @@ class MOT:
 
         LOGGER.info('Loading detector model...')
         if self.detector_type == DetectorType.SSD:
-            raise NotImplementedError('the SSD detector is not ported yet')
-        if self.detector_type == DetectorType.YOLO:
+            from .detector import SSDDetector
+            self.detector = SSDDetector(self.size, self.class_ids,
+                                        device=self.device,
+                                        **cfg_kwargs(ssd_detector_cfg))
+        elif self.detector_type == DetectorType.YOLO:
             from .detector import YOLODetector
             self.detector = YOLODetector(self.size, self.class_ids,
                                          device=self.device,

@@ -92,6 +92,13 @@ def ios_matrix(tlbrs1: torch.Tensor, tlbrs2: torch.Tensor) -> torch.Tensor:
     return _safe_div(inter, a_self)
 
 
+def iom_matrix(tlbrs: torch.Tensor) -> torch.Tensor:
+    """Pairwise [N, N] intersection over the smaller box's area."""
+    inter = _inter_area(tlbrs[:, None, :], tlbrs[None, :, :])
+    a = area(tlbrs)
+    return _safe_div(inter, torch.minimum(a[:, None], a[None, :]))
+
+
 def find_occluded(tlbrs: torch.Tensor, occlusion_thresh: float,
                   valid: torch.Tensor | None = None) -> torch.Tensor:
     """Mask of boxes covered by any other box at IoS >= thresh; ``valid``

@@ -11,6 +11,10 @@ the conversion is by name and layout only:
 - a 2-d kernel is a Dense ``[in, out]`` -> Linear ``[out, in]``;
 - BN ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
   ``running_mean``/``running_var``.
+
+``flax_shapes`` is the inverse on shapes: a module's ``{flax/path:
+shape}``, the template the checkpoint importers fill (where the JAX
+importers walk a live parameter tree).
 """
 from __future__ import annotations
 
@@ -41,6 +45,28 @@ def flax_to_state_dict(flat: dict) -> dict[str, torch.Tensor]:
                 raise ValueError(f'{name}: unexpected kernel rank {a.ndim}')
         out['.'.join(mods + [_LEAF[leaf]])] = \
             torch.from_numpy(np.array(a, copy=True))
+    return out
+
+
+def flax_shapes(module: torch.nn.Module) -> dict[str, tuple]:
+    """``{flax/path: shape}`` of every parameter and buffer of ``module``
+    (Flax layouts; a ``meta``-device module will do)."""
+    out = {}
+    for name, t in module.state_dict().items():
+        *mods, leaf = name.split('.')
+        shape = tuple(t.shape)
+        if leaf in ('running_mean', 'running_var'):
+            top, leaf = 'batch_stats', leaf[len('running_'):]
+        elif leaf == 'weight' and t.dim() == 1:
+            top, leaf = 'params', 'scale'
+        elif leaf == 'weight':
+            top, leaf = 'params', 'kernel'
+            shape = shape[2:] + shape[1::-1] if t.dim() == 4 else shape[::-1]
+        elif leaf == 'bias':
+            top = 'params'
+        else:
+            raise KeyError(f'unknown state-dict leaf {name!r}')
+        out['/'.join([top, *mods, leaf])] = shape
     return out
 
 

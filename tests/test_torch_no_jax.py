@@ -1,38 +1,72 @@
 """The port's main path needs neither JAX nor OpenCV (the machine with the
 card has neither): in a fresh interpreter where both are unimportable,
-``fastmot_tpu_torch`` imports and ``MOT`` runs a few frames."""
+``fastmot_tpu_torch`` and its checkpoint importers import, and ``MOT``
+runs a few frames with the PUBLIC and the SSD detectors."""
+import os
 import re
 import subprocess
 import sys
-import textwrap
 from pathlib import Path
 
 ROOT = Path(__file__).parents[1]
 
-SCRIPT = textwrap.dedent('''
-    import sys
-    sys.modules['jax'] = None      # any import of jax or cv2 now raises
-    sys.modules['cv2'] = None
-    import numpy as np
-    import fastmot_tpu_torch
-    from fastmot_tpu_torch import MOT
+PRELUDE = '''
+import sys
+sys.modules['jax'] = None      # any import of jax or cv2 now raises
+sys.modules['cv2'] = None
+import numpy as np
+import fastmot_tpu_torch
+from fastmot_tpu_torch import MOT
+rng = np.random.default_rng(0)
+'''
 
-    seq = sys.argv[1]
-    mot = MOT((160, 120), detector_type='PUBLIC', detector_frame_skip=3,
-              public_detector_cfg={'sequence_path': seq},
-              feature_extractor_cfgs=({'model': 'OSNet025'},),
-              device='cpu')
-    mot.reset(1 / 30.0)
-    rng = np.random.default_rng(0)
-    for _ in range(4):
-        mot.step(rng.integers(0, 256, (120, 160, 3), dtype=np.uint8))
-    assert mot.frame_count == 4
-    loaded = [m for m in sys.modules if m.split('.')[0] in
-              ('jax', 'flax', 'fastmot_tpu', 'cv2')
-              and sys.modules[m] is not None]
-    assert not loaded, loaded
-    print('OK', len(mot.tracker.tracks))
-''')
+CHECK = '''
+loaded = [m for m in sys.modules if m.split('.')[0] in
+          ('jax', 'flax', 'fastmot_tpu', 'cv2')
+          and sys.modules[m] is not None]
+assert not loaded, loaded
+print('OK', len(mot.tracker.tracks))
+'''
+
+PUBLIC = '''
+seq = sys.argv[1]
+mot = MOT((160, 120), detector_type='PUBLIC', detector_frame_skip=3,
+          public_detector_cfg={'sequence_path': seq},
+          feature_extractor_cfgs=({'model': 'OSNet025'},),
+          device='cpu')
+mot.reset(1 / 30.0)
+for _ in range(4):
+    mot.step(rng.integers(0, 256, (120, 160, 3), dtype=np.uint8))
+assert mot.frame_count == 4
+'''
+
+SSD = '''
+import fastmot_tpu_torch.eval  # noqa: F401
+from fastmot_tpu_torch.models import (darknet, onnx_import,  # noqa: F401
+                                      osnet_convert, ssd_convert)
+mot = MOT((160, 120), detector_type='SSD', detector_frame_skip=2,
+          ssd_detector_cfg={'model': 'SSDMobileNetV1',
+                            'tiling_grid': (2, 1)},
+          feature_extractor_cfgs=({'model': 'OSNet025'},),
+          device='cpu')
+mot.reset(1 / 30.0)
+for _ in range(3):
+    mot.step(rng.integers(0, 256, (120, 160, 3), dtype=np.uint8))
+assert mot.frame_count == 3
+'''
+
+
+def run_without_jax(body, *args):
+    """Run ``body`` in a fresh interpreter where jax and cv2 are
+    unimportable. One intra-op thread: the subprocess shares the cores
+    with the other test workers, and torch's thread pool, oversubscribed,
+    slows tiny CPU ops by two orders of magnitude."""
+    proc = subprocess.run(
+        [sys.executable, '-c', PRELUDE + body + CHECK, *map(str, args)],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env={**os.environ, 'OMP_NUM_THREADS': '1'})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith('OK')
 
 
 def test_main_path_imports_neither_jax_nor_cv2(tmp_path):
@@ -42,11 +76,11 @@ def test_main_path_imports_neither_jax_nor_cv2(tmp_path):
         '[Sequence]\nimWidth=160\nimHeight=120\n')
     (seq / 'det' / 'det.txt').write_text(''.join(
         f'{f + 1},-1,{20 + f},30,30,60,1,-1,-1,-1\n' for f in range(4)))
-    proc = subprocess.run([sys.executable, '-c', SCRIPT, str(seq)],
-                          cwd=ROOT, capture_output=True, text=True,
-                          timeout=120)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    assert proc.stdout.startswith('OK')
+    run_without_jax(PUBLIC, seq)
+
+
+def test_ssd_path_and_importers_import_neither_jax_nor_cv2():
+    run_without_jax(SSD)
 
 
 def test_port_sources_import_no_jax():
