@@ -10,7 +10,9 @@ Phases, each raising on failure (the exit code is then non-zero):
 2. build: compiles the OSBlock kernel (csrc/osnet_block.cu) from the
    sources in this checkout;
 3. kernel vs its plain version at the six OSNet-x0.25 block shapes (64
-   crops, bf16), with times;
+   crops, bf16; two calls bitwise equal), with each shape's time (20
+   back-to-back launches between two CUDA events), bound, roofline share
+   and launch plan;
 4. OSNet-x0.25 forward on 64 crops, kernel path vs plain path;
 5. reference: the tracker on a small synthetic sequence, GPU against the
    port's CPU path;
@@ -53,10 +55,14 @@ BLOCK_SHAPES = ((16, 64, 64, 32), (64, 64, 64, 32), (64, 96, 32, 16),
                 (96, 96, 32, 16), (96, 128, 16, 8), (128, 128, 16, 8))
 BATCH = 64
 MAX_REL, MEAN_REL = 0.04, 0.004        # tests/test_osnet_block.py bounds
+DIFFER = 0.05        # share of outputs off the plain version's (test_torch_cuda)
 OSNET_MAX_REL = 0.05
 # bf16 nets, card against CPU: one-ulp roundings that differ between cuDNN
 # and the CPU's conv sums propagate through 20-30 layers
 ZOO_MAX_REL = 0.05
+# an H100 SXM's published peaks (dense): bf16 tensor cores, f32 on CUDA
+# cores, HBM3
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
 
 def log(*args):
@@ -132,7 +138,6 @@ def phase_build():
 def _random_block(cin, features, gen):
     from fastmot_tpu_torch.models.layers import BatchNorm, random_init_
     from fastmot_tpu_torch.models.osnet import OSBlock
-    from fastmot_tpu_torch.ops.osnet_block import fold_osblock
     blk = OSBlock(cin, features).requires_grad_(False)
     random_init_(blk, gen)
     for m in blk.modules():        # non-trivial BN folds
@@ -141,44 +146,107 @@ def _random_block(cin, features, gen):
             m.bias.normal_(0.0, 0.1, generator=gen)
             m.running_mean.normal_(0.0, 0.1, generator=gen)
             m.running_var.uniform_(0.5, 1.5, generator=gen)
-    blk = blk.cuda()
-    sd = dict(blk.named_parameters())
-    sd.update(blk.named_buffers())
-    return fold_osblock(sd, cin, features)
+    return blk.cuda().folded()
+
+
+def osblock_bound_ms(batch, h, w, cin, features, packed):
+    """The least time an H100 could take for one OSBlock call, and what
+    sets it: each input byte read once (x, the packed weights) and each
+    output byte written once, over 3.35 TB/s; against the 1x1 convs' FLOPs
+    over 989 TFLOP/s (bf16 tensor cores) plus the depthwise, BN, gated-sum
+    and residual FLOPs over 67 TFLOP/s (f32)."""
+    from fastmot_tpu_torch.ops.osnet_block import block_dims
+    mid, _ = block_dims(features)
+    px = batch * h * w
+    ds = cin != features
+    mm = 2 * px * (cin * mid + 10 * mid * mid + mid * features
+                   + (cin * features if ds else 0))
+    # per pixel: 10 depthwise 3x3 (mul + add), 11 mid-wide BNs, the
+    # gated sum (4 mul, 3 add), conv3's and the downsample's BN, the add
+    f32 = px * (mid * (10 * 18 + 11 * 2 + 7)
+                + features * (2 + (2 if ds else 0) + 1))
+    nbytes = px * (cin + features) * 2 \
+        + sum(t.numel() * t.element_size() for t in packed)
+    ops_ms = (mm / PEAK_BF16 + f32 / PEAK_F32) * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), ops_ms, bytes_ms
+
+
+def launches_ms(fn, n=20, reps=5):
+    """Median over ``reps`` windows of ``n`` back-to-back calls of ``fn``
+    between two CUDA events, per call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
 
 
 def phase_kernel():
-    from fastmot_tpu_torch.ops.osnet_block import osblock, osblock_reference
+    from fastmot_tpu_torch.ops import osnet_block as ob
     gen = torch.Generator().manual_seed(0)
-    worst_abs, ms_sum, plain_sum = 0.0, 0.0, 0.0
+    worst_abs = 0.0
+    total = {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0, 'ops_ms': 0.0,
+             'bytes_ms': 0.0}
     for cin, f, h, w in BLOCK_SHAPES:
-        flat = _random_block(cin, f, gen)
+        flat, packed = _random_block(cin, f, gen)
         x = torch.randn(BATCH, h, w, cin, generator=gen) \
             .to('cuda', torch.bfloat16)
-        got = osblock(x, flat, cin, f)
+        got = ob.osblock(x, flat, cin, f, packed)
         torch.cuda.synchronize()
-        ref = osblock_reference(x, flat, cin, f)
+        ref = ob.osblock_reference(x, flat, cin, f)
         max_rel, mean_rel, max_abs = rel_err(got, ref)
-        ms = cuda_ms(lambda: osblock(x, flat, cin, f))
-        plain = cuda_ms(lambda: osblock_reference(x, flat, cin, f))
+        differ = (got != ref).float().mean().item()
+        again = ob.osblock(x, flat, cin, f, packed)
+        ms = launches_ms(lambda: ob.osblock(x, flat, cin, f, packed))
+        plain = cuda_ms(lambda: ob.osblock_reference(x, flat, cin, f), n=5)
+        bound, ops_ms, bytes_ms = osblock_bound_ms(BATCH, h, w, cin, f,
+                                                   packed)
+        plan = ob._prepared_plan(BATCH, h, w, cin, f,
+                                 torch.cuda.current_device())
+        by = 'bytes' if bytes_ms >= ops_ms else 'operations'
         log(f'osblock B={BATCH} {h}x{w} {cin}->{f}: max-rel {max_rel:.2e} '
-            f'mean-rel {mean_rel:.2e} kernel {ms:.3f} ms plain '
-            f'{plain:.3f} ms')
-        if not (max_rel < MAX_REL and mean_rel < MEAN_REL):
+            f'mean-rel {mean_rel:.2e} differing {differ:.5f}; kernel '
+            f'{ms * 1e3:.1f} us, bound '
+            f'{bound * 1e3:.2f} us ({by}), roofline share '
+            f'{bound / ms:.3f}; plain {plain:.3f} ms; plan: clusters of '
+            f'{plan.cluster} CTAs x {plan.rows} rows, {plan.ctas} CTAs, '
+            f'{plan.variant}, {plan.smem} B shared memory')
+        if not (max_rel < MAX_REL and mean_rel < MEAN_REL
+                and differ < DIFFER):
             raise AssertionError(f'osblock {cin}->{f} disagrees with its '
-                                 f'plain version: {max_rel} / {mean_rel}')
+                                 f'plain version: {max_rel} / {mean_rel} '
+                                 f'/ {differ}')
+        if not torch.equal(got, again):
+            raise AssertionError(f'osblock {cin}->{f}: two calls differ')
         worst_abs = max(worst_abs, max_abs)
-        ms_sum += ms
-        plain_sum += plain
-    log(f'osblock six shapes: kernel {ms_sum:.3f} ms plain '
-        f'{plain_sum:.3f} ms')
-    return {'max_abs_err': worst_abs, 'ms': ms_sum, 'plain_ms': plain_sum}
+        for k, v in zip(total, (ms, plain, bound, ops_ms, bytes_ms)):
+            total[k] += v
+    total['bound_by'] = 'bytes' if total['bytes_ms'] >= total['ops_ms'] \
+        else 'operations'
+    total['roofline_share'] = total['bound_ms'] / total['ms']
+    log(f'osblock six shapes: kernel {total["ms"]:.4f} ms, bound '
+        f'{total["bound_ms"]:.4f} ms ({total["bound_by"]}), roofline share '
+        f'{total["roofline_share"]:.4f}; plain {total["plain_ms"]:.3f} ms')
+    return dict(total, max_abs_err=worst_abs)
 
 
 def phase_osnet():
     from fastmot_tpu_torch.models import osnet
     from fastmot_tpu_torch.models.layers import random_init_
     from fastmot_tpu_torch.ops.osnet_block import osblock_reference
+
+    def plain_block(x, flat, cin, features, packed=None):
+        return osblock_reference(x, flat, cin, features)
+
     net = osnet.OSNet().requires_grad_(False)
     random_init_(net, torch.Generator().manual_seed(1))
     net = net.cuda().eval()
@@ -186,7 +254,7 @@ def phase_osnet():
                    generator=torch.Generator().manual_seed(2)).cuda()
     with torch.no_grad():
         got = net(x)
-        with mock.patch.object(osnet, 'osblock', osblock_reference):
+        with mock.patch.object(osnet, 'osblock', plain_block):
             ref = net(x)
             plain = cuda_ms(lambda: net(x), n=10)
         ms = cuda_ms(lambda: net(x), n=10)
@@ -486,7 +554,10 @@ def main():
         'source': 'fastmot_tpu_torch/csrc/osnet_block.cu',
         'replaces': 'fastmot_tpu/ops/osnet_block.py:213',
         'launches': launches, 'max_abs_err': kern['max_abs_err'],
-        'ms': kern['ms'], 'plain_ms': kern['plain_ms']}]}))
+        'ms': kern['ms'], 'plain_ms': kern['plain_ms'],
+        'bound_ms': kern['bound_ms'], 'bound_by': kern['bound_by'],
+        'library_ms': None,
+        'roofline_share': kern['roofline_share']}]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,
         'count': torch.cuda.device_count()}}))

@@ -4,8 +4,9 @@ PyTorch port.
 
     python -m fastmot_tpu_torch.app -i 'seq/img1/%06d.jpg' --mot --txt out.txt
 
-``--device`` picks the torch device (default: ``cuda`` when available,
-else ``cpu``). Video I/O needs OpenCV.
+``--device`` picks the torch device (default ``cuda``; without a card the
+run raises, and ``--device cpu`` runs it on the CPU). Video I/O needs
+OpenCV.
 """
 from __future__ import annotations
 
@@ -15,9 +16,8 @@ import logging
 from pathlib import Path
 from types import SimpleNamespace
 
-import torch
-
 import fastmot_tpu_torch as fastmot
+from fastmot_tpu_torch.device import torch_device
 from fastmot_tpu_torch.models import set_label_map
 from fastmot_tpu_torch.utils import ConfigDecoder, Profiler
 
@@ -54,8 +54,8 @@ def main(argv=None):
                         help='run multiple object tracker')
     parser.add_argument('-s', '--show', action='store_true',
                         help='show visualizations')
-    parser.add_argument('--device', default=None,
-                        help='torch device (default: cuda if available)')
+    parser.add_argument('--device', default='cuda',
+                        help='torch device (cpu to run on the CPU)')
     group.add_argument('-q', '--quiet', action='store_true',
                        help='reduce output verbosity')
     group.add_argument('-v', '--verbose', action='store_true',
@@ -63,7 +63,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.txt is not None and not args.mot:
         raise parser.error('--txt requires --mot')
-    device = args.device or ('cuda' if torch.cuda.is_available() else 'cpu')
+    device = torch_device(args.device)
 
     logging.basicConfig(format='%(asctime)s [%(levelname)8s] %(message)s',
                         datefmt='%Y-%m-%d %H:%M:%S')

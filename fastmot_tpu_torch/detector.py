@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .device import torch_device
 from .ops import geometry as geom
 
 MAX_DETS = 128      # padded capacity of the final detection set
@@ -82,7 +83,7 @@ class _NetworkDetector(Detector):
     def __init__(self, size, model, class_ids, device):
         super().__init__(size)
         self.model = model
-        self.device = torch.device(device)
+        self.device = torch_device(device)
         label_mask = np.zeros(model.NUM_CLASSES, dtype=bool)
         try:
             label_mask[tuple(class_ids),] = True
@@ -160,7 +161,7 @@ class YOLODetector(_NetworkDetector):
                  nms_thresh=0.5,
                  max_area=800000,
                  min_aspect_ratio=1.2,
-                 device='cpu'):
+                 device='cuda'):
         from .models import registry
         super().__init__(size, registry.YOLOModel.get_model(model),
                          class_ids, device)
@@ -235,7 +236,7 @@ class SSDDetector(_NetworkDetector):
                  conf_thresh=0.5,
                  merge_thresh=0.6,
                  max_area=120000,
-                 device='cpu'):
+                 device='cuda'):
         from .models import registry
         from .models.ssd import generate_anchors
         super().__init__(size, registry.SSDModel.get_model(model),
@@ -386,11 +387,11 @@ class PublicDetector(Detector):
                  sequence_path=None,
                  conf_thresh=0.5,
                  max_area=800000,
-                 device='cpu'):
+                 device='cuda'):
         super().__init__(size)
         assert tuple(class_ids) == (1,)
         self.frame_skip = frame_skip
-        self.device = torch.device(device)
+        self.device = torch_device(device)
         assert sequence_path is not None
         seq_root = Path(sequence_path)
         if not seq_root.is_absolute():

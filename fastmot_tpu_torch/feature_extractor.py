@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import torch_device
 from .models import registry
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -81,11 +82,11 @@ def extract_core(module, out_hw, frame, tlbrs, valid) -> torch.Tensor:
 class FeatureExtractor:
     """Extracts ReID embeddings for detected boxes."""
 
-    def __init__(self, model='OSNet025', batch_size=16, device='cpu'):
+    def __init__(self, model='OSNet025', batch_size=16, device='cuda'):
         self.model = registry.ReIDModel.get_model(model)
         assert batch_size >= 1
         self.batch_size = batch_size   # config parity: one padded batch
-        self.device = torch.device(device)
+        self.device = torch_device(device)
         self.feature_dim = self.model.OUTPUT_LAYOUT
         self.module = self.model.init_params(self.device)
         c, h, w = self.model.INPUT_SHAPE

@@ -13,6 +13,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from .device import torch_device
 from .ops import flow_kernels as fk
 
 
@@ -40,9 +41,9 @@ class Flow:
                  bg_feat_thresh=10,
                  obj_feat_params=None,
                  opt_flow_params=None,
-                 device='cpu'):
+                 device='cuda'):
         self.size = tuple(int(s) for s in size)
-        self.device = torch.device(device)
+        self.device = torch_device(device)
         assert 0 < bg_feat_scale_factor[0] <= 1 and \
             0 < bg_feat_scale_factor[1] <= 1
         assert 0 < opt_flow_scale_factor[0] <= 1 and \

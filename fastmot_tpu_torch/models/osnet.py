@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.osnet_block import fold_osblock, osblock
+from ..ops.osnet_block import fold_osblock, osblock, pack_osblock
 from .layers import BatchNorm, Conv, max_pool_same
 from .registry import ReIDModel, register_reid
 
@@ -66,13 +66,34 @@ class OSBlock(nn.Module):
         self.ConvBNReLU_1 = ConvBNReLU(mid, features, relu=False)
         if cin != features:
             self.ConvBNReLU_2 = ConvBNReLU(cin, features, relu=False)
+        self._fold_key = None
+
+    def folded(self):
+        """``(flat, packed)``: ``fold_osblock``'s list and, on CUDA, its
+        ``pack_osblock`` buffers. Made once and kept until a parameter or
+        buffer changes: a new storage (``.to()``, ``load_state_dict(...,
+        assign=True)``) or an in-place write (``load_state_dict``, any
+        ``copy_``) moves its key."""
+        tensors = [*self.parameters(), *self.buffers()]
+        key = tuple((t.device, t.data_ptr(), t._version) for t in tensors)
+        if key != self._fold_key:
+            with torch.no_grad():
+                sd = dict(self.named_parameters())
+                sd.update(self.named_buffers())
+                flat = fold_osblock(sd, self.cin, self.features)
+                packed = pack_osblock(flat, self.cin, self.features) \
+                    if flat[0].is_cuda else None
+            self._fold = (flat, packed)
+            self._fold_key = key
+            # keep the keyed storages alive, so no new tensor reuses an
+            # address of the key
+            self._fold_pins = [t.detach() for t in tensors]
+        return self._fold
 
     def forward(self, x):
-        sd = dict(self.named_parameters())
-        sd.update(self.named_buffers())
-        flat = fold_osblock(sd, self.cin, self.features)
+        flat, packed = self.folded()
         return osblock(x.to(BF16).contiguous(), flat, self.cin,
-                       self.features)
+                       self.features, packed)
 
 
 class OSNet(nn.Module):

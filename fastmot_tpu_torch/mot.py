@@ -4,7 +4,8 @@ Same public API (``MOT(size, **cfg)``, ``step``, ``step_batch``,
 ``reset``, ``visible_tracks``, ``flush_tracks``, ``frame_count``) and the
 same detector-skip schedule: the detector and the ReID extractor run every
 ``detector_frame_skip`` frames, KLT flow + Kalman fill the gap frames.
-``device`` places every component; frames are ``[H, W, 3]`` uint8 BGR.
+``device`` places every component (default ``'cuda'``, which raises
+without a card; ``'cpu'`` runs on the CPU); frames are ``[H, W, 3]`` uint8 BGR.
 OpenCV is imported only when drawing.
 """
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from .detector import PublicDetector
+from .device import torch_device
 from .feature_extractor import FeatureExtractor
 from .tracker import MultiTracker, cfg_kwargs
 from .utils import Profiler
@@ -44,9 +46,9 @@ class MOT:
                  tracker_cfg=None,
                  visualizer_cfg=None,
                  draw=False,
-                 device='cpu'):
+                 device='cuda'):
         self.size = size
-        self.device = torch.device(device)
+        self.device = torch_device(device)
         self.detector_type = DetectorType[detector_type.upper()]
         assert detector_frame_skip >= 1
         self.detector_frame_skip = detector_frame_skip

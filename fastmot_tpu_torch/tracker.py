@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from . import kalman as kf
+from .device import torch_device
 from .feature_extractor import extract_core
 from .flow import Flow
 from .kalman import KalmanConfig
@@ -594,9 +595,9 @@ class MultiTracker:
                  kalman_filter_cfg=None,
                  flow_cfg=None,
                  assoc_eps=1e-2,
-                 device='cpu'):
+                 device='cuda'):
         self.size = size
-        self.device = torch.device(device)
+        self.device = torch_device(device)
         self.metric = metric if isinstance(metric, dist.Metric) \
             else dist.Metric[str(metric).upper()]
         assert max_age >= 1

@@ -15,6 +15,7 @@ from fastmot_tpu.models.osnet import OSBlock as FlaxOSBlock
 from fastmot_tpu.models.osnet import OSNet as FlaxOSNet
 from fastmot_tpu.ops.osnet_block import fold_osblock as jax_fold
 from fastmot_tpu.ops.osnet_block import osblock_fused
+from fastmot_tpu_torch.models.layers import random_init_
 from fastmot_tpu_torch.models.osnet import OSBlock, OSNet
 from fastmot_tpu_torch.ops.osnet_block import (fold_osblock, osblock,
                                                osblock_reference)
@@ -124,3 +125,24 @@ def test_osnet025_embedding_matches_flax():
     max_rel, _ = _rel(got, ref)
     assert max_rel < 0.05, max_rel
 
+
+
+def test_osblock_fold_cache_follows_load_state_dict():
+    """OSBlock folds its weights once and keeps them; a load_state_dict
+    after the first forward refolds, so the block then gives a fresh
+    block's output, held against the Flax block."""
+    x, module, variables, _ = _block(64, 96, 8, 8, 4)
+    xt = torch.from_numpy(np.array(x.astype(jnp.float32)))
+    sd = flax_to_state_dict(flax_flat(variables))
+    port = OSBlock(64, 96).requires_grad_(False)
+    random_init_(port, torch.Generator().manual_seed(9))
+    before = port(xt)                       # folds the random weights
+    port.load_state_dict(sd)
+    got = port(xt)
+    fresh = OSBlock(64, 96).requires_grad_(False)
+    fresh.load_state_dict(sd)
+    assert torch.equal(got, fresh(xt))
+    assert not torch.equal(got, before)
+    ref = np.asarray(module.apply(variables, x), np.float32)
+    max_rel, mean_rel = _rel(got.float().numpy(), ref)
+    assert max_rel < 0.04 and mean_rel < 0.004, (max_rel, mean_rel)

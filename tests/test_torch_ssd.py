@@ -314,7 +314,8 @@ def test_mot_with_ssd_tracks_planted_boxes(ssd_pair, monkeypatch):
               ssd_detector_cfg={'model': 'SSDMobileNetV1',
                                 'tiling_grid': (2, 1)},
               feature_extractor_cfgs=({'model': 'OSNet025'},),
-              tracker_cfg={'confirm_hits': 1})
+              tracker_cfg={'confirm_hits': 1},
+              device='cpu')
     rng = np.random.default_rng(7)
     frames = [rng.integers(0, 256, (240, 320, 3), dtype=np.uint8)] * 6
     runs = []
