@@ -31,7 +31,20 @@ Phases, each raising on failure (the exit code is then non-zero):
    through ``SSDDetector._postprocess_device`` on the card and on the
    CPU, equal;
 9. SSD main path: phase 6 with ``detector_type='SSD'`` (SSDInceptionV2 in
-   a 4x2 tiling of 300x300 tiles, cfg/mot.json's ``ssd_detector_cfg``).
+   a 4x2 tiling of 300x300 tiles, cfg/mot.json's ``ssd_detector_cfg``);
+10. int8 conv: ``models.quantize.int8_conv`` (im2col + ``torch._int_mm``)
+   on the card against its CPU plain version at the main path's kinds of
+   shape (YOLOv4-512's 3x3/2 after the stem, a 3x3 at 256x256x64, a 1x1
+   head with N = 255, OSNet's 7x7/2 on 3 channels, an SSD extra layer with
+   M = 8, a grouped conv): equal int32 sums; times beside the bf16 cuDNN
+   conv of the same shape;
+11. OSNet-x0.25 under ``QuantizedModule`` on 64 crops, card against CPU,
+   weight-only, calibrated fake-quant, calibrated native convs, dynamic
+   native convs; times beside the kernel path;
+12. int8 main path: phase 6 with ``quantize='int8'`` and bench.py
+   --int8's cache (``{'outputs': {}, 'inputs': {'*': 0.0}}``) for the
+   detector and the extractor: one ``int8_conv`` launch per eligible conv
+   of YOLOv4 and OSNet-x0.25, no OSBlock launch.
 
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -63,6 +76,16 @@ ZOO_MAX_REL = 0.05
 # an H100 SXM's published peaks (dense): bf16 tensor cores, f32 on CUDA
 # cores, HBM3
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# (name, batch, H, W, C_in, C_out, k, stride, groups) of phase 10
+INT8_SHAPES = (('yolov4 3x3/2 after the stem', 1, 256, 256, 64, 128, 3, 2, 1),
+               ('3x3 at 256x256x64', 1, 256, 256, 64, 64, 3, 1, 1),
+               ('yolov4 1x1 head N=255', 1, 64, 64, 256, 255, 1, 1, 1),
+               ('osnet 7x7/2 K=147', 64, 256, 128, 3, 16, 7, 2, 1),
+               ('ssd extra 3x3/2 M=8', 8, 2, 2, 64, 128, 3, 2, 1),
+               ('grouped 3x3 g=2', 1, 64, 64, 64, 64, 3, 1, 2))
+# card against CPU under int8: a sum one bf16 ulp apart flips a level now
+# and then, and later convs spread the flip
+INT8_MIN_COS = 0.99
 
 
 def log(*args):
@@ -345,16 +368,26 @@ def phase_reference():
     log(f'reference: GPU == CPU on {len(cpu)} frames, {n_rows} track rows')
 
 
-def phase_main_path(detector_type='YOLO', tag='main path'):
+def phase_main_path(detector_type='YOLO', tag='main path', int8=False):
     from fastmot_tpu_torch import MOT
     from fastmot_tpu_torch.detector import MAX_DETS, make_detections
+    from fastmot_tpu_torch.models.layers import Conv
+    from fastmot_tpu_torch.models.quantize import int8_conv
     from fastmot_tpu_torch.ops.osnet_block import osblock
     from fastmot_tpu_torch.utils import ConfigDecoder
 
     with open(ROOT / 'cfg' / 'mot.json') as f:
         mot_cfg = json.load(f, cls=ConfigDecoder)['mot_cfg']
     mot_cfg['detector_type'] = detector_type
-    mot = MOT(SIZE, device='cuda', **mot_cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        if int8:        # bench.py --int8: dynamic native convs everywhere
+            cache = Path(tmp) / 'int8_cal.json'
+            cache.write_text(json.dumps({'outputs': {},
+                                         'inputs': {'*': 0.0}}))
+            for cfg in (mot_cfg['yolo_detector_cfg'],
+                        *mot_cfg['feature_extractor_cfgs']):
+                cfg.update(quantize='int8', calib_cache=str(cache))
+        mot = MOT(SIZE, device='cuda', **mot_cfg)
     skip = mot.detector_frame_skip
     frames = textured_frames(SIZE, 20)
 
@@ -388,7 +421,7 @@ def phase_main_path(detector_type='YOLO', tag='main path'):
 
     det.postprocess, det.postprocess_device = post, post_dev
 
-    osblock.launches = 0
+    osblock.launches = int8_conv.launches = 0
     mot.reset(1 / 30.0)
     step_ms = []
     for frame in frames:
@@ -415,9 +448,16 @@ def phase_main_path(detector_type='YOLO', tag='main path'):
     state = mot.tracker._dev_state
     finite = finite and bool(torch.isfinite(state[0]).all()
                              and torch.isfinite(state[1]).all())
-    launches = osblock.launches
+    launches, int8_launches = osblock.launches, int8_conv.launches
 
     n_assoc = 2 * sum(1 for i in range(1, len(frames)) if i % skip == 0)
+    n_detect = n_assoc + 2                   # frame 0 of each run detects
+    # eligible convs: every layers.Conv but the darknet stem's
+    c, ih, iw = det.model.INPUT_SHAPE
+    det_convs = sum(isinstance(m, Conv) for m in det.module.modules()) - \
+        (det.module.module.stem_layers(ih, iw) if int8 else 0)
+    reid_convs = sum(isinstance(m, Conv)
+                     for m in mot.extractors[0].module.modules())
     log(f'{tag} step ms per frame:', ' '.join(f'{t:.1f}' for t in step_ms))
     gap = [t for i, t in enumerate(step_ms) if i % skip]
     assoc = [t for i, t in enumerate(step_ms) if i and i % skip == 0]
@@ -427,17 +467,26 @@ def phase_main_path(detector_type='YOLO', tag='main path'):
     log(f'{tag} step_batch ms per 5-frame chunk:',
         ' '.join(f'{t:.1f}' for t in batch_ms))
     log(f'{tag}: visible tracks {visible}, association frames '
-        f'{n_assoc}, osblock launches {launches}')
+        f'{n_assoc}, osblock launches {launches}, int8_conv launches '
+        f'{int8_launches}')
     if snap_step != snap_batch:
         raise AssertionError(f'{tag}: step and step_batch snapshots differ')
     if not visible:
         raise AssertionError(f'{tag}: no visible tracks')
     if not finite:
         raise AssertionError(f'{tag}: non-finite Kalman state')
-    if launches != 6 * n_assoc:
-        raise AssertionError(f'{tag}: osblock launched {launches} times, '
-                             f'expected {6 * n_assoc}')
-    return launches
+    want = (0, n_detect * det_convs + n_assoc * reid_convs) if int8 else \
+        (6 * n_assoc, 0)
+    if (launches, int8_launches) != want:
+        raise AssertionError(f'{tag}: osblock and int8_conv launched '
+                             f'{launches} and {int8_launches} times, '
+                             f'expected {want}')
+    if int8:
+        log(f'{tag}: int8_conv launches per association frame '
+            f'{det_convs + reid_convs} ({det_convs} detector convs, '
+            f'{reid_convs} OSNet convs; {n_detect} detector runs, '
+            f'{n_assoc} association frames)')
+    return launches, statistics.median(step_ms)
 
 
 def _zoo_raw_checks(name, det, raw):
@@ -539,16 +588,116 @@ def phase_ssd_postprocess():
     log(f'ssd postprocess: card == CPU, {n} detections')
 
 
+def phase_int8_conv():
+    """``int8_conv`` on the card against its CPU plain version (equal int32
+    sums, equal outputs), dynamic input range as on the int8 main path;
+    timed beside the bf16 cuDNN conv of the same shape (the port's
+    ``layers.Conv`` in bf16) and the s8 conv alone (im2col + _int_mm)."""
+    from fastmot_tpu_torch.models import quantize as tq
+    from fastmot_tpu_torch.models.layers import Conv
+    gen = torch.Generator().manual_seed(7)
+    for name, b, h, w, cin, cout, k, s, g in INT8_SHAPES:
+        x = torch.randn(b, h, w, cin, generator=gen)
+        conv = Conv(cin, cout, k, s, groups=g, bias=cout == 255,
+                    dtype=torch.bfloat16).requires_grad_(False)
+        conv.weight.normal_(0, 0.05, generator=gen)
+        if conv.bias is not None:
+            conv.bias.normal_(0, 0.1, generator=gen)
+        q, scale = tq.quantize_weight_int8(conv.weight)
+        bias = conv.bias
+        args = (s, 'SAME', g)
+        ref = tq.int8_conv(x, q, scale, 0.0, *args, bias=bias)
+        xq = torch.randint(-127, 128, x.shape, generator=gen,
+                           dtype=torch.int8)
+        sums = tq.s8_conv(xq, q, *args)
+        xd, qd, sd = x.cuda(), q.cuda(), scale.cuda()
+        bd = None if bias is None else bias.cuda()
+        conv = conv.cuda()
+        got = tq.int8_conv(xd, qd, sd, 0.0, *args, bias=bd)
+        got_sums = tq.s8_conv(xq.cuda(), qd, *args)
+        torch.cuda.synchronize()
+        if not torch.equal(got_sums.cpu(), sums):
+            raise AssertionError(f'int8 conv {name}: card sums differ from '
+                                 'the CPU plain version')
+        err = (got.cpu() - ref).abs().max().item()
+        if not (torch.isfinite(got).all() and err <= 1e-5 *
+                ref.abs().max().item()):
+            raise AssertionError(f'int8 conv {name}: output off the CPU '
+                                 f'plain version by {err}')
+        ms = launches_ms(lambda: tq.int8_conv(xd, qd, sd, 0.0, *args,
+                                              bias=bd))
+        xqd = xq.cuda()
+        mm_ms = launches_ms(lambda: tq.s8_conv(xqd, qd, *args))
+        xb = xd.to(torch.bfloat16)
+        bf16_ms = launches_ms(lambda: conv(xb))
+        oh, ow = -(-h // s), -(-w // s)
+        log(f'int8 conv {name} [{b}, {h}, {w}, {cin}] -> {cout} (M '
+            f'{b * oh * ow}, K {k * k * cin // g}, N {cout // g}): sums '
+            f'equal, max-abs {err:.2e}; int8_conv {ms:.4f} ms (s8 conv '
+            f'{mm_ms:.4f} ms), bf16 conv {bf16_ms:.4f} ms')
+
+
+def _osnet(device, seed=1):
+    from fastmot_tpu_torch.models import osnet
+    from fastmot_tpu_torch.models.layers import random_init_
+    net = osnet.OSNet().requires_grad_(False)
+    random_init_(net, torch.Generator().manual_seed(seed))
+    return net.to(device).eval()
+
+
+def phase_osnet_int8():
+    """OSNet-x0.25 under QuantizedModule on 64 crops, card against CPU,
+    in the four modes, with ranges from the port's calibrator."""
+    from fastmot_tpu_torch.models import quantize as tq
+    x = torch.rand(BATCH, 256, 128, 3,
+                   generator=torch.Generator().manual_seed(2))
+    cal = tq.EntropyCalibrator(_osnet('cuda'), num_bins=512)
+    cal.observe(x[:8].numpy())
+    outs, ins = cal.compute_ranges(), cal.compute_input_ranges()
+    xd = x.cuda()
+    net = _osnet('cuda')
+    with torch.no_grad():
+        kernel_ms = cuda_ms(lambda: net(xd), n=10)
+    line = [f'kernel path {kernel_ms:.3f} ms']
+    for mode, ranges in (('weights', (None, None)),
+                         ('outputs', (outs, None)), ('inputs', (None, ins)),
+                         ('dynamic', (None, {'*': 0.0}))):
+        qm = tq.QuantizedModule(_osnet('cuda'), *ranges)
+        with torch.no_grad():
+            got = qm(xd)
+            ref = tq.QuantizedModule(_osnet('cpu'), *ranges)(x)
+            ms = cuda_ms(lambda: qm(xd), n=10)
+        got = got.cpu()
+        cos = torch.nn.functional.cosine_similarity(got, ref).min().item()
+        max_rel = rel_err(got, ref)[0]
+        line.append(f'{mode} {ms:.3f} ms (card vs CPU max-rel {max_rel:.2e}, '
+                    f'min cosine {cos:.6f})')
+        if not (torch.isfinite(got).all() and got.shape == (BATCH, 512)):
+            raise AssertionError(f'osnet025 int8 {mode}: not finite [64, 512]')
+        ok = max_rel < OSNET_MAX_REL if mode == 'weights' else \
+            cos >= INT8_MIN_COS
+        if not ok:
+            raise AssertionError(f'osnet025 int8 {mode}: card disagrees '
+                                 f'with the CPU ({max_rel}, {cos})')
+    log(f'osnet025 int8 on [64, 256, 128, 3] ({len(outs)} output, '
+        f'{len(ins)} input ranges):', '; '.join(line))
+
+
 def main():
     name = phase_device()
     phase_build()
     kern = phase_kernel()
     phase_osnet()
     phase_reference()
-    launches = phase_main_path()
+    launches, float_ms = phase_main_path()
     phase_zoo()
     phase_ssd_postprocess()
-    launches += phase_main_path('SSD', 'ssd main path')
+    launches += phase_main_path('SSD', 'ssd main path')[0]
+    phase_int8_conv()
+    phase_osnet_int8()
+    _, int8_ms = phase_main_path(tag='int8 main path', int8=True)
+    log(f'main path step median: float {float_ms:.3f} ms, int8 '
+        f'{int8_ms:.3f} ms')
     print(json.dumps({'kernels': [{
         'name': 'osblock', 'route': 'cuda',
         'source': 'fastmot_tpu_torch/csrc/osnet_block.cu',

@@ -5,7 +5,8 @@ Port of ``fastmot_tpu/detector.py``. ``detect_async`` runs the resize,
 the network, the head decode and the NMS on the detector's device;
 ``postprocess`` returns a host recarray, ``postprocess_device`` the padded
 device tensors ``(tlbr, label, conf, valid)`` that the association
-consumes without a host round trip.
+consumes without a host round trip. ``quantize='int8'`` (with an optional
+``calib_cache``) runs the network under ``models.quantize``.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from .device import torch_device
+from .models.quantize import quantize_module
 from .ops import geometry as geom
 
 MAX_DETS = 128      # padded capacity of the final detection set
@@ -161,6 +163,8 @@ class YOLODetector(_NetworkDetector):
                  nms_thresh=0.5,
                  max_area=800000,
                  min_aspect_ratio=1.2,
+                 quantize=None,
+                 calib_cache=None,
                  device='cuda'):
         from .models import registry
         super().__init__(size, registry.YOLOModel.get_model(model),
@@ -173,7 +177,8 @@ class YOLODetector(_NetworkDetector):
         self.max_area = max_area
         assert min_aspect_ratio >= 0
         self.min_aspect_ratio = min_aspect_ratio
-        self.module = self.model.init_params(self.device)
+        self.module = quantize_module(self.model.init_params(self.device),
+                                      quantize, calib_cache)
 
         # letterbox geometry
         src_size = np.array(self.size)
@@ -236,6 +241,8 @@ class SSDDetector(_NetworkDetector):
                  conf_thresh=0.5,
                  merge_thresh=0.6,
                  max_area=120000,
+                 quantize=None,
+                 calib_cache=None,
                  device='cuda'):
         from .models import registry
         from .models.ssd import generate_anchors
@@ -260,7 +267,8 @@ class SSDDetector(_NetworkDetector):
                                    device=self.device)
         self._anchors = torch.as_tensor(generate_anchors(),
                                         device=self.device)
-        self.module = self.model.init_params(self.device)
+        self.module = quantize_module(self.model.init_params(self.device),
+                                      quantize, calib_cache)
 
     def _generate_tiles(self):
         """Tile layout over a slightly upscaled region."""

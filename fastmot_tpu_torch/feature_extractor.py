@@ -7,6 +7,8 @@ there it is two bf16 matrix products with f32 accumulation whose weight
 matrices hold at most two non-zero hat weights per row, so here it is the
 same two-tap blend written as a gather, with the weights and the
 column-pass intermediate rounded to bf16 where the JAX products round.
+Host boxes are padded to the JAX package's batch bucket with zero boxes:
+under dynamic int8 the input absmax of every conv spans the whole batch.
 """
 from __future__ import annotations
 
@@ -15,9 +17,18 @@ import torch
 
 from .device import torch_device
 from .models import registry
+from .models.quantize import quantize_module
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def _bucket(n: int, lo: int = 16) -> int:
+    """The padded batch of ``n`` boxes: ``lo`` doubled until it holds n."""
+    b = lo
+    while b < n:
+        b *= 2
+    return b
 
 
 def _taps(pos: torch.Tensor, n_in: int):
@@ -82,16 +93,19 @@ def extract_core(module, out_hw, frame, tlbrs, valid) -> torch.Tensor:
 class FeatureExtractor:
     """Extracts ReID embeddings for detected boxes."""
 
-    def __init__(self, model='OSNet025', batch_size=16, device='cuda'):
+    def __init__(self, model='OSNet025', batch_size=16, quantize=None,
+                 calib_cache=None, device='cuda'):
         self.model = registry.ReIDModel.get_model(model)
         assert batch_size >= 1
         self.batch_size = batch_size   # config parity: one padded batch
         self.device = torch_device(device)
         self.feature_dim = self.model.OUTPUT_LAYOUT
-        self.module = self.model.init_params(self.device)
+        self.module = quantize_module(self.model.init_params(self.device),
+                                      quantize, calib_cache)
         c, h, w = self.model.INPUT_SHAPE
         self.out_hw = (h, w)
         self._pending = None
+        self._n = 0
 
     @property
     def metric(self):
@@ -103,20 +117,26 @@ class FeatureExtractor:
 
     @torch.no_grad()
     def extract_async(self, frame, tlbrs):
-        """Embeddings of host boxes ``[N, 4]``."""
+        """Embeddings of host boxes ``[N, 4]``, run as a batch of
+        ``_bucket(N)`` rows."""
         n = len(tlbrs)
+        self._n = n
         if n == 0:
             self._pending = np.empty((0, self.feature_dim), np.float32)
             return
-        boxes = torch.as_tensor(np.asarray(tlbrs, np.float32),
+        boxes = np.zeros((_bucket(n), 4), np.float32)
+        boxes[:n] = tlbrs
+        valid = torch.as_tensor(np.arange(len(boxes)) < n,
                                 device=self.device)
-        valid = torch.ones(n, dtype=torch.bool, device=self.device)
         frame = torch.as_tensor(frame, device=self.device)
         self._pending = extract_core(self.module, self.out_hw, frame,
-                                     boxes, valid)
+                                     torch.as_tensor(boxes,
+                                                     device=self.device),
+                                     valid)
 
     def postprocess(self):
         """[N, D] float32 numpy embeddings of the last extract_async."""
         out = self._pending
         self._pending = None
-        return out if isinstance(out, np.ndarray) else out.cpu().numpy()
+        return out if isinstance(out, np.ndarray) else \
+            out[:self._n].cpu().numpy()

@@ -6,19 +6,37 @@ JAX package's parameters load by name (``weights.py``). Activations are
 NHWC and bf16 through the trunk, as in Flax. Every ``OSBlock`` runs through
 ``ops.osnet_block.osblock``: the CUDA kernel on the card, its plain torch
 version on the CPU (what the JAX package's ``apply_fused`` does with the
-Pallas kernel).
+Pallas kernel). Under ``force_plain_streams`` it takes the Flax module's
+literal per-stream forward instead: one call per LiteConv, conv, BN and
+gate, which ``models.quantize`` hooks.
 """
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.osnet_block import fold_osblock, osblock, pack_osblock
-from .layers import BatchNorm, Conv, max_pool_same
+from .layers import BatchNorm, Conv, DepthwiseConv3x3, max_pool_same
 from .registry import ReIDModel, register_reid
 
 BF16 = torch.bfloat16
+
+_PLAIN_STREAMS = contextvars.ContextVar('osnet_plain_streams', default=False)
+
+
+@contextlib.contextmanager
+def force_plain_streams():
+    """OSBlocks run their literal per-stream forward in this context, not
+    the OSBlock kernel (the JAX package's ``force_plain_streams``)."""
+    tok = _PLAIN_STREAMS.set(True)
+    try:
+        yield
+    finally:
+        _PLAIN_STREAMS.reset(tok)
 
 
 class ConvBNReLU(nn.Module):
@@ -34,21 +52,33 @@ class ConvBNReLU(nn.Module):
 
 
 class LiteConv(nn.Module):
-    """Parameters of one depthwise-separable 3x3 (its arithmetic is inside
-    the OSBlock kernel)."""
+    """Depthwise-separable 3x3: 1x1 bf16 conv, shifted-tap depthwise, bf16
+    BN, ReLU (inside the OSBlock kernel on its main path)."""
 
     def __init__(self, c):
         super().__init__()
         self.Conv_0 = Conv(c, c, 1, dtype=BF16)
-        self.DepthwiseConv3x3_0 = Conv(c, c, 3, groups=c, dtype=BF16)
+        self.DepthwiseConv3x3_0 = DepthwiseConv3x3(c)
         self.BatchNorm_0 = BatchNorm(c, dtype=BF16)
+
+    def forward(self, x):
+        x = self.DepthwiseConv3x3_0(self.Conv_0(x))
+        return torch.relu(self.BatchNorm_0(x))
 
 
 class AggregationGate(nn.Module):
+    """Channel gate shared by the four streams: the bf16 mean of the map,
+    two f32 dense layers, a sigmoid; the gated map is f32."""
+
     def __init__(self, c, reduction=16):
         super().__init__()
         self.Dense_0 = nn.Linear(c, max(c // reduction, 1))
         self.Dense_1 = nn.Linear(max(c // reduction, 1), c)
+
+    def forward(self, x):
+        v = x.float().mean(dim=(1, 2)).to(x.dtype).float()
+        gate = torch.sigmoid(self.Dense_1(torch.relu(self.Dense_0(v))))
+        return x.float() * gate[:, None, None, :]
 
 
 class OSBlock(nn.Module):
@@ -91,9 +121,28 @@ class OSBlock(nn.Module):
         return self._fold
 
     def forward(self, x):
+        if _PLAIN_STREAMS.get():
+            return self.plain_forward(x)
         flat, packed = self.folded()
         return osblock(x.to(BF16).contiguous(), flat, self.cin,
                        self.features, packed)
+
+    def plain_forward(self, x):
+        """The Flax ``OSBlock.__call__``: stream t runs LiteConvs in
+        creation order (stream 1 LiteConv_0, stream 2 LiteConv_1-2, ...),
+        each stream is gated, the f32 gated sum goes through conv3."""
+        y = self.ConvBNReLU_0(x)
+        lite = iter(range(10))
+        out = None
+        for t in range(1, 5):
+            s = y
+            for _ in range(t):
+                s = getattr(self, f'LiteConv_{next(lite)}')(s)
+            s = self.AggregationGate_0(s)
+            out = s if out is None else out + s
+        out = self.ConvBNReLU_1(out)
+        identity = self.ConvBNReLU_2(x) if self.cin != self.features else x
+        return torch.relu(out + identity)
 
 
 class OSNet(nn.Module):

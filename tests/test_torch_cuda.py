@@ -1,14 +1,16 @@
-"""The port's hand-written CUDA kernels against their plain torch versions,
-on the card (marker ``cuda``; they skip without one). This file imports no
-JAX, so it runs on a machine that has only torch:
+"""The port's hand-written CUDA kernels, and its int8 convs (im2col +
+``torch._int_mm``), against their plain torch versions on the card (marker
+``cuda``; they skip without one). This file imports no JAX, so it runs on a
+machine that has only torch:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
 import pytest
 import torch
 
+from fastmot_tpu_torch.models import quantize as tq
 from fastmot_tpu_torch.models.layers import BatchNorm, random_init_
-from fastmot_tpu_torch.models.osnet import OSBlock
+from fastmot_tpu_torch.models.osnet import OSBlock, OSNet
 from fastmot_tpu_torch.ops import osnet_block as ob
 from fastmot_tpu_torch.ops.osnet_block import (fold_osblock, osblock,
                                                osblock_reference,
@@ -19,6 +21,13 @@ OSNET025_BLOCKS = [(16, 64, 64, 32), (64, 64, 64, 32), (64, 96, 32, 16),
                    (96, 96, 32, 16), (96, 128, 16, 8), (128, 128, 16, 8)]
 OSNET10_BLOCKS = [(64, 256, 64, 32), (256, 256, 64, 32), (256, 384, 32, 16),
                   (384, 384, 32, 16), (384, 512, 16, 8), (512, 512, 16, 8)]
+# (batch, H, W, C_in, C_out, k, stride, groups) of the int8 convs of
+# chip_smoke.py phase 10: YOLOv4-512's 3x3/2 after the stem, a 3x3 at
+# 256x256x64, a 1x1 head with N = 255, OSNet's 7x7/2 (K = 147), an SSD
+# extra layer (M = 8), a grouped conv
+INT8_SHAPES = [(1, 256, 256, 64, 128, 3, 2, 1), (1, 256, 256, 64, 64, 3, 1, 1),
+               (1, 64, 64, 256, 255, 1, 1, 1), (64, 256, 128, 3, 16, 7, 2, 1),
+               (8, 2, 2, 64, 128, 3, 2, 1), (1, 64, 64, 64, 64, 3, 1, 2)]
 
 
 @pytest.fixture
@@ -153,3 +162,149 @@ def test_osblock_module_uses_its_packed_weights(cuda_device):
     assert block.folded()[1] is not packed
     other = other.to(cuda_device)
     assert torch.equal(block(x), other(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('batch,h,w,cin,cout,k,stride,groups', INT8_SHAPES)
+def test_int8_conv_sums_match_plain_on_card(cuda_device, batch, h, w, cin,
+                                            cout, k, stride, groups):
+    """s8 x s8 -> s32 sums on the card equal the CPU plain version's, and
+    so do int8_conv's outputs (dynamic and calibrated input ranges)."""
+    gen = torch.Generator().manual_seed(cin * cout + k)
+    xq = torch.randint(-127, 128, (batch, h, w, cin), generator=gen,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (cout, cin // groups, k, k), generator=gen,
+                       dtype=torch.int8)
+    ref = tq.s8_conv(xq, wq, stride, 'SAME', groups)
+    got = tq.s8_conv(xq.to(cuda_device), wq.to(cuda_device), stride, 'SAME',
+                     groups)
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), ref)
+    x = torch.randn(batch, h, w, cin, generator=gen)
+    scale = torch.rand(cout, 1, 1, 1, generator=gen) * 1e-3
+    bias = torch.randn(cout, generator=gen)
+    for t_in in (0.0, 2.5):
+        before = tq.int8_conv.launches
+        got = tq.int8_conv(x.to(cuda_device), wq.to(cuda_device),
+                           scale.to(cuda_device), t_in, stride, 'SAME',
+                           groups, bias.to(cuda_device))
+        assert tq.int8_conv.launches == before + 1
+        want = tq.int8_conv(x, wq, scale, t_in, stride, 'SAME', groups, bias)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_int8_conv_raises_on_what_it_does_not_take(cuda_device):
+    """On a CUDA tensor an int8 conv is _int_mm or an error, never a float
+    conv."""
+    x = torch.randn(1, 8, 8, 16, device=cuda_device)
+    wq = torch.zeros(8, 16, 3, 3, dtype=torch.int8)
+    scale = torch.ones(8, 1, 1, 1)
+    before = tq.int8_conv.launches
+    with pytest.raises(ValueError):             # weight on the CPU
+        tq.int8_conv(x, wq, scale.to(cuda_device), 0.0)
+    with pytest.raises(ValueError):             # not an int8 weight
+        tq.int8_conv(x, wq.float().to(cuda_device), scale.to(cuda_device),
+                     0.0)
+    with pytest.raises(ValueError):             # channels
+        tq.int8_conv(x[..., :12], wq.to(cuda_device), scale.to(cuda_device),
+                     0.0)
+    with pytest.raises(ValueError):             # int32 sums would overflow
+        tq.s8_conv(torch.zeros(1, 1, 1, tq.MAX_K + 8, dtype=torch.int8,
+                               device=cuda_device),
+                   torch.zeros(8, tq.MAX_K + 8, 1, 1, dtype=torch.int8,
+                               device=cuda_device))
+    assert tq.int8_conv.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode', ['weights', 'dynamic'])
+def test_quantized_osnet_card_matches_cpu(cuda_device, mode):
+    """OSNet-x0.25 under QuantizedModule on the card against the CPU, on
+    16 crops: its literal forward (no OSBlock launch) with bf16 convs that
+    round their sums apart from the CPU's now and then."""
+    def build(device):
+        net = OSNet().requires_grad_(False)
+        random_init_(net, torch.Generator().manual_seed(1))
+        return tq.QuantizedModule(net.to(device).eval(), None,
+                                  {'*': 0.0} if mode == 'dynamic' else None)
+    x = torch.rand(16, 256, 128, 3, generator=torch.Generator().manual_seed(2))
+    before = osblock.launches, tq.int8_conv.launches
+    with torch.no_grad():
+        got = build(cuda_device)(x.to(cuda_device)).cpu()
+        ref = build('cpu')(x)
+    assert osblock.launches == before[0]
+    assert tq.int8_conv.launches == before[1] + (79 if mode == 'dynamic'
+                                                 else 0)
+    assert torch.isfinite(got).all() and got.shape == (16, 512)
+    if mode == 'weights':
+        max_rel, _ = _rel(got, ref)
+        assert max_rel < 0.05, max_rel
+    else:
+        cos = torch.nn.functional.cosine_similarity(got, ref)
+        assert cos.min().item() >= 0.99, cos.min().item()
+
+
+def _int8_entry_point(kind, device, cache):
+    from fastmot_tpu_torch.detector import SSDDetector, YOLODetector
+    from fastmot_tpu_torch.feature_extractor import FeatureExtractor
+    knobs = dict(quantize='int8', calib_cache=cache, device=device)
+    if kind == 'yolo':
+        return YOLODetector((320, 240), (0,), model='YOLOv4Tiny', **knobs)
+    if kind == 'ssd':
+        return SSDDetector((320, 240), (1,), model='SSDMobileNetV1',
+                           tiling_grid=(2, 1), **knobs)
+    return FeatureExtractor(model='OSNet025', **knobs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cached', [False, True], ids=['weights', 'cache'])
+@pytest.mark.parametrize('kind', ['yolo', 'ssd', 'extractor'])
+def test_int8_entry_points_card_match_cpu(cuda_device, tmp_path, kind,
+                                          cached):
+    """YOLODetector, SSDDetector and FeatureExtractor with quantize='int8',
+    without a cache and with bench.py --int8's, on the card against the
+    CPU: the network's outputs (the embeddings for the extractor)."""
+    import json
+    cache = None
+    if cached:
+        cache = tmp_path / 'cal.json'
+        cache.write_text(json.dumps({'outputs': {}, 'inputs': {'*': 0.0}}))
+    frame = torch.randint(0, 256, (240, 320, 3), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(3))
+    outs = []
+    for device in (cuda_device, 'cpu'):
+        ep = _int8_entry_point(kind, device, cache)
+        assert isinstance(ep.module, tq.QuantizedModule)
+        with torch.no_grad():
+            if kind == 'extractor':
+                outs.append([torch.as_tensor(ep(frame.numpy(), [
+                    [10, 20, 90, 200], [150, 30, 260, 220]]))])
+            else:
+                x = ep.preprocess(frame.to(device))
+                outs.append([t.float().cpu() for t in ep.module(x)])
+                ep.detect_async(frame)
+                assert ep.postprocess_device()[0].shape == (128, 4)
+    for got, ref in zip(*outs):
+        assert torch.isfinite(got).all() and got.shape == ref.shape
+        cos = torch.nn.functional.cosine_similarity(
+            got.reshape(len(got), -1), ref.reshape(len(ref), -1))
+        assert cos.min().item() >= 0.99, cos.min().item()
+
+
+@pytest.mark.cuda
+def test_calibrate_int8_cli_on_card(cuda_device, tmp_path):
+    """``python -m fastmot_tpu_torch.calibrate_int8`` on the card, from
+    image files (cv2 reads them)."""
+    import numpy as np
+
+    from fastmot_tpu_torch import calibrate_int8
+    cv2 = pytest.importorskip('cv2')
+    for i in range(2):
+        cv2.imwrite(str(tmp_path / f'{i:06d}.png'), np.random.default_rng(
+            i).integers(0, 256, (120, 160, 3), dtype=np.uint8))
+    out = tmp_path / 'cal.json'
+    calibrate_int8.main(['--images', str(tmp_path), '--model', 'YOLOv4Tiny',
+                         '--out', str(out), '--n', '2'])
+    act_ranges, in_ranges = tq.load_calib_ranges(out)
+    assert len(in_ranges) == 20 and 'conv0' not in in_ranges
+    assert len(act_ranges) == 40

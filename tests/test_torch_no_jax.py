@@ -1,7 +1,8 @@
 """The port's main path needs neither JAX nor OpenCV (the machine with the
 card has neither): in a fresh interpreter where both are unimportable,
-``fastmot_tpu_torch`` and its checkpoint importers import, and ``MOT``
-runs a few frames with the PUBLIC and the SSD detectors."""
+``fastmot_tpu_torch``, its checkpoint importers and its int8 modules
+import, and ``MOT`` runs a few frames with the PUBLIC and the SSD
+detectors, and an association frame under int8."""
 import os
 import re
 import subprocess
@@ -55,6 +56,26 @@ for _ in range(3):
 assert mot.frame_count == 3
 '''
 
+INT8 = '''
+import json, tempfile
+from fastmot_tpu_torch import calibrate_int8  # noqa: F401
+from fastmot_tpu_torch.models import quantize
+cache = tempfile.mktemp(suffix='.json')
+with open(cache, 'w') as f:     # bench.py --int8's cache
+    json.dump({'outputs': {}, 'inputs': {'*': 0.0}}, f)
+int8 = {'quantize': 'int8', 'calib_cache': cache}
+mot = MOT((160, 120), detector_type='YOLO', detector_frame_skip=2,
+          class_ids=(0,), yolo_detector_cfg={'model': 'YOLOv4Tiny', **int8},
+          feature_extractor_cfgs=({'model': 'OSNet025', **int8},),
+          device='cpu')
+assert isinstance(mot.detector.module, quantize.QuantizedModule)
+assert isinstance(mot.extractors[0].module, quantize.QuantizedModule)
+mot.reset(1 / 30.0)
+for _ in range(3):
+    mot.step(rng.integers(0, 256, (120, 160, 3), dtype=np.uint8))
+assert mot.frame_count == 3
+'''
+
 
 def run_without_jax(body, *args):
     """Run ``body`` in a fresh interpreter where jax and cv2 are
@@ -81,6 +102,10 @@ def test_main_path_imports_neither_jax_nor_cv2(tmp_path):
 
 def test_ssd_path_and_importers_import_neither_jax_nor_cv2():
     run_without_jax(SSD)
+
+
+def test_int8_path_imports_neither_jax_nor_cv2():
+    run_without_jax(INT8)
 
 
 def test_port_sources_import_no_jax():

@@ -13,13 +13,15 @@ import torch
 
 from fastmot_tpu.models.osnet import OSBlock as FlaxOSBlock
 from fastmot_tpu.models.osnet import OSNet as FlaxOSNet
+from fastmot_tpu.models.osnet import force_plain_streams as jax_plain_streams
 from fastmot_tpu.ops.osnet_block import fold_osblock as jax_fold
 from fastmot_tpu.ops.osnet_block import osblock_fused
-from fastmot_tpu_torch.models.layers import random_init_
-from fastmot_tpu_torch.models.osnet import OSBlock, OSNet
+from fastmot_tpu_torch.models.layers import DepthwiseConv3x3, random_init_
+from fastmot_tpu_torch.models.osnet import (OSBlock, OSNet,
+                                            force_plain_streams)
 from fastmot_tpu_torch.ops.osnet_block import (fold_osblock, osblock,
                                                osblock_reference)
-from fastmot_tpu_torch.weights import flax_to_state_dict
+from fastmot_tpu_torch.weights import flax_shapes, flax_to_state_dict
 
 # (C_in, F, H, W, B, Pallas tile): stage 1, its identity block, stage 2,
 # stage 3
@@ -146,3 +148,35 @@ def test_osblock_fold_cache_follows_load_state_dict():
     ref = np.asarray(module.apply(variables, x), np.float32)
     max_rel, mean_rel = _rel(got.float().numpy(), ref)
     assert max_rel < 0.04 and mean_rel < 0.004, (max_rel, mean_rel)
+
+
+@pytest.mark.parametrize('cin,features,h,w,b,tile', SHAPES)
+def test_osblock_plain_streams_match_flax(cin, features, h, w, b, tile):
+    """The literal per-stream forward (what int8 hooks) against the Flax
+    block's, both under their force_plain_streams; the float main path
+    still goes through the OSBlock kernel's wrapper."""
+    x, module, variables, flat = _block(cin, features, h, w, b)
+    xt = torch.from_numpy(np.array(x.astype(jnp.float32))).to(torch.bfloat16)
+    port = OSBlock(cin, features).requires_grad_(False)
+    port.load_state_dict(flax_to_state_dict(flax_flat(variables)))
+    with jax_plain_streams():
+        ref = np.asarray(module.apply(variables, x), np.float32)
+    before = osblock.launches
+    with force_plain_streams():
+        got = port(xt)
+    assert osblock.launches == before
+    assert got.dtype == torch.bfloat16
+    max_rel, mean_rel = _rel(got.float().numpy(), ref)
+    assert max_rel < 0.02 and mean_rel < 1e-3, (max_rel, mean_rel)
+    assert torch.equal(port(xt), osblock_reference(xt, flat, cin, features))
+
+
+def test_lite_conv_depthwise_keeps_its_key_and_shape():
+    """LiteConv's depthwise is the shifted-tap layer (not a grouped conv
+    that int8 would run natively), under the Flax key and shape."""
+    port = OSBlock(64, 96)
+    assert all(isinstance(getattr(port, f'LiteConv_{i}').DepthwiseConv3x3_0,
+                          DepthwiseConv3x3) for i in range(10))
+    _, module, variables, _ = _block(64, 96, 8, 8, 4)
+    assert flax_shapes(port) == {k: v.shape for k, v in
+                                 flax_flat(variables).items()}
