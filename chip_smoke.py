@@ -12,10 +12,13 @@ Phases, each raising on failure (the exit code is then non-zero):
 3. kernel vs its plain version at the six OSNet-x0.25 block shapes (64
    crops, bf16; two calls bitwise equal), with each shape's time (20
    back-to-back launches between two CUDA events), bound, roofline share
-   and launch plan;
+   and launch plan; again at 1,024 crops, the batch of the multi-stream
+   path (phase 13);
 4. OSNet-x0.25 forward on 64 crops, kernel path vs plain path;
 5. reference: the tracker on a small synthetic sequence, GPU against the
-   port's CPU path;
+   port's CPU path; ``StreamTracker`` at 2 streams (synthetic detections
+   and embeddings) and the legacy ``compute_flow`` + ``apply_kalman``,
+   GPU against CPU;
 6. main path: ``MOT`` at 1280x720 with cfg/mot.json (YOLOv4-512 with
    random weights, OSNet-x0.25, detector_frame_skip=5) on drifting
    textured frames, with 40 synthetic detections spliced in after the
@@ -44,7 +47,16 @@ Phases, each raising on failure (the exit code is then non-zero):
 12. int8 main path: phase 6 with ``quantize='int8'`` and bench.py
    --int8's cache (``{'outputs': {}, 'inputs': {'*': 0.0}}``) for the
    detector and the extractor: one ``int8_conv`` launch per eligible conv
-   of YOLOv4 and OSNet-x0.25, no OSBlock launch.
+   of YOLOv4 and OSNet-x0.25, no OSBlock launch;
+13. multi-stream path (BASELINE config 5, bench.py config 5):
+   ``parallel.MultiStreamMOT`` at 8 streams of 1280x720 with cfg/mot.json's
+   YOLOv4-512, OSNet-x0.25 and detector_frame_skip=5, drifting textured
+   frames (streams 0 and 1 identical), 40 synthetic detections a stream
+   spliced in after the real batched YOLO graph ran, 20 frames: visible
+   tracks on every stream, finite Kalman state, 6 OSBlock launches per
+   association frame (one OSNet call on 1,024 crops, not one per stream),
+   streams 0 and 1 equal; the step medians and the aggregate FPS beside
+   phase 6's single-stream median, then each stage alone.
 
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -67,6 +79,8 @@ N_OBJECTS = 40
 BLOCK_SHAPES = ((16, 64, 64, 32), (64, 64, 64, 32), (64, 96, 32, 16),
                 (96, 96, 32, 16), (96, 128, 16, 8), (128, 128, 16, 8))
 BATCH = 64
+N_STREAMS = 8
+MULTI_BATCH = N_STREAMS * 128     # phase 13's crops per OSNet call
 MAX_REL, MEAN_REL = 0.04, 0.004        # tests/test_osnet_block.py bounds
 DIFFER = 0.05        # share of outputs off the plain version's (test_torch_cuda)
 OSNET_MAX_REL = 0.05
@@ -213,7 +227,7 @@ def launches_ms(fn, n=20, reps=5):
     return statistics.median(times)
 
 
-def phase_kernel():
+def phase_kernel(batch=BATCH):
     from fastmot_tpu_torch.ops import osnet_block as ob
     gen = torch.Generator().manual_seed(0)
     worst_abs = 0.0
@@ -221,7 +235,7 @@ def phase_kernel():
              'bytes_ms': 0.0}
     for cin, f, h, w in BLOCK_SHAPES:
         flat, packed = _random_block(cin, f, gen)
-        x = torch.randn(BATCH, h, w, cin, generator=gen) \
+        x = torch.randn(batch, h, w, cin, generator=gen) \
             .to('cuda', torch.bfloat16)
         got = ob.osblock(x, flat, cin, f, packed)
         torch.cuda.synchronize()
@@ -230,13 +244,14 @@ def phase_kernel():
         differ = (got != ref).float().mean().item()
         again = ob.osblock(x, flat, cin, f, packed)
         ms = launches_ms(lambda: ob.osblock(x, flat, cin, f, packed))
-        plain = cuda_ms(lambda: ob.osblock_reference(x, flat, cin, f), n=5)
-        bound, ops_ms, bytes_ms = osblock_bound_ms(BATCH, h, w, cin, f,
+        plain = cuda_ms(lambda: ob.osblock_reference(x, flat, cin, f),
+                        *((5, 3) if batch <= BATCH else (3, 1)))
+        bound, ops_ms, bytes_ms = osblock_bound_ms(batch, h, w, cin, f,
                                                    packed)
-        plan = ob._prepared_plan(BATCH, h, w, cin, f,
+        plan = ob._prepared_plan(batch, h, w, cin, f,
                                  torch.cuda.current_device())
         by = 'bytes' if bytes_ms >= ops_ms else 'operations'
-        log(f'osblock B={BATCH} {h}x{w} {cin}->{f}: max-rel {max_rel:.2e} '
+        log(f'osblock B={batch} {h}x{w} {cin}->{f}: max-rel {max_rel:.2e} '
             f'mean-rel {mean_rel:.2e} differing {differ:.5f}; kernel '
             f'{ms * 1e3:.1f} us, bound '
             f'{bound * 1e3:.2f} us ({by}), roofline share '
@@ -256,7 +271,7 @@ def phase_kernel():
     total['bound_by'] = 'bytes' if total['bytes_ms'] >= total['ops_ms'] \
         else 'operations'
     total['roofline_share'] = total['bound_ms'] / total['ms']
-    log(f'osblock six shapes: kernel {total["ms"]:.4f} ms, bound '
+    log(f'osblock six shapes B={batch}: kernel {total["ms"]:.4f} ms, bound '
         f'{total["bound_ms"]:.4f} ms ({total["bound_by"]}), roofline share '
         f'{total["roofline_share"]:.4f}; plain {total["plain_ms"]:.3f} ms')
     return dict(total, max_abs_err=worst_abs)
@@ -366,6 +381,98 @@ def phase_reference():
     if not n_rows:
         raise AssertionError('reference run tracked nothing')
     log(f'reference: GPU == CPU on {len(cpu)} frames, {n_rows} track rows')
+
+
+def _stream_dets(f, s, n=3):
+    """[n, 4] boxes moving 2 px a frame, offset per stream (320x240)."""
+    x = 30.0 + 90 * np.arange(n) + 2 * f + 12 * s
+    y = 40.0 + 20 * np.arange(n) + f
+    return np.stack([x, y, x + 45, y + 110], -1)
+
+
+def phase_stream_reference():
+    """``StreamTracker`` (2 streams, synthetic detections and embeddings)
+    on the card against the port's CPU path: the same track IDs on every
+    frame of every stream, boxes within 2 px."""
+    from fastmot_tpu_torch.detector import MAX_DETS, make_detections
+    from fastmot_tpu_torch.parallel import StreamTracker
+    size, n, n_frames, skip, n_obj = (320, 240), 2, 12, 3, 3
+    frames = [textured_frames(size, n_frames, seed=20 + s) for s in range(n)]
+    emb = np.zeros((n, MAX_DETS, 512), np.float32)
+    for s in range(n):
+        e = np.random.default_rng(100 + s).normal(size=(n_obj, 512))
+        emb[s, :n_obj] = e / np.linalg.norm(e, axis=1, keepdims=True)
+    runs = []
+    for device in ('cpu', 'cuda'):
+        st = StreamTracker(size, 'euclidean', n, device=device, max_age=6)
+        st.reset(1 / 30.0)
+        st.init(np.stack([fr[0] for fr in frames]), [make_detections(
+            _stream_dets(0, s), np.ones(n_obj, int), np.full(n_obj, 0.9))
+            for s in range(n)])
+        snaps = []
+        for f in range(1, n_frames):
+            st.track(np.stack([fr[f] for fr in frames]), f)
+            if f % skip == 0:
+                tlbr = np.zeros((n, MAX_DETS, 4), np.float32)
+                for s in range(n):
+                    tlbr[s, :n_obj] = _stream_dets(f, s)
+                valid = np.arange(MAX_DETS)[None].repeat(n, 0) < n_obj
+                st.update_device(f, tuple(torch.as_tensor(a, device=device)
+                                          for a in (
+                    tlbr, np.where(valid, 1, -1).astype(np.int32),
+                    np.where(valid, 0.9, 0).astype(np.float32), valid)),
+                    torch.as_tensor(emb, device=device))
+            st.sync()
+            snaps.append([sorted((t.trk_id, t.tlbr.copy())
+                                 for t in trk.tracks.values())
+                          for trk in st.trackers])
+        runs.append(snaps)
+    _same_rows('stream tracker', *runs)
+    log(f'reference: StreamTracker GPU == CPU on {n_frames - 1} frames of '
+        f'{n} streams')
+
+
+def _same_rows(tag, cpu, gpu):
+    """Per frame and stream, the same (id, tlbr) rows within 2 px."""
+    n_rows = 0
+    for f, (c_streams, g_streams) in enumerate(zip(cpu, gpu)):
+        for s, (c, g) in enumerate(zip(c_streams, g_streams)):
+            if [t for t, _ in c] != [t for t, _ in g]:
+                raise AssertionError(f'{tag} frame {f} stream {s}: GPU ids '
+                                     f'{[t for t, _ in g]} vs CPU '
+                                     f'{[t for t, _ in c]}')
+            for (_, a), (_, b) in zip(c, g):
+                if np.abs(a - b).max() > 2.0:
+                    raise AssertionError(f'{tag} frame {f} stream {s}: GPU '
+                                         f'box {b} vs CPU {a}')
+            n_rows += len(c)
+    if not n_rows:
+        raise AssertionError(f'{tag}: tracked nothing')
+
+
+def phase_legacy_api():
+    """The legacy per-track path (``compute_flow`` + ``apply_kalman``) on
+    the card against the CPU over 4 frames."""
+    from fastmot_tpu_torch import MultiTracker
+    from fastmot_tpu_torch.detector import make_detections
+    size, n_obj = (320, 240), 3
+    frames = textured_frames(size, 5, seed=4)
+    runs = []
+    for device in ('cpu', 'cuda'):
+        trk = MultiTracker(size, 'euclidean', device=device)
+        trk.reset(1 / 30.0)
+        trk.init(torch.as_tensor(frames[0], device=device), make_detections(
+            _stream_dets(0, 0), np.ones(n_obj, int), np.full(n_obj, 0.9)))
+        snaps = []
+        for frame in frames[1:]:
+            trk.compute_flow(torch.as_tensor(frame, device=device))
+            trk.apply_kalman()
+            snaps.append([sorted((tid, t.tlbr.copy())
+                                 for tid, t in trk.tracks.items())])
+        runs.append(snaps)
+    _same_rows('legacy compute_flow + apply_kalman', *runs)
+    log('reference: compute_flow + apply_kalman GPU == CPU on 4 frames, '
+        f'{len(runs[0][-1][0])} tracks')
 
 
 def phase_main_path(detector_type='YOLO', tag='main path', int8=False):
@@ -683,12 +790,146 @@ def phase_osnet_int8():
         f'{len(ins)} input ranges):', '; '.join(line))
 
 
+def phase_multi_stream(single_ms, n_streams=N_STREAMS, n_frames=20):
+    """``MultiStreamMOT`` at 8 streams of 1280x720 with cfg/mot.json's
+    detector, extractor, skip and tracker (bench.py config 5)."""
+    from fastmot_tpu_torch.detector import MAX_DETS, make_detections
+    from fastmot_tpu_torch.ops.osnet_block import osblock
+    from fastmot_tpu_torch.parallel import MultiStreamMOT
+    from fastmot_tpu_torch.utils import ConfigDecoder
+
+    with open(ROOT / 'cfg' / 'mot.json') as f:
+        cfg = json.load(f, cls=ConfigDecoder)['mot_cfg']
+    mot = MultiStreamMOT(
+        SIZE, n_streams, detector_frame_skip=cfg['detector_frame_skip'],
+        class_ids=cfg['class_ids'],
+        yolo_detector_cfg=cfg['yolo_detector_cfg'],
+        feature_extractor_cfgs=cfg['feature_extractor_cfgs'],
+        tracker_cfg=cfg['tracker_cfg'], device='cuda')
+    skip = mot.detector_frame_skip
+    # each stream its own texture; streams 0 and 1 the same input
+    seeds = [10 + max(s, 1) for s in range(n_streams)]
+    textures = {seed: textured_frames(SIZE, n_frames, seed=seed)
+                for seed in set(seeds)}
+    frames = [np.stack([textures[seed][i] for seed in seeds])
+              for i in range(n_frames)]
+    offsets = [4.0 * max(s - 1, 0) for s in range(n_streams)]
+
+    def boxes(i, s):
+        return synth_tlbrs(i, SIZE) + offsets[s]
+
+    staged = {}
+    for i in range(0, n_frames, skip):
+        tlbr = np.zeros((n_streams, MAX_DETS, 4), np.float32)
+        for s in range(n_streams):
+            tlbr[s, :N_OBJECTS] = boxes(i, s)
+        valid = np.arange(MAX_DETS)[None].repeat(n_streams, 0) < N_OBJECTS
+        staged[i] = tuple(torch.as_tensor(a, device='cuda') for a in (
+            tlbr, np.where(valid, 1, -1).astype(np.int32),
+            np.where(valid, 0.9, 0).astype(np.float32), valid))
+    det = mot.detector
+    real_post, real_dev = det.postprocess, det.postprocess_device_batch
+
+    def post():
+        real_post()
+        return [make_detections(boxes(0, s), np.ones(N_OBJECTS, int),
+                                np.full(N_OBJECTS, 0.9))
+                for s in range(n_streams)]
+
+    def post_dev():
+        real_dev()
+        return staged[mot.frame_count]
+
+    det.postprocess, det.postprocess_device_batch = post, post_dev
+
+    osblock.launches = 0
+    mot.reset(1 / 30.0)
+    step_ms = []
+    for frame in frames:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mot.step(frame)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = osblock.launches
+    mot.sync()
+    n_assoc = sum(1 for i in range(1, n_frames) if i % skip == 0)
+    visible = [len(list(mot.visible_tracks(s))) for s in range(n_streams)]
+    state = mot.stream_tracker._dev_state
+    finite = bool(torch.isfinite(state[0]).all()
+                  and torch.isfinite(state[1]).all())
+
+    def rows(s):
+        return sorted((tuple(t.tlbr), t.age, t.hits)
+                      for t in mot.trackers[s].tracks.values())
+
+    gap = [t for i, t in enumerate(step_ms) if i % skip]
+    assoc = [t for i, t in enumerate(step_ms) if i and i % skip == 0]
+    fps = n_streams * n_frames / (sum(step_ms) / 1e3)
+    log(f'multi-stream ({n_streams} streams) step ms per frame:',
+        ' '.join(f'{t:.1f}' for t in step_ms))
+    log(f'multi-stream step ms median {statistics.median(step_ms):.3f} '
+        f'(gap frames {statistics.median(gap):.3f}, association frames '
+        f'{statistics.median(assoc):.3f}); aggregate {fps:.2f} FPS over '
+        f'{n_frames} frames; single-stream main path median '
+        f'{single_ms:.3f} ms ({1e3 / single_ms:.2f} FPS)')
+    log(f'multi-stream: visible tracks per stream {visible}, association '
+        f'frames {n_assoc}, osblock launches {launches}')
+    if not all(visible):
+        raise AssertionError(f'multi-stream: a stream has no visible '
+                             f'tracks: {visible}')
+    if not finite:
+        raise AssertionError('multi-stream: non-finite Kalman state')
+    if launches != 6 * n_assoc:
+        raise AssertionError(f'multi-stream: osblock launched {launches} '
+                             f'times, expected {6 * n_assoc} (one OSNet '
+                             'call per association frame)')
+    if rows(0) != rows(1):
+        raise AssertionError('multi-stream: streams 0 and 1 had the same '
+                             'input but differ')
+
+    # where the time goes: each stage alone, synchronised; the gap frames
+    # alternate between the last two frames, so that LK has motion to
+    # track (on a repeated frame it stops after one step a level)
+    last = mot._stage_frames(frames[-1])
+    pair = [mot._stage_frames(frames[-2]), last]
+    det_b = staged[0]
+    ext = mot.extractor
+    emb = [None]
+
+    def embed():
+        ext.extract_async_batch(last, det_b[0], det_b[3])
+        emb[0] = ext.postprocess_device()
+
+    def gap_frame():
+        pair.reverse()
+        mot.stream_tracker.track(pair[0])
+
+    stages = {
+        f'detector (letterbox, YOLOv4 on {n_streams} frames, decode, NMS)':
+            lambda: (det.detect_async(last), real_dev()),
+        f'crops + OSNet on {n_streams * MAX_DETS} crops': embed,
+        'gap frame (preprocess, points, LK, RANSAC, Kalman)': gap_frame,
+        'association (costs, cascade, finals, commit)':
+            lambda: mot.stream_tracker.update_device(n_frames, det_b, emb[0]),
+    }
+    embed()
+    log('multi-stream stages alone, ms: ' + '; '.join(
+        f'{name} {wall_ms(fn, n=3, warmup=1):.3f}'
+        for name, fn in stages.items()))
+    return launches
+
+
 def main():
     name = phase_device()
     phase_build()
     kern = phase_kernel()
+    worst_abs = max(kern['max_abs_err'],
+                    phase_kernel(MULTI_BATCH)['max_abs_err'])
     phase_osnet()
     phase_reference()
+    phase_stream_reference()
+    phase_legacy_api()
     launches, float_ms = phase_main_path()
     phase_zoo()
     phase_ssd_postprocess()
@@ -698,11 +939,12 @@ def main():
     _, int8_ms = phase_main_path(tag='int8 main path', int8=True)
     log(f'main path step median: float {float_ms:.3f} ms, int8 '
         f'{int8_ms:.3f} ms')
+    launches += phase_multi_stream(float_ms)
     print(json.dumps({'kernels': [{
         'name': 'osblock', 'route': 'cuda',
         'source': 'fastmot_tpu_torch/csrc/osnet_block.cu',
         'replaces': 'fastmot_tpu/ops/osnet_block.py:213',
-        'launches': launches, 'max_abs_err': kern['max_abs_err'],
+        'launches': launches, 'max_abs_err': worst_abs,
         'ms': kern['ms'], 'plain_ms': kern['plain_ms'],
         'bound_ms': kern['bound_ms'], 'bound_by': kern['bound_by'],
         'library_ms': None,

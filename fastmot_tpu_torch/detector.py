@@ -71,11 +71,13 @@ def _padded_to_host(padded) -> np.recarray:
 
 
 def _resize_bilinear(img: torch.Tensor, out_hw) -> torch.Tensor:
-    """Bilinear resize of an HWC float image with half-pixel centres and
-    edge clamping, the JAX package's ``_resize_bilinear_rgb``."""
-    return F.interpolate(img.permute(2, 0, 1)[None], size=tuple(out_hw),
-                         mode='bilinear', align_corners=False,
-                         antialias=False)[0].permute(1, 2, 0)
+    """Bilinear resize of an HWC (or NHWC) float image with half-pixel
+    centres and edge clamping, the JAX package's ``_resize_bilinear_rgb``."""
+    x = img if img.dim() == 4 else img[None]
+    out = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(out_hw),
+                        mode='bilinear', align_corners=False,
+                        antialias=False).permute(0, 2, 3, 1)
+    return out if img.dim() == 4 else out[0]
 
 
 class _NetworkDetector(Detector):
@@ -116,29 +118,35 @@ def nms_and_gate(det_out, label_mask, conf_thresh, nms_thresh, max_area,
     """Fused postprocess after the head decode: confidence filter, pixel
     scaling, class-aware DIoU-NMS over the top MAX_RAW candidates,
     area/aspect gates. Returns padded (tlbr, label, conf, valid) sorted by
-    class ascending, then score descending."""
-    boxes = det_out[:, 0:4]
-    obj = det_out[:, 4]
-    label = det_out[:, 5].to(torch.int64)
-    cls_prob = det_out[:, 6]
+    class ascending, then score descending. ``det_out`` [N, 7], or [S, N,
+    7] for S streams in one NMS loop (padded outputs [S, MAX_DETS])."""
+    def take(x, i):
+        return torch.take_along_dim(x, i[..., None] if x.dim() > i.dim()
+                                    else i, dim=i.dim() - 1)
+
+    boxes = det_out[..., 0:4]
+    obj = det_out[..., 4]
+    label = det_out[..., 5].to(torch.int64)
+    cls_prob = det_out[..., 6]
     score = obj * cls_prob
     keep = label_mask[torch.clamp(label, 0, label_mask.shape[0] - 1)] & \
         (score >= conf_thresh)
-    xy = boxes[:, 0:2] * scale_wh[:2] - offset
-    wh = boxes[:, 2:4] * scale_wh[2:]
-    tlbr = geom.to_tlbr(torch.cat([xy, wh], 1))
+    xy = boxes[..., 0:2] * scale_wh[:2] - offset
+    wh = boxes[..., 2:4] * scale_wh[2:]
+    tlbr = geom.to_tlbr(torch.cat([xy, wh], -1))
 
     cand_score = torch.where(keep, score, torch.full_like(score, -1.0))
-    k = min(MAX_RAW, score.shape[0])
-    top_score, top_i = torch.sort(cand_score, descending=True, stable=True)
-    top_score, top_i = top_score[:k], top_i[:k]
-    c_tlbr, c_label = tlbr[top_i], label[top_i]
-    c_obj, c_cls = obj[top_i], cls_prob[top_i]
+    k = min(MAX_RAW, score.shape[-1])
+    top_score, top_i = torch.sort(cand_score, dim=-1, descending=True,
+                                  stable=True)
+    top_score, top_i = top_score[..., :k], top_i[..., :k]
+    c_tlbr, c_label = take(tlbr, top_i), take(label, top_i)
+    c_obj, c_cls = take(obj, top_i), take(cls_prob, top_i)
     c_valid = top_score > 0
 
     overlap = geom.diou_matrix(c_tlbr, 0.6)
-    overlap = torch.where(c_label[:, None] == c_label[None, :], overlap,
-                          torch.full_like(overlap, -float('inf')))
+    overlap = torch.where(c_label[..., :, None] == c_label[..., None, :],
+                          overlap, torch.full_like(overlap, -float('inf')))
     nms_keep = geom.greedy_suppress(overlap, c_obj, c_valid, nms_thresh)
     area = geom.area(c_tlbr)
     final = nms_keep & (area > 0) & (area <= max_area) & \
@@ -147,9 +155,9 @@ def nms_and_gate(det_out, label_mask, conf_thresh, nms_thresh, max_area,
     order_key = c_label.to(torch.float32) * 1e4 - c_obj * c_cls
     order_key = torch.where(final, order_key,
                             torch.full_like(order_key, float('inf')))
-    order = torch.argsort(order_key, stable=True)[:MAX_DETS]
-    return (c_tlbr[order], c_label[order].to(torch.int32),
-            (c_obj * c_cls)[order], final[order])
+    order = torch.argsort(order_key, dim=-1, stable=True)[..., :MAX_DETS]
+    return (take(c_tlbr, order), take(c_label, order).to(torch.int32),
+            take(c_obj * c_cls, order), take(final, order))
 
 
 class YOLODetector(_NetworkDetector):
@@ -203,25 +211,31 @@ class YOLODetector(_NetworkDetector):
                                     device=self.device)
 
     def preprocess(self, frame: torch.Tensor) -> torch.Tensor:
-        """``[H, W, 3]`` BGR frame -> the letterboxed ``[1, ih, iw, 3]``
-        network input in [0, 1]."""
+        """``[H, W, 3]`` BGR frame (or a stack ``[S, H, W, 3]``) -> the
+        letterboxed ``[1, ih, iw, 3]`` (``[S, ih, iw, 3]``) network input
+        in [0, 1]."""
+        frames = frame if frame.dim() == 4 else frame[None]
         c, ih, iw = self.model.INPUT_SHAPE
         oy, ox, rh, rw = self._roi
-        rgb = frame.float().flip(-1) / 255.0
-        canvas = torch.full((ih, iw, c), 0.5, dtype=torch.float32,
-                            device=frame.device)
-        canvas[oy:oy + rh, ox:ox + rw] = _resize_bilinear(rgb, (rh, rw))
-        return canvas[None]
+        rgb = frames.float().flip(-1) / 255.0
+        canvas = torch.full((frames.shape[0], ih, iw, c), 0.5,
+                            dtype=torch.float32, device=frame.device)
+        canvas[:, oy:oy + rh, ox:ox + rw] = _resize_bilinear(rgb, (rh, rw))
+        return canvas
 
     @torch.no_grad()
     def run(self, frame: torch.Tensor):
         """Letterbox + network + decode + NMS on the device; returns the
-        padded (tlbr, label, conf, valid) tensors."""
+        padded (tlbr, label, conf, valid) tensors. A stack of frames [S, H,
+        W, 3] runs as one network batch and one NMS loop, with [S, ...]
+        outputs."""
         from .models.yolo import decode_heads
         c, ih, iw = self.model.INPUT_SHAPE
         heads = self.module(self.preprocess(frame))
         det_out = decode_heads(heads, self.model.ANCHORS, self.model.SCALES,
-                               (ih, iw), self.model.NEW_COORDS)[0]
+                               (ih, iw), self.model.NEW_COORDS)
+        if frame.dim() == 3:
+            det_out = det_out[0]
         return nms_and_gate(det_out, self.label_mask, self.conf_thresh,
                             self.nms_thresh, self.max_area,
                             self.min_aspect_ratio, self._scale_wh,

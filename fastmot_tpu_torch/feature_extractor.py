@@ -47,10 +47,17 @@ def crop_resize_batch(frame: torch.Tensor, tlbrs: torch.Tensor,
     """Crop each box (inclusive corners, floored and clamped to >= 0) and
     resize it to ``out_hw`` with half-pixel centres and edge clamping.
     frame [H, W, 3] (values exact in bf16, e.g. uint8), tlbrs [N, 4] ->
-    [N, oh, ow, 3] float32."""
-    fh, fw = frame.shape[0], frame.shape[1]
+    [N, oh, ow, 3] float32. With a stream axis, frames [S, H, W, 3] and
+    tlbrs [S, D, 4] -> [S * D, oh, ow, 3] in one gather, each box read
+    from its own stream's frame."""
+    if frame.dim() == 3:
+        frame, tlbrs = frame[None], tlbrs[None]
+    fh, fw = frame.shape[1], frame.shape[2]
     oh, ow = out_hw
     dev = frame.device
+    sid = torch.arange(tlbrs.shape[0], device=dev).repeat_interleave(
+        tlbrs.shape[1])[:, None, None]
+    tlbrs = tlbrs.reshape(-1, 4)
     boxes = torch.clamp(torch.floor(tlbrs.float()), min=0.0)
     x0, y0 = boxes[:, 0], boxes[:, 1]
     w = boxes[:, 2] - boxes[:, 0] + 1.0
@@ -67,8 +74,8 @@ def crop_resize_batch(frame: torch.Tensor, tlbrs: torch.Tensor,
 
     def column_pass(rows):                        # rows [N, oh]
         r = rows[:, :, None]
-        a = img[r, xi0[:, None, :]]               # [N, oh, ow, 3]
-        b = img[r, xi1[:, None, :]]
+        a = img[sid, r, xi0[:, None, :]]          # [N, oh, ow, 3]
+        b = img[sid, r, xi1[:, None, :]]
         t = wx0[:, None, :, None] * a + wx1[:, None, :, None] * b
         return t.to(torch.bfloat16).float()
 
@@ -79,7 +86,9 @@ def crop_resize_batch(frame: torch.Tensor, tlbrs: torch.Tensor,
 def extract_core(module, out_hw, frame, tlbrs, valid) -> torch.Tensor:
     """Crop -> resize -> normalise -> OSNet -> L2; rows of invalid boxes
     are zero. frame [H, W, 3] uint8 BGR, tlbrs [N, 4], valid [N] ->
-    [N, D] float32."""
+    [N, D] float32. With a stream axis (frames [S, H, W, 3], tlbrs [S, N,
+    4], valid [S, N]) every stream's crops go through ONE OSNet call on
+    the [S * N] batch -> [S, N, D]."""
     crops = crop_resize_batch(frame, tlbrs, out_hw)
     rgb = crops.flip(-1)
     mean = torch.tensor(_IMAGENET_MEAN, device=frame.device)
@@ -87,7 +96,8 @@ def extract_core(module, out_hw, frame, tlbrs, valid) -> torch.Tensor:
     emb = module((rgb / 255.0 - mean) / std)
     norm = torch.linalg.norm(emb, dim=1, keepdim=True)
     emb = emb / torch.where(norm > 0, norm, torch.ones_like(norm))
-    return torch.where(valid[:, None], emb, torch.zeros_like(emb))
+    emb = emb.reshape(valid.shape + emb.shape[-1:])
+    return torch.where(valid[..., None], emb, torch.zeros_like(emb))
 
 
 class FeatureExtractor:
@@ -134,9 +144,39 @@ class FeatureExtractor:
                                                      device=self.device),
                                      valid)
 
+    @torch.no_grad()
+    def extract_async_device(self, frame_dev, tlbrs_dev, valid_dev):
+        """Embeddings of device boxes [D, 4] (straight from the detector,
+        no host round trip); every row is embedded."""
+        self._n = int(tlbrs_dev.shape[0])
+        self._pending = extract_core(self.module, self.out_hw, frame_dev,
+                                     tlbrs_dev, valid_dev)
+
+    @torch.no_grad()
+    def extract_async_batch(self, frames_dev, tlbrs_dev, valid_dev):
+        """Stream-batched device variant: frames [S, H, W, 3], boxes [S, D,
+        4], valid [S, D] -> pending [S, D, F], one OSNet call on the
+        [S * D] crops."""
+        self._n = int(tlbrs_dev.shape[0]) * int(tlbrs_dev.shape[1])
+        self._pending = extract_core(self.module, self.out_hw, frames_dev,
+                                     tlbrs_dev, valid_dev)
+
     def postprocess(self):
         """[N, D] float32 numpy embeddings of the last extract_async."""
         out = self._pending
         self._pending = None
         return out if isinstance(out, np.ndarray) else \
             out[:self._n].cpu().numpy()
+
+    def postprocess_device(self):
+        """The pending embeddings as a device tensor (row i aligns with box
+        i; [S, D, F] after ``extract_async_batch``), no synchronisation."""
+        out = self._pending
+        self._pending = None
+        return out
+
+    def null_embeddings(self, detections):
+        """Identical embeddings: disables appearance."""
+        emb = np.ones((len(detections), self.feature_dim), np.float32)
+        emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+        return emb

@@ -7,6 +7,7 @@ noise per source, and the homography warp of mean and covariance. Every
 function broadcasts over a leading track axis, in float32. The warp's
 8x8 Jacobian is written in closed form (the JAX package gets it from
 ``jax.jacfwd``); the 4x4 innovation systems go through ``torch.linalg``.
+``KalmanFilter`` is the JAX package's per-track API on top of them.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ import enum
 
 import numpy as np
 import torch
+
+from .device import torch_device
 
 
 class MeasType(enum.Enum):
@@ -148,13 +151,12 @@ def warp(means, covs, h_mat):
     Each corner p maps to g(p) = (A p + t) / (c.p + 1) and its velocity v
     to Dg(p) v. The Jacobian of the whole 8-vector map is block-structured:
     per corner, d p2/d p = Dg(p) and d v2/d v = Dg(p), d v2/d p is the
-    second derivative of g contracted with v."""
+    second derivative of g contracted with v. Written out of place, so it
+    runs under ``torch.func.vmap``."""
     a = h_mat[:2, :2]
     t = h_mat[:2, 2]
     cvec = h_mat[2, :2]
-    n = means.shape[0]
-    jac = torch.zeros((n, 8, 8), dtype=means.dtype, device=means.device)
-    out = torch.empty_like(means)
+    pos, vel, dgs, dv_dps = [], [], [], []
     for ps, vs in ((slice(0, 2), slice(4, 6)), (slice(2, 4), slice(6, 8))):
         p = means[:, ps]
         v = means[:, vs]
@@ -163,25 +165,77 @@ def warp(means, covs, h_mat):
         cv = v @ cvec                                        # [T]
         d1 = denom[:, None]
         d2 = d1 * d1
-        p2 = num / d1
         av = v @ a.T
-        v2 = av / d1 - num * cv[:, None] / d2
-        out[:, ps] = p2
-        out[:, vs] = v2
+        pos.append(num / d1)
+        vel.append(av / d1 - num * cv[:, None] / d2)
         # Dg(p) = A / d - num c^T / d^2
-        dg = a[None] / d1[..., None] - num[:, :, None] * cvec[None, None, :] \
-            / d2[..., None]
+        dgs.append(a[None] / d1[..., None] - num[:, :, None]
+                   * cvec[None, None, :] / d2[..., None])
         # v2 = A v / d - num (c.v) / d^2, so d v2 / d p is
         # d/dp [A v / d]        = -(A v) c^T / d^2
         # minus
         # d/dp [num (c.v)/d^2]  = (c.v) (A / d^2 - 2 num c^T / d^3)
         d3 = d2 * d1
-        dv_dp = -av[:, :, None] * cvec[None, None, :] / d2[..., None] \
-            - cv[:, None, None] * (a[None] / d2[..., None]
-                                   - 2.0 * num[:, :, None]
-                                   * cvec[None, None, :] / d3[..., None])
-        jac[:, ps, ps] = dg
-        jac[:, vs, vs] = dg
-        jac[:, vs, ps] = dv_dp
+        dv_dps.append(-av[:, :, None] * cvec[None, None, :] / d2[..., None]
+                      - cv[:, None, None] * (a[None] / d2[..., None]
+                                             - 2.0 * num[:, :, None]
+                                             * cvec[None, None, :]
+                                             / d3[..., None]))
+    z = torch.zeros_like(dgs[0])
+    jac = torch.cat([torch.cat(row, -1) for row in (
+        (dgs[0], z, z, z), (z, dgs[1], z, z),
+        (dv_dps[0], z, dgs[0], z), (z, dv_dps[1], z, dgs[1]))], -2)
     new_covs = jac @ covs @ jac.transpose(-1, -2)
-    return out, new_covs
+    return torch.cat(pos + vel, -1), new_covs
+
+
+class KalmanFilter:
+    """The JAX package's API-parity class (``create``, ``predict``,
+    ``project``, ``update``, ``motion_distance``, ``warp``, ``reset_dt``
+    for one track): numpy in, numpy out, computed on ``device``."""
+
+    def __init__(self, device='cuda', **cfg_kwargs):
+        self.device = torch_device(device)
+        self.cfg = KalmanConfig(**cfg_kwargs)
+        self.reset_dt(1 / 30.0)
+
+    def reset_dt(self, dt):
+        """Recompute the dt-dependent matrices."""
+        self.dt = dt
+        self.acc_cov, self.meas_mat, self.trans_mat = init_mats(self.cfg, dt)
+
+    def _t(self, a):
+        return torch.as_tensor(np.array(a, np.float32), device=self.device)
+
+    @staticmethod
+    def _np(*tensors):
+        out = tuple(t.cpu().numpy() for t in tensors)
+        return out if len(out) > 1 else out[0]
+
+    def create(self, det_tlbr):
+        return self._np(*create(self.cfg, self._t(det_tlbr)))
+
+    def predict(self, mean, cov):
+        return self._np(*predict(self.cfg, self._t(mean), self._t(cov),
+                                 self._t(self.trans_mat),
+                                 self._t(self.acc_cov)))
+
+    def project(self, mean, cov, meas_type=MeasType.DETECTOR,
+                multiplier=1.0):
+        return self._np(*project(self.cfg, self._t(mean), self._t(cov),
+                                 meas_type == MeasType.FLOW, multiplier))
+
+    def update(self, mean, cov, measurement, meas_type=MeasType.DETECTOR,
+               multiplier=1.0):
+        return self._np(*update(self.cfg, self._t(mean), self._t(cov),
+                                self._t(measurement),
+                                meas_type == MeasType.FLOW, multiplier))
+
+    def motion_distance(self, mean, cov, measurements):
+        return self._np(maha_distance(self.cfg, self._t(mean)[None],
+                                      self._t(cov)[None],
+                                      self._t(measurements))[0])
+
+    def warp(self, mean, cov, h_mat):
+        m, c = warp(self._t(mean)[None], self._t(cov)[None], self._t(h_mat))
+        return self._np(m[0], c[0])

@@ -6,7 +6,8 @@ padding, forbidden entries clamped to ``forbid`` (4.5), the deterministic
 micro-bias, the pre-assignment of dead rows onto dead columns, prices
 reset at every phase, and 8 bidding rounds between convergence checks.
 The data-dependent loops run in Python over tensor ops; each convergence
-check is one host sync.
+check is one host sync. Both solvers take a leading batch axis (one
+problem per stream) and loop once for the whole batch.
 """
 from __future__ import annotations
 
@@ -35,57 +36,73 @@ def auction_lap(cost: torch.Tensor,
                 forbid: float = FORBID):
     """Min-cost rectangular assignment. Returns ``(row4col, col4row)``
     int32 index tensors, -1 where unmatched or matched only through a
-    forbidden/padded entry."""
+    forbidden/padded entry.
+
+    ``cost`` is ``[r, c]`` or a batch ``[B, r, c]`` of independent
+    problems (masks ``[B, r]``, ``[B, c]``) solved by one bidding loop: a
+    problem whose rows are all assigned bids no more, so each gets what it
+    would get alone (``jax.vmap`` of the JAX solver)."""
+    if cost.dim() == 2:
+        r4c, c4r = auction_lap(
+            cost[None], None if row_valid is None else row_valid[None],
+            None if col_valid is None else col_valid[None], eps_final,
+            max_iters, forbid)
+        return r4c[0], c4r[0]
     device = cost.device
-    r, c = cost.shape
+    b, r, c = cost.shape
     n = max(r, c, 1)
     if row_valid is None:
-        row_valid = torch.ones(r, dtype=torch.bool, device=device)
+        row_valid = torch.ones((b, r), dtype=torch.bool, device=device)
     if col_valid is None:
-        col_valid = torch.ones(c, dtype=torch.bool, device=device)
+        col_valid = torch.ones((b, c), dtype=torch.bool, device=device)
 
     cost_f = torch.clamp(cost.to(torch.float32), max=forbid)
-    cost_f = torch.where(row_valid[:, None] & col_valid[None, :], cost_f,
-                         torch.full_like(cost_f, forbid))
-    sq = torch.full((n, n), forbid, dtype=torch.float32, device=device)
-    sq[:r, :c] = cost_f
+    cost_f = torch.where(row_valid[:, :, None] & col_valid[:, None, :],
+                         cost_f, torch.full_like(cost_f, forbid))
+    sq = torch.full((b, n, n), forbid, dtype=torch.float32, device=device)
+    sq[:, :r, :c] = cost_f
     bias = min(1e-4, 0.25 * eps_final)
     assert eps_final > bias, 'pre-assignment eps-CS needs eps > bias'
     benefit = -sq + bias * _bias_noise(n, device)
     idx = torch.arange(n, device=device)
-    jj = idx[None, :]
+    jj = idx[None, None, :]
+    rows = idx.expand(b, n)
+
+    def scatter_rows(dst):
+        """``out[dst[j]] = j`` where ``dst[j] >= 0``, else -1."""
+        out = torch.full((b, n + 1), -1, dtype=torch.int64, device=device)
+        return out.scatter(1, torch.where(dst >= 0, dst, n), rows)[:, :n]
 
     # dead rows pre-assigned one-to-one onto dead columns (see the JAX
-    # version for why)
+    # version for why); the dead columns ascending by a stable sort
     finite = sq < forbid
-    row_live = torch.any(finite, dim=1)
-    col_live = torch.any(finite, dim=0)
-    r_rank = torch.cumsum((~row_live).to(torch.int64), 0) - 1
-    free_cols = torch.nonzero(~col_live).flatten()
-    n_free = free_cols.numel()
-    free_cols = torch.cat([free_cols, torch.full(
-        (n - n_free,), n, dtype=free_cols.dtype, device=device)])
+    row_live = torch.any(finite, dim=2)
+    col_live = torch.any(finite, dim=1)
+    r_rank = torch.cumsum((~row_live).to(torch.int64), 1) - 1
+    n_free = (~col_live).sum(1, keepdim=True)
+    free_cols = torch.argsort(col_live.to(torch.uint8), dim=1, stable=True)
+    free_cols = torch.where(idx[None] < n_free, free_cols,
+                            torch.full_like(free_cols, n))
     pre_col = torch.where(~row_live & (r_rank < n_free),
-                          free_cols[torch.clamp(r_rank, 0, n - 1)],
+                          free_cols.gather(1, torch.clamp(r_rank, 0, n - 1)),
                           torch.full_like(r_rank, -1))
-    owner = torch.full((n + 1,), -1, dtype=torch.int64, device=device)
-    owner[torch.where(pre_col >= 0, pre_col, n)] = idx
-    owner = owner[:n].clone()
+    owner = scatter_rows(pre_col)
     neg_inf = torch.tensor(-float('inf'), device=device)
 
     def one_round(owner, price):
-        assigned = torch.zeros(n + 1, dtype=torch.bool, device=device)
-        assigned[torch.where(owner >= 0, owner, n)] = True
-        unassigned = ~assigned[:n]
-        value = benefit - price[None, :]
-        v1, top1 = torch.max(value, dim=1)
-        value2 = torch.where(jj == top1[:, None], neg_inf, value)
-        v2 = torch.max(value2, dim=1).values
+        assigned = torch.zeros((b, n + 1), dtype=torch.bool, device=device)
+        assigned = assigned.scatter(1, torch.where(owner >= 0, owner, n),
+                                    True)
+        unassigned = ~assigned[:, :n]
+        value = benefit - price[:, None, :]
+        v1, top1 = torch.max(value, dim=2)
+        value2 = torch.where(jj == top1[:, :, None], neg_inf, value)
+        v2 = torch.max(value2, dim=2).values
         v2 = torch.where(torch.isfinite(v2), v2, v1)
-        bid_amt = price[top1] + (v1 - v2) + eps
-        bids = torch.where(unassigned[:, None] & (top1[:, None] == jj),
-                           bid_amt[:, None], neg_inf)
-        best_bid, best_bidder = torch.max(bids, dim=0)
+        bid_amt = price.gather(1, top1) + (v1 - v2) + eps
+        bids = torch.where(unassigned[:, :, None] & (top1[:, :, None] == jj),
+                           bid_amt[:, :, None], neg_inf)
+        best_bid, best_bidder = torch.max(bids, dim=1)
         won = best_bid > -float('inf')
         return (torch.where(won, best_bidder, owner),
                 torch.where(won, best_bid, price))
@@ -93,12 +110,13 @@ def auction_lap(cost: torch.Tensor,
     eps = 0.5
     while eps >= eps_final:
         # per-phase price reset (see the JAX version)
-        price = torch.zeros(n, dtype=torch.float32, device=device)
-        value = benefit - price[None, :]
-        vmax = torch.max(value, dim=1).values
+        price = torch.zeros((b, n), dtype=torch.float32, device=device)
+        value = benefit - price[:, None, :]
+        vmax = torch.max(value, dim=2).values
         has = owner >= 0
         row_j = torch.where(has, owner, torch.zeros_like(owner))
-        keep = has & (value[row_j, idx] >= vmax[row_j] - eps)
+        pair = value.gather(1, row_j[:, None, :])[:, 0]
+        keep = has & (pair >= vmax.gather(1, row_j) - eps)
         owner = torch.where(keep, owner, torch.full_like(owner, -1))
         it = 0
         while it < max_iters and bool(torch.any(owner < 0)):
@@ -108,39 +126,53 @@ def auction_lap(cost: torch.Tensor,
         eps = eps / 8.0
 
     row4col = owner
-    col4row = torch.full((n + 1,), -1, dtype=torch.int64, device=device)
-    col4row[torch.where(row4col >= 0, row4col, n)] = idx
-    col4row = col4row[:n]
-    pair_col = sq[torch.where(row4col >= 0, row4col, 0), idx]
+    col4row = scatter_rows(row4col)
+    pair_col = sq.gather(1, torch.where(row4col >= 0, row4col,
+                                        0)[:, None])[:, 0]
     row4col = torch.where((row4col >= 0) & (pair_col < forbid), row4col,
                           torch.full_like(row4col, -1))
-    pair_row = sq[idx, torch.where(col4row >= 0, col4row, 0)]
-    col4row = torch.where((col4row >= 0) & (pair_row < forbid), col4row,
-                          torch.full_like(col4row, -1))
-    return row4col[:c].to(torch.int32), col4row[:r].to(torch.int32)
+    pair_row = sq.gather(2, torch.where(col4row >= 0, col4row, 0)[:, :, None])
+    col4row = torch.where((col4row >= 0) & (pair_row[:, :, 0] < forbid),
+                          col4row, torch.full_like(col4row, -1))
+    return (row4col[:, :c].to(torch.int32),
+            col4row[:, :r].to(torch.int32))
 
 
 def greedy_match_arrays(cost: torch.Tensor, row_valid: torch.Tensor,
                         col_valid: torch.Tensor, max_cost: float):
     """Greedy global-minimum matching until the cost exceeds ``max_cost``;
-    ties go to the smallest flat index. Returns ``(row4col, col4row)``."""
+    ties go to the smallest flat index. Returns ``(row4col, col4row)``.
+
+    ``cost`` is ``[r, c]`` or a batch ``[B, r, c]``: one host sync per
+    round for the whole batch; a problem whose minimum is above
+    ``max_cost`` stops taking matches while the others go on."""
+    if cost.dim() == 2:
+        r4c, c4r = greedy_match_arrays(cost[None], row_valid[None],
+                                       col_valid[None], max_cost)
+        return r4c[0], c4r[0]
     device = cost.device
-    r, c = cost.shape
+    b, r, c = cost.shape
     cost_f = cost.to(torch.float32)
-    live = row_valid[:, None] & col_valid[None, :]
-    row4col = torch.full((c,), -1, dtype=torch.int32, device=device)
-    col4row = torch.full((r,), -1, dtype=torch.int32, device=device)
+    live = row_valid[:, :, None] & col_valid[:, None, :]
+    row4col = torch.full((b, c), -1, dtype=torch.int32, device=device)
+    col4row = torch.full((b, r), -1, dtype=torch.int32, device=device)
+    ri = torch.arange(r, device=device)
+    ci = torch.arange(c, device=device)
     inf = torch.tensor(float('inf'), device=device)
     while True:
-        masked = torch.where(live, cost_f, inf)
-        flat = int(torch.argmin(masked))
-        if not float(masked.view(-1)[flat]) <= max_cost:
+        masked = torch.where(live, cost_f, inf).reshape(b, r * c)
+        flat = torch.argmin(masked, dim=1)
+        ok = masked.gather(1, flat[:, None])[:, 0] <= max_cost
+        if not bool(ok.any()):
             break
         i, j = flat // c, flat % c
-        row4col[j] = i
-        col4row[i] = j
-        live[i, :] = False
-        live[:, j] = False
+        row4col = torch.where(ok[:, None] & (ci == j[:, None]),
+                              i[:, None].to(torch.int32), row4col)
+        col4row = torch.where(ok[:, None] & (ri == i[:, None]),
+                              j[:, None].to(torch.int32), col4row)
+        live = live & ~(ok[:, None, None]
+                        & ((ri[:, None] == i[:, None, None])
+                           | (ci[None, :] == j[:, None, None])))
     return row4col, col4row
 
 

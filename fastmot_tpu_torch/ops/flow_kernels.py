@@ -79,31 +79,35 @@ class FlowSpec:
 # ---------------------------------------------------------------------------
 
 def resize_bilinear(img: torch.Tensor, out_hw) -> torch.Tensor:
-    """[h, w] float32 bilinear resize, half-pixel centres, edge clamp: the
-    same two-tap hat weights as the JAX package's interpolation matrices."""
-    return F.interpolate(img[None, None], size=tuple(out_hw),
-                         mode='bilinear', align_corners=False,
-                         antialias=False)[0, 0]
+    """[..., h, w] float32 bilinear resize, half-pixel centres, edge clamp:
+    the same two-tap hat weights as the JAX package's interpolation
+    matrices."""
+    h, w = img.shape[-2:]
+    out = F.interpolate(img.reshape(-1, 1, h, w), size=tuple(out_hw),
+                        mode='bilinear', align_corners=False, antialias=False)
+    return out.reshape(img.shape[:-2] + tuple(out_hw))
 
 
 def downsample2(img: torch.Tensor) -> torch.Tensor:
-    """2x2 mean (pyramid level step)."""
-    h2, w2 = img.shape[0] // 2, img.shape[1] // 2
-    return img[:h2 * 2, :w2 * 2].reshape(h2, 2, w2, 2).mean(dim=(1, 3))
+    """2x2 mean (pyramid level step) of [..., h, w]."""
+    h2, w2 = img.shape[-2] // 2, img.shape[-1] // 2
+    return img[..., :h2 * 2, :w2 * 2].reshape(
+        img.shape[:-2] + (h2, 2, w2, 2)).mean(dim=(-3, -1))
 
 
 def shi_tomasi_response(img: torch.Tensor) -> torch.Tensor:
-    """Min-eigenvalue corner response with 3x3 gradient/window sums."""
+    """Min-eigenvalue corner response with 3x3 gradient/window sums, of
+    [..., h, w]."""
     img = img.float()
     ix = torch.zeros_like(img)
     iy = torch.zeros_like(img)
-    ix[:, 1:-1] = (img[:, 2:] - img[:, :-2]) * 0.5
-    iy[1:-1, :] = (img[2:, :] - img[:-2, :]) * 0.5
+    ix[..., :, 1:-1] = (img[..., :, 2:] - img[..., :, :-2]) * 0.5
+    iy[..., 1:-1, :] = (img[..., 2:, :] - img[..., :-2, :]) * 0.5
 
     def box3(x):
         xp = F.pad(x, (1, 1, 1, 1))
-        s = xp[:-2, :] + xp[1:-1, :] + xp[2:, :]
-        return s[:, :-2] + s[:, 1:-1] + s[:, 2:]
+        s = xp[..., :-2, :] + xp[..., 1:-1, :] + xp[..., 2:, :]
+        return s[..., :, :-2] + s[..., :, 1:-1] + s[..., :, 2:]
 
     sxx, syy, sxy = box3(ix * ix), box3(iy * iy), box3(ix * iy)
     det_term = torch.sqrt(torch.clamp((sxx - syy) ** 2 + 4.0 * sxy ** 2,
@@ -113,19 +117,21 @@ def shi_tomasi_response(img: torch.Tensor) -> torch.Tensor:
 
 def grid_candidates(resp: torch.Tensor, cell: int):
     """One candidate per ``cell`` x ``cell`` block: its maximum response
-    and the first row-major pixel holding it. Returns (pts [G, 2] as
-    (x, y), score [G]) in row-major cell order."""
-    h, w = resp.shape
+    and the first row-major pixel holding it. Returns (pts [..., G, 2] as
+    (x, y), score [..., G]) in row-major cell order."""
+    lead = resp.shape[:-2]
+    h, w = resp.shape[-2:]
     gh, gw = h // cell, w // cell
-    r = resp[:gh * cell, :gw * cell].reshape(gh, cell, gw, cell)
-    r = r.permute(0, 2, 1, 3).reshape(gh, gw, cell * cell)
+    r = resp[..., :gh * cell, :gw * cell].reshape(lead + (gh, cell, gw, cell))
+    r = r.transpose(-3, -2).reshape(lead + (gh, gw, cell * cell))
     score, idx = torch.max(r, dim=-1)      # first maximum on ties
     gy = torch.arange(gh, device=resp.device)[:, None]
     gx = torch.arange(gw, device=resp.device)[None, :]
     cy = gy * cell + idx // cell
     cx = gx * cell + idx % cell
-    pts = torch.stack([cx.reshape(-1), cy.reshape(-1)], -1).float()
-    return pts, score.reshape(-1)
+    pts = torch.stack([cx.reshape(lead + (-1,)), cy.reshape(lead + (-1,))],
+                      -1).float()
+    return pts, score.reshape(lead + (-1,))
 
 
 def in_box(pts: torch.Tensor, tlbr: torch.Tensor) -> torch.Tensor:
@@ -138,7 +144,9 @@ def preprocess(spec: FlowSpec, frame: torch.Tensor):
     """[H, W, 3] uint8 BGR frame -> flow state ``(pyr, pyr_u8, cand_pts,
     cand_score, bg_pts, bg_score)``: the float32 pyramid, its levels
     rounded to uint8 values (kept as float32), the full-res corner
-    candidates and the background candidates."""
+    candidates and the background candidates. A stack of frames [S, H,
+    W, 3] gives the same state with a leading stream axis on every
+    tensor."""
     f = frame.float()
     gray = f[..., 2] * 0.299 + f[..., 1] * 0.587 + f[..., 0] * 0.114
     ow, oh = spec.opt_size
@@ -165,13 +173,14 @@ def _topk_stable(x: torch.Tensor, k: int):
 # Pyramidal Lucas-Kanade
 # ---------------------------------------------------------------------------
 
-def _sample_halo(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
-                 win: int) -> torch.Tensor:
-    """[P, win+2, win+2] bilinear samples of ``img`` (uint8 values as
-    float32) on the window around (x, y) plus a 1-px gradient halo:
-    out[i, j] = sample(y - half - 1 + i, x - half - 1 + j). The taps are
-    read edge-clamped and blended in float32."""
-    h, w = img.shape
+def _sample_halo(img: torch.Tensor, sid: torch.Tensor, x: torch.Tensor,
+                 y: torch.Tensor, win: int) -> torch.Tensor:
+    """[P, win+2, win+2] bilinear samples of ``img[sid]`` (img [S, h, w],
+    uint8 values as float32; ``sid`` [P] the stream of each point) on the
+    window around (x, y) plus a 1-px gradient halo: out[i, j] = sample(y -
+    half - 1 + i, x - half - 1 + j). The taps are read edge-clamped and
+    blended in float32."""
+    h, w = img.shape[-2:]
     x = torch.clamp(x, 0.0, w - 1.001)
     y = torch.clamp(y, 0.0, h - 1.001)
     x0 = torch.floor(x)
@@ -182,7 +191,7 @@ def _sample_halo(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     offs = torch.arange(win + 3, device=img.device) - half - 1
     ys = torch.clamp(y0.long()[:, None] + offs, 0, h - 1)
     xs = torch.clamp(x0.long()[:, None] + offs, 0, w - 1)
-    r = img[ys[:, :, None], xs[:, None, :]]             # [P, wide, wide]
+    r = img[sid[:, None, None], ys[:, :, None], xs[:, None, :]]
     inner = win + 2
     p00 = r[:, :inner, :inner]
     p01 = r[:, :inner, 1:]
@@ -197,6 +206,12 @@ def lk_pyramidal(prev_u8, cur_u8, pts: torch.Tensor, valid: torch.Tensor,
     """Track ``pts`` [P, 2] (at optical-flow scale) from the previous to
     the current pyramid (lists of uint8-valued float32 levels).
 
+    With a stream axis (levels [S, h, w], ``pts`` [S, P, 2], ``valid``
+    [S, P]) every stream's points are tracked in one loop over one flat
+    point set: the points are independent, and a point that has stopped is
+    masked, so running until no point of any stream is active gives each
+    stream what it would get alone.
+
     Per level, coarsest first: the 2x2 normal matrix comes from the
     template window's central-difference gradients (cv2's min-eigenvalue
     gate rejects flat windows); each still-active point takes a
@@ -205,18 +220,28 @@ def lk_pyramidal(prev_u8, cur_u8, pts: torch.Tensor, valid: torch.Tensor,
     the next finer level, doubled. The patch error (mean absolute
     difference) is kept from each point's last step. Returns (new_pts,
     status, err)."""
+    if pts.dim() == 2:
+        new_pts, ok, err = lk_pyramidal([p[None] for p in prev_u8],
+                                        [p[None] for p in cur_u8], pts[None],
+                                        valid[None], spec)
+        return new_pts[0], ok[0], err[0]
+    n_streams, per_stream = pts.shape[:2]
+    out_shape = pts.shape
+    pts = pts.reshape(-1, 2)
+    valid = valid.reshape(-1)
     n_levels = len(prev_u8)
     n_pts = pts.shape[0]
     wi = spec.win
     ww = wi * wi
     eps2 = 0.03 * 0.03
     dev = pts.device
+    sid = torch.arange(n_streams, device=dev).repeat_interleave(per_stream)
     v = torch.zeros_like(pts)
     err = torch.zeros(n_pts, dtype=torch.float32, device=dev)
     ok = valid.clone()
     for lvl in range(n_levels - 1, -1, -1):
         p = pts * (2.0 ** -lvl)
-        t_halo = _sample_halo(prev_u8[lvl], p[:, 0], p[:, 1], wi)
+        t_halo = _sample_halo(prev_u8[lvl], sid, p[:, 0], p[:, 1], wi)
         t_patch = t_halo[:, 1:wi + 1, 1:wi + 1].reshape(n_pts, ww)
         gx = (0.5 * (t_halo[:, 1:wi + 1, 2:wi + 2]
                      - t_halo[:, 1:wi + 1, 0:wi])).reshape(n_pts, ww)
@@ -234,7 +259,7 @@ def lk_pyramidal(prev_u8, cur_u8, pts: torch.Tensor, valid: torch.Tensor,
         active = valid.clone()
         steps = torch.zeros(n_pts, dtype=torch.int32, device=dev)
         for _ in range(spec.iters):
-            c_halo = _sample_halo(cur_u8[lvl], p[:, 0] + v[:, 0],
+            c_halo = _sample_halo(cur_u8[lvl], sid, p[:, 0] + v[:, 0],
                                   p[:, 1] + v[:, 1], wi)
             c_patch = c_halo[:, 1:wi + 1, 1:wi + 1].reshape(n_pts, ww)
             diff = t_patch - c_patch
@@ -257,10 +282,11 @@ def lk_pyramidal(prev_u8, cur_u8, pts: torch.Tensor, valid: torch.Tensor,
         if lvl > 0:
             v = v * 2.0
     new_pts = pts + v
-    h0, w0 = cur_u8[0].shape
+    h0, w0 = cur_u8[0].shape[-2:]
     inb = ((new_pts[:, 0] >= 0) & (new_pts[:, 0] <= w0 - 1)
            & (new_pts[:, 1] >= 0) & (new_pts[:, 1] <= h0 - 1))
-    return new_pts, ok & inb, err
+    return (new_pts.reshape(out_shape), (ok & inb).reshape(out_shape[:2]),
+            err.reshape(out_shape[:2]))
 
 
 # ---------------------------------------------------------------------------
@@ -523,7 +549,8 @@ def flow_points_core(spec: FlowSpec, prev_state, t_tlbrs, t_valid, t_kps,
 
 
 def lk_core(spec: FlowSpec, prev_u8, cur_u8, all_prev, all_valid):
-    """One batched pyramidal-LK solve for all points (full-res coords)."""
+    """One batched pyramidal-LK solve for all points (full-res coords); with
+    a leading stream axis, one solve for every stream's points."""
     opt_scale = torch.tensor(spec.opt_scale, dtype=torch.float32,
                              device=all_prev.device)
     cur_scaled, status, err = lk_pyramidal(prev_u8, cur_u8,
@@ -578,3 +605,28 @@ def flow_post_core(spec: FlowSpec, t_tlbrs, t_valid, inside, all_prev,
     return (h_ok, h_mat, bg_prev, bg_cur, bg_inlier & bg_status, est,
             est_valid, inlier_ratio.to(torch.float32), trk_prev, trk_cur,
             sim_inlier & match_valid)
+
+
+def flow_step_core(spec: FlowSpec, prev_state, cur_state, t_tlbrs, t_valid,
+                   t_kps, t_kp_valid, draws):
+    """One flow step over two preprocessed frame states: corner
+    management, one batched LK solve, camera homography RANSAC, per-track
+    similarity fits (``flow_points_core``, ``lk_core``,
+    ``flow_post_core``); ``draws`` are the RANSAC uniforms ``(u_h,
+    u_a)``."""
+    all_prev, all_valid, inside = flow_points_core(
+        spec, prev_state, t_tlbrs, t_valid, t_kps, t_kp_valid)
+    all_cur, status = lk_core(spec, prev_state[1], cur_state[1], all_prev,
+                              all_valid)
+    return flow_post_core(spec, t_tlbrs, t_valid, inside, all_prev, all_cur,
+                          status, *draws)
+
+
+def flow_step(spec: FlowSpec, prev_state, cur_state, t_tlbrs, t_valid,
+              t_kps, t_kp_valid, seed: int):
+    """``flow_step_core`` on host arrays, with the draws of ``seed``."""
+    dev = cur_state[2].device
+    args = (torch.as_tensor(a, device=dev)
+            for a in (t_tlbrs, t_valid, t_kps, t_kp_valid))
+    return flow_step_core(spec, prev_state, cur_state, *args,
+                          ransac_draws(seed, len(t_tlbrs), dev))

@@ -76,9 +76,9 @@ def ios(tlbr1: torch.Tensor, tlbr2: torch.Tensor) -> torch.Tensor:
 
 
 def bbox_ious(tlbrs1: torch.Tensor, tlbrs2: torch.Tensor) -> torch.Tensor:
-    """Pairwise [N, M] IoU matrix."""
-    inter = _inter_area(tlbrs1[:, None, :], tlbrs2[None, :, :])
-    union = area(tlbrs1)[:, None] + area(tlbrs2)[None, :] - inter
+    """Pairwise [..., N, M] IoU matrix."""
+    inter = _inter_area(tlbrs1[..., :, None, :], tlbrs2[..., None, :, :])
+    union = area(tlbrs1)[..., :, None] + area(tlbrs2)[..., None, :] - inter
     pos = inter > 0
     return torch.where(
         pos, inter / torch.where(union > 0, union, torch.ones_like(union)),
@@ -86,17 +86,17 @@ def bbox_ious(tlbrs1: torch.Tensor, tlbrs2: torch.Tensor) -> torch.Tensor:
 
 
 def ios_matrix(tlbrs1: torch.Tensor, tlbrs2: torch.Tensor) -> torch.Tensor:
-    """Pairwise [N, M] intersection over the row box's area."""
-    inter = _inter_area(tlbrs1[:, None, :], tlbrs2[None, :, :])
-    a_self = area(tlbrs1)[:, None].expand_as(inter)
+    """Pairwise [..., N, M] intersection over the row box's area."""
+    inter = _inter_area(tlbrs1[..., :, None, :], tlbrs2[..., None, :, :])
+    a_self = area(tlbrs1)[..., :, None].expand_as(inter)
     return _safe_div(inter, a_self)
 
 
 def iom_matrix(tlbrs: torch.Tensor) -> torch.Tensor:
-    """Pairwise [N, N] intersection over the smaller box's area."""
-    inter = _inter_area(tlbrs[:, None, :], tlbrs[None, :, :])
+    """Pairwise [..., N, N] intersection over the smaller box's area."""
+    inter = _inter_area(tlbrs[..., :, None, :], tlbrs[..., None, :, :])
     a = area(tlbrs)
-    return _safe_div(inter, torch.minimum(a[:, None], a[None, :]))
+    return _safe_div(inter, torch.minimum(a[..., :, None], a[..., None, :]))
 
 
 def find_occluded(tlbrs: torch.Tensor, occlusion_thresh: float,
@@ -113,11 +113,12 @@ def find_occluded(tlbrs: torch.Tensor, occlusion_thresh: float,
 
 
 def diou_matrix(tlbrs: torch.Tensor, beta: float) -> torch.Tensor:
-    """Pairwise DIoU used by the detector's NMS."""
+    """Pairwise [..., N, N] DIoU used by the detector's NMS."""
     iou = bbox_ious(tlbrs, tlbrs)
     centers = get_center(tlbrs)
-    d = torch.sum((centers[:, None, :] - centers[None, :, :]) ** 2, dim=-1)
-    encl = enclosing(tlbrs[:, None, :], tlbrs[None, :, :])
+    d = torch.sum((centers[..., :, None, :] - centers[..., None, :, :]) ** 2,
+                  dim=-1)
+    encl = enclosing(tlbrs[..., :, None, :], tlbrs[..., None, :, :])
     ew, eh = get_width_height(encl)
     c = ew * ew + eh * eh
     return iou - (d / torch.clamp(c, min=1e-12)) ** beta
@@ -132,19 +133,21 @@ def greedy_suppress(overlap: torch.Tensor, scores: torch.Tensor,
     Wave-parallel like the JAX version (each wave keeps every remaining box
     with no remaining dominating neighbour, then suppresses the kept boxes'
     neighbours), which equals the sequential greedy scan. The loop runs on
-    the host, one sync per wave."""
-    n = scores.shape[0]
+    the host, one sync per wave. Leading batch axes (``overlap [..., N,
+    N]``, ``scores``/``valid [..., N]``) are independent problems in one
+    loop: a problem with nothing remaining has empty waves."""
+    n = scores.shape[-1]
     idx = torch.arange(n, device=scores.device)
     over = (overlap > thresh) & (idx[:, None] != idx[None, :])
-    dom = (scores[:, None] > scores[None, :]) | \
-        ((scores[:, None] == scores[None, :]) & (idx[:, None] < idx[None, :]))
+    s_i, s_j = scores[..., :, None], scores[..., None, :]
+    dom = (s_i > s_j) | ((s_i == s_j) & (idx[:, None] < idx[None, :]))
     sup_dom = over & dom
-    keep = torch.zeros(n, dtype=torch.bool, device=scores.device)
+    keep = torch.zeros_like(valid)
     remaining = valid.clone()
     while bool(remaining.any()):
-        dominated = torch.any(sup_dom & remaining[:, None], dim=0)
+        dominated = torch.any(sup_dom & remaining[..., :, None], dim=-2)
         wave = remaining & ~dominated
-        suppressed = torch.any(over & wave[:, None], dim=0)
+        suppressed = torch.any(over & wave[..., :, None], dim=-2)
         keep = keep | wave
         remaining = remaining & ~wave & ~suppressed
     return keep

@@ -11,12 +11,15 @@ The per-frame pure functions keep the JAX package's names and arguments
 (less the leading underscore) so each can be held against its JAX twin:
 ``gap_pre_core``, ``gap_points_core``, ``lk_commit_core``,
 ``gap_commit_core``, ``assoc_costs_core``, ``extract_costs_core``,
-``stages_scan_core``, ``finals_core``, ``commit_part`` and
-``scan_finals_commit_core``. They run eagerly, one frame at a time: the
-JAX package's scan/chain kernels and its split-dispatch variants are TPU
-dispatch structure and are not ported. The RANSAC draws of a gap frame
+``stage_core``, ``stages_scan_core``, ``finals_core``, ``commit_part``
+and ``scan_finals_commit_core``. They run eagerly, one frame at a time:
+the JAX package's scan/chain kernels and its split-dispatch variants are
+TPU dispatch structure and are not ported. The RANSAC draws of a gap frame
 come from a ``torch.Generator`` seeded with the flow seed and are passed
-in as ``draws``.
+in as ``draws``. ``*_batch`` run the loop-free cores over a leading stream
+axis (``parallel.StreamTracker``); ``stage_core``, ``stages_scan_core`` and
+``finals_core`` take that axis themselves. ``compute_flow``/``apply_kalman``
+are the JAX package's legacy per-track API.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+from torch.func import vmap
 
 from . import kalman as kf
 from .device import torch_device
@@ -90,14 +94,14 @@ def cfg_kwargs(cfg) -> dict:
 
 def _scatter(size: int, idx: torch.Tensor, values, fill, dtype):
     """``full(size, fill).at[idx].set(values, mode='drop')``: entries of
-    ``idx`` outside [0, size) are dropped."""
+    ``idx`` outside [0, size) are dropped. Out of place (``vmap``)."""
     dev = idx.device
     out = torch.full((size + 1,), fill, dtype=dtype, device=dev)
     idx = torch.where((idx >= 0) & (idx < size), idx,
                       torch.full_like(idx, size)).long()
-    out[idx] = torch.as_tensor(values, dtype=dtype, device=dev) \
-        .expand(idx.shape)
-    return out[:size]
+    values = values.to(dtype) if isinstance(values, torch.Tensor) else \
+        torch.tensor(values, dtype=dtype, device=dev)
+    return out.index_put((idx,), values.expand(idx.shape))[:size]
 
 
 def _set_rows(arr: torch.Tensor, idx: torch.Tensor, values: torch.Tensor):
@@ -106,8 +110,16 @@ def _set_rows(arr: torch.Tensor, idx: torch.Tensor, values: torch.Tensor):
     ext = torch.cat([arr, arr[:1]], 0)
     idx = torch.where((idx >= 0) & (idx < size), idx,
                       torch.full_like(idx, size)).long()
-    ext[idx] = values.to(arr.dtype)
-    return ext[:size]
+    return ext.index_put((idx,), values.to(arr.dtype))[:size]
+
+
+def _taken(n: int, idx: torch.Tensor) -> torch.Tensor:
+    """[..., n] mask of the entries of ``idx`` [..., m] in [0, n)."""
+    lead = idx.shape[:-1]
+    idx = torch.where((idx >= 0) & (idx < n), idx,
+                      torch.full_like(idx, n)).long()
+    out = torch.zeros(lead + (n + 1,), dtype=torch.bool, device=idx.device)
+    return out.scatter(-1, idx, True)[..., :n]
 
 
 def _first_true(mask: torch.Tensor, fill: int) -> torch.Tensor:
@@ -117,6 +129,23 @@ def _first_true(mask: torch.Tensor, fill: int) -> torch.Tensor:
     order = torch.argsort((~mask).to(torch.uint8), stable=True)
     return torch.where(torch.arange(n, device=mask.device) < mask.sum(),
                        order, torch.full_like(order, fill))
+
+
+def fetch_infos(infos):
+    """Info vectors (device tensors, or None) as numpy arrays, after one
+    device-to-host transfer."""
+    dev_infos = [info for info in infos if info is not None]
+    if not dev_infos:
+        return list(infos)
+    flat = torch.cat(dev_infos).cpu().numpy()
+    out, off = [], 0
+    for info in infos:
+        if info is None:
+            out.append(None)
+        else:
+            out.append(flat[off:off + info.numel()])
+            off += info.numel()
+    return out
 
 
 def _flat_info(*arrays) -> torch.Tensor:
@@ -306,25 +335,33 @@ def extract_costs_core(module, out_hw, emb_cap: int, cfg: KalmanConfig,
     return costs, d_emb
 
 
+def stage_core(exclude_matched: bool, cost, base_mask, u_det,
+               col4row_final, eps: float = 1e-2, forbid: float = asg.FORBID):
+    """One auction stage: solve, absorb the matches, consume their
+    detections. Takes a leading stream axis (one auction loop for all)."""
+    row_valid = base_mask & (col4row_final < 0) if exclude_matched \
+        else base_mask
+    _, c4r = asg.auction_lap(cost, row_valid, u_det, eps_final=eps,
+                             forbid=forbid)
+    matched = (c4r >= 0) & row_valid
+    col4row_final = torch.where(matched, c4r, col4row_final)
+    taken = _taken(u_det.shape[-1], torch.where(matched, c4r, -1))
+    return u_det & ~taken, col4row_final
+
+
 def stages_scan_core(n_depth: int, cost, iou_cost, depth_masks,
                      base_iou_active, base_unconfirmed, u_det, col4row,
                      eps: float = 1e-2, forbid: float = asg.FORBID):
     """All cascade auction stages in order: the appearance+motion stages
     per age bucket, the IoU stage of active confirmed tracks (which skips
     rows already matched), the IoU stage of unconfirmed tracks."""
-    masks = tuple(depth_masks) + (base_iou_active, base_unconfirmed)
-    n_cols = u_det.shape[0]
-    for s, mask in enumerate(masks):
-        stage_cost = iou_cost if s >= n_depth else cost
-        row_valid = mask & (col4row < 0) if s == n_depth else mask
-        _, c = asg.auction_lap(stage_cost, row_valid, u_det, eps_final=eps,
-                               forbid=forbid)
-        matched = (c >= 0) & row_valid
-        col4row = torch.where(matched, c, col4row)
-        taken = _scatter(n_cols, torch.where(matched, c, -1), True, False,
-                         torch.bool)
-        u_det = u_det & ~taken
-    return u_det, col4row
+    for mask in depth_masks:
+        u_det, col4row = stage_core(False, cost, mask, u_det, col4row, eps,
+                                    forbid)
+    u_det, col4row = stage_core(True, iou_cost, base_iou_active, u_det,
+                                col4row, eps, forbid)
+    return stage_core(False, iou_cost, base_unconfirmed, u_det, col4row,
+                      eps, forbid)
 
 
 def finals_core(conf_thresh: float, max_reid_cost: float, dup_gate: float,
@@ -332,7 +369,7 @@ def finals_core(conf_thresh: float, max_reid_cost: float, dup_gate: float,
                 d_conf, reid_cost, h_reid_ok, occluded, u_det,
                 col4row_final):
     """Greedy reID against the history store + duplicate-rectify
-    candidates."""
+    candidates. Takes a leading stream axis on every tensor."""
     t_confirmed = hits >= confirm_hits
     t_active = ages < 2
     u_det_conf = u_det & (d_conf >= conf_thresh)
@@ -344,7 +381,8 @@ def finals_core(conf_thresh: float, max_reid_cost: float, dup_gate: float,
     u_active = t_valid & t_confirmed & t_active & ~matched_mask
     safe_col = torch.where(matched_mask, col4row_final,
                            torch.zeros_like(col4row_final)).long()
-    rect_cost = dist.iou_dist(tlbrs, d_tlbrs[safe_col])
+    rect_cost = dist.iou_dist(
+        tlbrs, torch.take_along_dim(d_tlbrs, safe_col[..., None], dim=-2))
     _, rect_c4r = asg.greedy_match_arrays(rect_cost, u_active,
                                           inactive_matched, dup_gate)
     return u_det_conf, reid_c4r, rect_c4r
@@ -574,6 +612,67 @@ def scan_finals_commit_core(cfg: KalmanConfig, n_depth: int,
         cfg, confirm_hits, max_age, history_size, state, hist,
         d_tlbrs, d_labels, d_conf, d_valid, d_emb, frame_id, frame_tlbr,
         (occluded, col4row, u_det_conf, reid_c4r, rect_c4r))
+
+
+# ---------------------------------------------------------------------------
+# Stream axis: the loop-free cores under torch.func.vmap over [S, ...]
+# state; the cores with host loops (LK, the auction and greedy solvers in
+# stage_core and finals_core) take the leading axis themselves
+# ---------------------------------------------------------------------------
+
+def gap_points_batch(spec, f_cap: int, states, prev_states):
+    """``gap_points_core`` for every stream of [S, ...] state and flow
+    state."""
+    return vmap(lambda st, pre: gap_points_core(spec, st, pre, f_cap))(
+        states, prev_states)
+
+
+def gap_commit_batch(cfg: KalmanConfig, spec, age_penalty: float,
+                     confirm_hits: int, states, inside, f_tlbrs, f_valid,
+                     forder, all_prev, all_cur, status, draws, trans,
+                     acc_cov, frame_tlbr):
+    """``gap_commit_core`` for every stream; ``draws`` are each stream's
+    RANSAC uniforms ``(u_h [S, ...], u_a [S, ...])``."""
+    def one(*args):
+        return gap_commit_core(cfg, spec, age_penalty, confirm_hits, *args)
+    return vmap(one, in_dims=(0,) * 9 + (None,) * 3)(
+        states, inside, f_tlbrs, f_valid, forder, all_prev, all_cur,
+        status, draws, trans, acc_cov, frame_tlbr)
+
+
+def assoc_costs_batch(params, states, hists, dets, embs):
+    """``assoc_costs_core(*params, ...)`` for every stream; ``dets`` is
+    ``(tlbr [S, D, 4], label, conf, valid)``, ``embs`` [S, D, F]."""
+    def one(state, hist, det, emb):
+        return assoc_costs_core(*params, state, hist, *det, emb)
+    return vmap(one)(states, hists, dets, embs)
+
+
+def commit_batch(cfg: KalmanConfig, confirm_hits: int, max_age: int,
+                 history_size: int, states, hists, dets, embs,
+                 frame_id: int, frame_tlbr, cascade_out):
+    """``commit_part`` for every stream."""
+    def one(state, hist, det, emb, casc):
+        return commit_part(cfg, confirm_hits, max_age, history_size, state,
+                           hist, *det, emb, frame_id, frame_tlbr, casc)
+    return vmap(one)(states, hists, dets, embs, cascade_out)
+
+
+def apply_kalman_core(cfg: KalmanConfig, means, covs, h_mat, trans, acc_cov,
+                      klt_tlbrs, has_klt, multipliers, frame_tlbr):
+    """Warp -> predict -> masked KLT update of the legacy
+    ``compute_flow``/``apply_kalman`` path."""
+    means, covs = kf.warp(means, covs, h_mat)
+    means, covs = kf.predict(cfg, means, covs, trans, acc_cov)
+    up_means, up_covs = kf.update(
+        cfg, means, covs, klt_tlbrs,
+        torch.ones(means.shape[0], dtype=torch.bool, device=means.device),
+        multipliers)
+    means = torch.where(has_klt[:, None], up_means, means)
+    covs = torch.where(has_klt[:, None, None], up_covs, covs)
+    next_tlbrs = geom.as_tlbr(means[:, :4])
+    ios_vals = geom.ios(next_tlbrs, frame_tlbr.expand_as(next_tlbrs))
+    return means, covs, next_tlbrs, ios_vals
 
 
 class MultiTracker:
@@ -815,9 +914,11 @@ class MultiTracker:
 
     # -- deferred host bookkeeping --------------------------------------------
 
-    def sync(self, snapshots=False):
+    def sync(self, infos=None, snapshots=False):
         """Apply pending device results (gap frames + associations) to the
         host Track mirrors, in order, after one device-to-host transfer.
+        Pass the pending entries' info vectors already fetched (numpy,
+        None for marks) as ``infos`` to reuse a larger batched transfer.
 
         With ``snapshots=True``, returns ``{frame_id: [(trk_id, tlbr)]}``
         of the confirmed+active tracks after each tagged frame's replay."""
@@ -825,15 +926,8 @@ class MultiTracker:
         result = {} if snapshots else None
         if not pending:
             return result
-        dev_infos = [info for _, _, info in pending if info is not None]
-        flat = torch.cat(dev_infos).cpu().numpy() if dev_infos else None
-        infos, off = [], 0
-        for _, _, info in pending:
-            if info is None:
-                infos.append(None)
-            else:
-                infos.append(flat[off:off + info.numel()])
-                off += info.numel()
+        if infos is None:
+            infos = fetch_infos([info for _, _, info in pending])
         entries = [((kind, meta), flat) for (kind, meta, _), flat
                    in zip(pending, infos)]
         for k, ((kind, meta), flat) in enumerate(entries):
@@ -1201,3 +1295,85 @@ class MultiTracker:
                 h_hits[s] = trk.hits
                 self._hist_slot_tid[s] = tid
         return (hist_sum, hist_count, h_labels, h_valid, h_lru, h_hits)
+
+    def _invalidate_device_state(self):
+        self._dev_state = None
+
+    # -- legacy API-parity paths ----------------------------------------------
+
+    def compute_flow(self, frame):
+        """KLT tracklet + camera motion estimation through
+        ``Flow.predict`` (the JAX package's API-parity path; ``track`` is
+        the scheduler's)."""
+        self.sync()
+        self._mirrors_dirty = True
+        active_tracks = [t for t in self.tracks.values() if t.active]
+        self.klt_bboxes, self.homography = self.flow.predict(frame,
+                                                             active_tracks)
+        if self.homography is None:
+            self.tracks.clear()
+
+    def apply_kalman(self):
+        """Kalman warp/predict/update of every track from the KLT boxes of
+        the last ``compute_flow`` (API-parity path)."""
+        self._mirrors_dirty = True
+        if not self.tracks:
+            return
+        trk_ids = list(self.tracks.keys())[:MAX_TRACKS]
+        b = MAX_TRACKS
+        means = np.zeros((b, 8), np.float32)
+        covs = np.tile(np.eye(8, dtype=np.float32), (b, 1, 1))
+        klt_tlbrs = np.zeros((b, 4), np.float32)
+        has_klt = np.zeros(b, bool)
+        mult = np.ones(b, np.float32)
+        for i, tid in enumerate(trk_ids):
+            trk = self.tracks[tid]
+            means[i], covs[i] = trk.state
+            if tid in self.klt_bboxes:
+                klt_tlbrs[i] = self.klt_bboxes[tid]
+                has_klt[i] = True
+                mult[i] = max(self.age_penalty * trk.age, 1) / \
+                    trk.inlier_ratio
+        h_mat = np.eye(3, dtype=np.float32) if self.homography is None \
+            else np.asarray(self.homography, dtype=np.float32)
+        out = apply_kalman_core(
+            self.kf_cfg, *(torch.as_tensor(a, device=self.device)
+                           for a in (means, covs, h_mat)),
+            self._trans_mat, self._acc_cov,
+            *(torch.as_tensor(a, device=self.device)
+              for a in (klt_tlbrs, has_klt, mult)),
+            self._frame_rect_dev)
+        new_means, new_covs, next_tlbrs, ios_vals = (t.cpu().numpy()
+                                                     for t in out)
+        next_tlbrs = next_tlbrs.astype(np.float64)
+        for i, tid in enumerate(trk_ids):
+            track = self.tracks[tid]
+            track.update(next_tlbrs[i], (new_means[i], new_covs[i]))
+            if ios_vals[i] < 0.5:
+                if track.confirmed:
+                    LOGGER.info(f"{'Out:':<14}{track}")
+                    self.hist_tracks[tid] = self.tracks.pop(tid)
+                    self._trim_hist()
+                else:
+                    del self.tracks[tid]
+
+    # -- helpers --------------------------------------------------------------
+
+    def _mark_lost(self, trk_id):
+        """Retire a track to the history (confirmed) or drop it."""
+        track = self.tracks.pop(trk_id)
+        if track.confirmed:
+            self.hist_tracks[trk_id] = track
+            self._trim_hist()
+        self._mirrors_dirty = True
+
+    def _group_tracks_by_depth(self, group_size=2):
+        n_depth = (self.max_age + group_size) // group_size
+        confirmed_by_depth = [[] for _ in range(n_depth)]
+        unconfirmed = []
+        for trk_id, track in self.tracks.items():
+            if track.confirmed:
+                confirmed_by_depth[track.age // group_size].append(trk_id)
+            else:
+                unconfirmed.append(trk_id)
+        return confirmed_by_depth, unconfirmed

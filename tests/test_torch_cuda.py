@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels, and its int8 convs (im2col +
-``torch._int_mm``), against their plain torch versions on the card (marker
-``cuda``; they skip without one). This file imports no JAX, so it runs on a
-machine that has only torch:
+``torch._int_mm``), against their plain torch versions on the card, and the
+multi-stream path on the card against the CPU (marker ``cuda``; they skip
+without one). This file imports no JAX, so it runs on a machine that has
+only torch:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
@@ -62,7 +63,7 @@ def _rel(got, ref):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('batch,cin,features,h,w',
-                         [(b,) + s for b in (1, 3, 64, 128)
+                         [(b,) + s for b in (1, 3, 64, 128, 1024)
                           for s in OSNET025_BLOCKS]
                          + [(8,) + s for s in OSNET10_BLOCKS])
 def test_osblock_kernel_matches_plain_on_card(cuda_device, batch, cin,
@@ -308,3 +309,86 @@ def test_calibrate_int8_cli_on_card(cuda_device, tmp_path):
     act_ranges, in_ranges = tq.load_calib_ranges(out)
     assert len(in_ranges) == 20 and 'conv0' not in in_ranges
     assert len(act_ranges) == 40
+
+
+def _multi_stream_run(device):
+    """``MultiStreamMOT`` at 2 streams of 320x256 (YOLOv4-tiny, skip 2, 6
+    frames) with 3 synthetic boxes a stream spliced in after the real
+    batched detector ran. Returns each stream's (id, tlbr) rows after each
+    frame."""
+    import numpy as np
+
+    from fastmot_tpu_torch.detector import make_detections
+    from fastmot_tpu_torch.parallel import MultiStreamMOT
+    size, n, n_obj = (320, 256), 2, 3
+    mot = MultiStreamMOT(size, n, detector_frame_skip=2, class_ids=(0,),
+                         yolo_detector_cfg={'model': 'YOLOv4Tiny'},
+                         tracker_cfg={'max_age': 3}, device=device)
+    base = np.random.default_rng(3).integers(0, 256, (size[1] + 8,
+                                                      size[0] + 8, 3))
+
+    def boxes(f, s):
+        x = 30.0 + 80 * np.arange(n_obj) + 2 * f + 10 * s
+        y = 40.0 + 30 * np.arange(n_obj)
+        return np.stack([x, y, x + 40, y + 110], -1)
+
+    def padded(f):
+        tlbr = torch.zeros(n, 128, 4)
+        for s in range(n):
+            tlbr[s, :n_obj] = torch.as_tensor(boxes(f, s))
+        valid = torch.arange(128).expand(n, 128) < n_obj
+        return tuple(t.to(device) for t in (
+            tlbr, torch.where(valid, 0, -1).int(), valid.float() * 0.9,
+            valid))
+
+    det = mot.detector
+    real_post, real_dev = det.postprocess, det.postprocess_device_batch
+
+    def post():
+        real_post()
+        return [make_detections(boxes(0, s), np.zeros(n_obj, int),
+                                np.full(n_obj, 0.9)) for s in range(n)]
+
+    def post_dev():
+        real_dev()
+        return padded(mot.frame_count)
+
+    det.postprocess, det.postprocess_device_batch = post, post_dev
+    mot.reset(1 / 30.0)
+    rows = []
+    for i in range(6):
+        mot.step([base[i % 4:i % 4 + size[1], (i + s) % 8:(i + s) % 8
+                       + size[0]].astype(np.uint8) for s in range(n)])
+        rows.append([sorted((t.trk_id, t.tlbr.copy())
+                            for t in mot.visible_tracks(s))
+                     for s in range(n)])
+    return rows
+
+
+@pytest.mark.cuda
+def test_multi_stream_mot_card_matches_cpu(cuda_device):
+    """One YOLO batch, one OSNet call on 256 crops and the stream-axis
+    tracker on the card: every stream's track IDs on every frame equal the
+    CPU run's, boxes within 2 px."""
+    before = osblock.launches
+    got = _multi_stream_run(cuda_device)
+    assert osblock.launches == before + 6 * 2        # frames 2 and 4
+    want = _multi_stream_run('cpu')
+    n_rows = 0
+    for g_streams, w_streams in zip(got, want):
+        for g, w in zip(g_streams, w_streams):
+            assert [t for t, _ in g] == [t for t, _ in w]
+            for (_, a), (_, b) in zip(g, w):
+                assert abs(a - b).max() <= 2.0
+            n_rows += len(g)
+    assert n_rows == 3 * 2 * 4                       # confirmed at frame 2
+
+
+def test_multi_stream_mot_needs_the_card_unless_asked_for_the_cpu():
+    """``MultiStreamMOT`` runs on the card by default; without one it
+    raises (it never falls back to the CPU)."""
+    from fastmot_tpu_torch.parallel import MultiStreamMOT
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present: the default is valid here')
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MultiStreamMOT((160, 128), 2)

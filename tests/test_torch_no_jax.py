@@ -1,8 +1,9 @@
 """The port's main path needs neither JAX nor OpenCV (the machine with the
 card has neither): in a fresh interpreter where both are unimportable,
-``fastmot_tpu_torch``, its checkpoint importers and its int8 modules
-import, and ``MOT`` runs a few frames with the PUBLIC and the SSD
-detectors, and an association frame under int8."""
+``fastmot_tpu_torch``, its checkpoint importers, its int8 modules and
+``fastmot_tpu_torch.parallel`` import, ``MOT`` runs a few frames with the
+PUBLIC and the SSD detectors, and an association frame under int8, and a
+2-stream ``MultiStreamMOT`` runs its first frame and a gap frame."""
 import os
 import re
 import subprocess
@@ -26,7 +27,7 @@ loaded = [m for m in sys.modules if m.split('.')[0] in
           ('jax', 'flax', 'fastmot_tpu', 'cv2')
           and sys.modules[m] is not None]
 assert not loaded, loaded
-print('OK', len(mot.tracker.tracks))
+print('OK')
 '''
 
 PUBLIC = '''
@@ -76,6 +77,19 @@ for _ in range(3):
 assert mot.frame_count == 3
 '''
 
+MULTI = '''
+from fastmot_tpu_torch.parallel import MultiStreamMOT
+mot = MultiStreamMOT((160, 128), 2, detector_frame_skip=2, class_ids=(0,),
+                     yolo_detector_cfg={'model': 'YOLOv4Tiny'},
+                     tracker_cfg={'max_age': 3}, device='cpu')
+mot.reset(1 / 30.0)
+for _ in range(2):
+    mot.step([rng.integers(0, 256, (128, 160, 3), dtype=np.uint8)
+              for _ in range(2)])
+mot.sync()
+assert mot.frame_count == 2 and len(mot.trackers) == 2
+'''
+
 
 def run_without_jax(body, *args):
     """Run ``body`` in a fresh interpreter where jax and cv2 are
@@ -106,6 +120,10 @@ def test_ssd_path_and_importers_import_neither_jax_nor_cv2():
 
 def test_int8_path_imports_neither_jax_nor_cv2():
     run_without_jax(INT8)
+
+
+def test_multi_stream_path_imports_neither_jax_nor_cv2():
+    run_without_jax(MULTI)
 
 
 def test_port_sources_import_no_jax():

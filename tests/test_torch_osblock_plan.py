@@ -6,12 +6,14 @@ import numpy as np
 import pytest
 import torch
 
-from fastmot_tpu_torch import FeatureExtractor, Flow, MOT, MultiTracker, app
+from fastmot_tpu_torch import (FeatureExtractor, Flow, KalmanFilter, MOT,
+                               MultiTracker, app)
 from fastmot_tpu_torch.detector import (PublicDetector, SSDDetector,
                                         YOLODetector)
 from fastmot_tpu_torch.models.layers import random_init_
 from fastmot_tpu_torch.models.osnet import OSBlock
 from fastmot_tpu_torch.ops import osnet_block as ob
+from fastmot_tpu_torch.parallel import StreamTracker
 
 # (C_in, F, H, W) of every OSBlock at 256x128 crops
 OSNET025_BLOCKS = [(16, 64, 64, 32), (64, 64, 64, 32), (64, 96, 32, 16),
@@ -159,6 +161,8 @@ ENTRY_POINTS = {
     'FeatureExtractor': lambda: FeatureExtractor(),
     'MultiTracker': lambda: MultiTracker((160, 120), 'euclidean'),
     'Flow': lambda: Flow((160, 120)),
+    'KalmanFilter': lambda: KalmanFilter(),
+    'StreamTracker': lambda: StreamTracker((160, 120), 'euclidean', 2),
     'CLI': lambda: app.main(['-i', 'missing.mp4', '--mot']),
 }
 
