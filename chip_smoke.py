@@ -56,7 +56,15 @@ Phases, each raising on failure (the exit code is then non-zero):
    tracks on every stream, finite Kalman state, 6 OSBlock launches per
    association frame (one OSNet call on 1,024 crops, not one per stream),
    streams 0 and 1 equal; the step medians and the aggregate FPS beside
-   phase 6's single-stream median, then each stage alone.
+   phase 6's single-stream median, then each stage alone;
+14. mesh (``parallel.make_stream_mesh``, torch.distributed): (a) phase 13
+   over a 1x1 NCCL mesh in this process, (b) phase 13 over two spawned
+   gloo ranks sharing the card as a (2, 1) mesh, 4 streams each, (c)
+   ``multichip.dryrun_multichip(1)`` over NCCL (YOLOv4-512 under
+   ``shard_conv_channels``, the chained gap step, the association). Every
+   stream's rows of (a) and (b) equal phase 13's (IDs, ages, hits; boxes
+   within 1e-3 px), and the OSBlock runs 6 times an association frame on
+   each rank. The process groups are destroyed before the phase returns.
 
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -100,6 +108,9 @@ INT8_SHAPES = (('yolov4 3x3/2 after the stem', 1, 256, 256, 64, 128, 3, 2, 1),
 # card against CPU under int8: a sum one bf16 ulp apart flips a level now
 # and then, and later convs spread the flip
 INT8_MIN_COS = 0.99
+# phase 14 against phase 13: the sharded runs batch fewer streams, which
+# may round a box an ulp apart
+MESH_PX = 1e-3
 
 
 def log(*args):
@@ -790,78 +801,68 @@ def phase_osnet_int8():
         f'{len(ins)} input ranges):', '; '.join(line))
 
 
-def phase_multi_stream(single_ms, n_streams=N_STREAMS, n_frames=20):
-    """``MultiStreamMOT`` at 8 streams of 1280x720 with cfg/mot.json's
-    detector, extractor, skip and tracker (bench.py config 5)."""
-    from fastmot_tpu_torch.detector import MAX_DETS, make_detections
-    from fastmot_tpu_torch.ops.osnet_block import osblock
-    from fastmot_tpu_torch.parallel import MultiStreamMOT
-    from fastmot_tpu_torch.utils import ConfigDecoder
-
-    with open(ROOT / 'cfg' / 'mot.json') as f:
-        cfg = json.load(f, cls=ConfigDecoder)['mot_cfg']
-    mot = MultiStreamMOT(
-        SIZE, n_streams, detector_frame_skip=cfg['detector_frame_skip'],
-        class_ids=cfg['class_ids'],
-        yolo_detector_cfg=cfg['yolo_detector_cfg'],
-        feature_extractor_cfgs=cfg['feature_extractor_cfgs'],
-        tracker_cfg=cfg['tracker_cfg'], device='cuda')
-    skip = mot.detector_frame_skip
-    # each stream its own texture; streams 0 and 1 the same input
+def multi_stream_inputs(n_streams=N_STREAMS, n_frames=20, skip=5):
+    """Phase 13's drifting textured frames (each stream its own texture,
+    streams 0 and 1 the same input) and its detections, 40 a stream on
+    every detection frame, as global arrays (``multichip.splice_
+    detections``)."""
+    from fastmot_tpu_torch.detector import MAX_DETS
     seeds = [10 + max(s, 1) for s in range(n_streams)]
     textures = {seed: textured_frames(SIZE, n_frames, seed=seed)
                 for seed in set(seeds)}
     frames = [np.stack([textures[seed][i] for seed in seeds])
               for i in range(n_frames)]
     offsets = [4.0 * max(s - 1, 0) for s in range(n_streams)]
-
-    def boxes(i, s):
-        return synth_tlbrs(i, SIZE) + offsets[s]
-
-    staged = {}
-    for i in range(0, n_frames, skip):
-        tlbr = np.zeros((n_streams, MAX_DETS, 4), np.float32)
+    det_frames = list(range(0, n_frames, skip))
+    tlbr = np.zeros((len(det_frames), n_streams, MAX_DETS, 4), np.float32)
+    for i, f in enumerate(det_frames):
         for s in range(n_streams):
-            tlbr[s, :N_OBJECTS] = boxes(i, s)
-        valid = np.arange(MAX_DETS)[None].repeat(n_streams, 0) < N_OBJECTS
-        staged[i] = tuple(torch.as_tensor(a, device='cuda') for a in (
-            tlbr, np.where(valid, 1, -1).astype(np.int32),
-            np.where(valid, 0.9, 0).astype(np.float32), valid))
+            tlbr[i, s, :N_OBJECTS] = synth_tlbrs(f, SIZE) + offsets[s]
+    valid = np.zeros(tlbr.shape[:3], bool)
+    valid[..., :N_OBJECTS] = True
+    return frames, dict(frames=np.array(det_frames), tlbr=tlbr,
+                        label=np.where(valid, 1, -1).astype(np.int32),
+                        conf=np.where(valid, 0.9, 0).astype(np.float32),
+                        valid=valid)
+
+
+def multi_stream_kwargs():
+    """``MultiStreamMOT``'s arguments from cfg/mot.json (bench.py config
+    5): YOLOv4-512, OSNet-x0.25, detector_frame_skip=5."""
+    from fastmot_tpu_torch.utils import ConfigDecoder
+    with open(ROOT / 'cfg' / 'mot.json') as f:
+        cfg = json.load(f, cls=ConfigDecoder)['mot_cfg']
+    return dict(size=SIZE, detector_frame_skip=cfg['detector_frame_skip'],
+                class_ids=cfg['class_ids'],
+                yolo_detector_cfg=cfg['yolo_detector_cfg'],
+                feature_extractor_cfgs=cfg['feature_extractor_cfgs'],
+                tracker_cfg=cfg['tracker_cfg'])
+
+
+def phase_multi_stream(single_ms, frames, dets, n_streams=N_STREAMS):
+    """``MultiStreamMOT`` at 8 streams of 1280x720 with cfg/mot.json's
+    detector, extractor, skip and tracker (bench.py config 5). Returns the
+    OSBlock launches, every stream's final rows and the step median."""
+    from fastmot_tpu_torch.detector import MAX_DETS
+    from fastmot_tpu_torch.multichip import run_multi_stream
+    from fastmot_tpu_torch.ops.osnet_block import osblock
+    from fastmot_tpu_torch.parallel import MultiStreamMOT
+
+    mot = MultiStreamMOT(n_streams=n_streams, device='cuda',
+                         **multi_stream_kwargs())
+    skip = mot.detector_frame_skip
+    n_frames = len(frames)
     det = mot.detector
-    real_post, real_dev = det.postprocess, det.postprocess_device_batch
-
-    def post():
-        real_post()
-        return [make_detections(boxes(0, s), np.ones(N_OBJECTS, int),
-                                np.full(N_OBJECTS, 0.9))
-                for s in range(n_streams)]
-
-    def post_dev():
-        real_dev()
-        return staged[mot.frame_count]
-
-    det.postprocess, det.postprocess_device_batch = post, post_dev
+    real_dev = det.postprocess_device_batch
 
     osblock.launches = 0
-    mot.reset(1 / 30.0)
-    step_ms = []
-    for frame in frames:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        mot.step(frame)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
+    (rows,), step_ms = run_multi_stream(mot, frames, dets)
     launches = osblock.launches
-    mot.sync()
     n_assoc = sum(1 for i in range(1, n_frames) if i % skip == 0)
     visible = [len(list(mot.visible_tracks(s))) for s in range(n_streams)]
     state = mot.stream_tracker._dev_state
     finite = bool(torch.isfinite(state[0]).all()
                   and torch.isfinite(state[1]).all())
-
-    def rows(s):
-        return sorted((tuple(t.tlbr), t.age, t.hits)
-                      for t in mot.trackers[s].tracks.values())
 
     gap = [t for i, t in enumerate(step_ms) if i % skip]
     assoc = [t for i, t in enumerate(step_ms) if i and i % skip == 0]
@@ -884,7 +885,7 @@ def phase_multi_stream(single_ms, n_streams=N_STREAMS, n_frames=20):
         raise AssertionError(f'multi-stream: osblock launched {launches} '
                              f'times, expected {6 * n_assoc} (one OSNet '
                              'call per association frame)')
-    if rows(0) != rows(1):
+    if [r[1:] for r in rows[0]] != [r[1:] for r in rows[1]]:
         raise AssertionError('multi-stream: streams 0 and 1 had the same '
                              'input but differ')
 
@@ -893,7 +894,8 @@ def phase_multi_stream(single_ms, n_streams=N_STREAMS, n_frames=20):
     # track (on a repeated frame it stops after one step a level)
     last = mot._stage_frames(frames[-1])
     pair = [mot._stage_frames(frames[-2]), last]
-    det_b = staged[0]
+    det_b = tuple(torch.as_tensor(dets[k][0], device='cuda')
+                  for k in ('tlbr', 'label', 'conf', 'valid'))
     ext = mot.extractor
     emb = [None]
 
@@ -917,10 +919,96 @@ def phase_multi_stream(single_ms, n_streams=N_STREAMS, n_frames=20):
     log('multi-stream stages alone, ms: ' + '; '.join(
         f'{name} {wall_ms(fn, n=3, warmup=1):.3f}'
         for name, fn in stages.items()))
-    return launches
+    return launches, rows, statistics.median(step_ms)
+
+
+def _same_streams(tag, got, want):
+    """Per stream, the same (id, age, hits) rows and boxes within
+    MESH_PX; returns the largest box difference."""
+    worst = 0.0
+    for s in sorted(want):
+        g, w = got[s], want[s]
+        if [(r[0], r[2], r[3]) for r in g] != [(r[0], r[2], r[3])
+                                               for r in w]:
+            raise AssertionError(f'{tag} stream {s}: (id, age, hits) '
+                                 f'{[(r[0], r[2], r[3]) for r in g]} vs '
+                                 f'{[(r[0], r[2], r[3]) for r in w]}')
+        for a, b in zip(g, w):
+            worst = max(worst, float(np.abs(np.subtract(a[1], b[1])).max()))
+    if worst > MESH_PX:
+        raise AssertionError(f'{tag}: boxes {worst} px off phase 13')
+    return worst
+
+
+def phase_mesh(frames, dets, want_rows, single_multi_ms, n_streams=N_STREAMS):
+    """(a) ``MultiStreamMOT`` over a 1x1 NCCL mesh in this process; (b) two
+    gloo ranks sharing the card as a (2, 1) mesh, 4 streams each; (c)
+    ``dryrun_multichip(1)`` over NCCL. (a) and (b) on phase 13's frames
+    and detections, every stream's rows against phase 13's. Returns the
+    OSBlock launches of (a) and (b)."""
+    import torch.distributed as dist
+    from fastmot_tpu_torch import multichip
+    from fastmot_tpu_torch.ops.osnet_block import osblock
+    from fastmot_tpu_torch.parallel import MultiStreamMOT, make_stream_mesh
+
+    t_phase = time.perf_counter()
+    kwargs = multi_stream_kwargs()
+    skip = kwargs['detector_frame_skip']
+    n_assoc = sum(1 for i in range(1, len(frames)) if i % skip == 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group('nccl', init_method=f'file://{tmp}/store',
+                                world_size=1, rank=0)
+        try:
+            mot = MultiStreamMOT(n_streams=n_streams, device='cuda',
+                                 mesh=make_stream_mesh(device='cuda'),
+                                 **kwargs)
+            osblock.launches = 0
+            (rows,), step_ms = multichip.run_multi_stream(mot, frames, dets)
+            launches = osblock.launches
+        finally:
+            dist.destroy_process_group()
+    del mot
+    torch.cuda.empty_cache()
+    worst = _same_streams('mesh (a) 1 NCCL rank', rows, want_rows)
+    log(f'mesh (a) 1 NCCL rank, 8 streams: rows == phase 13 on every '
+        f'stream (boxes within {worst} px), osblock launches {launches}; '
+        f'step ms median {statistics.median(step_ms):.3f} against phase '
+        f"13's {single_multi_ms:.3f}")
+    if launches != 6 * n_assoc:
+        raise AssertionError(f'mesh (a): osblock launched {launches} times, '
+                             f'expected {6 * n_assoc}')
+
+    t_b = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(Path(tmp) / 'frames.npy', np.stack(frames))
+        np.savez(Path(tmp) / 'dets.npz', **dets)
+        ranks = multichip.run_ranks(2, multichip.multi_stream_rank, (
+            tmp, n_streams, 1, kwargs, 'cuda', 'cpu'), backend='gloo')
+    rows_b = {}
+    for r, out in enumerate(ranks):
+        rows_b.update(out['rows'][0])
+        if out['osblock_launches'] != 6 * n_assoc:
+            raise AssertionError(f'mesh (b) rank {r}: osblock launched '
+                                 f'{out["osblock_launches"]} times, '
+                                 f'expected {6 * n_assoc}')
+    worst = _same_streams('mesh (b) 2 gloo ranks', rows_b, want_rows)
+    log(f'mesh (b) 2 gloo ranks on one card, streams '
+        f'{[o["local_streams"] for o in ranks]}: rows == phase 13 on every '
+        f'stream (boxes within {worst} px), osblock launches '
+        f'{[o["osblock_launches"] for o in ranks]}; step ms medians '
+        f'{[round(statistics.median(o["step_ms"]), 3) for o in ranks]}; '
+        f'{time.perf_counter() - t_b:.1f} s, spawn and build included')
+
+    t0 = time.perf_counter()
+    multichip.dryrun_multichip(1, device='cuda')
+    log(f'mesh (c) dryrun_multichip(1) over NCCL: '
+        f'{time.perf_counter() - t0:.1f} s, spawn and build included; '
+        f'phase 14 {time.perf_counter() - t_phase:.1f} s')
+    return launches + sum(o['osblock_launches'] for o in ranks)
 
 
 def main():
+    t0 = time.perf_counter()
     name = phase_device()
     phase_build()
     kern = phase_kernel()
@@ -939,7 +1027,12 @@ def main():
     _, int8_ms = phase_main_path(tag='int8 main path', int8=True)
     log(f'main path step median: float {float_ms:.3f} ms, int8 '
         f'{int8_ms:.3f} ms')
-    launches += phase_multi_stream(float_ms)
+    frames, dets = multi_stream_inputs()
+    multi_launches, rows, multi_ms = phase_multi_stream(float_ms, frames,
+                                                        dets)
+    launches += multi_launches
+    launches += phase_mesh(frames, dets, rows, multi_ms)
+    log(f'every phase passed in {time.perf_counter() - t0:.1f} s')
     print(json.dumps({'kernels': [{
         'name': 'osblock', 'route': 'cuda',
         'source': 'fastmot_tpu_torch/csrc/osnet_block.cu',

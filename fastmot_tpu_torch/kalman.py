@@ -7,7 +7,10 @@ noise per source, and the homography warp of mean and covariance. Every
 function broadcasts over a leading track axis, in float32. The warp's
 8x8 Jacobian is written in closed form (the JAX package gets it from
 ``jax.jacfwd``); the 4x4 innovation systems go through ``torch.linalg``.
-``KalmanFilter`` is the JAX package's per-track API on top of them.
+``KalmanFilter`` is the JAX package's per-track API on top of them; the
+``batched_*`` names are the JAX package's track-axis aliases, and
+``batched_warp`` takes its Jacobian by ``torch.func.jacfwd`` of
+``warp_mean_fn`` under ``torch.func.vmap``, as the JAX one does.
 """
 from __future__ import annotations
 
@@ -187,6 +190,57 @@ def warp(means, covs, h_mat):
         (dv_dps[0], z, dgs[0], z), (z, dv_dps[1], z, dgs[1]))], -2)
     new_covs = jac @ covs @ jac.transpose(-1, -2)
     return torch.cat(pos + vel, -1), new_covs
+
+
+def warp_mean_fn(mean, h_mat):
+    """Homography pushforward of one 8-dim state mean: each corner p maps
+    to g(p) = (A p + t) / (c.p + 1) and its velocity v to Dg(p) v."""
+    a = h_mat[:2, :2]
+    t = h_mat[:2, 2]
+    cvec = h_mat[2, :2]
+
+    def push(p, v):
+        denom = cvec @ p + 1.0
+        num = a @ p + t
+        return num / denom, (a @ v) / denom - num * (cvec @ v) / (
+            denom * denom)
+
+    tl2, vtl2 = push(mean[0:2], mean[4:6])
+    br2, vbr2 = push(mean[2:4], mean[6:8])
+    return torch.cat([tl2, br2, vtl2, vbr2])
+
+
+# Track-axis aliases of the JAX package: every function above already
+# takes a leading track axis.
+
+def batched_create(cfg: KalmanConfig, det_tlbrs):
+    """[N, 4] detections -> ([N, 8] means, [N, 8, 8] covariances)."""
+    return create(cfg, det_tlbrs)
+
+
+def batched_predict(cfg: KalmanConfig, means, covs, trans_mat, acc_cov):
+    return predict(cfg, means, covs, trans_mat, acc_cov)
+
+
+def batched_update(cfg: KalmanConfig, means, covs, measurements,
+                   meas_type_flow, multipliers):
+    """``meas_type_flow`` and ``multipliers`` are per-track tensors."""
+    return update(cfg, means, covs, measurements, meas_type_flow,
+                  multipliers)
+
+
+def batched_warp(means, covs, h_mat):
+    """[T, 8] means / [T, 8, 8] covariances warped by a homography, the
+    Jacobian of ``warp_mean_fn`` by forward-mode autodiff per track."""
+    new_means = torch.func.vmap(lambda m: warp_mean_fn(m, h_mat))(means)
+    jac = torch.func.vmap(
+        lambda m: torch.func.jacfwd(warp_mean_fn)(m, h_mat))(means)
+    return new_means, jac @ covs @ jac.transpose(-1, -2)
+
+
+def batched_maha_distance(cfg: KalmanConfig, means, covs, measurements):
+    """[T] states x [N, 4] measurements -> [T, N] squared Mahalanobis."""
+    return maha_distance(cfg, means, covs, measurements)
 
 
 class KalmanFilter:

@@ -98,6 +98,10 @@ class DarknetModule(nn.Module):
                 int(sec.get('groups', 1)), bias=not bn, dtype=dtype))
             if bn:
                 self.add_module(f'bn{i}', BatchNorm(filters))
+        # conv index -> parallel.streams.ChannelShard, set by
+        # shard_conv_channels: the conv holds a block of its output
+        # channels, gathered after its activation
+        self.channel_shards = {}
 
     def stem_layers(self, h: int, w: int) -> int:
         """How many leading convs the JAX package folds to space-to-depth
@@ -137,10 +141,15 @@ class DarknetModule(nn.Module):
         for i, sec in enumerate(self.layers):
             t = sec['type']
             if t == 'convolutional':
+                shard = self.channel_shards.get(i)
+                if shard is not None and shard.in_slice is not None:
+                    x = x[..., shard.in_slice]
                 y = getattr(self, f'conv{i}')(x, f32_sum=i < n_stem)
                 if int(sec.get('batch_normalize', 0)):
                     y = getattr(self, f'bn{i}')(y)
                 x = _DN_ACTS[sec.get('activation', 'linear')](y)
+                if shard is not None:
+                    x = shard.gather(x)
             elif t == 'shortcut':
                 frm = int(sec['from'])
                 x = x + outputs[i + frm if frm < 0 else frm]

@@ -1,7 +1,9 @@
 """Post-training int8 quantization (port of
 ``fastmot_tpu/models/quantize.py``).
 
-The JAX package's three parts, in PyTorch idiom (a module wrapper, forward
+The JAX package's functional API (``quantize_params_int8``,
+``dequantize_params``, ``make_quantized_apply``) works on state dicts.
+Its three other parts, in PyTorch idiom (a module wrapper, forward
 hooks and plain functions on tensors where it used a Flax interceptor):
 
 - ``quantize_weight_int8``: symmetric per-output-channel int8 for every
@@ -73,11 +75,38 @@ def quantize_weight_int8(w: torch.Tensor):
             torch.from_numpy(scale).to(w.device))
 
 
-def quantize_state_int8(state_dict) -> dict:
-    """``{name: (q, scale)}`` of every weight of rank >= 2 in a state dict
-    (the leaves the JAX package's ``quantize_params_int8`` picks)."""
-    return {name: quantize_weight_int8(t) for name, t in state_dict.items()
-            if name.rsplit('.', 1)[-1] == 'weight' and t.dim() >= 2}
+def quantize_params_int8(state_dict):
+    """The JAX package's functional API: ``(q_state, scales)``, the state
+    dict with every weight of rank >= 2 as int8 and its float32
+    per-output-channel scale (the leaves the JAX package picks); other
+    entries pass through (scale None)."""
+    q_state, scales = {}, {}
+    for name, t in state_dict.items():
+        if name.rsplit('.', 1)[-1] == 'weight' and t.dim() >= 2:
+            q_state[name], scales[name] = quantize_weight_int8(t)
+        else:
+            q_state[name], scales[name] = t, None
+    return q_state, scales
+
+
+def dequantize_params(q_state, scales):
+    """Float state dict from ``quantize_params_int8``'s pair."""
+    return {k: q if scales[k] is None else q.float() * scales[k]
+            for k, q in q_state.items()}
+
+
+def make_quantized_apply(module: nn.Module, state_dict):
+    """``(apply_fn, q_state)``: ``apply_fn(q_state, x)`` runs ``module``
+    through ``torch.func.functional_call`` on the int8 weights dequantized
+    per call."""
+    q_state = quantize_params_int8(state_dict)
+
+    def apply_fn(q_state, x):
+        q, scales = q_state
+        return torch.func.functional_call(module, dequantize_params(q, scales),
+                                          (x,))
+
+    return apply_fn, q_state
 
 
 def fake_quant(x: torch.Tensor, thresh: float) -> torch.Tensor:

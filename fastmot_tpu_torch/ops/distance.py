@@ -8,7 +8,10 @@ import enum
 
 import torch
 
-from .geometry import bbox_ious
+from .geometry import (area, bbox_ious, enclosing, get_center,
+                       get_width_height)
+
+INF_DIST = 1e5
 
 
 class Metric(enum.Enum):
@@ -51,3 +54,33 @@ def cdist(xa: torch.Tensor, xb: torch.Tensor, metric: Metric,
 def iou_dist(tlbrs1: torch.Tensor, tlbrs2: torch.Tensor) -> torch.Tensor:
     """1 - IoU pairwise matrix."""
     return 1.0 - bbox_ious(tlbrs1, tlbrs2)
+
+
+def _pairwise_enclosing_wh(tlbrs1, tlbrs2):
+    return get_width_height(enclosing(tlbrs1[:, None, :], tlbrs2[None, :, :]))
+
+
+def giou_dist(tlbrs1: torch.Tensor, tlbrs2: torch.Tensor) -> torch.Tensor:
+    """(1 - GIoU) / 2 pairwise matrix."""
+    iou = bbox_ious(tlbrs1, tlbrs2)
+    tl = torch.maximum(tlbrs1[:, None, 0:2], tlbrs2[None, :, 0:2])
+    br = torch.minimum(tlbrs1[:, None, 2:4], tlbrs2[None, :, 2:4])
+    wh = br - tl + 1.0
+    inter = torch.where(torch.all(wh > 0, dim=-1), wh[..., 0] * wh[..., 1],
+                        torch.zeros_like(wh[..., 0]))
+    union = area(tlbrs1)[:, None] + area(tlbrs2)[None, :] - inter
+    ew, eh = _pairwise_enclosing_wh(tlbrs1, tlbrs2)
+    area_encl = ew * eh
+    giou = iou - (area_encl - union) / torch.clamp(area_encl, min=1e-12)
+    return (1.0 - giou) * 0.5
+
+
+def diou_dist(tlbrs1: torch.Tensor, tlbrs2: torch.Tensor) -> torch.Tensor:
+    """(1 - DIoU) / 2 pairwise matrix with beta = 0.6."""
+    iou = bbox_ious(tlbrs1, tlbrs2)
+    d = torch.sum((get_center(tlbrs1)[:, None, :]
+                   - get_center(tlbrs2)[None, :, :]) ** 2, dim=-1)
+    ew, eh = _pairwise_enclosing_wh(tlbrs1, tlbrs2)
+    c = ew * ew + eh * eh
+    diou = iou - (d / torch.clamp(c, min=1e-12)) ** 0.6
+    return (1.0 - diou) * 0.5

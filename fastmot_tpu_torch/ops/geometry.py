@@ -43,10 +43,22 @@ def get_center(tlbr: torch.Tensor) -> torch.Tensor:
     return (tlbr[..., 0:2] + tlbr[..., 2:4]) * 0.5
 
 
+def to_tlwh(tlbr: torch.Tensor) -> torch.Tensor:
+    return torch.cat([tlbr[..., 0:2], get_size(tlbr)], dim=-1)
+
+
 def to_tlbr(tlwh: torch.Tensor) -> torch.Tensor:
     tl = tlwh[..., 0:2]
     br = tl + tlwh[..., 2:4] - 1.0
     return torch.round(torch.cat([tl, br], dim=-1))
+
+
+def intersection(tlbr1: torch.Tensor, tlbr2: torch.Tensor):
+    """Elementwise box intersection: ``(box, valid)``, ``valid`` False
+    where the boxes are disjoint."""
+    tl = torch.maximum(tlbr1[..., 0:2], tlbr2[..., 0:2])
+    br = torch.minimum(tlbr1[..., 2:4], tlbr2[..., 2:4])
+    return torch.cat([tl, br], dim=-1), torch.all(br >= tl, dim=-1)
 
 
 def enclosing(tlbr1: torch.Tensor, tlbr2: torch.Tensor) -> torch.Tensor:
@@ -73,6 +85,12 @@ def _safe_div(num, den):
 def ios(tlbr1: torch.Tensor, tlbr2: torch.Tensor) -> torch.Tensor:
     """Elementwise intersection-over-self."""
     return _safe_div(_inter_area(tlbr1, tlbr2), area(tlbr1))
+
+
+def iom(tlbr1: torch.Tensor, tlbr2: torch.Tensor) -> torch.Tensor:
+    """Elementwise intersection over the smaller box's area."""
+    return _safe_div(_inter_area(tlbr1, tlbr2),
+                     torch.minimum(area(tlbr1), area(tlbr2)))
 
 
 def bbox_ious(tlbrs1: torch.Tensor, tlbrs2: torch.Tensor) -> torch.Tensor:
@@ -151,3 +169,18 @@ def greedy_suppress(overlap: torch.Tensor, scores: torch.Tensor,
         keep = keep | wave
         remaining = remaining & ~wave & ~suppressed
     return keep
+
+
+def nms_mask(tlbrs: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+             nms_thresh: float) -> torch.Tensor:
+    """Greedy NMS keep mask over padded boxes ``[N, 4]`` (IoU overlap)."""
+    return greedy_suppress(bbox_ious(tlbrs, tlbrs), scores, valid,
+                           nms_thresh)
+
+
+def diou_nms_mask(tlbrs: torch.Tensor, scores: torch.Tensor,
+                  valid: torch.Tensor, nms_thresh: float,
+                  beta: float = 0.6) -> torch.Tensor:
+    """Greedy DIoU-NMS keep mask over padded boxes ``[N, 4]``."""
+    return greedy_suppress(diou_matrix(tlbrs, beta), scores, valid,
+                           nms_thresh)

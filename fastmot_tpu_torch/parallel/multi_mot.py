@@ -11,8 +11,13 @@ Every stage runs once per frame for all S streams:
   * the tracker state carries the stream axis (``StreamTracker``).
 
 All streams share the detector-skip schedule of the single-stream
-``MOT``. The JAX package's ``mesh=`` (the stream axis sharded over chips)
-is not ported.
+``MOT``. With ``mesh`` (``parallel.make_stream_mesh``) the stream axis is
+sharded over the ranks of ``'streams'``: ``step`` takes the global batch
+of S frames and stages only this rank's ``local_streams``, whose detector,
+ReID (``S_local * 128`` crops in one OSNet call) and tracker run on this
+rank; the ranks on ``'model'`` of one block run the same streams, as the
+JAX package replicates them. Under int8 with dynamic ranges, one input
+range then spans this rank's crops, not all streams'.
 """
 from __future__ import annotations
 
@@ -71,7 +76,9 @@ class MultiStreamMOT:
     API: ``step(frames)`` where ``frames`` is a length-S list of BGR
     frames (or an [S, H, W, 3] array or tensor); ``visible_tracks(s)`` per
     stream; ``reset(cap_dt)``; ``sync()`` flushes deferred host
-    bookkeeping; ``trackers`` the per-stream host mirrors."""
+    bookkeeping; ``trackers`` the per-stream host mirrors (this rank's
+    ``local_streams`` under a mesh; ``sync`` and ``visible_tracks`` are
+    then collective over ``'streams'``)."""
 
     def __init__(self, size, n_streams,
                  detector_frame_skip=5,
@@ -79,7 +86,7 @@ class MultiStreamMOT:
                  yolo_detector_cfg=None,
                  feature_extractor_cfgs=None,
                  tracker_cfg=None,
-                 device='cuda'):
+                 device='cuda', mesh=None):
         self.size = size
         self.n_streams = n_streams
         self.device = torch_device(device)
@@ -87,17 +94,22 @@ class MultiStreamMOT:
         self.detector_frame_skip = detector_frame_skip
         self.class_ids = tuple(np.unique(class_ids))
 
-        self.detector = BatchedYOLODetector(
-            size, self.class_ids, n_streams, device=self.device,
-            **cfg_kwargs(yolo_detector_cfg))
         if feature_extractor_cfgs is None:
             feature_extractor_cfgs = ({'model': 'OSNet025'},)
         self.extractor = FeatureExtractor(
             device=self.device, **cfg_kwargs(feature_extractor_cfgs[0]))
         self.stream_tracker = StreamTracker(
             size, self.extractor.metric, n_streams, device=self.device,
-            **cfg_kwargs(tracker_cfg))
+            mesh=mesh, **cfg_kwargs(tracker_cfg))
+        self.detector = BatchedYOLODetector(
+            size, self.class_ids, len(self.local_streams),
+            device=self.device, **cfg_kwargs(yolo_detector_cfg))
         self.frame_count = 0
+
+    @property
+    def local_streams(self):
+        """The global indices of the streams this rank tracks."""
+        return self.stream_tracker.local_streams
 
     @property
     def trackers(self):
@@ -115,11 +127,20 @@ class MultiStreamMOT:
         self.stream_tracker.reset(cap_dt)
 
     def _stage_frames(self, frames):
+        """This rank's streams of the global batch, on the device."""
+        assert len(frames) == self.n_streams
+        mine = self.local_streams
         if isinstance(frames, (list, tuple)):
-            assert len(frames) == self.n_streams
+            frames = frames[mine.start:mine.stop]
             if all(isinstance(f, torch.Tensor) for f in frames):
                 return torch.stack(frames).to(self.device)
             frames = np.stack(frames)
+        elif not isinstance(frames, torch.Tensor):
+            # a copy of this rank's streams (the batch may be a read-only
+            # memory map)
+            frames = np.array(frames[mine.start:mine.stop])
+        else:
+            frames = frames[mine.start:mine.stop]
         return torch.as_tensor(frames).to(self.device, copy=True)
 
     @torch.no_grad()

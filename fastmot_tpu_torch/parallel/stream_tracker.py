@@ -16,6 +16,19 @@ Kept from the JAX package: the densest stream picks the flow budget
 ``init`` and goes up by one per gap frame, and its draws come from its own
 seed; the pending infos replay stream-major at ``sync`` (``Track._count``
 is global, so the order sets the IDs).
+
+With ``mesh`` (``parallel.make_stream_mesh``) this rank owns the
+contiguous block of streams given by its coordinate on ``'streams'`` (the
+streams split evenly over that axis) and holds only their state; the ranks on
+``'model'`` of one block hold the same replicated state. Every method then
+takes and returns this rank's streams only, and the ranks call them in
+lockstep. Two things cross the ``'streams'`` axis so that the sharded run
+gives the unsharded one's numbers: one ``all_reduce(MAX)`` of the densest
+stream's track count per gap frame (the flow budget, which sets every
+stream's RANSAC draws), and at ``init`` and ``sync`` one ``all_gather`` of
+each stream's count of new tracks, from which each rank starts its ID
+counter at the stream-major offset of its first stream (each process has
+its own ``Track._count``).
 """
 from __future__ import annotations
 
@@ -23,6 +36,7 @@ import logging
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import kalman as kf
 from ..device import torch_device
@@ -32,6 +46,7 @@ from ..tracker import (MAX_DETS, MAX_TRACKS, MultiTracker,
                        assoc_costs_batch, commit_batch, fetch_infos,
                        finals_core, gap_commit_batch, gap_points_batch,
                        stages_scan_core)
+from .streams import axis_size
 
 __all__ = ['StreamTracker']
 
@@ -44,16 +59,29 @@ class StreamTracker:
     Public surface: ``init / track / update_device / sync / reset /
     visible_tracks`` plus the per-stream host mirrors ``trackers[s]``
     (Track dicts, IDs, logging: the presentation shell of
-    ``MultiTracker``)."""
+    ``MultiTracker``). With ``mesh``, ``trackers`` holds this rank's
+    streams, ``local_streams`` their global indices."""
 
-    def __init__(self, size, metric, n_streams, device='cuda',
+    def __init__(self, size, metric, n_streams, device='cuda', mesh=None,
                  **tracker_cfg):
         assert n_streams >= 1
         self.n_streams = n_streams
         self.device = torch_device(device)
+        self.mesh = mesh
+        self._group = None
+        lo, n_local = 0, n_streams
+        if mesh is not None:
+            blocks = axis_size(mesh, 'streams')
+            if n_streams % blocks:
+                raise ValueError(f'{n_streams} streams do not split over '
+                                 f'{blocks} stream blocks')
+            n_local = n_streams // blocks
+            lo = mesh.get_local_rank('streams') * n_local
+            self._group = mesh.get_group('streams')
+        self.local_streams = range(lo, lo + n_local)
         self.trackers = [MultiTracker(size, metric, device=self.device,
                                       **tracker_cfg)
-                         for _ in range(n_streams)]
+                         for _ in range(n_local)]
         self.kf_cfg = self.trackers[0].kf_cfg
         self._dev_state = None        # [S, ...] state tuple
         self._hist_store = None       # [S, H, ...]
@@ -77,6 +105,28 @@ class StreamTracker:
             trk._mirrors_dirty = False
             trk._dev_state = None      # the stacked state is authoritative
 
+    def _collective(self, values):
+        """``values`` (ints) of every stream block, in block order: one
+        ``all_gather`` over ``'streams'`` on the mesh's device."""
+        t = torch.tensor(values, dtype=torch.int64,
+                         device=self.mesh.device_type)
+        parts = [torch.empty_like(t)
+                 for _ in range(dist.get_world_size(self._group))]
+        dist.all_gather(parts, t, group=self._group)
+        return torch.stack(parts).cpu().tolist()
+
+    def _claim_ids(self, counts):
+        """Before this rank creates ``counts[i]`` tracks on its i-th stream:
+        start ``Track._count`` at the stream-major offset of its first
+        stream; returns the count after every stream's new tracks."""
+        if self.mesh is None:
+            return None
+        blocks = self._collective([Track._count, *counts])
+        base = blocks[0][0]            # the first block's counter
+        me = self.mesh.get_local_rank('streams')
+        Track._count = base + sum(sum(b[1:]) for b in blocks[:me])
+        return base + sum(sum(b[1:]) for b in blocks)
+
     def _preprocess(self, frames):
         return fk.preprocess(self.trackers[0].flow.spec, frames)
 
@@ -99,14 +149,18 @@ class StreamTracker:
         ``frames``: [S, H, W, 3] uint8 BGR (device tensor or host
         array)."""
         frames = torch.as_tensor(frames, device=self.device)
+        end = self._claim_ids([min(len(d), MAX_DETS)
+                               for d in detections_per_stream])
         for trk, dets in zip(self.trackers, detections_per_stream):
             trk._pending = []
             trk.tracks.clear()
             trk._slot_ids = [None] * MAX_TRACKS
             self._init_stream_tracks(trk, dets)
+        if end is not None:
+            Track._count = end
         self._stack_from_mirrors()
         self._prev_pre = self._preprocess(frames)
-        self._seeds = [0] * self.n_streams
+        self._seeds = [0] * len(self.trackers)
 
     @staticmethod
     def _init_stream_tracks(trk, detections):
@@ -136,7 +190,7 @@ class StreamTracker:
         frames = torch.as_tensor(frames, device=self.device)
         if self._prev_pre is None:
             self._prev_pre = self._preprocess(frames)
-            self._seeds = [0] * self.n_streams
+            self._seeds = [0] * len(self.trackers)
             return
         if self._dirty:
             self._stack_from_mirrors()
@@ -147,6 +201,10 @@ class StreamTracker:
             max_active = max(max_active, n_active)
             trk.overflow.bump('flow_tracks_clipped',
                               n_active - fk.MAX_FLOW_TRACKS)
+        if self.mesh is not None:
+            t = torch.tensor(max_active, device=self.mesh.device_type)
+            dist.all_reduce(t, dist.ReduceOp.MAX, group=self._group)
+            max_active = int(t)
         # one budget for the whole batch: the densest stream picks
         f_cap = fk.flow_budget(max_active)
 
@@ -214,13 +272,39 @@ class StreamTracker:
         if not all_infos:
             return
         fetched = fetch_infos(all_infos)
-        off = 0
+        per_stream, off = [], 0
         for trk in self.trackers:
             n = len(trk._pending)
-            trk.sync(infos=fetched[off:off + n])
+            per_stream.append(fetched[off:off + n])
             off += n
+        end = self._claim_ids([
+            self._new_tracks(trk, infos)
+            for trk, infos in zip(self.trackers, per_stream)]) \
+            if self.mesh is not None else None
+        for trk, infos in zip(self.trackers, per_stream):
+            trk.sync(infos=infos)
+        if end is not None:
+            Track._count = end
+
+    @staticmethod
+    def _new_tracks(trk, infos):
+        """How many tracks the replay of ``infos`` creates on ``trk``."""
+        n = 0
+        for (kind, _, _), flat in zip(trk._pending, infos):
+            if kind == 'assoc':
+                a = trk._unpack_assoc(flat)
+                n += int(np.sum((a['create_det'] >= 0)
+                                & (a['reinstate_hist'] < 0)))
+        return n
 
     def visible_tracks(self, stream: int):
+        """Confirmed, active tracks of global stream ``stream``; with a mesh
+        it must be one of this rank's ``local_streams``."""
+        if self.mesh is not None and stream not in self.local_streams:
+            n_local = len(self.local_streams)
+            owners = self.mesh.mesh[stream // n_local].tolist()
+            raise ValueError(f'stream {stream} is tracked on rank(s) '
+                             f'{owners}, not on rank {self.mesh.get_rank()}')
         self.sync()
-        return (t for t in self.trackers[stream].tracks.values()
-                if t.confirmed and t.active)
+        return (t for t in self.trackers[stream - self.local_streams.start]
+                .tracks.values() if t.confirmed and t.active)

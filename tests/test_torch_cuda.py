@@ -311,11 +311,11 @@ def test_calibrate_int8_cli_on_card(cuda_device, tmp_path):
     assert len(act_ranges) == 40
 
 
-def _multi_stream_run(device):
+def _multi_stream_run(device, mesh=None):
     """``MultiStreamMOT`` at 2 streams of 320x256 (YOLOv4-tiny, skip 2, 6
     frames) with 3 synthetic boxes a stream spliced in after the real
-    batched detector ran. Returns each stream's (id, tlbr) rows after each
-    frame."""
+    batched detector ran, on ``mesh`` if given. Returns each stream's (id,
+    tlbr) rows after each frame."""
     import numpy as np
 
     from fastmot_tpu_torch.detector import make_detections
@@ -323,7 +323,8 @@ def _multi_stream_run(device):
     size, n, n_obj = (320, 256), 2, 3
     mot = MultiStreamMOT(size, n, detector_frame_skip=2, class_ids=(0,),
                          yolo_detector_cfg={'model': 'YOLOv4Tiny'},
-                         tracker_cfg={'max_age': 3}, device=device)
+                         tracker_cfg={'max_age': 3}, device=device,
+                         mesh=mesh)
     base = np.random.default_rng(3).integers(0, 256, (size[1] + 8,
                                                       size[0] + 8, 3))
 
@@ -382,6 +383,30 @@ def test_multi_stream_mot_card_matches_cpu(cuda_device):
                 assert abs(a - b).max() <= 2.0
             n_rows += len(g)
     assert n_rows == 3 * 2 * 4                       # confirmed at frame 2
+
+
+@pytest.mark.cuda
+def test_multi_stream_mot_on_a_one_rank_nccl_mesh(cuda_device, tmp_path):
+    """``MultiStreamMOT`` over a 1x1 NCCL ``make_stream_mesh`` gives the
+    mesh-less run's track IDs and boxes on every stream and frame (the
+    same streams in one batch: equal to the bit)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from fastmot_tpu_torch.parallel import make_stream_mesh
+    want = _multi_stream_run(cuda_device)
+    dist.init_process_group('nccl', init_method=f'file://{tmp_path}/store',
+                            world_size=1, rank=0)
+    try:
+        got = _multi_stream_run(cuda_device,
+                                mesh=make_stream_mesh(device='cuda'))
+    finally:
+        dist.destroy_process_group()
+    for g_streams, w_streams in zip(got, want):
+        for g, w in zip(g_streams, w_streams):
+            assert [t for t, _ in g] == [t for t, _ in w]
+            for (_, a), (_, b) in zip(g, w):
+                np.testing.assert_array_equal(a, b)
 
 
 def test_multi_stream_mot_needs_the_card_unless_asked_for_the_cpu():

@@ -3,7 +3,10 @@ card has neither): in a fresh interpreter where both are unimportable,
 ``fastmot_tpu_torch``, its checkpoint importers, its int8 modules and
 ``fastmot_tpu_torch.parallel`` import, ``MOT`` runs a few frames with the
 PUBLIC and the SSD detectors, and an association frame under int8, and a
-2-stream ``MultiStreamMOT`` runs its first frame and a gap frame."""
+2-stream ``MultiStreamMOT`` runs its first frame and a gap frame; the
+weight converter and the multi-card entry points import, and a 2-stream
+``MultiStreamMOT`` runs on a one-rank gloo mesh with its detector
+channel-sharded."""
 import os
 import re
 import subprocess
@@ -91,6 +94,35 @@ assert mot.frame_count == 2 and len(mot.trackers) == 2
 '''
 
 
+MESH = '''
+import tempfile
+import torch.distributed as dist
+from fastmot_tpu_torch import convert_weights, multichip  # noqa: F401
+from fastmot_tpu_torch.ops import nms_mask  # noqa: F401
+from fastmot_tpu_torch.parallel import (MultiStreamMOT, make_stream_mesh,
+                                        shard_conv_channels)
+with tempfile.TemporaryDirectory() as tmp:
+    dist.init_process_group('gloo', init_method=f'file://{tmp}/store',
+                            world_size=1, rank=0)
+    try:
+        mesh = make_stream_mesh(device='cpu')
+        mot = MultiStreamMOT((160, 128), 2, detector_frame_skip=2,
+                             class_ids=(0,),
+                             yolo_detector_cfg={'model': 'YOLOv4Tiny'},
+                             tracker_cfg={'max_age': 3}, device='cpu',
+                             mesh=mesh)
+        assert shard_conv_channels(mot.detector._single.module, mesh)
+        mot.reset(1 / 30.0)
+        for _ in range(2):
+            mot.step([rng.integers(0, 256, (128, 160, 3), dtype=np.uint8)
+                      for _ in range(2)])
+        mot.sync()
+    finally:
+        dist.destroy_process_group()
+assert mot.local_streams == range(2)
+'''
+
+
 def run_without_jax(body, *args):
     """Run ``body`` in a fresh interpreter where jax and cv2 are
     unimportable. One intra-op thread: the subprocess shares the cores
@@ -124,6 +156,10 @@ def test_int8_path_imports_neither_jax_nor_cv2():
 
 def test_multi_stream_path_imports_neither_jax_nor_cv2():
     run_without_jax(MULTI)
+
+
+def test_mesh_and_converter_import_neither_jax_nor_cv2():
+    run_without_jax(MESH)
 
 
 def test_port_sources_import_no_jax():
