@@ -64,7 +64,24 @@ Phases, each raising on failure (the exit code is then non-zero):
    ``shard_conv_channels``, the chained gap step, the association). Every
    stream's rows of (a) and (b) equal phase 13's (IDs, ages, hits; boxes
    within 1e-3 px), and the OSBlock runs 6 times an association frame on
-   each rank. The process groups are destroyed before the phase returns.
+   each rank. The process groups are destroyed before the phase returns;
+15. the port's last gaps with the JAX package: (a) ``ransac_draws`` on
+   the card bit-equal to a numpy threefry-2x32 reference and to bit
+   patterns recorded from ``jax.random``, and phase 13's rows (made with
+   those draws) with visible, unique track IDs on every stream, and the
+   draws' host time at phase 13's flow budget and at 8 x 128 tracks
+   against the CPU ``torch.Generator`` draw they replaced; (b)
+   OSNet-x0.25 on 64 crops 2 ways over ``'model'`` (two gloo ranks sharing
+   the card; the OSBlock kernel on each rank, on its gathered weights)
+   against the unsharded kernel run, at phase 3's tolerances; (c)
+   SSDInceptionV2 on 8 tiles of 300x300 2 ways against unsharded, with
+   the difference's cause shown in this process: the unsharded run twice
+   is bit-equal, and each bf16 conv recomputed for half its output
+   channels against the whole conv's output sliced; (d)
+   ``extract_async_batch`` under dynamic int8 on 4 streams x 16 crops of
+   different brightness against each stream's own extraction, and a
+   control with the ranges pooled over the streams that must fail the
+   same bound.
 
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -111,6 +128,26 @@ INT8_MIN_COS = 0.99
 # phase 14 against phase 13: the sharded runs batch fewer streams, which
 # may round a box an ulp apart
 MESH_PX = 1e-3
+# phase 15 (c), sharded SSDInceptionV2 against unsharded on the card: for
+# some bf16 convs cuDNN gives other roundings when it computes half the
+# output channels (the phase shows it), and the one-ulp seeds reach every
+# output. Readings on an H100 80GB HBM3 at 700 W (chip_smoke.py): max-rel
+# 4.57e-3 / 4.93e-3, mean-rel 5.41e-4 / 7.10e-4; the bounds are twice
+# those, with no cap on the share of differing outputs (it read 0.99999
+# and 1.0)
+SHARD_MAX_REL, SHARD_MEAN_REL = 1e-2, 1.5e-3
+# phase 15 (d), batched against per-stream int8 extraction on the same
+# card, largest absolute difference of the unit-norm embeddings: it read
+# up to 8.9e-8, and 6.3e-4 to 2.2e-3 with the ranges pooled over the
+# streams (H100 80GB HBM3, 700 W)
+INT8_STREAM_ATOL = 1e-5
+# phase 15 (a): int32 bit patterns of jax.random's RANSAC uniforms at
+# f_cap 16 (u_h[0, 0], u_h[-1, -1], u_a[0, 0, 0], u_a[-1, -1, -1]),
+# recorded with JAX 0.9.0 (jax_threefry_partitionable)
+JAX_DRAW_BITS = {0: (1062707686, 1049013672, 1058287196, 1047990976),
+                 7: (1063128062, 1035415520, 1048240920, 1058237628),
+                 2 ** 32 - 1: (1063880662, 1056177516, 1054358328,
+                               1051539472)}
 
 
 def log(*args):
@@ -916,10 +953,12 @@ def phase_multi_stream(single_ms, frames, dets, n_streams=N_STREAMS):
             lambda: mot.stream_tracker.update_device(n_frames, det_b, emb[0]),
     }
     embed()
+    stage_ms = {name: wall_ms(fn, n=3, warmup=1)
+                for name, fn in stages.items()}
     log('multi-stream stages alone, ms: ' + '; '.join(
-        f'{name} {wall_ms(fn, n=3, warmup=1):.3f}'
-        for name, fn in stages.items()))
-    return launches, rows, statistics.median(step_ms)
+        f'{name} {ms:.3f}' for name, ms in stage_ms.items()))
+    return launches, rows, statistics.median(step_ms), \
+        stage_ms['gap frame (preprocess, points, LK, RANSAC, Kalman)']
 
 
 def _same_streams(tag, got, want):
@@ -1007,6 +1046,256 @@ def phase_mesh(frames, dets, want_rows, single_multi_ms, n_streams=N_STREAMS):
     return launches + sum(o['osblock_launches'] for o in ranks)
 
 
+def threefry_numpy(key, x1, x2):
+    """Threefry-2x32 on numpy uint32 (the host reference of phase 15)."""
+    rot = ((13, 15, 26, 6), (17, 29, 16, 24))
+    k = (np.uint32(key[0]), np.uint32(key[1]))
+    ks = (k[0], k[1], k[0] ^ k[1] ^ np.uint32(0x1BD11BDA))
+    x1 = np.asarray(x1, np.uint32) + ks[0]
+    x2 = np.asarray(x2, np.uint32) + ks[1]
+    for i in range(5):
+        for r in rot[i % 2]:
+            x1 = x1 + x2
+            x2 = x1 ^ ((x2 << np.uint32(r)) | (x2 >> np.uint32(32 - r)))
+        x1 = x1 + ks[(i + 1) % 3]
+        x2 = x2 + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x1, x2
+
+
+def draws_numpy(seed, f_cap):
+    """``jax.random``'s RANSAC uniforms of ``flow_post_core`` for a seed:
+    ``PRNGKey``, ``fold_in``, ``split`` and ``uniform`` over
+    ``threefry_numpy``."""
+    def fold(key, d):
+        return tuple(int(v[0]) for v in threefry_numpy(key, [0], [d]))
+
+    def uniform(key, n):
+        b1, b2 = threefry_numpy(key, np.zeros(n), np.arange(n))
+        bits = ((b1 ^ b2) >> np.uint32(9)) | np.uint32(0x3F800000)
+        return bits.view(np.float32) - np.float32(1.0)
+    key = (0, seed & 0xFFFFFFFF)
+    u_h = uniform(fold(key, 0), 256 * 4).reshape(256, 4)
+    k1 = fold(key, 1)
+    s1, s2 = threefry_numpy(k1, np.zeros(f_cap), np.arange(f_cap))
+    u_a = np.stack([uniform((a, b), 64 * 2).reshape(64, 2)
+                    for a, b in zip(s1, s2)])
+    return u_h, u_a
+
+
+def generator_draws(seeds, f_cap, device):
+    """The RANSAC uniforms as the port drew them before they were JAX's: a
+    CPU ``torch.Generator`` per seed, moved to ``device`` (timed in phase
+    15 against ``ransac_draws_batch``)."""
+    hs, as_ = [], []
+    for seed in seeds:
+        g = torch.Generator().manual_seed(int(seed))
+        hs.append(torch.rand((256, 4), generator=g))
+        as_.append(torch.rand((f_cap, 64, 2), generator=g))
+    return torch.stack(hs).to(device), torch.stack(as_).to(device)
+
+
+def conv_slice_differences(module, x):
+    """Phase 15 (c)'s cause: ``module`` (on the card) on ``x`` twice, and
+    each bf16 conv with even output channels recomputed for each half of
+    them, against the whole conv's output sliced. Returns (the two runs
+    bit-equal, half-convs compared, half-convs that differ, outputs that
+    differ, outputs compared, largest relative difference)."""
+    import torch.nn.functional as F
+    from fastmot_tpu_torch import multichip
+    from fastmot_tpu_torch.models.layers import Conv, nchw, nhwc, pad_same
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda m, i, o: seen.append((m, i[0], o)))
+        for m in module.modules()
+        if isinstance(m, Conv) and m.dtype == torch.bfloat16
+        and m.groups == 1 and m.weight.shape[0] % 2 == 0]
+    first = multichip.zoo_outputs(module, x)
+    for h in hooks:
+        h.remove()
+    same = all(np.array_equal(a, b) for a, b in
+               zip(first, multichip.zoo_outputs(module, x)))
+    n_diff = outs = n_out = 0
+    worst = 0.0
+    with torch.no_grad():
+        for m, xin, whole in seen:
+            if m.padding == 'SAME':
+                xin = pad_same(xin, m.k, m.stride)
+            half = m.weight.shape[0] // 2
+            for part in (slice(0, half), slice(half, 2 * half)):
+                y = nhwc(F.conv2d(nchw(xin.to(m.dtype)),
+                                  m.weight[part].to(m.dtype),
+                                  stride=m.stride))
+                if m.bias is not None:
+                    y = y + m.bias[part].to(y.dtype)
+                ref = whole[..., part]
+                d = int((y != ref).sum())
+                n_diff += d > 0
+                outs += d
+                n_out += ref.numel()
+                if d:
+                    worst = max(worst, rel_err(y, ref)[0])
+    return same, 2 * len(seen), n_diff, outs, n_out, worst
+
+
+def phase_gaps(multi_rows, gap_ms, n_streams=N_STREAMS):
+    """Phase 15 (a)-(d); ``gap_ms``: phase 13's gap frame alone. Returns
+    the OSBlock launches of (b)'s ranks."""
+    from fastmot_tpu_torch import feature_extractor as fe
+    from fastmot_tpu_torch import multichip
+    from fastmot_tpu_torch.feature_extractor import FeatureExtractor
+    from fastmot_tpu_torch.ops import flow_kernels as fk
+
+    # (a) the draws, and phase 13's rows that were made with them
+    t0 = time.perf_counter()
+    seeds = sorted(JAX_DRAW_BITS) + [1, 2 ** 31 + 5]
+    u_h, u_a = fk.ransac_draws_batch(seeds, 16, 'cuda')
+    for s, seed in enumerate(seeds):
+        want_h, want_a = draws_numpy(seed, 16)
+        got_h = u_h[s].cpu().numpy().view(np.int32)
+        got_a = u_a[s].cpu().numpy().view(np.int32)
+        if not (np.array_equal(got_h, want_h.view(np.int32))
+                and np.array_equal(got_a, want_a.view(np.int32))):
+            raise AssertionError(f'ransac_draws({seed}) differs from the '
+                                 'threefry reference')
+        if seed in JAX_DRAW_BITS and (
+                int(got_h[0, 0]), int(got_h[-1, -1]), int(got_a[0, 0, 0]),
+                int(got_a[-1, -1, -1])) != JAX_DRAW_BITS[seed]:
+            raise AssertionError(f'ransac_draws({seed}) differs from '
+                                 'jax.random')
+    ids = {s: [r[0] for r in multi_rows[s]] for s in range(n_streams)}
+    if not all(ids.values()) or any(len(set(v)) != len(v)
+                                    for v in ids.values()):
+        raise AssertionError(f'phase 13 track IDs: {ids}')
+    log(f'gaps (a) ransac_draws on the card == threefry reference and '
+        f'jax.random bits for seeds {seeds}; phase 13 tracks per stream '
+        f'{[len(v) for v in ids.values()]}, IDs unique')
+    # the draws' host time, upload and sync included, at phase 13's flow
+    # budget and at the largest, against the torch.Generator draw
+    budget = fk.flow_budget(max(len(v) for v in ids.values()))
+    for f_cap in sorted({budget, fk.MAX_FLOW_TRACKS}):
+        ms = [wall_ms(lambda: draw(range(n_streams), f_cap, 'cuda'), n=30,
+                      warmup=3)
+              for draw in (fk.ransac_draws_batch, generator_draws)]
+        log(f'gaps (a) draws for {n_streams} streams x {f_cap} tracks: '
+            f'ransac_draws_batch {ms[0]:.3f} ms, torch.Generator '
+            f'{ms[1]:.3f} ms; phase 13 gap frame alone {gap_ms:.3f} ms '
+            f'(draws {100 * ms[0] / gap_ms:.2f} % of it)')
+    log(f'gaps (a): {time.perf_counter() - t0:.1f} s')
+
+    # (b), (c) 'model' sharding on two gloo ranks sharing the card, both
+    # models in one spawn
+    t0 = time.perf_counter()
+    cases = (('(b)', 'OSNet025', (BATCH, 256, 128, 3),
+              (MAX_REL, MEAN_REL, DIFFER)),
+             ('(c)', 'SSDInceptionV2', (8, 300, 300, 3),
+              (SHARD_MAX_REL, SHARD_MEAN_REL, 1.0)))
+    xs = [np.random.default_rng(5).uniform(0, 1, shape).astype(np.float32)
+          for _, _, shape, _ in cases]
+    wants, unsharded_ms = [], []
+    for (_, name, _, _), x in zip(cases, xs):
+        module = multichip.zoo_module(name, 1, True).cuda()
+        wants.append(multichip.zoo_outputs(module, x))
+        unsharded_ms.append(wall_ms(
+            lambda: multichip.zoo_outputs(module, x), n=3, warmup=1))
+        if name == 'SSDInceptionV2':
+            cause = conv_slice_differences(module, x)
+        del module
+        torch.cuda.empty_cache()
+    runs = multichip.run_ranks(2, multichip.each_run, (
+        multichip.sharded_heads_rank,
+        [(name, x, 2, 1, True, False, 'cuda')
+         for (_, name, _, _), x in zip(cases, xs)]), backend='gloo')
+    launches = 0
+    for i, ((tag, name, shape, bounds), want, ms) in enumerate(
+            zip(cases, wants, unsharded_ms)):
+        ranks = [run[i] for run in runs]
+        for r, out in enumerate(ranks):
+            max_rel = mean_rel = differ = 0.0
+            for g, w in zip(out['heads'], want):
+                errs = rel_err(torch.from_numpy(g), torch.from_numpy(w))
+                max_rel = max(max_rel, errs[0])
+                mean_rel = max(mean_rel, errs[1])
+                differ = max(differ, float(np.mean(g != w)))
+            if not (max_rel < bounds[0] and mean_rel < bounds[1]
+                    and differ <= bounds[2]):
+                raise AssertionError(
+                    f'gaps {tag} {name} rank {r}: sharded vs unsharded '
+                    f'{max_rel} / {mean_rel} / {differ}')
+            log(f'gaps {tag} {name} {list(shape)} 2 ways over model, rank '
+                f'{r}: {len(out["plan"])} sharded leaves, max-rel '
+                f'{max_rel:.2e} mean-rel {mean_rel:.2e} differing '
+                f'{differ:.5f}; sharded forward {out["ms"]:.3f} ms, '
+                f'osblock launches {out["osblock_launches"]}')
+        if name == 'OSNet025':
+            per_rank = [o['osblock_launches'] for o in ranks]
+            if per_rank != [6, 6]:
+                raise AssertionError(f'gaps (b): osblock launches per rank '
+                                     f'{per_rank}, expected 6 each')
+            launches += sum(per_rank)
+        log(f'gaps {tag} {name}: unsharded {ms:.3f} ms')
+    same, n_half, n_diff, outs, n_out, worst = cause
+    log(f'gaps (c) cause: unsharded SSDInceptionV2 twice bit-equal: {same}; '
+        f'{n_diff} of {n_half} half-channel bf16 convs differ from the '
+        f'whole conv sliced, {outs} of {n_out} outputs, max-rel '
+        f'{worst:.2e}')
+    if not same:
+        raise AssertionError('gaps (c): the unsharded SSD run is not '
+                             'deterministic')
+    if n_diff == 0:
+        raise AssertionError('gaps (c): sharded differs from unsharded, '
+                             'but no half-channel conv differs')
+    log(f'gaps (b) and (c): {time.perf_counter() - t0:.1f} s, spawn '
+        'included')
+
+    # (d) per-stream dynamic int8 ranges of the batched extractor
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = Path(tmp) / 'dynamic.json'
+        cache.write_text(json.dumps({'outputs': {}, 'inputs': {'*': 0.0}}))
+        ext = FeatureExtractor('OSNet025', quantize='int8',
+                               calib_cache=cache, device='cuda')
+    base = textured_frames(SIZE, 1, seed=21)[0].astype(np.float32)
+    frames = torch.as_tensor(np.stack([
+        np.clip(base * g, 0, 255) for g in (0.25, 1.0, 0.55, 0.8)])
+        .astype(np.uint8), device='cuda')
+    tlbrs = torch.as_tensor(np.stack([synth_tlbrs(0, SIZE)[:16] + 3.0 * s
+                                      for s in range(4)]), device='cuda',
+                            dtype=torch.float32)
+    valid = torch.ones(tlbrs.shape[:2], dtype=torch.bool, device='cuda')
+
+    def batched():
+        ext.extract_async_batch(frames, tlbrs, valid)
+        return ext.postprocess_device().cpu().numpy()
+    got = batched()
+    # the control: every stream's crops under one range pooled over all
+    # four streams (the batched path before per-stream ranges)
+    real = fe.dynamic_ranges
+    fe.dynamic_ranges = lambda groups=1, process_group=None: real(
+        1, process_group)
+    try:
+        pooled = batched()
+    finally:
+        fe.dynamic_ranges = real
+    worst = worst_pooled = 0.0
+    for s in range(4):
+        ext.extract_async_device(frames[s], tlbrs[s], valid[s])
+        one = ext.postprocess_device().cpu().numpy()
+        worst = max(worst, float(np.abs(got[s] - one).max()))
+        worst_pooled = max(worst_pooled, float(np.abs(pooled[s] - one).max()))
+    log(f'gaps (d) int8 dynamic, 4 streams x 16 crops: batched vs '
+        f'per-stream extraction max-abs {worst:.3e} (bound '
+        f'{INT8_STREAM_ATOL:.0e}); control with the ranges pooled over the '
+        f'streams {worst_pooled:.3e}; {time.perf_counter() - t0:.1f} s')
+    if not worst < INT8_STREAM_ATOL:
+        raise AssertionError(f'gaps (d): batched int8 extraction is not '
+                             f'the per-stream one: max-abs {worst}')
+    if not worst_pooled >= INT8_STREAM_ATOL:
+        raise AssertionError(f'gaps (d): pooled ranges pass the bound too '
+                             f'(max-abs {worst_pooled}): the bound does not '
+                             'tell them apart')
+    return launches
+
+
 def main():
     t0 = time.perf_counter()
     name = phase_device()
@@ -1028,10 +1317,11 @@ def main():
     log(f'main path step median: float {float_ms:.3f} ms, int8 '
         f'{int8_ms:.3f} ms')
     frames, dets = multi_stream_inputs()
-    multi_launches, rows, multi_ms = phase_multi_stream(float_ms, frames,
-                                                        dets)
+    multi_launches, rows, multi_ms, gap_ms = phase_multi_stream(
+        float_ms, frames, dets)
     launches += multi_launches
     launches += phase_mesh(frames, dets, rows, multi_ms)
+    launches += phase_gaps(rows, gap_ms)
     log(f'every phase passed in {time.perf_counter() - t0:.1f} s')
     print(json.dumps({'kernels': [{
         'name': 'osblock', 'route': 'cuda',

@@ -8,7 +8,8 @@ matrices hold at most two non-zero hat weights per row, so here it is the
 same two-tap blend written as a gather, with the weights and the
 column-pass intermediate rounded to bf16 where the JAX products round.
 Host boxes are padded to the JAX package's batch bucket with zero boxes:
-under dynamic int8 the input absmax of every conv spans the whole batch.
+under dynamic int8 the input absmax of every conv spans the whole batch
+(one stream's batch, with a stream axis).
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import torch
 
 from .device import torch_device
 from .models import registry
-from .models.quantize import quantize_module
+from .models.quantize import dynamic_ranges, quantize_module
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -88,12 +89,15 @@ def extract_core(module, out_hw, frame, tlbrs, valid) -> torch.Tensor:
     are zero. frame [H, W, 3] uint8 BGR, tlbrs [N, 4], valid [N] ->
     [N, D] float32. With a stream axis (frames [S, H, W, 3], tlbrs [S, N,
     4], valid [S, N]) every stream's crops go through ONE OSNet call on
-    the [S * N] batch -> [S, N, D]."""
+    the [S * N] batch -> [S, N, D]; under dynamic int8 each stream's N
+    crops take their own input ranges, as the JAX package's ``vmap`` over
+    streams gives them."""
     crops = crop_resize_batch(frame, tlbrs, out_hw)
     rgb = crops.flip(-1)
     mean = torch.tensor(_IMAGENET_MEAN, device=frame.device)
     std = torch.tensor(_IMAGENET_STD, device=frame.device)
-    emb = module((rgb / 255.0 - mean) / std)
+    with dynamic_ranges(frame.shape[0] if frame.dim() == 4 else 1):
+        emb = module((rgb / 255.0 - mean) / std)
     norm = torch.linalg.norm(emb, dim=1, keepdim=True)
     emb = emb / torch.where(norm > 0, norm, torch.ones_like(norm))
     emb = emb.reshape(valid.shape + emb.shape[-1:])

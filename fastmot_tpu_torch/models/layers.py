@@ -21,6 +21,14 @@ these reproduce their semantics in torch:
 Random init is seeded through an explicit ``torch.Generator``: convs and
 dense layers lecun-normal (truncated at two standard deviations), BN at
 identity, biases zero, as Flax's defaults.
+
+Tensor parallelism over the mesh's ``'model'`` axis
+(``parallel.shard_conv_channels``) gives a layer a ``shard``: the layer
+then holds one block of its output channels. A conv or dense layer
+computes that block from its whole input; a per-channel layer (BN,
+depthwise, a grouped conv) takes its block of a whole input itself and
+passes a block it is handed. The network that owns the chain calls
+``gather`` after the chain's last per-channel op.
 """
 from __future__ import annotations
 
@@ -56,8 +64,20 @@ def nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+def gather(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``x`` whole on the channel axis: ``layer``'s blocks all-gathered
+    over ``'model'`` when it is sharded, else ``x`` itself."""
+    shard = getattr(layer, 'shard', None)
+    return x if shard is None else shard.gather(x)
+
+
+def _own_block(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    return x if layer.shard is None else layer.shard.take(x)
+
+
 class Conv(nn.Module):
     """k x k conv on NHWC input; weight OIHW (``groups`` as torch)."""
+    shard = None
 
     def __init__(self, cin, cout, k=1, stride=1, padding='SAME', groups=1,
                  bias=False, dtype=torch.float32):
@@ -71,6 +91,7 @@ class Conv(nn.Module):
     def forward(self, x, f32_sum=False):
         """``f32_sum``: round input and kernel to ``dtype`` but keep the
         float32 sum of their products (``preferred_element_type=f32``)."""
+        x = _own_block(self, x)
         if self.padding == 'SAME':
             x = pad_same(x, self.k, self.stride)
         x, w = x.to(self.dtype), self.weight.to(self.dtype)
@@ -88,6 +109,7 @@ class DepthwiseConv3x3(nn.Module):
 
     Each tap's product is rounded to bf16 before the f32 sum, as in the
     Flax layer, so the two agree to the last bit of the f32 sum order."""
+    shard = None
 
     def __init__(self, c, stride=1):
         super().__init__()
@@ -95,6 +117,7 @@ class DepthwiseConv3x3(nn.Module):
         self.weight = nn.Parameter(torch.empty(c, 1, 3, 3))
 
     def forward(self, x):
+        x = _own_block(self, x)
         s = self.stride
         h, w = x.shape[1], x.shape[2]
         xp = F.pad(x.to(torch.bfloat16), (0, 0, 1, 1, 1, 1))
@@ -122,6 +145,7 @@ def avg_pool_same(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
 
 class BatchNorm(nn.Module):
     """Inference batch norm over the last axis, Flax's arithmetic."""
+    shard = None
 
     def __init__(self, c, eps=1e-5, dtype=torch.float32):
         super().__init__()
@@ -132,6 +156,7 @@ class BatchNorm(nn.Module):
         self.register_buffer('running_var', torch.ones(c))
 
     def forward(self, x):
+        x = _own_block(self, x)
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight
         y = (x.float() - self.running_mean) * mul + self.bias
         return y.to(self.dtype)

@@ -8,7 +8,10 @@ NHWC and bf16 through the trunk, as in Flax. Every ``OSBlock`` runs through
 version on the CPU (what the JAX package's ``apply_fused`` does with the
 Pallas kernel). Under ``force_plain_streams`` it takes the Flax module's
 literal per-stream forward instead: one call per LiteConv, conv, BN and
-gate, which ``models.quantize`` hooks.
+gate, which ``models.quantize`` hooks. Under ``'model'`` sharding an
+``OSBlock`` all-gathers its weights and runs whole on every rank (what
+XLA does for a ``pallas_call`` whose operands are sharded); the stem, the
+transitions, conv5 and the embedding head run on channel blocks.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.osnet_block import fold_osblock, osblock, pack_osblock
-from .layers import BatchNorm, Conv, DepthwiseConv3x3, max_pool_same
+from .layers import BatchNorm, Conv, DepthwiseConv3x3, gather, max_pool_same
 from .registry import ReIDModel, register_reid
 
 BF16 = torch.bfloat16
@@ -48,7 +51,7 @@ class ConvBNReLU(nn.Module):
 
     def forward(self, x):
         x = self.BatchNorm_0(self.Conv_0(x))
-        return torch.relu(x) if self.relu else x
+        return gather(self.Conv_0, torch.relu(x) if self.relu else x)
 
 
 class LiteConv(nn.Module):
@@ -83,7 +86,13 @@ class AggregationGate(nn.Module):
 
 class OSBlock(nn.Module):
     """Omni-scale residual block: 4 streams of 1..4 LiteConvs, a shared
-    aggregation gate, the identity (or its 1x1 downsample)."""
+    aggregation gate, the identity (or its 1x1 downsample).
+
+    ``shard`` (set by ``parallel.shard_conv_channels``): this rank holds a
+    block of the output channels of the parameters and buffers named in
+    ``shard.names``; both forwards run on the whole block, all-gathered
+    once per change of the weights (``whole_state``)."""
+    shard = None
 
     def __init__(self, cin, features):
         super().__init__()
@@ -96,33 +105,51 @@ class OSBlock(nn.Module):
         self.ConvBNReLU_1 = ConvBNReLU(mid, features, relu=False)
         if cin != features:
             self.ConvBNReLU_2 = ConvBNReLU(cin, features, relu=False)
-        self._fold_key = None
 
-    def folded(self):
-        """``(flat, packed)``: ``fold_osblock``'s list and, on CUDA, its
-        ``pack_osblock`` buffers. Made once and kept until a parameter or
-        buffer changes: a new storage (``.to()``, ``load_state_dict(...,
+    def _cached(self, slot: str, make):
+        """``make()``, kept in ``slot`` until a parameter or buffer
+        changes: a new storage (``.to()``, ``load_state_dict(...,
         assign=True)``) or an in-place write (``load_state_dict``, any
         ``copy_``) moves its key."""
         tensors = [*self.parameters(), *self.buffers()]
         key = tuple((t.device, t.data_ptr(), t._version) for t in tensors)
-        if key != self._fold_key:
+        cache = self.__dict__.setdefault('_caches', {})
+        if cache.get(slot, (None,))[0] != key:
             with torch.no_grad():
-                sd = dict(self.named_parameters())
-                sd.update(self.named_buffers())
-                flat = fold_osblock(sd, self.cin, self.features)
-                packed = pack_osblock(flat, self.cin, self.features) \
-                    if flat[0].is_cuda else None
-            self._fold = (flat, packed)
-            self._fold_key = key
-            # keep the keyed storages alive, so no new tensor reuses an
-            # address of the key
-            self._fold_pins = [t.detach() for t in tensors]
-        return self._fold
+                # the keyed storages stay alive with the value, so no new
+                # tensor reuses an address of the key
+                cache[slot] = (key, make(), [t.detach() for t in tensors])
+        return cache[slot][1]
 
-    def forward(self, x):
+    def whole_state(self):
+        """The block's parameters and buffers by name, each whole: the
+        sharded ones all-gathered over ``'model'``."""
+        def make():
+            sd = dict(self.named_parameters())
+            sd.update(self.named_buffers())
+            if self.shard is not None:
+                sd = {n: self.shard.gather_rows(t) if n in self.shard.names
+                      else t for n, t in sd.items()}
+            return sd
+        return self._cached('whole', make) if self.shard is not None \
+            else make()
+
+    def folded(self):
+        """``(flat, packed)``: ``fold_osblock``'s list and, on CUDA, its
+        ``pack_osblock`` buffers, made once per change of the weights."""
+        def make():
+            flat = fold_osblock(self.whole_state(), self.cin, self.features)
+            packed = pack_osblock(flat, self.cin, self.features) \
+                if flat[0].is_cuda else None
+            return flat, packed
+        return self._cached('fold', make)
+
+    def forward(self, x, whole=False):
         if _PLAIN_STREAMS.get():
-            return self.plain_forward(x)
+            if self.shard is None or whole:
+                return self.plain_forward(x)
+            return torch.func.functional_call(self, self.whole_state(),
+                                              (x,), {'whole': True})
         flat, packed = self.folded()
         return osblock(x.to(BF16).contiguous(), flat, self.cin,
                        self.features, packed)
@@ -188,7 +215,7 @@ class OSNet(nn.Module):
         x = getattr(self, self.conv5)(x)
         x = x.float().mean(dim=(1, 2)).to(BF16).float()
         x = self.BatchNorm_0(self.Dense_0(x))
-        return torch.relu(x)
+        return gather(self.Dense_0, torch.relu(x))
 
 
 @register_reid

@@ -24,7 +24,10 @@ hooks and plain functions on tensors where it used a Flax interceptor):
   of 8; zero rows and columns pad up to that, which is exact. On a CPU
   tensor the plain version takes the same integer sums exactly (a float64
   product: every partial sum is an integer below 2**53). On a CUDA tensor
-  it is ``_int_mm`` or an error, never a float conv.
+  it is ``_int_mm`` or an error, never a float conv. A dynamic range is
+  the input's absmax, taken per block of the batch axis and reduced over
+  ranks as ``dynamic_ranges`` sets (the ranges the JAX package's ``vmap``
+  and SPMD partitioner give).
 
 ``EntropyCalibrator`` collects the ranges with TensorRT's KL threshold
 search and writes the cache that ``load_calib_ranges`` reads. Range keys
@@ -47,12 +50,15 @@ cannot stack it). Such outputs are never fake-quantized in either package.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 import json
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -187,13 +193,52 @@ def s8_conv(xq: torch.Tensor, wq: torch.Tensor, stride: int = 1,
     return y.reshape(b, oh, ow, o)
 
 
+_DYNAMIC = contextvars.ContextVar('int8_dynamic_ranges', default=(1, None))
+
+
+@contextlib.contextmanager
+def dynamic_ranges(groups: int = 1, process_group=None):
+    """How ``int8_conv`` takes a dynamic input range in this context: one
+    absmax for each of ``groups`` equal blocks of the batch axis (a
+    stream's crops, which the JAX package's ``vmap`` over streams ranges
+    apart), each all-reduced (MAX) over ``process_group`` when one is
+    given (the global range that XLA's SPMD partitioner takes over a batch
+    sharded on ``'streams'``)."""
+    tok = _DYNAMIC.set((int(groups), process_group))
+    try:
+        yield
+    finally:
+        _DYNAMIC.reset(tok)
+
+
+def _dynamic_scale(x: torch.Tensor) -> torch.Tensor:
+    """``s_in`` of a dynamic range: ``absmax / 127`` (at least 1e-6 /
+    127), one scalar, or ``[B, 1, 1, 1]`` with one value per block of rows
+    under ``dynamic_ranges(groups > 1)``."""
+    groups, group = _DYNAMIC.get()
+    if x.shape[0] % groups:
+        raise ValueError(f'dynamic_ranges: a batch of {x.shape[0]} does not '
+                         f'split into {groups} groups')
+    amax = x.abs().amax() if groups == 1 \
+        else x.abs().reshape(groups, -1).amax(1)
+    if group is not None:
+        red = amax.cpu() if dist.get_backend(group) == 'gloo' else amax
+        dist.all_reduce(red, dist.ReduceOp.MAX, group=group)
+        amax = red.to(amax.device)
+    s_in = torch.clamp(amax, min=1e-6) * _R127
+    if groups == 1:
+        return s_in
+    return s_in.repeat_interleave(x.shape[0] // groups).reshape(-1, 1, 1, 1)
+
+
 def int8_conv(x: torch.Tensor, weight_int8: torch.Tensor,
               weight_scale: torch.Tensor, t_in: float, stride: int = 1,
               padding: str = 'SAME', groups: int = 1,
               bias: torch.Tensor | None = None) -> torch.Tensor:
     """One conv run natively in int8 (``QuantizedModule._int8_conv``):
     quantize the NHWC input at threshold ``t_in`` (``t_in <= 0``: dynamic,
-    the absmax of the whole tensor), s8 x s8 -> s32 conv, rescale by
+    the absmax of the whole tensor, or of each group and over the ranks
+    that ``dynamic_ranges`` names), s8 x s8 -> s32 conv, rescale by
     ``s_in * weight_scale`` per output channel, add the bias. Returns
     float32. ``int8_conv.launches`` counts calls on a CUDA tensor."""
     x = x.float()
@@ -201,7 +246,7 @@ def int8_conv(x: torch.Tensor, weight_int8: torch.Tensor,
         s_in = float(np.float32(t_in / 127.0))
         xq = x * float(np.float32(1) / np.float32(s_in))
     else:
-        s_in = torch.clamp(x.abs().amax(), min=1e-6) * _R127
+        s_in = _dynamic_scale(x)
         xq = x / s_in
     xq = torch.clamp(torch.round(xq), -127, 127).to(torch.int8)
     y = s8_conv(xq, weight_int8, stride, padding, groups)

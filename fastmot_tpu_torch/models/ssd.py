@@ -23,7 +23,7 @@ import torch
 from torch import nn
 
 from .layers import (BatchNorm, Conv, DepthwiseConv3x3, avg_pool_same,
-                     max_pool_same)
+                     gather, max_pool_same)
 from .registry import SSDModel, register_ssd
 
 BF16 = torch.bfloat16
@@ -43,9 +43,12 @@ class ConvBNReLU6(nn.Module):
             self.Conv_0 = Conv(cin, features, kernel, stride, dtype=BF16)
         self.BatchNorm_0 = BatchNorm(features, eps=bn_eps)
 
-    def forward(self, x):
+    def forward(self, x, whole=True):
+        """``whole=False`` leaves a sharded output as this rank's channel
+        block, for a per-channel layer that follows."""
         conv = self.DepthwiseConv3x3_0 if self.depthwise else self.Conv_0
-        return torch.clamp(self.BatchNorm_0(conv(x)), 0.0, 6.0)
+        y = torch.clamp(self.BatchNorm_0(conv(x)), 0.0, 6.0)
+        return gather(conv, y) if whole else y
 
 
 def _named(module, prefix, layers):
@@ -93,8 +96,9 @@ class InvertedResidual(nn.Module):
     def forward(self, x):
         h = x
         for i in range(self.n_cbr):
-            h = getattr(self, f'ConvBNReLU6_{i}')(h)
-        h = self.BatchNorm_0(self.Conv_0(h))
+            # the expansion's channel block feeds the depthwise as it is
+            h = getattr(self, f'ConvBNReLU6_{i}')(h, i == self.n_cbr - 1)
+        h = gather(self.Conv_0, self.BatchNorm_0(self.Conv_0(h)))
         return h + x if self.residual else h
 
 
@@ -215,7 +219,9 @@ class InceptionV2Backbone(nn.Module):
         return torch.cat(outs, -1)
 
     def forward(self, x):
-        x = self.Conv2d_1a_7x7_pointwise(self.Conv2d_1a_7x7_depthwise(x))
+        x = gather(self.Conv2d_1a_7x7_depthwise,
+                   self.Conv2d_1a_7x7_depthwise(x))
+        x = self.Conv2d_1a_7x7_pointwise(x)
         x = max_pool_same(x, 3, 2)
         x = self.Conv2d_2c_3x3(self.Conv2d_2b_1x1(x))
         x = max_pool_same(x, 3, 2)
@@ -257,8 +263,10 @@ class SSDHead(nn.Module):
                 feats.append(x)
         locs, confs = [], []
         for i, f in enumerate(feats):
-            loc = getattr(self, f'Conv_{2 * i}')(f)
-            conf = getattr(self, f'Conv_{2 * i + 1}')(f)
+            loc_conv, conf_conv = (getattr(self, f'Conv_{2 * i + j}')
+                                   for j in (0, 1))
+            loc = gather(loc_conv, loc_conv(f))
+            conf = gather(conf_conv, conf_conv(f))
             locs.append(loc.reshape(loc.shape[0], -1, 4))
             confs.append(conf.reshape(conf.shape[0], -1, self.num_classes))
         return torch.cat(locs, 1), torch.cat(confs, 1)

@@ -8,7 +8,10 @@ over an n-rank ``('streams', 'model')`` mesh with the real cores: the zoo
 YOLO graph under ``shard_conv_channels``, the chained gap step (points, LK,
 RANSAC, Kalman) over each rank's streams, and the association cascade
 with its on-device decisions, at the JAX dryrun's tiny tracker shapes
-(2-way ``'model'`` when n is even). ``FASTMOT_DRYRUN_MODEL`` selects the
+(2-way ``'model'`` when n is even). As in the JAX dryrun, the 512-d ReID
+features (track sums, history, detection embeddings) are split over
+``'model'``, and the association all-reduces their partial norms and dot
+products. ``FASTMOT_DRYRUN_MODEL`` selects the
 graph: the flagship YOLOv4 at 512x512 by default, ``YOLOv4Tiny`` at 64x64
 for a quick run.
 
@@ -24,6 +27,7 @@ port only.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime
 import os
 import queue
@@ -40,7 +44,8 @@ import torch.distributed as dist
 from .device import torch_device
 
 __all__ = ['entry', 'dryrun_multichip', 'run_ranks', 'run_multi_stream',
-           'splice_detections', 'multi_stream_rank', 'sharded_heads_rank']
+           'splice_detections', 'multi_stream_rank', 'sharded_heads_rank',
+           'each_run', 'zoo_module', 'zoo_outputs']
 
 
 def entry(device='cuda'):
@@ -134,19 +139,24 @@ def run_ranks(n: int, fn, args=(), backend='gloo', timeout=1800.0):
 # The dryrun
 # ---------------------------------------------------------------------------
 
-def dryrun_multichip(n_devices: int, device: str = 'cuda') -> None:
+def dryrun_multichip(n_devices: int, device: str = 'cuda') -> list[dict]:
     """One multi-stream pipeline step over an ``n_devices``-rank mesh,
     NCCL on the card (one rank per card) or gloo on the CPU; prints the
-    ``dryrun ok: ...`` line."""
+    ``dryrun ok: ...`` line and returns each rank's results
+    (``_dryrun_rank``)."""
     model_name = os.environ.get('FASTMOT_DRYRUN_MODEL', 'YOLOv4')
-    lines = run_ranks(n_devices, _dryrun_rank,
+    ranks = run_ranks(n_devices, _dryrun_rank,
                       (n_devices, model_name, device),
                       backend='nccl' if device == 'cuda' else 'gloo')
-    print(lines[0], flush=True)
+    print(ranks[0]['line'], flush=True)
+    return ranks
 
 
-def _dryrun_rank(n_devices: int, model_name: str, device: str) -> str:
-    """The multi-stream step on this rank: real cores, tiny shapes."""
+def _dryrun_rank(n_devices: int, model_name: str, device: str) -> dict:
+    """The multi-stream step on this rank: real cores, tiny shapes.
+    Returns the ``dryrun ok`` line, this rank's feature slice and, as
+    numpy, the association's costs, its matches (``col4row``), the tracks'
+    validity and the new history store."""
     from .detector import _resize_bilinear
     from .kalman import KalmanConfig, init_mats
     from .models import registry
@@ -168,6 +178,8 @@ def _dryrun_rank(n_devices: int, model_name: str, device: str) -> str:
     assert axis_size(mesh, 'streams') == n_streams
     block = mesh.get_local_rank('streams')
     me = slice(block, block + 1)
+    # this rank's slice of the 512 ReID features
+    part, n_part = mesh.get_local_rank('model'), model_par
 
     # the JAX dryrun's tiny shapes; the flow kernels' capacity is a module
     # constant, so the track capacity equals it
@@ -198,9 +210,10 @@ def _dryrun_rank(n_devices: int, model_name: str, device: str) -> str:
     frames1 = np.clip(frames0 + rng.normal(0, 2.0, frames0.shape), 0,
                       255).astype(np.uint8)
     offs = rng.uniform(0, 24.0, (n_streams, t_cap, 1))
-    feat_sum = rng.normal(size=(n_streams, t_cap, feat))
-    hist_sum = rng.normal(size=(n_streams, hist_cap, feat))
-    d_emb = rng.normal(size=(n_streams, d_cap, feat))
+    fsl = slice(part * feat // n_part, (part + 1) * feat // n_part)
+    feat_sum = rng.normal(size=(n_streams, t_cap, feat))[..., fsl]
+    hist_sum = rng.normal(size=(n_streams, hist_cap, feat))[..., fsl]
+    d_emb = rng.normal(size=(n_streams, d_cap, feat))[..., fsl]
 
     def put(a, dtype=torch.float32):
         return torch.tensor(np.asarray(a)[me], dtype=dtype, device=dev)
@@ -249,9 +262,7 @@ def _dryrun_rank(n_devices: int, model_name: str, device: str) -> str:
             gap_points_batch(spec, f_cap, state, prev)
         all_cur, status = fk.lk_core(spec, prev[1], cur[1], all_prev,
                                      all_valid)
-        draws = [fk.ransac_draws(seed, f_cap, 'cpu')
-                 for seed in range(n_streams)[me]]
-        draws = tuple(torch.stack(u).to(dev) for u in zip(*draws))
+        draws = fk.ransac_draws_batch(range(n_streams)[me], f_cap, dev)
         state, _ = gap_commit_batch(
             cfg, spec, 2.0, s, state, inside, f_tlbrs, f_valid, forder,
             all_prev, all_cur, status, draws, trans, acc_cov, frame_rect)
@@ -260,9 +271,15 @@ def _dryrun_rank(n_devices: int, model_name: str, device: str) -> str:
         n_depth = 4
         params = (cfg, dist_ops.Metric.EUCLIDEAN, n_depth, 0.2, 0.9, 0.6,
                   1.0, 0.7, s)
+        feature_psum = None
+        if model_par > 1:
+            def feature_psum(t):
+                red = t.cpu() if dist.get_backend() == 'gloo' else t
+                dist.all_reduce(red, group=mesh.get_group('model'))
+                t.copy_(red)
         (cost, iou_cost, reid_cost, occluded, h_reid_ok, depth_masks,
          base_iou_active, base_unconf, u_det, col4row) = assoc_costs_batch(
-            params, state, hist, dets, emb)
+            params, state, hist, dets, emb, feature_psum)
         u_det, col4row = stages_scan_core(
             n_depth, cost, iou_cost, depth_masks, base_iou_active,
             base_unconf, u_det, col4row)
@@ -277,18 +294,27 @@ def _dryrun_rank(n_devices: int, model_name: str, device: str) -> str:
     assert det7.dim() == 3 and det7.shape[0] == 1 and det7.shape[2] == 7
     assert bool(torch.isfinite(det7).all())
     assert new_state[0].shape == (1, t_cap, 8)
-    assert new_hist[0].shape == (1, hist_cap, feat)
+    assert new_hist[0].shape == (1, hist_cap, feat // n_part)
     # every stream's seeded near-identity detections matched, the tracks
     # kept alive by the on-device decisions
     alive = [None] * dist.get_world_size()
     dist.all_gather_object(alive, new_state[3][0, :8].cpu().tolist())
     alive = np.array(alive[::model_par])
     assert alive.mean() > 0.5, alive
-    return (f'dryrun ok: {n_streams} streams x {model_par}-way TP on '
+    line = (f'dryrun ok: {n_streams} streams x {model_par}-way TP on '
             f'{n_devices} devices ({dist.get_backend()}, {device}); '
             f'detector={model_name} @{net_hw[0]}x{net_hw[1]}; '
             f'{int(alive.sum())}/{alive.size} seeded tracks alive after '
-            f'the fused on-device association')
+            f'the fused on-device association; {feat // n_part} of {feat} '
+            f'ReID features a rank')
+
+    def host(t):
+        return t.cpu().numpy()
+    return {'line': line, 'features': (fsl.start, fsl.stop),
+            'cost': host(cost), 'reid_cost': host(reid_cost),
+            'col4row': host(col4row), 'valid': host(new_state[3]),
+            'feat_sum': host(new_state[13]),
+            'hist': [host(t) for t in new_hist]}
 
 
 # ---------------------------------------------------------------------------
@@ -299,7 +325,9 @@ def splice_detections(mot, dets):
     """Make ``mot``'s detector answer with ``dets`` after its network ran:
     ``dets`` holds ``frames`` (the frame indices that detect) and the
     global ``tlbr [F, S, D, 4]``, ``label``, ``conf``, ``valid [F, S, D]``;
-    each rank takes its ``local_streams``."""
+    each rank takes its ``local_streams``. What the network found is kept
+    in ``mot.network_dets``: ``{frame: [(tlbr, label, conf) of each local
+    stream]}``."""
     from .detector import make_detections
     det = mot.detector
     mine = mot.local_streams
@@ -309,9 +337,11 @@ def splice_detections(mot, dets):
     staged = {f: tuple(torch.as_tensor(a[i], device=mot.device)
                        for a in arrays) for f, i in at.items()}
     real_post, real_dev = det.postprocess, det.postprocess_device_batch
+    mot.network_dets = {}
 
     def post():
-        real_post()
+        mot.network_dets[mot.frame_count] = [
+            (d.tlbr, d.label, d.conf) for d in real_post()]
         tlbr, label, conf, valid = (a[at[mot.frame_count]] for a in arrays)
         return [make_detections(tlbr[s][valid[s]].astype(float),
                                 label[s][valid[s]].astype(int),
@@ -319,7 +349,10 @@ def splice_detections(mot, dets):
                 for s in range(len(mine))]
 
     def post_dev():
-        real_dev()
+        tlbr, label, conf, valid = (t.cpu().numpy() for t in real_dev())
+        mot.network_dets[mot.frame_count] = [
+            (tlbr[s][valid[s]], label[s][valid[s]], conf[s][valid[s]])
+            for s in range(len(mine))]
         return staged[mot.frame_count]
 
     det.postprocess, det.postprocess_device_batch = post, post_dev
@@ -368,8 +401,8 @@ def multi_stream_rank(inputs, n_streams, model_parallel, mot_kwargs,
     model_parallel=, device=mesh_device)`` mesh over the frames of
     ``inputs/frames.npy`` (``[F, S, H, W, 3]``, read for this rank's streams
     only) and the detections of ``inputs/dets.npz`` (``splice_detections``);
-    returns this rank's ``local_streams``, rows, step times and OSBlock
-    launches."""
+    returns this rank's ``local_streams``, rows, step times, OSBlock
+    launches and what its detector's network found (``network_dets``)."""
     from .ops.osnet_block import osblock
     from .parallel import MultiStreamMOT, make_stream_mesh
     mesh = make_stream_mesh(model_parallel=model_parallel, device=mesh_device)
@@ -381,25 +414,81 @@ def multi_stream_rank(inputs, n_streams, model_parallel, mot_kwargs,
     osblock.launches = 0
     rows, step_ms = run_multi_stream(mot, frames, dets, sync_every_frame)
     return {'local_streams': list(mot.local_streams), 'rows': rows,
-            'step_ms': step_ms, 'osblock_launches': osblock.launches}
+            'step_ms': step_ms, 'osblock_launches': osblock.launches,
+            'network_dets': mot.network_dets}
 
 
-def sharded_heads_rank(model_name, x, model_parallel, seed=0):
-    """Rank worker: the registered YOLO ``model_name`` (random init from
-    ``seed``) under ``shard_conv_channels`` on a gloo CPU mesh; returns the
-    plan, the shapes of the sharded state dict and the heads on ``x``."""
+def each_run(fn, arg_lists) -> list:
+    """Rank worker: ``fn(*args)`` for each of ``arg_lists`` in turn, in
+    one process (one spawn for several runs)."""
+    return [fn(*args) for args in arg_lists]
+
+
+def zoo_module(model_name: str, seed: int = 0, varied_bn: bool = False):
+    """The registered YOLO, SSD or ReID model ``model_name`` in eval mode
+    on the CPU, random init from ``seed`` (Flax's defaults; with
+    ``varied_bn`` each BN's four vectors then drawn away from identity)."""
     from .models import registry
-    from .models.layers import random_init_
+    from .models.layers import BatchNorm, random_init_
+    for reg in (registry.YOLOModel, registry.SSDModel, registry.ReIDModel):
+        try:
+            cls = reg.get_model(model_name)
+            break
+        except KeyError:
+            continue
+    else:
+        raise KeyError(f'{model_name!r} is not a registered model')
+    module = cls.build().requires_grad_(False).eval()
+    gen = torch.Generator().manual_seed(seed)
+    random_init_(module, gen)
+    if varied_bn:
+        for m in module.modules():
+            if isinstance(m, BatchNorm):
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.uniform_(-0.1, 0.1, generator=gen)
+                m.running_mean.uniform_(-0.1, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    return module
+
+
+def zoo_outputs(module, x, literal: bool = False) -> list:
+    """``module`` on ``x`` (NHWC float32) as a list of numpy arrays: a
+    YOLO's heads, an SSD's (locs, confs), a ReID model's embeddings;
+    ``literal``: OSNet's per-stream forward (``force_plain_streams``)."""
+    from .models.osnet import force_plain_streams
+    x = torch.as_tensor(x, device=next(module.parameters()).device)
+    with torch.no_grad(), (force_plain_streams() if literal
+                           else contextlib.nullcontext()):
+        out = module(x)
+    out = [out] if isinstance(out, torch.Tensor) else list(out)
+    return [o.float().cpu().numpy() for o in out]
+
+
+def sharded_heads_rank(model_name, x, model_parallel, seed=0,
+                       varied_bn=False, literal=False, device='cpu'):
+    """Rank worker: ``zoo_module(model_name, seed, varied_bn)`` on
+    ``device`` under ``shard_conv_channels`` over a gloo mesh; returns the
+    plan, the shapes of the sharded state dict, its outputs on ``x``
+    (``zoo_outputs``; ``literal`` adds OSNet's per-stream forward under
+    ``'literal'``), the forward's time in ms and the OSBlock launches."""
+    from .ops.osnet_block import osblock
     from .parallel.streams import make_stream_mesh, shard_conv_channels
     from .weights import flax_shapes
     mesh = make_stream_mesh(model_parallel=model_parallel, device='cpu')
-    module = registry.YOLOModel.get_model(model_name).build() \
-        .requires_grad_(False).eval()
-    random_init_(module, torch.Generator().manual_seed(seed))
+    module = zoo_module(model_name, seed, varied_bn).to(device)
     plan = shard_conv_channels(module, mesh)
-    with torch.no_grad():
-        heads = [h.numpy() for h in module(torch.as_tensor(x))]
-    return {'plan': plan, 'shapes': flax_shapes(module), 'heads': heads}
+    out = {'plan': plan, 'shapes': flax_shapes(module)}
+    zoo_outputs(module, x)                  # gathers the OSBlock weights
+    if device != 'cpu':
+        torch.cuda.synchronize()
+    osblock.launches = 0
+    t0 = time.perf_counter()
+    out['heads'] = zoo_outputs(module, x)
+    out['ms'] = (time.perf_counter() - t0) * 1e3
+    out['osblock_launches'] = osblock.launches
+    if literal:
+        out['literal'] = zoo_outputs(module, x, literal=True)
+    return out
 
 
 def main(argv=None):

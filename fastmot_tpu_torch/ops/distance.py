@@ -19,12 +19,18 @@ class Metric(enum.Enum):
     COSINE = 1
 
 
+def euclidean_from_terms(a2: torch.Tensor, b2: torch.Tensor,
+                         ab: torch.Tensor) -> torch.Tensor:
+    """[..., N, M] euclidean distances from the expansion's terms:
+    |a|^2 [..., N], |b|^2 [..., M] and a.b [..., N, M]."""
+    return torch.sqrt(torch.clamp(a2[..., :, None] + b2[..., None, :]
+                                  - 2.0 * ab, min=0.0))
+
+
 def euclidean_dist(xa: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
     """[N, M] euclidean distances via the |a|^2 + |b|^2 - 2ab expansion."""
-    a2 = torch.sum(xa * xa, dim=-1)[:, None]
-    b2 = torch.sum(xb * xb, dim=-1)[None, :]
-    ab = xa @ xb.T
-    return torch.sqrt(torch.clamp(a2 + b2 - 2.0 * ab, min=0.0))
+    return euclidean_from_terms(torch.sum(xa * xa, dim=-1),
+                                torch.sum(xb * xb, dim=-1), xa @ xb.T)
 
 
 def cosine_dist(xa: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:

@@ -17,14 +17,17 @@ estimateAffinePartial2D, with every numeric choice kept:
 
 Ranking uses stable sorts wherever the JAX package uses ``argsort`` or
 ``top_k`` (which also keep the lower index first on ties). RANSAC takes
-its uniform draws ``u`` as arguments: the main path draws them from a
-``torch.Generator`` seeded with the frame's seed (``ransac_draws``).
+its uniform draws ``u`` as arguments: the main path draws them with
+``ransac_draws``, JAX's threefry-2x32 key derivation in numpy uint32
+arithmetic on the host, so a seed gives the JAX package's uniforms bit
+for bit.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -471,15 +474,69 @@ def ransac_similarity(prev_pts, cur_pts, valid, u, inlier_thresh: int):
     return ok, aff_best, inlier, cnt, n_inl
 
 
+_THREEFRY_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _threefry2x32(k1, k2, x1, x2):
+    """JAX's threefry-2x32 hash (``jax._src.prng``, 20 rounds) of the
+    counter pairs ``(x1, x2)`` under the key ``(k1, k2)``, on numpy uint32
+    arrays (whose sums wrap as uint32's do), all four broadcast together.
+    The rounds update two buffers in place: no array is allocated per
+    step, which is most of the host time at 8 streams x 128 tracks."""
+    u32 = np.uint32
+    ks = (k1, k2, k1 ^ k2 ^ u32(0x1BD11BDA))
+    shape = np.broadcast_shapes(*(np.shape(v) for v in (k1, k2, x1, x2)))
+    a, b, tmp = (np.empty(shape, u32) for _ in range(3))
+    np.add(x1, ks[0], out=a, dtype=u32)
+    np.add(x2, ks[1], out=b, dtype=u32)
+    for i in range(5):
+        for r in _THREEFRY_ROT[i % 2]:
+            a += b
+            np.right_shift(b, u32(32 - r), out=tmp)
+            np.left_shift(b, u32(r), out=b)
+            b |= tmp
+            b ^= a
+        a += ks[(i + 1) % 3]
+        b += ks[(i + 2) % 3]
+        b += u32(i + 1)
+    return a, b
+
+
+def _uniform(k1, k2, n: int):
+    """``jax.random.uniform(key, (n,))`` for keys ``[...]``: ``[..., n]``
+    float32 in [0, 1), ``jax_threefry_partitionable`` bits."""
+    b1, b2 = _threefry2x32(k1[..., None], k2[..., None], np.uint32(0),
+                           np.arange(n, dtype=np.uint32))
+    bits = ((b1 ^ b2) >> np.uint32(9)) | np.uint32(0x3F800000)
+    return bits.view(np.float32) - np.float32(1.0)
+
+
+def ransac_draws_batch(seeds, f_cap: int, device):
+    """Every stream's RANSAC uniforms in one call: ``seeds`` [S] ->
+    (u_h [S, HYP_H, 4], u_a [S, f_cap, HYP_A, 2]), the draws of
+    ``ransac_draws`` for each seed. Computed on the host, then moved to
+    ``device`` once."""
+    seed = (np.asarray(seeds, np.int64).reshape(-1) & 0xFFFFFFFF) \
+        .astype(np.uint32)
+    zero = np.zeros_like(seed)
+    # PRNGKey(seed) = (0, seed); fold_in(key, d) = threefry(key, (0, d))
+    h1, h2 = _threefry2x32(zero, seed, zero, zero)
+    a1, a2 = _threefry2x32(zero, seed, zero, zero + np.uint32(1))
+    # split(key, f_cap): threefry(key, (0, t)) for t < f_cap
+    s1, s2 = _threefry2x32(a1[:, None], a2[:, None], np.uint32(0),
+                           np.arange(f_cap, dtype=np.uint32))
+    u_h = _uniform(h1, h2, HYP_H * 4).reshape(-1, HYP_H, 4)
+    u_a = _uniform(s1, s2, HYP_A * 2).reshape(-1, f_cap, HYP_A, 2)
+    return torch.from_numpy(u_h).to(device), torch.from_numpy(u_a).to(device)
+
+
 def ransac_draws(seed: int, f_cap: int, device):
-    """The frame's RANSAC uniforms: (u_h [HYP_H, 4], u_a [f_cap, HYP_A, 2])
-    from a CPU ``torch.Generator`` seeded with ``seed``, moved to
-    ``device``: the same draws on every device, so a GPU run can be held
-    against a CPU run."""
-    g = torch.Generator().manual_seed(int(seed))
-    u_h = torch.rand((HYP_H, 4), generator=g)
-    u_a = torch.rand((f_cap, HYP_A, 2), generator=g)
-    return u_h.to(device), u_a.to(device)
+    """The frame's RANSAC uniforms: (u_h [HYP_H, 4], u_a [f_cap, HYP_A,
+    2]), the JAX package's ``flow_post_core`` draws for the uint32
+    ``seed`` bit for bit: ``uniform(fold_in(PRNGKey(seed), 0))`` and, per
+    track, ``uniform`` of ``split(fold_in(PRNGKey(seed), 1), f_cap)``."""
+    u_h, u_a = ransac_draws_batch([seed], f_cap, device)
+    return u_h[0], u_a[0]
 
 
 # ---------------------------------------------------------------------------

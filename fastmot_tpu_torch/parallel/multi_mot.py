@@ -16,8 +16,11 @@ sharded over the ranks of ``'streams'``: ``step`` takes the global batch
 of S frames and stages only this rank's ``local_streams``, whose detector,
 ReID (``S_local * 128`` crops in one OSNet call) and tracker run on this
 rank; the ranks on ``'model'`` of one block run the same streams, as the
-JAX package replicates them. Under int8 with dynamic ranges, one input
-range then spans this rank's crops, not all streams'.
+JAX package replicates them. Under int8 with dynamic ranges each stream's
+crops take their own input ranges (the JAX package's ``vmap``), and the
+detector's range spans all streams' frames: each native conv's input
+absmax is all-reduced (MAX) over ``'streams'``, the global range of the
+JAX package's sharded batch.
 """
 from __future__ import annotations
 
@@ -27,29 +30,36 @@ import torch
 from ..detector import YOLODetector, make_detections
 from ..device import torch_device
 from ..feature_extractor import FeatureExtractor
+from ..models.quantize import dynamic_ranges
 from ..tracker import cfg_kwargs
 from ..utils import Profiler
 from .stream_tracker import StreamTracker
 
 
 class BatchedYOLODetector:
-    """YOLO detector over a stream axis: one network batch for S frames."""
+    """YOLO detector over a stream axis: one network batch for S frames.
+    ``range_group``: the process group over which a dynamic int8 input
+    range is all-reduced (the ranks holding the other streams; None: this
+    batch alone)."""
 
     def __init__(self, size, class_ids, n_streams, model='YOLOv4',
                  conf_thresh=0.25, nms_thresh=0.5, max_area=800000,
-                 min_aspect_ratio=1.2, device='cuda'):
+                 min_aspect_ratio=1.2, quantize=None, calib_cache=None,
+                 device='cuda', range_group=None):
         # the single-stream detector's geometry, module and postprocess
         self._single = YOLODetector(size, class_ids, model, conf_thresh,
                                     nms_thresh, max_area, min_aspect_ratio,
-                                    device=device)
+                                    quantize, calib_cache, device=device)
         self.n_streams = n_streams
         self.device = self._single.device
+        self.range_group = range_group
         self._pending = None
 
     def detect_async(self, frames):
         """``frames`` [S, H, W, 3] uint8 BGR."""
-        self._pending = self._single.run(
-            torch.as_tensor(frames, device=self.device))
+        with dynamic_ranges(process_group=self.range_group):
+            self._pending = self._single.run(
+                torch.as_tensor(frames, device=self.device))
 
     def postprocess(self):
         """Per-stream host recarrays, from one transfer."""
@@ -103,7 +113,9 @@ class MultiStreamMOT:
             mesh=mesh, **cfg_kwargs(tracker_cfg))
         self.detector = BatchedYOLODetector(
             size, self.class_ids, len(self.local_streams),
-            device=self.device, **cfg_kwargs(yolo_detector_cfg))
+            device=self.device,
+            range_group=None if mesh is None else mesh.get_group('streams'),
+            **cfg_kwargs(yolo_detector_cfg))
         self.frame_count = 0
 
     @property

@@ -14,7 +14,8 @@ them, stream by stream, through ``MultiTracker.sync(infos=...)``.
 Kept from the JAX package: the densest stream picks the flow budget
 ``f_cap`` of all streams; every stream's RANSAC seed starts at 0 at
 ``init`` and goes up by one per gap frame, and its draws come from its own
-seed; the pending infos replay stream-major at ``sync`` (``Track._count``
+seed (one ``ransac_draws_batch`` call for all streams, JAX's draws bit for
+bit); the pending infos replay stream-major at ``sync`` (``Track._count``
 is global, so the order sets the IDs).
 
 With ``mesh`` (``parallel.make_stream_mesh``) this rank owns the
@@ -216,8 +217,7 @@ class StreamTracker:
         all_cur, status = fk.lk_core(spec, prev[1], cur[1], all_prev,
                                      all_valid)
         # each stream's draws from its own seed, uploaded together
-        draws = [fk.ransac_draws(seed, f_cap, 'cpu') for seed in self._seeds]
-        draws = tuple(torch.stack(u).to(self.device) for u in zip(*draws))
+        draws = fk.ransac_draws_batch(self._seeds, f_cap, self.device)
         new_state, infos = gap_commit_batch(
             self.kf_cfg, spec, float(t0.age_penalty), t0.confirm_hits,
             self._dev_state, inside, f_tlbrs, f_valid, forder, all_prev,

@@ -5,13 +5,16 @@
     contiguous block of the streams (``StreamTracker(..., mesh=)``,
     ``MultiStreamMOT(..., mesh=)``); the frame loop exchanges only a few
     integers across it (the flow budget, the new-track counts at ``sync``).
-  * ``model``: tensor parallelism inside a detector. ``shard_conv_channels``
-    keeps on each rank its slice of every conv's output channels (with
-    the bias and the following batch norm's vectors) and all-gathers the
-    activations along the channel axis after the last per-channel op that
-    follows the conv (the conv, its BN and its activation): the gather XLA's
-    SPMD partitioner inserts for the JAX package's
-    ``conv_channel_shardings``.
+  * ``model``: tensor parallelism inside any network of the zoo (the
+    YOLOs, the SSDs, the OSNets). ``shard_conv_channels`` keeps on each
+    rank its slice of every conv, depthwise and dense layer's output
+    channels (with the bias and the following batch norm's vectors) and
+    all-gathers the activations along the channel axis after the last
+    per-channel op of the chain (``models.layers.gather``): the gather
+    XLA's SPMD partitioner inserts for the JAX package's
+    ``conv_channel_shardings``. An ``OSBlock`` (the hand kernel's block)
+    all-gathers its sliced weights instead and runs whole, as XLA does for
+    a ``pallas_call`` with sharded operands.
 
 The caller initialises the process group: NCCL with one rank per card for
 a ``'cuda'`` mesh, gloo for a ``'cpu'`` mesh (which may also serve ranks
@@ -26,6 +29,7 @@ from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..device import torch_device
+from ..models.layers import BatchNorm, Conv, DepthwiseConv3x3
 from ..weights import flax_shapes
 
 __all__ = ['make_stream_mesh', 'shard_conv_channels', 'conv_channel_plan',
@@ -90,74 +94,117 @@ def conv_channel_plan(module: nn.Module, k: int) -> list[str]:
 
 
 class ChannelShard:
-    """One sharded conv of a module: the input channels its grouped conv
-    reads (None: all) and the all-gather of its block's output over the
-    'model' axis."""
+    """Rank ``r``'s block of ``k`` over the ``'model'`` group: of a layer's
+    output channels and, for a per-channel layer, of its ``in_channels``
+    input channels (``take``)."""
 
-    def __init__(self, group, k: int, in_slice: slice | None):
-        self.group, self.k, self.in_slice = group, k, in_slice
-        self.backend = dist.get_backend(group)
+    def __init__(self, group, k: int, r: int, in_channels: int | None = None,
+                 names=()):
+        self.group, self.k, self.r = group, k, r
+        self.in_channels = in_channels
+        self.names = frozenset(names)      # an OSBlock's sharded leaves
 
-    def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """``[..., C / k]`` on each rank -> ``[..., C]`` in rank order.
-        Gloo takes host tensors: bf16 travels as float32 (exact)."""
-        if self.k == 1:
+    def _block(self, n: int) -> slice:
+        return slice(self.r * n // self.k, (self.r + 1) * n // self.k)
+
+    def take(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's channel block of a whole input ``[..., C]``; a
+        block already taken (``[..., C / k]``) passes as it is."""
+        if self.in_channels is None or x.shape[-1] != self.in_channels:
             return x
+        return x[..., self._block(self.in_channels)]
+
+    def _all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Gloo takes host tensors: bf16 travels as float32 (exact)."""
         send = x.contiguous()
-        if self.backend == 'gloo':
+        if dist.get_backend(self.group) == 'gloo':
             send = send.cpu()
             if send.dtype == torch.bfloat16:
                 send = send.float()
         parts = [torch.empty_like(send) for _ in range(self.k)]
         dist.all_gather(parts, send, group=self.group)
-        return torch.cat(parts, -1).to(x.device, x.dtype)
+        return torch.cat(parts, dim).to(x.device, x.dtype)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """``[..., C / k]`` on each rank -> ``[..., C]`` in rank order."""
+        return self._all_gather(x, -1)
+
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """A sliced parameter ``[O / k, ...]`` -> ``[O, ...]``."""
+        return self._all_gather(t, 0)
 
 
-def _slice_(param: torch.Tensor, sl: slice):
-    param.data = param.data[sl].clone()
+_LEAVES = (Conv, DepthwiseConv3x3, BatchNorm, nn.Linear)
+
+
+def _slice_rows_(module: nn.Module, k: int, r: int) -> list[str]:
+    """Keep rank r's block of dim 0 of each of ``module``'s own parameters
+    and buffers that splits k ways; returns their names."""
+    out = []
+    for name, t in [*module.named_parameters(recurse=False),
+                    *module.named_buffers(recurse=False)]:
+        if t is not None and t.shape[0] % k == 0:
+            n = t.shape[0]
+            t.data = t.data[r * n // k:(r + 1) * n // k].clone()
+            out.append(name)
+    return out
 
 
 def shard_conv_channels(module: nn.Module, mesh: DeviceMesh,
                         axis: str = 'model') -> list[str]:
-    """Keep on this rank its block of every conv's output channels that
-    divide by the size k of ``axis`` (weight, bias and the following batch
-    norm's four vectors), in place; the module then all-gathers each such
-    conv's activations over ``axis`` after its BN and activation. A grouped
-    or depthwise conv slices its input channels with its output channels.
-    Returns the Flax paths sharded: ``conv_channel_plan(module, k)``.
+    """Keep on this rank its block of every conv, depthwise and dense
+    layer's output channels that divide by the size k of ``axis`` (weight,
+    bias and the following batch norm's four vectors), in place: exactly
+    the Flax paths of ``conv_channel_plan(module, k)``, which it returns.
+    The module then computes each such layer's block and all-gathers it
+    over ``axis`` after the chain's last per-channel op; a grouped or
+    depthwise layer takes the block of its input channels. An ``OSBlock``
+    keeps its slices and all-gathers them once to run whole (the kernel's
+    block, as XLA gathers a ``pallas_call``'s sharded operands).
 
-    Every registered YOLO is a ``DarknetModule``, whose conv -> BN ->
-    activation chains this walks; other modules raise ``TypeError``."""
-    from ..models.darknet import DarknetModule
-    if not isinstance(module, DarknetModule):
-        raise TypeError(f'shard_conv_channels: {type(module).__name__} is '
-                        'not a DarknetModule (the registered YOLOs)')
+    Works on every registered model (the YOLOs' ``DarknetModule``, the
+    SSDs, the OSNets): each is built from ``models.layers``' conv,
+    depthwise and BN layers and ``nn.Linear``. A module holding
+    parameters of another kind raises ``TypeError``."""
+    from ..models.osnet import OSBlock
     k = axis_size(mesh, axis)
     r = mesh.get_local_rank(axis)
     group = mesh.get_group(axis)
     plan = conv_channel_plan(module, k)
-    for name, conv in module.named_children():
-        if not name.startswith('conv'):
+    if k == 1:                      # one block: the whole layer
+        return plan
+    before = flax_shapes(module)
+    blocks = [m for m in module.modules() if isinstance(m, OSBlock)]
+    inside = {id(m) for b in blocks for m in b.modules()}
+    for b in blocks:
+        names = [f'{p}.{n}' if p else n for p, m in b.named_modules()
+                 for n in _slice_rows_(m, k, r)]
+        b.shard = ChannelShard(group, k, r, names=names)
+    for name, m in module.named_modules():
+        if id(m) in inside or next(m.parameters(recurse=False),
+                                   None) is None:
             continue
-        f = conv.weight.shape[0]
-        if f % k:
+        if not isinstance(m, _LEAVES):
+            raise TypeError(f'shard_conv_channels: {name or "the module"} '
+                            f'is a {type(m).__name__}, which holds '
+                            'parameters and is not a conv, depthwise, BN '
+                            'or dense layer')
+        if m.weight.shape[0] % k:
             continue
-        i = int(name[len('conv'):])
-        out_sl = slice(r * f // k, (r + 1) * f // k)
-        in_sl = None
-        if conv.groups > 1:
-            if conv.groups % k:
-                raise ValueError(f'{name}: {conv.groups} groups do not '
+        in_ch = None
+        if isinstance(m, (DepthwiseConv3x3, BatchNorm)):
+            in_ch = m.weight.shape[0]
+        elif isinstance(m, Conv) and m.groups > 1:
+            if m.groups % k:
+                raise ValueError(f'{name}: {m.groups} groups do not '
                                  f'split {k} ways')
-            cin = conv.weight.shape[1] * conv.groups
-            in_sl = slice(r * cin // k, (r + 1) * cin // k)
-            conv.groups //= k
-        _slice_(conv.weight, out_sl)
-        if conv.bias is not None:
-            _slice_(conv.bias, out_sl)
-        bn = getattr(module, f'bn{i}', None)
-        if bn is not None:
-            for t in (bn.weight, bn.bias, bn.running_mean, bn.running_var):
-                _slice_(t, out_sl)
-        module.channel_shards[i] = ChannelShard(group, k, in_sl)
+            in_ch = m.weight.shape[1] * m.groups
+            m.groups //= k
+        _slice_rows_(m, k, r)
+        m.shard = ChannelShard(group, k, r, in_ch)
+    after = flax_shapes(module)
+    split = sorted(p for p, s in before.items() if after[p] != s)
+    if split != plan:
+        raise RuntimeError(f'shard_conv_channels: sliced {len(split)} '
+                           f'leaves, the plan has {len(plan)}')
     return plan

@@ -15,9 +15,10 @@ The per-frame pure functions keep the JAX package's names and arguments
 and ``scan_finals_commit_core``. They run eagerly, one frame at a time:
 the JAX package's scan/chain kernels and its split-dispatch variants are
 TPU dispatch structure and are not ported. The RANSAC draws of a gap frame
-come from a ``torch.Generator`` seeded with the flow seed and are passed
-in as ``draws``. ``*_batch`` run the loop-free cores over a leading stream
-axis (``parallel.StreamTracker``); ``stage_core``, ``stages_scan_core`` and
+are the JAX package's for the flow seed, bit for bit
+(``ops.flow_kernels.ransac_draws``), and are passed in as ``draws``.
+``*_batch`` run the loop-free cores over a leading stream axis
+(``parallel.StreamTracker``); ``stage_core``, ``stages_scan_core`` and
 ``finals_core`` take that axis themselves. ``compute_flow``/``apply_kalman``
 are the JAX package's legacy per-track API.
 """
@@ -265,15 +266,47 @@ def normalized_feats(feat_sum, feat_count):
     return avg / torch.where(norm > 0, norm, torch.ones_like(norm))
 
 
+def split_feature_dists(metric: dist.Metric, feat_sum, feat_count,
+                        hist_sum, hist_count, d_embeddings, psum):
+    """The euclidean appearance distances of ``assoc_costs_core`` for
+    every stream, ``([S, T, D], [S, H, D])`` (tracks and history entries
+    against the detections), when each rank holds one slice of the feature
+    axis (``'model'`` sharding of the 512-d ReID features): the partial
+    sums of the norms and of the expansion's terms are completed by
+    ``psum``, an in-place SUM all-reduce over the slices' ranks, in two
+    calls (the averaged features' norms, then the terms). Outside
+    ``vmap``, which admits no collective."""
+    if metric != dist.Metric.EUCLIDEAN:
+        raise ValueError(f'split features: {metric} is not supported')
+    t = feat_sum.shape[1]
+    avg = torch.cat([feat_sum / torch.clamp(feat_count, min=1.0)[..., None],
+                     hist_sum / torch.clamp(hist_count, min=1.0)[..., None]],
+                    1)
+    sq = torch.sum(avg * avg, -1)
+    psum(sq)
+    norm = torch.sqrt(sq)[..., None]
+    feats = avg / torch.where(norm > 0, norm, torch.ones_like(norm))
+    terms = [torch.sum(feats * feats, -1), torch.sum(d_embeddings ** 2, -1),
+             feats @ d_embeddings.transpose(1, 2)]
+    flat = torch.cat([a.reshape(-1) for a in terms])
+    psum(flat)
+    y = dist.euclidean_from_terms(*(v.reshape(a.shape) for v, a in zip(
+        flat.split([a.numel() for a in terms]), terms)))
+    return y[:, :t], y[:, t:]
+
+
 def assoc_costs_core(cfg: KalmanConfig, metric: dist.Metric, n_depth: int,
                      motion_weight: float, max_assoc_cost: float,
                      iou_gate: float, fill_val: float,
                      occlusion_thresh: float, confirm_hits: int,
                      state, hist, d_tlbrs, d_labels, d_conf, d_valid,
-                     d_embeddings, emb_cap: int | None = None):
+                     d_embeddings, emb_cap: int | None = None,
+                     appearance=None):
     """Cost matrices + row masks of every cascade stage. Detections at
     index >= ``emb_cap`` carry no embedding and are treated like occluded
-    ones (appearance-free association, no reID, no feature absorption)."""
+    ones (appearance-free association, no reID, no feature absorption).
+    ``appearance``: the two unmasked appearance distances, computed apart
+    (``split_feature_dists``); None computes them here."""
     (means, covs, tlbrs, t_valid, ages, hits, t_labels, start_f, end_f,
      lost_pending, inl, kps, kpv, feat_sum, feat_count) = state
     hist_sum, hist_count, h_labels, h_valid, h_lru, h_hits = hist
@@ -286,19 +319,21 @@ def assoc_costs_core(cfg: KalmanConfig, metric: dist.Metric, n_depth: int,
     if emb_cap is not None and emb_cap < d_tlbrs.shape[0]:
         occluded = occluded | (torch.arange(d_tlbrs.shape[0],
                                             device=d_tlbrs.device) >= emb_cap)
-    t_feats = normalized_feats(feat_sum, feat_count)
+    if appearance is None:
+        appearance = tuple(
+            dist.cdist(normalized_feats(f_sum, count), d_embeddings, metric)
+            for f_sum, count in ((feat_sum, feat_count),
+                                 (hist_sum, hist_count)))
+    t_app, h_app = appearance
     empty = (feat_count < 1.0)[:, None] | occluded[None, :]
-    cost = dist.cdist(t_feats, d_embeddings, metric, empty_mask=empty,
-                      fill_val=fill_val)
+    cost = torch.where(empty, torch.full_like(t_app, fill_val), t_app)
     m_dist = kf.maha_distance(cfg, means, covs, d_tlbrs)
     cost = asg.fuse_motion(cost, m_dist, motion_weight)
     cost = asg.gate_cost(cost, t_labels, d_labels, max_assoc_cost)
 
     iou_cost = asg.gate_cost(dist.iou_dist(tlbrs, d_tlbrs), t_labels,
                              d_labels, iou_gate)
-    reid_cost = asg.gate_cost(
-        dist.cdist(normalized_feats(hist_sum, hist_count), d_embeddings,
-                   metric), h_labels, d_labels)
+    reid_cost = asg.gate_cost(h_app, h_labels, d_labels)
 
     depth_masks = tuple(t_valid & t_confirmed & (t_depth == d)
                         for d in range(n_depth))
@@ -640,12 +675,22 @@ def gap_commit_batch(cfg: KalmanConfig, spec, age_penalty: float,
         status, draws, trans, acc_cov, frame_tlbr)
 
 
-def assoc_costs_batch(params, states, hists, dets, embs):
+def assoc_costs_batch(params, states, hists, dets, embs, feature_psum=None):
     """``assoc_costs_core(*params, ...)`` for every stream; ``dets`` is
-    ``(tlbr [S, D, 4], label, conf, valid)``, ``embs`` [S, D, F]."""
-    def one(state, hist, det, emb):
-        return assoc_costs_core(*params, state, hist, *det, emb)
-    return vmap(one)(states, hists, dets, embs)
+    ``(tlbr [S, D, 4], label, conf, valid)``, ``embs`` [S, D, F].
+    ``feature_psum``: the features are a slice of the feature axis, whose
+    partial sums this all-reduces (``split_feature_dists``)."""
+    if feature_psum is None:
+        def one(state, hist, det, emb):
+            return assoc_costs_core(*params, state, hist, *det, emb)
+        return vmap(one)(states, hists, dets, embs)
+    app = split_feature_dists(params[1], states[13], states[14], hists[0],
+                              hists[1], embs, feature_psum)
+
+    def one_split(state, hist, det, emb, app):
+        return assoc_costs_core(*params, state, hist, *det, emb,
+                                appearance=app)
+    return vmap(one_split)(states, hists, dets, embs, app)
 
 
 def commit_batch(cfg: KalmanConfig, confirm_hits: int, max_age: int,

@@ -1,7 +1,8 @@
 """The port's flow ops (fastmot_tpu_torch/ops/flow_kernels.py) against the
 JAX package: preprocessing (pyramid, uint8 rounding, Shi-Tomasi, grid
 candidates with forced ties), point assembly, pyramidal LK, both RANSACs
-with the same uniform draws, and one whole gap frame of the tracker."""
+with the same uniform draws, the port's own RANSAC draws (JAX's, bit for
+bit), and one whole gap frame of the tracker."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -209,6 +210,30 @@ def test_ransac_similarity_same_draws(rng):
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
     np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
     np.testing.assert_array_equal(got[4].numpy(), np.asarray(want[4]))
+
+
+@pytest.mark.parametrize('f_cap', [1, 16, 128])
+@pytest.mark.parametrize('seed', [0, 1, 7, 2 ** 31 + 5, 2 ** 32 - 1])
+def test_ransac_draws_match_jax_bit_for_bit(seed, f_cap):
+    """The port's own draws are the JAX package's: every float32 equal to
+    the bit."""
+    got, want = tfk.ransac_draws(seed, f_cap, 'cpu'), jax_draws(seed, f_cap)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.float32 and g.shape == w.shape
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+def test_ransac_draws_batch_is_per_seed():
+    """One call for every stream's seed gives each seed's own draws, bit
+    for bit (the StreamTracker and dryrun call)."""
+    seeds = [0, 3, 2 ** 32 - 1, 41]
+    u_h, u_a = tfk.ransac_draws_batch(seeds, 48, 'cpu')
+    assert u_h.shape == (4, tfk.HYP_H, 4) and \
+        u_a.shape == (4, 48, tfk.HYP_A, 2)
+    for s, seed in enumerate(seeds):
+        one_h, one_a = tfk.ransac_draws(seed, 48, 'cpu')
+        assert torch.equal(u_h[s].view(torch.int32), one_h.view(torch.int32))
+        assert torch.equal(u_a[s].view(torch.int32), one_a.view(torch.int32))
 
 
 def test_gap_frame_matches_jax(states):

@@ -128,8 +128,10 @@ def runs():
         mp.setattr(jreg._ModelBase, 'init_params', classmethod(numpy_init))
         jmot = JaxMultiMOT(SIZE, N_STREAMS, **CFG)
         want = run(jmot, frames, jnp.asarray, jax_detections)
-        mp.setattr(tfk, 'ransac_draws', lambda seed, f_cap, device: tuple(
-            u.to(device) for u in jax_draws(seed, f_cap)))
+        mp.setattr(tfk, 'ransac_draws_batch',
+                   lambda seeds, f_cap, device: tuple(
+                       torch.stack(u).to(device) for u in
+                       zip(*(jax_draws(s, f_cap) for s in seeds))))
         mot = MultiStreamMOT(SIZE, N_STREAMS, device='cpu', **CFG)
         mot.detector._single.module.load_state_dict(flax_to_state_dict(
             flax_flat(jmot.detector._single.params)))

@@ -2,9 +2,10 @@
 on the CPU, spawned by ``fastmot_tpu_torch.multichip.run_ranks``) against
 the JAX package's mesh and the port's unsharded runs:
 
-- the Flax paths ``shard_conv_channels`` shards for YOLOv4-tiny at k = 2
-  and 4 are the ones JAX ``conv_channel_shardings`` marks sharded on the
-  8-device CPU mesh of tests/conftest.py;
+- the Flax paths ``shard_conv_channels`` shards for one model of each
+  family and size (YOLOv4-tiny, the three SSDs, both OSNets) at k = 2 and
+  4 are the ones JAX ``conv_channel_shardings`` marks sharded on the
+  8-device CPU mesh of tests/conftest.py (shapes by ``jax.eval_shape``);
 - YOLOv4-tiny at 64x64 channel-sharded 4 ways gives the unsharded heads
   within 1e-5 relative (each rank keeps a quarter of every conv's output
   channels and gathers them after the activation; the sums of one output
@@ -36,24 +37,41 @@ MOT_KWARGS = dict(size=SIZE, detector_frame_skip=2, class_ids=(0,),
                   tracker_cfg={'max_age': 3})
 
 
-@pytest.mark.parametrize('k', [2, 4])
-def test_shard_plan_matches_jax(k):
+# one model of each family and size; YOLOv4-tiny keeps its ids
+PLAN_CASES = [pytest.param('YOLOv4Tiny', k, id=str(k)) for k in (2, 4)] + [
+    pytest.param(name, k, id=f'{name}-{k}')
+    for name in ('SSDMobileNetV1', 'SSDMobileNetV2', 'SSDInceptionV2',
+                 'OSNet025', 'OSNet10') for k in (2, 4)]
+
+
+@pytest.mark.parametrize('name,k', PLAN_CASES)
+def test_shard_plan_matches_jax(name, k):
     import jax
     import jax.numpy as jnp
     from fastmot_tpu.models import registry as jreg
     from fastmot_tpu.parallel import conv_channel_shardings, make_stream_mesh
 
-    module = jreg.YOLOModel.get_model('YOLOv4Tiny').build()
-    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0),
-                            jnp.zeros((1, 64, 64, 3), jnp.float32))
+    cls = next(reg.get_model(name) for reg in
+               (jreg.YOLOModel, jreg.SSDModel, jreg.ReIDModel)
+               if name in _names(reg))
+    c, h, w = (3, 64, 64) if name == 'YOLOv4Tiny' else cls.INPUT_SHAPE
+    shapes = jax.eval_shape(cls.build().init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, h, w, c), jnp.float32))
     shardings = conv_channel_shardings(shapes,
                                        make_stream_mesh(model_parallel=k))
     want = sorted('/'.join(str(p.key) for p in path) for path, s in
                   jax.tree_util.tree_leaves_with_path(shardings)
                   if not s.is_fully_replicated)
-    got = conv_channel_plan(
-        registry.YOLOModel.get_model('YOLOv4Tiny').build(), k)
+    got = conv_channel_plan(multichip.zoo_module(name), k)
     assert got == want and len(got) > 10
+
+
+def _names(reg):
+    """The names in one of the JAX package's registries."""
+    from fastmot_tpu.models import registry as jreg
+    return {jreg.YOLOModel: jreg._YOLO_REGISTRY,
+            jreg.SSDModel: jreg._SSD_REGISTRY,
+            jreg.ReIDModel: jreg._REID_REGISTRY}[reg]
 
 
 def test_channel_sharded_yolo_matches_unsharded():

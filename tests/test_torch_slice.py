@@ -2,8 +2,9 @@
 PUBLIC detector and OSNet-x0.25 (the configuration of
 tests/test_step_batch.py) on the synthetic SYN-01 sequence of
 tests/test_e2e.py, the same OSNet weights on both sides and the JAX
-package's RANSAC draws fed to the port: the same track IDs on every frame,
-boxes within 2 px. Then the port's ``step_batch`` against its ``step``,
+package's RANSAC draws fed to the port, then the port's own draws (JAX's
+bit for bit) at skip 3 and 5: the same track IDs on every frame, boxes
+within 2 px. Then the port's ``step_batch`` against its ``step``,
 and its command line against the ground truth (MOTA and IDF1 >= 0.85)."""
 import json
 import os
@@ -72,24 +73,46 @@ def sequence(tmp_path_factory):
     return tmp, seq, frames, gt
 
 
-def test_slice_matches_jax(sequence, monkeypatch):
-    tmp, seq, frames, gt = sequence
-    jmot = JaxMOT(SIZE, **mot_cfg(seq))
-    want = run(jmot, frames)
-    save_npz(jmot.extractors[0].params, tmp / 'osnet025.npz')
+@pytest.fixture(scope='module')
+def jax_run(sequence):
+    """``jax_run(skip)``: the JAX package's rows at ``detector_frame_skip``
+    ``skip`` and the path of its OSNet weights (made once per skip)."""
+    tmp, seq, frames, _ = sequence
+    done = {}
 
-    monkeypatch.setattr(tfk, 'ransac_draws',
-                        lambda seed, f_cap, device: tuple(
-                            u.to(device) for u in jax_draws(seed, f_cap)))
-    mot = MOT(SIZE, device='cpu', **mot_cfg(seq))
-    mot.extractors[0].module.load_state_dict(load_npz(tmp / 'osnet025.npz'))
-    got = run(mot, frames)
+    def get(skip):
+        if skip not in done:
+            jmot = JaxMOT(SIZE, **mot_cfg(seq, skip))
+            path = tmp / f'osnet025_skip{skip}.npz'
+            save_npz(jmot.extractors[0].params, path)
+            done[skip] = run(jmot, frames), path
+        return done[skip]
+    return get
 
+
+def port_run(seq, frames, skip, weights):
+    mot = MOT(SIZE, device='cpu', **mot_cfg(seq, skip))
+    mot.extractors[0].module.load_state_dict(load_npz(weights))
+    return run(mot, frames)
+
+
+def assert_same_tracks(got, want):
+    """The same track IDs on every frame, boxes within 2 px."""
     assert set(got) == set(want) == set(range(N_FRAMES))
     for fid in want:
         assert [t for t, _ in got[fid]] == [t for t, _ in want[fid]], fid
         for (_, a), (_, b) in zip(got[fid], want[fid]):
             assert np.abs(a - b).max() <= 2.0, (fid, a, b)
+
+
+def test_slice_matches_jax(sequence, jax_run, monkeypatch):
+    _, seq, frames, gt = sequence
+    want, weights = jax_run(3)
+    monkeypatch.setattr(tfk, 'ransac_draws',
+                        lambda seed, f_cap, device: tuple(
+                            u.to(device) for u in jax_draws(seed, f_cap)))
+    got = port_run(seq, frames, 3, weights)
+    assert_same_tracks(got, want)
     # at skip 3 the reference itself scores MOTA ~0.64 here (every track
     # is unconfirmed for its first skip cycle and one object is re-created
     # after frame 3): the port must score exactly what the JAX run scores;
@@ -100,6 +123,15 @@ def test_slice_matches_jax(sequence, monkeypatch):
     assert (m.mota, m.idf1, m.idsw) == (m_ref.mota, m_ref.idf1,
                                         m_ref.idsw), (str(m), str(m_ref))
     assert m.mota > 0.5 and m.idf1 > 0.5, str(m)
+
+
+@pytest.mark.parametrize('skip', [3, 5])
+def test_slice_own_draws_match_jax(sequence, jax_run, skip):
+    """Nothing injected: the port's own RANSAC draws (``ransac_draws``,
+    JAX's threefry keys) give the JAX run's track IDs on every frame."""
+    _, seq, frames, _ = sequence
+    want, weights = jax_run(skip)
+    assert_same_tracks(port_run(seq, frames, skip, weights), want)
 
 
 def test_slice_step_batch_matches_step(sequence):

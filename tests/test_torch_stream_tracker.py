@@ -74,9 +74,10 @@ def tensor(a):
 
 @pytest.fixture
 def jax_ransac(monkeypatch):
-    monkeypatch.setattr(tfk, 'ransac_draws',
-                        lambda seed, f_cap, device: tuple(
-                            u.to(device) for u in jax_draws(seed, f_cap)))
+    monkeypatch.setattr(tfk, 'ransac_draws_batch',
+                        lambda seeds, f_cap, device: tuple(
+                            torch.stack(u).to(device) for u in
+                            zip(*(jax_draws(s, f_cap) for s in seeds))))
 
 
 @pytest.fixture(scope='module')
