@@ -7,8 +7,10 @@ Phases, each raising on failure (the exit code is then non-zero):
 
 1. device: requires CUDA, prints the card and its power limit, turns TF32
    off for matrix products and convolutions;
-2. build: compiles the OSBlock kernel (csrc/osnet_block.cu) from the
-   sources in this checkout;
+2. build: compiles the OSBlock kernel (csrc/osnet_block.cu) and the
+   pyramidal-LK kernel (csrc/lk_pyramidal.cu) from the sources in this
+   checkout, one ``nvcc`` each, both at once, and prints ptxas's registers
+   and spills;
 3. kernel vs its plain version at the six OSNet-x0.25 block shapes (64
    crops, bf16; two calls bitwise equal), with each shape's time (20
    back-to-back launches between two CUDA events), bound, roofline share
@@ -18,14 +20,16 @@ Phases, each raising on failure (the exit code is then non-zero):
 5. reference: the tracker on a small synthetic sequence, GPU against the
    port's CPU path; ``StreamTracker`` at 2 streams (synthetic detections
    and embeddings) and the legacy ``compute_flow`` + ``apply_kalman``,
-   GPU against CPU;
+   GPU against CPU; the LK kernel launched once a tracked frame on the GPU;
 6. main path: ``MOT`` at 1280x720 with cfg/mot.json (YOLOv4-512 with
    random weights, OSNet-x0.25, detector_frame_skip=5) on drifting
    textured frames, with 40 synthetic detections spliced in after the
    real YOLO graph ran; 20 frames through ``step``, then 20 through
    ``step_batch`` in chunks of 5; equal snapshots, visible tracks, finite
-   Kalman state, and the OSBlock kernel launched 6 times per association
-   frame;
+   Kalman state, the OSBlock kernel launched 6 times per association
+   frame and the LK kernel once per frame after the first of each run
+   (every frame but the first tracks, the detection frames too); the float
+   run also times a gap frame's stages alone (phase 16 prints them);
 7. detector zoo: every registered YOLO and SSD with random weights at its
    full input size on a 1280x720 frame: raw head shapes, finite values,
    the median time of the whole detector; SSDMobileNetV1 and YOLOv4-tiny
@@ -55,16 +59,18 @@ Phases, each raising on failure (the exit code is then non-zero):
    spliced in after the real batched YOLO graph ran, 20 frames: visible
    tracks on every stream, finite Kalman state, 6 OSBlock launches per
    association frame (one OSNet call on 1,024 crops, not one per stream),
-   streams 0 and 1 equal; the step medians and the aggregate FPS beside
-   phase 6's single-stream median, then each stage alone;
+   streams 0 and 1 equal, the LK kernel once a frame for all 8 streams;
+   the step medians and the aggregate FPS beside phase 6's single-stream
+   median, then each stage alone;
 14. mesh (``parallel.make_stream_mesh``, torch.distributed): (a) phase 13
    over a 1x1 NCCL mesh in this process, (b) phase 13 over two spawned
    gloo ranks sharing the card as a (2, 1) mesh, 4 streams each, (c)
    ``multichip.dryrun_multichip(1)`` over NCCL (YOLOv4-512 under
    ``shard_conv_channels``, the chained gap step, the association). Every
    stream's rows of (a) and (b) equal phase 13's (IDs, ages, hits; boxes
-   within 1e-3 px), and the OSBlock runs 6 times an association frame on
-   each rank. The process groups are destroyed before the phase returns;
+   within 1e-3 px), the OSBlock runs 6 times an association frame and the
+   LK kernel once a frame on each rank, and once in (c). The process groups
+   are destroyed before the phase returns;
 15. the port's last gaps with the JAX package: (a) ``ransac_draws`` on
    the card bit-equal to a numpy threefry-2x32 reference and to bit
    patterns recorded from ``jax.random``, and phase 13's rows (made with
@@ -81,7 +87,18 @@ Phases, each raising on failure (the exit code is then non-zero):
    ``extract_async_batch`` under dynamic int8 on 4 streams x 16 crops of
    different brightness against each stream's own extraction, and a
    control with the ranges pooled over the streams that must fail the
-   same bound.
+   same bound;
+16. pyramidal LK: the kernel against its plain version on the same
+   inputs run on the CPU (and the shares against its run on the card,
+   beside the card's plain run against the CPU's) at the main path's
+   shape (1 stream, flow budget 48: 1,792 points) and at 8 differing
+   streams with budget 128 (34,816 points), on textured 1280x720 frames
+   with a known drift per stream, to the tolerance of the port against
+   JAX; two calls bitwise equal; the drift recovered; each time (20
+   launches between two CUDA events, after warm-up) beside its bound, the
+   plain version's time, and the gap frame's stages alone from phases 6
+   and 13. Phases 5-15 run under a counter of plain-LK calls on CUDA
+   tensors, which must stay 0.
 
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -115,6 +132,24 @@ ZOO_MAX_REL = 0.05
 # an H100 SXM's published peaks (dense): bf16 tensor cores, f32 on CUDA
 # cores, HBM3
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# phase 16: (streams, flow budget) of the main path and of phase 13's
+# largest budget
+LK_CASES = ((1, 48), (8, 128))
+# the LK kernel against its plain version on the same inputs, run on the
+# CPU: the bounds of the port against JAX (tests/test_torch_flow.py::
+# test_lk_matches_jax), the same status on more than 99 % of the points,
+# and on points tracked by both more than 90 % within 1e-3 px and all
+# within 0.1 px (the kernel rounds as the CPU does and read bit-equal).
+# The plain version run on the card sums in CUDA's order: a point whose
+# steps never settle below 0.03 px can then end pixels away (2.18 px of
+# 34,816 points, H100 80GB HBM3 at 700 W), so against that run, and in the
+# control of the card's plain run against the CPU's, the two shares apply
+# and the largest difference is printed
+LK_STATUS_SHARE, LK_CLOSE_SHARE, LK_CLOSE_PX, LK_MAX_PX = 0.99, 0.9, 1e-3, 0.1
+# readings with the plain LK loop on the card that the gap frame is
+# printed beside (PERF.md section 5, H100 80GB HBM3 at 700 W): LK of one
+# stream's gap frame, and phase 13's gap frame at 8 streams
+PLAIN_LK_MS, PLAIN_GAP8_MS = 70.7, 70.222
 # (name, batch, H, W, C_in, C_out, k, stride, groups) of phase 10
 INT8_SHAPES = (('yolov4 3x3/2 after the stem', 1, 256, 256, 64, 128, 3, 2, 1),
                ('3x3 at 256x256x64', 1, 256, 256, 64, 64, 3, 1, 1),
@@ -212,12 +247,19 @@ def phase_device():
 
 
 def phase_build():
+    """Both kernels, one ``nvcc`` each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
     from fastmot_tpu_torch.ops import cuda_build
-    path, seconds, nvcc_out = cuda_build.build('osnet_block')
-    log(f'build: osnet_block {seconds:.2f} s -> {path.name}')
-    for line in nvcc_out.splitlines():      # registers, spills, smem
-        if 'registers' in line or 'spill' in line:
-            log('ptxas:', line.strip())
+    names = ('osnet_block', 'lk_pyramidal')
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(cuda_build.build, names))
+    for name, (path, seconds, nvcc_out) in zip(names, built):
+        log(f'build: {name} {seconds:.2f} s -> {path.name}')
+        for line in nvcc_out.splitlines():      # registers, spills, smem
+            if 'registers' in line or 'spill' in line:
+                log(f'ptxas {name}:', line.strip())
+    log(f'build: {time.perf_counter() - t0:.2f} s for both')
 
 
 def _random_block(cin, features, gen):
@@ -380,6 +422,14 @@ def synth_tlbrs(frame_id, size, n=N_OBJECTS):
     return np.rint(np.stack([xs, ys, xs + w, ys + h], -1).astype(float))
 
 
+def expect_lk(tag, launches, want):
+    """The LK kernel ran ``want`` times (one launch a tracked frame, for
+    all of a call's streams at once)."""
+    if launches != want:
+        raise AssertionError(f'{tag}: lk_pyramidal launched {launches} '
+                             f'times, expected {want}')
+
+
 def snapshots(mot):
     return {fid: sorted((tid, tuple(np.round(tlbr, 4))) for tid, tlbr in rows)
             for fid, rows in mot.flush_tracks().items()}
@@ -387,8 +437,10 @@ def snapshots(mot):
 
 def phase_reference():
     """The tracker's GPU path against the port's CPU path (itself held
-    against the JAX package by the CPU tests) on a small sequence."""
+    against the JAX package by the CPU tests) on a small sequence. Returns
+    the LK kernel's launches."""
     from fastmot_tpu_torch import MOT
+    from fastmot_tpu_torch.ops.flow_kernels import lk_pyramidal
     size, n_frames = (320, 240), 12
     frames = textured_frames(size, n_frames, seed=3)
     with tempfile.TemporaryDirectory() as tmp:
@@ -409,12 +461,15 @@ def phase_reference():
                    feature_extractor_cfgs=({'model': 'OSNet025'},),
                    tracker_cfg={'max_age': 6})
         runs = []
+        lk_pyramidal.launches = 0
         for device in ('cpu', 'cuda'):
             mot = MOT(size, device=device, **cfg)
             mot.reset(1 / 30.0)
             for frame in frames:
                 mot.step(frame)
             runs.append(snapshots(mot))
+    lk = lk_pyramidal.launches
+    expect_lk('reference', lk, n_frames - 1)
     cpu, gpu = runs
     for fid in cpu:
         ids_c = [t for t, _ in cpu[fid]]
@@ -428,7 +483,9 @@ def phase_reference():
     n_rows = sum(len(r) for r in cpu.values())
     if not n_rows:
         raise AssertionError('reference run tracked nothing')
-    log(f'reference: GPU == CPU on {len(cpu)} frames, {n_rows} track rows')
+    log(f'reference: GPU == CPU on {len(cpu)} frames, {n_rows} track rows; '
+        f'lk_pyramidal launches {lk}')
+    return lk
 
 
 def _stream_dets(f, s, n=3):
@@ -441,8 +498,10 @@ def _stream_dets(f, s, n=3):
 def phase_stream_reference():
     """``StreamTracker`` (2 streams, synthetic detections and embeddings)
     on the card against the port's CPU path: the same track IDs on every
-    frame of every stream, boxes within 2 px."""
+    frame of every stream, boxes within 2 px. Returns the LK kernel's
+    launches."""
     from fastmot_tpu_torch.detector import MAX_DETS, make_detections
+    from fastmot_tpu_torch.ops.flow_kernels import lk_pyramidal
     from fastmot_tpu_torch.parallel import StreamTracker
     size, n, n_frames, skip, n_obj = (320, 240), 2, 12, 3, 3
     frames = [textured_frames(size, n_frames, seed=20 + s) for s in range(n)]
@@ -451,6 +510,7 @@ def phase_stream_reference():
         e = np.random.default_rng(100 + s).normal(size=(n_obj, 512))
         emb[s, :n_obj] = e / np.linalg.norm(e, axis=1, keepdims=True)
     runs = []
+    lk_pyramidal.launches = 0
     for device in ('cpu', 'cuda'):
         st = StreamTracker(size, 'euclidean', n, device=device, max_age=6)
         st.reset(1 / 30.0)
@@ -475,9 +535,12 @@ def phase_stream_reference():
                                  for t in trk.tracks.values())
                           for trk in st.trackers])
         runs.append(snaps)
+    lk = lk_pyramidal.launches
+    expect_lk('stream tracker', lk, n_frames - 1)
     _same_rows('stream tracker', *runs)
     log(f'reference: StreamTracker GPU == CPU on {n_frames - 1} frames of '
-        f'{n} streams')
+        f'{n} streams; lk_pyramidal launches {lk}')
+    return lk
 
 
 def _same_rows(tag, cpu, gpu):
@@ -500,12 +563,15 @@ def _same_rows(tag, cpu, gpu):
 
 def phase_legacy_api():
     """The legacy per-track path (``compute_flow`` + ``apply_kalman``) on
-    the card against the CPU over 4 frames."""
+    the card against the CPU over 4 frames. Returns the LK kernel's
+    launches."""
     from fastmot_tpu_torch import MultiTracker
     from fastmot_tpu_torch.detector import make_detections
+    from fastmot_tpu_torch.ops.flow_kernels import lk_pyramidal
     size, n_obj = (320, 240), 3
     frames = textured_frames(size, 5, seed=4)
     runs = []
+    lk_pyramidal.launches = 0
     for device in ('cpu', 'cuda'):
         trk = MultiTracker(size, 'euclidean', device=device)
         trk.reset(1 / 30.0)
@@ -518,16 +584,60 @@ def phase_legacy_api():
             snaps.append([sorted((tid, t.tlbr.copy())
                                  for tid, t in trk.tracks.items())])
         runs.append(snaps)
+    lk = lk_pyramidal.launches
+    expect_lk('legacy compute_flow', lk, len(frames) - 1)
     _same_rows('legacy compute_flow + apply_kalman', *runs)
     log('reference: compute_flow + apply_kalman GPU == CPU on 4 frames, '
-        f'{len(runs[0][-1][0])} tracks')
+        f'{len(runs[0][-1][0])} tracks; lk_pyramidal launches {lk}')
+    return lk
 
 
-def phase_main_path(detector_type='YOLO', tag='main path', int8=False):
+def gap_stages_ms(mot, frames):
+    """One gap frame of ``mot``'s tracker after a run, each stage alone and
+    the whole ``track`` call, synchronised (ms). The stages track from the
+    last frame to the one before, and the whole call alternates between
+    the two, so that LK has motion to track."""
+    from fastmot_tpu_torch import tracker as tr
+    from fastmot_tpu_torch.ops import flow_kernels as fk
+    trk = mot.tracker
+    if trk._dev_state is None or trk._mirrors_dirty:
+        trk._upload_state()
+    spec, state, prev = trk.flow.spec, trk._dev_state, trk.flow.device_state
+    pair = [torch.as_tensor(f, device='cuda') for f in frames[-2:]]
+    f_cap = fk.flow_budget(sum(1 for t in trk.tracks.values() if t.active))
+    cur = fk.preprocess(spec, pair[0])
+    all_prev, all_valid, inside, forder, f_tlbrs, f_valid = \
+        tr.gap_points_core(spec, state, prev, f_cap)
+    all_cur, status = fk.lk_core(spec, prev[1], cur[1], all_prev, all_valid)
+    draws = fk.ransac_draws(trk.flow.seed, f_cap, 'cuda')
+
+    def whole():
+        pair.reverse()
+        trk.track(pair[0])
+    stages = {
+        'preprocess': lambda: fk.preprocess(spec, pair[0]),
+        'points': lambda: tr.gap_points_core(spec, state, prev, f_cap),
+        'LK': lambda: fk.lk_core(spec, prev[1], cur[1], all_prev, all_valid),
+        'RANSAC + Kalman + commit': lambda: tr.gap_commit_core(
+            trk.kf_cfg, spec, float(trk.age_penalty), trk.confirm_hits,
+            state, inside, f_tlbrs, f_valid, forder, all_prev, all_cur,
+            status, draws, trk._trans_mat, trk._acc_cov,
+            trk._frame_rect_dev),
+        'whole gap frame (track)': whole}
+    out = {name: wall_ms(fn) for name, fn in stages.items()}
+    out['flow budget'] = f_cap
+    return out
+
+
+def phase_main_path(detector_type='YOLO', tag='main path', int8=False,
+                    stages=False):
+    """Returns the OSBlock and LK kernels' launches, the step median and,
+    with ``stages``, ``gap_stages_ms`` after the run."""
     from fastmot_tpu_torch import MOT
     from fastmot_tpu_torch.detector import MAX_DETS, make_detections
     from fastmot_tpu_torch.models.layers import Conv
     from fastmot_tpu_torch.models.quantize import int8_conv
+    from fastmot_tpu_torch.ops.flow_kernels import lk_pyramidal
     from fastmot_tpu_torch.ops.osnet_block import osblock
     from fastmot_tpu_torch.utils import ConfigDecoder
 
@@ -576,7 +686,7 @@ def phase_main_path(detector_type='YOLO', tag='main path', int8=False):
 
     det.postprocess, det.postprocess_device = post, post_dev
 
-    osblock.launches = int8_conv.launches = 0
+    osblock.launches = int8_conv.launches = lk_pyramidal.launches = 0
     mot.reset(1 / 30.0)
     step_ms = []
     for frame in frames:
@@ -604,6 +714,7 @@ def phase_main_path(detector_type='YOLO', tag='main path', int8=False):
     finite = finite and bool(torch.isfinite(state[0]).all()
                              and torch.isfinite(state[1]).all())
     launches, int8_launches = osblock.launches, int8_conv.launches
+    lk = lk_pyramidal.launches
 
     n_assoc = 2 * sum(1 for i in range(1, len(frames)) if i % skip == 0)
     n_detect = n_assoc + 2                   # frame 0 of each run detects
@@ -623,7 +734,7 @@ def phase_main_path(detector_type='YOLO', tag='main path', int8=False):
         ' '.join(f'{t:.1f}' for t in batch_ms))
     log(f'{tag}: visible tracks {visible}, association frames '
         f'{n_assoc}, osblock launches {launches}, int8_conv launches '
-        f'{int8_launches}')
+        f'{int8_launches}, lk_pyramidal launches {lk}')
     if snap_step != snap_batch:
         raise AssertionError(f'{tag}: step and step_batch snapshots differ')
     if not visible:
@@ -636,12 +747,17 @@ def phase_main_path(detector_type='YOLO', tag='main path', int8=False):
         raise AssertionError(f'{tag}: osblock and int8_conv launched '
                              f'{launches} and {int8_launches} times, '
                              f'expected {want}')
+    expect_lk(tag, lk, 2 * (len(frames) - 1))     # step, then step_batch
     if int8:
         log(f'{tag}: int8_conv launches per association frame '
             f'{det_convs + reid_convs} ({det_convs} detector convs, '
             f'{reid_convs} OSNet convs; {n_detect} detector runs, '
             f'{n_assoc} association frames)')
-    return launches, statistics.median(step_ms)
+    out = {'osblock': launches, 'lk': lk,
+           'median': statistics.median(step_ms)}
+    if stages:
+        out['gap stages'] = gap_stages_ms(mot, frames)
+    return out
 
 
 def _zoo_raw_checks(name, det, raw):
@@ -879,9 +995,11 @@ def multi_stream_kwargs():
 def phase_multi_stream(single_ms, frames, dets, n_streams=N_STREAMS):
     """``MultiStreamMOT`` at 8 streams of 1280x720 with cfg/mot.json's
     detector, extractor, skip and tracker (bench.py config 5). Returns the
-    OSBlock launches, every stream's final rows and the step median."""
+    OSBlock and LK launches, every stream's final rows, the step median and
+    the gap frame alone."""
     from fastmot_tpu_torch.detector import MAX_DETS
     from fastmot_tpu_torch.multichip import run_multi_stream
+    from fastmot_tpu_torch.ops.flow_kernels import lk_pyramidal
     from fastmot_tpu_torch.ops.osnet_block import osblock
     from fastmot_tpu_torch.parallel import MultiStreamMOT
 
@@ -892,9 +1010,9 @@ def phase_multi_stream(single_ms, frames, dets, n_streams=N_STREAMS):
     det = mot.detector
     real_dev = det.postprocess_device_batch
 
-    osblock.launches = 0
+    osblock.launches = lk_pyramidal.launches = 0
     (rows,), step_ms = run_multi_stream(mot, frames, dets)
-    launches = osblock.launches
+    launches, lk = osblock.launches, lk_pyramidal.launches
     n_assoc = sum(1 for i in range(1, n_frames) if i % skip == 0)
     visible = [len(list(mot.visible_tracks(s))) for s in range(n_streams)]
     state = mot.stream_tracker._dev_state
@@ -912,7 +1030,9 @@ def phase_multi_stream(single_ms, frames, dets, n_streams=N_STREAMS):
         f'{n_frames} frames; single-stream main path median '
         f'{single_ms:.3f} ms ({1e3 / single_ms:.2f} FPS)')
     log(f'multi-stream: visible tracks per stream {visible}, association '
-        f'frames {n_assoc}, osblock launches {launches}')
+        f'frames {n_assoc}, osblock launches {launches}, lk_pyramidal '
+        f'launches {lk}')
+    expect_lk('multi-stream', lk, n_frames - 1)
     if not all(visible):
         raise AssertionError(f'multi-stream: a stream has no visible '
                              f'tracks: {visible}')
@@ -957,7 +1077,7 @@ def phase_multi_stream(single_ms, frames, dets, n_streams=N_STREAMS):
                 for name, fn in stages.items()}
     log('multi-stream stages alone, ms: ' + '; '.join(
         f'{name} {ms:.3f}' for name, ms in stage_ms.items()))
-    return launches, rows, statistics.median(step_ms), \
+    return launches, lk, rows, statistics.median(step_ms), \
         stage_ms['gap frame (preprocess, points, LK, RANSAC, Kalman)']
 
 
@@ -984,9 +1104,10 @@ def phase_mesh(frames, dets, want_rows, single_multi_ms, n_streams=N_STREAMS):
     gloo ranks sharing the card as a (2, 1) mesh, 4 streams each; (c)
     ``dryrun_multichip(1)`` over NCCL. (a) and (b) on phase 13's frames
     and detections, every stream's rows against phase 13's. Returns the
-    OSBlock launches of (a) and (b)."""
+    OSBlock launches of (a) and (b) and the LK launches of (a)-(c)."""
     import torch.distributed as dist
     from fastmot_tpu_torch import multichip
+    from fastmot_tpu_torch.ops.flow_kernels import lk_pyramidal
     from fastmot_tpu_torch.ops.osnet_block import osblock
     from fastmot_tpu_torch.parallel import MultiStreamMOT, make_stream_mesh
 
@@ -1001,21 +1122,23 @@ def phase_mesh(frames, dets, want_rows, single_multi_ms, n_streams=N_STREAMS):
             mot = MultiStreamMOT(n_streams=n_streams, device='cuda',
                                  mesh=make_stream_mesh(device='cuda'),
                                  **kwargs)
-            osblock.launches = 0
+            osblock.launches = lk_pyramidal.launches = 0
             (rows,), step_ms = multichip.run_multi_stream(mot, frames, dets)
-            launches = osblock.launches
+            launches, lk = osblock.launches, lk_pyramidal.launches
         finally:
             dist.destroy_process_group()
     del mot
     torch.cuda.empty_cache()
     worst = _same_streams('mesh (a) 1 NCCL rank', rows, want_rows)
     log(f'mesh (a) 1 NCCL rank, 8 streams: rows == phase 13 on every '
-        f'stream (boxes within {worst} px), osblock launches {launches}; '
-        f'step ms median {statistics.median(step_ms):.3f} against phase '
-        f"13's {single_multi_ms:.3f}")
+        f'stream (boxes within {worst} px), osblock launches {launches}, '
+        f'lk_pyramidal launches {lk}; step ms median '
+        f"{statistics.median(step_ms):.3f} against phase 13's "
+        f'{single_multi_ms:.3f}')
     if launches != 6 * n_assoc:
         raise AssertionError(f'mesh (a): osblock launched {launches} times, '
                              f'expected {6 * n_assoc}')
+    expect_lk('mesh (a)', lk, len(frames) - 1)
 
     t_b = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1030,20 +1153,25 @@ def phase_mesh(frames, dets, want_rows, single_multi_ms, n_streams=N_STREAMS):
             raise AssertionError(f'mesh (b) rank {r}: osblock launched '
                                  f'{out["osblock_launches"]} times, '
                                  f'expected {6 * n_assoc}')
+        expect_lk(f'mesh (b) rank {r}', out['lk_launches'], len(frames) - 1)
     worst = _same_streams('mesh (b) 2 gloo ranks', rows_b, want_rows)
     log(f'mesh (b) 2 gloo ranks on one card, streams '
         f'{[o["local_streams"] for o in ranks]}: rows == phase 13 on every '
         f'stream (boxes within {worst} px), osblock launches '
-        f'{[o["osblock_launches"] for o in ranks]}; step ms medians '
+        f'{[o["osblock_launches"] for o in ranks]}, lk_pyramidal launches '
+        f'{[o["lk_launches"] for o in ranks]}; step ms medians '
         f'{[round(statistics.median(o["step_ms"]), 3) for o in ranks]}; '
         f'{time.perf_counter() - t_b:.1f} s, spawn and build included')
 
     t0 = time.perf_counter()
-    multichip.dryrun_multichip(1, device='cuda')
+    dry = multichip.dryrun_multichip(1, device='cuda')
+    expect_lk('mesh (c)', dry[0]['lk_launches'], 1)
     log(f'mesh (c) dryrun_multichip(1) over NCCL: '
-        f'{time.perf_counter() - t0:.1f} s, spawn and build included; '
-        f'phase 14 {time.perf_counter() - t_phase:.1f} s')
-    return launches + sum(o['osblock_launches'] for o in ranks)
+        f'{time.perf_counter() - t0:.1f} s, spawn and build included, '
+        f'lk_pyramidal launches {dry[0]["lk_launches"]}; phase 14 '
+        f'{time.perf_counter() - t_phase:.1f} s')
+    return (launches + sum(o['osblock_launches'] for o in ranks),
+            lk + sum(o['lk_launches'] for o in ranks) + dry[0]['lk_launches'])
 
 
 def threefry_numpy(key, x1, x2):
@@ -1296,7 +1424,206 @@ def phase_gaps(multi_rows, gap_ms, n_streams=N_STREAMS):
     return launches
 
 
+def lk_inputs(n_streams, f_cap, seed=30):
+    """Phase 16's inputs on the card: the main path's flow (cfg/mot.json's
+    ``tracker_cfg.flow_cfg`` at 1280x720) over ``textured_frames``, each
+    stream its own texture and its own drift (frame 0 to frame 2 + s),
+    and f_cap x 32 + 256 points a stream over the flow-scale frame and 2
+    px beyond it, 90 % valid. Returns (spec, previous levels, current
+    levels, pts, valid, the drift of each stream at flow scale [S, 2])."""
+    from fastmot_tpu_torch.flow import Flow
+    from fastmot_tpu_torch.ops import flow_kernels as fk
+    from fastmot_tpu_torch.utils import ConfigDecoder
+    with open(ROOT / 'cfg' / 'mot.json') as f:
+        flow_cfg = json.load(f, cls=ConfigDecoder)['mot_cfg'][
+            'tracker_cfg']['flow_cfg']
+    spec = Flow(SIZE, **flow_cfg, device='cuda').spec
+    pairs, drift = [], []
+    for s in range(n_streams):
+        k = 2 + s
+        frames = textured_frames(SIZE, k + 1, seed=seed + s)
+        pairs.append((frames[0], frames[k]))
+        # textured_frames crops at (dx_i, dy_i): content moves by minus
+        # the change of the crop
+        d = [(int(8 + 8 * np.sin(2 * np.pi * i / 40)),
+              int(8 + 8 * np.cos(4 * np.pi * i / 40))) for i in (0, k)]
+        drift.append([-(d[1][0] - d[0][0]) * spec.opt_scale[0],
+                      -(d[1][1] - d[0][1]) * spec.opt_scale[1]])
+    prev, cur = (fk.preprocess(spec, torch.as_tensor(
+        np.stack([p[i] for p in pairs]), device='cuda'))[1] for i in (0, 1))
+    rng = np.random.default_rng(seed)
+    n = f_cap * fk.KP_PER_TRACK + fk.BG_KP
+    ow, oh = spec.opt_size
+    pts = np.stack([rng.uniform(-2, ow + 2, (n_streams, n)),
+                    rng.uniform(-2, oh + 2, (n_streams, n))], -1)
+    valid = rng.uniform(size=(n_streams, n)) < 0.9
+    return (spec, prev, cur,
+            torch.as_tensor(pts, dtype=torch.float32, device='cuda'),
+            torch.as_tensor(valid, device='cuda'), np.array(drift))
+
+
+def lk_agreement(tag, got, want, all_close=True):
+    """``got`` against ``want`` (new_pts, status, err) at the LK tolerance,
+    its bound on the largest difference only with ``all_close``; returns
+    (largest point difference where both track, share of points equal bit
+    for bit in all three outputs)."""
+    g_pts, g_ok, g_err = (t.cpu() for t in got)
+    w_pts, w_ok, w_err = (t.cpu() for t in want)
+    same = (g_ok == w_ok).float().mean().item()
+    both = g_ok & w_ok
+    diff = (g_pts[both] - w_pts[both]).abs().amax(-1)
+    close = (diff < LK_CLOSE_PX).float().mean().item()
+    worst = diff.max().item()
+    bits = ((g_pts.view(torch.int32) == w_pts.view(torch.int32)).all(-1)
+            & (g_ok == w_ok) & (g_err.view(torch.int32)
+                                == w_err.view(torch.int32)))
+    bits = bits.float().mean().item()
+    log(f'lk {tag}: status equal on {same:.5f} of the points; on the '
+        f'{int(both.sum())} tracked by both, {close:.5f} within '
+        f'{LK_CLOSE_PX} px, max {worst:.3e} px; bit-equal {bits:.5f}')
+    if not (same > LK_STATUS_SHARE and close > LK_CLOSE_SHARE
+            and (worst < LK_MAX_PX or not all_close)
+            and both.sum() > 0.5 * both.numel()):
+        raise AssertionError(f'lk {tag}: outside the tolerance ({same}, '
+                             f'{close}, {worst})')
+    return worst, bits
+
+
+def lk_sectors(level, sid, xy, lo, k, win):
+    """The 32-byte sectors (global addresses // 32) of ``level`` [S, h, w]
+    float32 that the k x k bilinear taps of rows and columns [lo, lo + k)
+    of the halo around each point ``xy`` [N, 2] of stream ``sid`` [N]
+    read, edge-clamped as ``_sample_halo`` clamps them."""
+    h, w = level.shape[-2:]
+    half = (win - 1) // 2
+    x0 = torch.floor(torch.clamp(xy[:, 0], 0.0, w - 1.001)).long()
+    y0 = torch.floor(torch.clamp(xy[:, 1], 0.0, h - 1.001)).long()
+    rows = torch.clamp(y0[:, None] - half - 1 + lo
+                       + torch.arange(k, device=xy.device), 0, h - 1)
+    c_first = torch.clamp(x0 - half - 1 + lo, 0, w - 1)
+    c_last = torch.clamp(x0 - half - 1 + lo + k - 1, 0, w - 1)
+    row0 = level.data_ptr() + 4 * (sid[:, None] * h * w + rows * w)
+    first = (row0 + 4 * c_first[:, None]) // 32
+    last = (row0 + 4 * c_last[:, None]) // 32
+    # a row of k taps spans at most k // 8 + 2 sectors: first, the ones
+    # between, last
+    spans = [torch.minimum(first + j, last) for j in range(k // 8 + 2)]
+    return torch.cat([t.reshape(-1) for t in spans])
+
+
+def lk_bound_ms(spec, prev, cur, valid, trace):
+    """The least time an H100 could take for one LK call on these inputs,
+    and what sets it: the bytes the function must move over 3.35 TB/s
+    against its float32 operations over 67 TFLOP/s. Bytes: pts and valid
+    read once, new_pts, status and err written once, and each distinct
+    32-byte sector of the pyramids that the points' taps touch read once
+    (the (win+3)^2 template halos in the previous levels, the (win+1)^2
+    windows of every step these inputs take in the current ones, both
+    from the plain version's ``trace`` on the same inputs). Operations,
+    over the same steps: per template the (win+2)^2 bilinear samples (7
+    each), the gradients, G's products and sums, the gate (7 (win+2)^2 +
+    10 win^2 + 23); per step the win^2 samples, the difference, its
+    absolute value and mean, two products and sums, the solve, clamp and
+    test (14 win^2 + 28). Returns (bound, operations' time, bytes' time,
+    steps, sectors' bytes)."""
+    wi = spec.win
+    n_pts = valid.numel()
+    per_stream = valid.shape[-1]
+    sid_all = torch.arange(n_pts, device=valid.device) // per_stream
+    flat_valid = valid.reshape(-1)
+    templates = int(flat_valid.sum()) * len(trace)
+    sectors, n_steps = [], 0
+    for lvl, p, trips in trace:
+        sectors.append(lk_sectors(prev[lvl], sid_all[flat_valid],
+                                  p[flat_valid], 0, wi + 3, wi))
+        for xy, active in trips:
+            n_steps += int(active.sum())
+            sectors.append(lk_sectors(cur[lvl], sid_all[active], xy[active],
+                                      1, wi + 1, wi))
+    pyramid_bytes = 32 * torch.unique(torch.cat(sectors)).numel()
+    nbytes = n_pts * (8 + 1 + 8 + 1 + 4) + pyramid_bytes
+    ops = templates * (7 * (wi + 2) ** 2 + 10 * wi * wi + 23) + \
+        n_steps * (14 * wi * wi + 28)
+    ops_ms, bytes_ms = ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), ops_ms, bytes_ms, n_steps, pyramid_bytes
+
+
+def phase_lk(gap_stages, gap8_ms):
+    """The LK kernel against its plain version at LK_CASES, timed beside
+    its bound; then the gap frame's stages (phases 6 and 13)."""
+    from fastmot_tpu_torch.ops import flow_kernels as fk
+    log('lk: host CPU capability '
+        f'{torch.backends.cpu.get_cpu_capability()}; the kernel sums in the '
+        '8-lane order of ATen\'s x86 CPU sum, which it then equals bit for '
+        'bit')
+    out = {'max_abs_err': 0.0}
+    for n_streams, f_cap in LK_CASES:
+        spec, prev, cur, pts, valid, drift = lk_inputs(n_streams, f_cap)
+        tag = f'{n_streams} stream(s) x {pts.shape[1]} points'
+        before = fk.lk_pyramidal.launches
+        got = fk.lk_pyramidal(prev, cur, pts, valid, spec)
+        again = fk.lk_pyramidal(prev, cur, pts, valid, spec)
+        torch.cuda.synchronize()
+        if fk.lk_pyramidal.launches != before + 2:
+            raise AssertionError(f'lk {tag}: launches moved by '
+                                 f'{fk.lk_pyramidal.launches - before}')
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f'lk {tag}: two calls differ')
+        if not (torch.isfinite(got[0]).all() and torch.isfinite(got[2]).all()
+                and got[0].shape == pts.shape and got[1].shape == valid.shape):
+            raise AssertionError(f'lk {tag}: outputs not finite or of the '
+                                 'wrong shape')
+        trace = []
+        plain = fk.lk_pyramidal_reference(prev, cur, pts, valid, spec, trace)
+        plain_cpu = fk.lk_pyramidal_reference(
+            [t.cpu() for t in prev], [t.cpu() for t in cur], pts.cpu(),
+            valid.cpu(), spec)
+        worst, _ = lk_agreement(f'{tag}, kernel vs plain on the CPU', got,
+                                plain_cpu)
+        lk_agreement(f'{tag}, kernel vs plain on the card', got, plain,
+                     all_close=False)
+        lk_agreement(f'{tag}, control: plain on the card vs plain on the '
+                     'CPU', plain, plain_cpu, all_close=False)
+        moved = (got[0] - pts).cpu().numpy()
+        ok = got[1].cpu().numpy()
+        med = np.array([np.median(moved[s][ok[s]], 0)
+                        for s in range(n_streams)])
+        if not np.abs(med - drift).max() < 0.05:
+            raise AssertionError(f'lk {tag}: median motion {med.tolist()}, '
+                                 f'drift {drift.tolist()}')
+        ms = launches_ms(lambda: fk.lk_pyramidal(prev, cur, pts, valid, spec))
+        plain_ms = cuda_ms(lambda: fk.lk_pyramidal_reference(
+            prev, cur, pts, valid, spec), n=5, warmup=1)
+        bound, ops_ms, bytes_ms, n_steps, pyramid_bytes = lk_bound_ms(
+            spec, prev, cur, valid, trace)
+        most = sum(t.numel() * t.element_size() for t in prev + cur)
+        by = 'bytes' if bytes_ms >= ops_ms else 'operations'
+        log(f'lk {tag}: drift recovered (median motion within 0.05 px of '
+            f'{drift.tolist()[:2]}...); {n_steps} Gauss-Newton steps '
+            f'({n_steps / max(int(valid.sum()), 1):.2f} a valid point); '
+            f'kernel {ms * 1e3:.1f} us, bound {bound * 1e3:.3f} us ({by}; '
+            f'operations {ops_ms * 1e3:.3f} us, bytes {bytes_ms * 1e3:.3f} '
+            f'us, of which the pyramid sectors the taps touch '
+            f'{pyramid_bytes} B of the pyramids\' {most} B), roofline share '
+            f'{bound / ms:.4f}; plain {plain_ms:.3f} ms ({plain_ms / ms:.0f}x '
+            'the kernel)')
+        out['max_abs_err'] = max(out['max_abs_err'], worst)
+        key = '' if n_streams == 1 else f'_{n_streams}_streams'
+        out.update({f'ms{key}': ms, f'plain_ms{key}': plain_ms,
+                    f'bound_ms{key}': bound, f'bound_by{key}': by,
+                    f'roofline_share{key}': bound / ms})
+    log('lk gap frame, 1 stream (phase 6, flow budget '
+        f'{gap_stages["flow budget"]}), each stage alone, synchronised, ms: '
+        + '; '.join(f'{k} {v:.3f}' for k, v in gap_stages.items()
+                    if k != 'flow budget')
+        + f' (with the plain LK loop: LK {PLAIN_LK_MS} ms of a gap frame)')
+    log(f'lk gap frame at {N_STREAMS} streams alone (phase 13): '
+        f'{gap8_ms:.3f} ms (with the plain LK loop: {PLAIN_GAP8_MS} ms)')
+    return out
+
+
 def main():
+    from fastmot_tpu_torch.ops import flow_kernels as fk
     t0 = time.perf_counter()
     name = phase_device()
     phase_build()
@@ -1304,24 +1631,43 @@ def main():
     worst_abs = max(kern['max_abs_err'],
                     phase_kernel(MULTI_BATCH)['max_abs_err'])
     phase_osnet()
-    phase_reference()
-    phase_stream_reference()
-    phase_legacy_api()
-    launches, float_ms = phase_main_path()
-    phase_zoo()
-    phase_ssd_postprocess()
-    launches += phase_main_path('SSD', 'ssd main path')[0]
-    phase_int8_conv()
-    phase_osnet_int8()
-    _, int8_ms = phase_main_path(tag='int8 main path', int8=True)
-    log(f'main path step median: float {float_ms:.3f} ms, int8 '
-        f'{int8_ms:.3f} ms')
-    frames, dets = multi_stream_inputs()
-    multi_launches, rows, multi_ms, gap_ms = phase_multi_stream(
-        float_ms, frames, dets)
-    launches += multi_launches
-    launches += phase_mesh(frames, dets, rows, multi_ms)
-    launches += phase_gaps(rows, gap_ms)
+    # the main paths run the plain LK on the CPU only (phase 5's CPU
+    # runs); on the card the kernel, every time
+    plain_on_card = [0]
+    plain_lk = fk.lk_pyramidal_reference
+
+    def counted_plain_lk(prev, cur, pts, *args, **kwargs):
+        plain_on_card[0] += pts.is_cuda
+        return plain_lk(prev, cur, pts, *args, **kwargs)
+    with mock.patch.object(fk, 'lk_pyramidal_reference', counted_plain_lk):
+        lk_launches = phase_reference() + phase_stream_reference() + \
+            phase_legacy_api()
+        main_run = phase_main_path(stages=True)
+        launches, float_ms = main_run['osblock'], main_run['median']
+        phase_zoo()
+        phase_ssd_postprocess()
+        ssd = phase_main_path('SSD', 'ssd main path')
+        launches += ssd['osblock']
+        phase_int8_conv()
+        phase_osnet_int8()
+        int8 = phase_main_path(tag='int8 main path', int8=True)
+        lk_launches += main_run['lk'] + ssd['lk'] + int8['lk']
+        log(f'main path step median: float {float_ms:.3f} ms, int8 '
+            f'{int8["median"]:.3f} ms')
+        frames, dets = multi_stream_inputs()
+        multi_launches, multi_lk, rows, multi_ms, gap_ms = \
+            phase_multi_stream(float_ms, frames, dets)
+        launches += multi_launches
+        mesh_launches, mesh_lk = phase_mesh(frames, dets, rows, multi_ms)
+        launches += mesh_launches
+        lk_launches += multi_lk + mesh_lk
+        launches += phase_gaps(rows, gap_ms)
+    if plain_on_card[0]:
+        raise AssertionError(f'the plain LK ran {plain_on_card[0]} times on '
+                             'the card in phases 5-15')
+    log(f'phases 5-15: lk_pyramidal launched {lk_launches} times on the '
+        'main paths, the plain LK 0 times on the card')
+    lk = phase_lk(main_run['gap stages'], gap_ms)
     log(f'every phase passed in {time.perf_counter() - t0:.1f} s')
     print(json.dumps({'kernels': [{
         'name': 'osblock', 'route': 'cuda',
@@ -1331,7 +1677,11 @@ def main():
         'ms': kern['ms'], 'plain_ms': kern['plain_ms'],
         'bound_ms': kern['bound_ms'], 'bound_by': kern['bound_by'],
         'library_ms': None,
-        'roofline_share': kern['roofline_share']}]}))
+        'roofline_share': kern['roofline_share']}, dict({
+            'name': 'lk_pyramidal', 'route': 'cuda',
+            'source': 'fastmot_tpu_torch/csrc/lk_pyramidal.cu',
+            'replaces': 'fastmot_tpu/ops/flow_kernels.py:313',
+            'launches': lk_launches, 'library_ms': None}, **lk)]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,
         'count': torch.cuda.device_count()}}))

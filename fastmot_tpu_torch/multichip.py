@@ -154,7 +154,8 @@ def dryrun_multichip(n_devices: int, device: str = 'cuda') -> list[dict]:
 
 def _dryrun_rank(n_devices: int, model_name: str, device: str) -> dict:
     """The multi-stream step on this rank: real cores, tiny shapes.
-    Returns the ``dryrun ok`` line, this rank's feature slice and, as
+    Returns the ``dryrun ok`` line, this rank's feature slice, its LK
+    kernel launches and, as
     numpy, the association's costs, its matches (``col4row``), the tracks'
     validity and the new history store."""
     from .detector import _resize_bilinear
@@ -311,7 +312,8 @@ def _dryrun_rank(n_devices: int, model_name: str, device: str) -> dict:
     def host(t):
         return t.cpu().numpy()
     return {'line': line, 'features': (fsl.start, fsl.stop),
-            'cost': host(cost), 'reid_cost': host(reid_cost),
+            'lk_launches': fk.lk_pyramidal.launches, 'cost': host(cost),
+            'reid_cost': host(reid_cost),
             'col4row': host(col4row), 'valid': host(new_state[3]),
             'feat_sum': host(new_state[13]),
             'hist': [host(t) for t in new_hist]}
@@ -401,8 +403,10 @@ def multi_stream_rank(inputs, n_streams, model_parallel, mot_kwargs,
     model_parallel=, device=mesh_device)`` mesh over the frames of
     ``inputs/frames.npy`` (``[F, S, H, W, 3]``, read for this rank's streams
     only) and the detections of ``inputs/dets.npz`` (``splice_detections``);
-    returns this rank's ``local_streams``, rows, step times, OSBlock
-    launches and what its detector's network found (``network_dets``)."""
+    returns this rank's ``local_streams``, rows, step times, OSBlock and
+    LK kernel launches and what its detector's network found
+    (``network_dets``)."""
+    from .ops.flow_kernels import lk_pyramidal
     from .ops.osnet_block import osblock
     from .parallel import MultiStreamMOT, make_stream_mesh
     mesh = make_stream_mesh(model_parallel=model_parallel, device=mesh_device)
@@ -411,10 +415,11 @@ def multi_stream_rank(inputs, n_streams, model_parallel, mot_kwargs,
         dets = {k: f[k] for k in f.files}
     mot = MultiStreamMOT(n_streams=n_streams, device=device, mesh=mesh,
                          **mot_kwargs)
-    osblock.launches = 0
+    osblock.launches = lk_pyramidal.launches = 0
     rows, step_ms = run_multi_stream(mot, frames, dets, sync_every_frame)
     return {'local_streams': list(mot.local_streams), 'rows': rows,
             'step_ms': step_ms, 'osblock_launches': osblock.launches,
+            'lk_launches': lk_pyramidal.launches,
             'network_dets': mot.network_dets}
 
 

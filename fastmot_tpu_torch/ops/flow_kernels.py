@@ -9,7 +9,10 @@ estimateAffinePartial2D, with every numeric choice kept:
   in float32;
 - cv2's COUNT | EPS criteria: per point, at most ``iters`` Gauss-Newton
   steps per level, stopping once a step is below 0.03 px (the JAX
-  package's lockstep "double step" computes exactly this);
+  package's lockstep "double step" computes exactly this). On the card
+  ``lk_pyramidal`` is one launch of ``csrc/lk_pyramidal.cu`` (one thread
+  a point, every level and step, no host sync); on the CPU it runs
+  ``lk_pyramidal_reference``, the same loop in lockstep over all points;
 - Shi-Tomasi response with one candidate per grid cell, the first
   row-major maximum winning ties;
 - fixed-budget RANSAC (HYP_H homography and HYP_A similarity hypotheses)
@@ -24,7 +27,9 @@ for bit.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -204,10 +209,12 @@ def _sample_halo(img: torch.Tensor, sid: torch.Tensor, x: torch.Tensor,
             + fy * (1 - fx) * p10 + fy * fx * p11)
 
 
-def lk_pyramidal(prev_u8, cur_u8, pts: torch.Tensor, valid: torch.Tensor,
-                 spec: FlowSpec):
-    """Track ``pts`` [P, 2] (at optical-flow scale) from the previous to
-    the current pyramid (lists of uint8-valued float32 levels).
+def lk_pyramidal_reference(prev_u8, cur_u8, pts: torch.Tensor,
+                           valid: torch.Tensor, spec: FlowSpec,
+                           trace: list | None = None):
+    """The plain version of ``lk_pyramidal``: track ``pts`` [P, 2] (at
+    optical-flow scale) from the previous to the current pyramid (lists of
+    uint8-valued float32 levels).
 
     With a stream axis (levels [S, h, w], ``pts`` [S, P, 2], ``valid``
     [S, P]) every stream's points are tracked in one loop over one flat
@@ -222,12 +229,17 @@ def lk_pyramidal(prev_u8, cur_u8, pts: torch.Tensor, valid: torch.Tensor,
     below 0.03 px or it has taken ``iters`` steps; the displacement seeds
     the next finer level, doubled. The patch error (mean absolute
     difference) is kept from each point's last step. Returns (new_pts,
-    status, err)."""
+    status, err).
+
+    A ``trace`` list gets, per level, coarsest first, ``(level, p, trips)``
+    over the flat [S * P] points: ``p`` [S * P, 2] the points at that
+    level's scale, and ``trips`` a list of ``(p + v, active)``, the window
+    centre of each Gauss-Newton trip and which points took that step."""
     if pts.dim() == 2:
-        new_pts, ok, err = lk_pyramidal([p[None] for p in prev_u8],
-                                        [p[None] for p in cur_u8], pts[None],
-                                        valid[None], spec)
-        return new_pts[0], ok[0], err[0]
+        out = lk_pyramidal_reference([p[None] for p in prev_u8],
+                                     [p[None] for p in cur_u8], pts[None],
+                                     valid[None], spec, trace)
+        return tuple(o[0] for o in out)
     n_streams, per_stream = pts.shape[:2]
     out_shape = pts.shape
     pts = pts.reshape(-1, 2)
@@ -261,7 +273,12 @@ def lk_pyramidal(prev_u8, cur_u8, pts: torch.Tensor, valid: torch.Tensor,
 
         active = valid.clone()
         steps = torch.zeros(n_pts, dtype=torch.int32, device=dev)
+        trips = []
+        if trace is not None:
+            trace.append((lvl, p, trips))
         for _ in range(spec.iters):
+            if trace is not None:
+                trips.append((p + v, active))
             c_halo = _sample_halo(cur_u8[lvl], sid, p[:, 0] + v[:, 0],
                                   p[:, 1] + v[:, 1], wi)
             c_patch = c_halo[:, 1:wi + 1, 1:wi + 1].reshape(n_pts, ww)
@@ -290,6 +307,140 @@ def lk_pyramidal(prev_u8, cur_u8, pts: torch.Tensor, valid: torch.Tensor,
            & (new_pts[:, 1] >= 0) & (new_pts[:, 1] <= h0 - 1))
     return (new_pts.reshape(out_shape), (ok & inb).reshape(out_shape[:2]),
             err.reshape(out_shape[:2]))
+
+
+# the one window csrc/lk_pyramidal.cu is instantiated for (FlowSpec's
+# default; its launch switch gains a case when a config needs another),
+# and its largest level count (kMaxLevels)
+LK_KERNEL_WIN = 5
+LK_KERNEL_MAX_LEVELS = 12
+
+
+@dataclasses.dataclass(frozen=True)
+class LkLevels:
+    """The kernel's view of one ``lk_pyramidal`` call: ``dims`` holds each
+    level's (h, w), finest first; level ``l`` of stream ``s`` starts
+    ``s * strides[l]`` floats into its tensor."""
+    streams: int
+    points: int
+    dims: tuple[tuple[int, int], ...]
+
+    @property
+    def strides(self) -> tuple[int, ...]:
+        return tuple(h * w for h, w in self.dims)
+
+
+def lk_level_table(prev_u8, cur_u8, pts: torch.Tensor, valid: torch.Tensor,
+                   spec: FlowSpec) -> LkLevels:
+    """Check one ``lk_pyramidal`` call's arguments as the kernel takes them
+    (``pts`` [S, P, 2] float32, ``valid`` [S, P] bool, ``spec.max_level +
+    1`` levels each side, level ``l`` of both pyramids [S, h_l, w_l]
+    float32, every tensor contiguous and on ``pts``' device) and return
+    its level table. Raises ``ValueError`` naming the fault."""
+    def fault(msg):
+        raise ValueError(f'lk_pyramidal: {msg}')
+
+    if pts.dtype != torch.float32 or pts.dim() != 3 or pts.shape[-1] != 2:
+        fault(f'pts must be float32 [S, P, 2], got {pts.dtype} '
+              f'{tuple(pts.shape)}')
+    n_streams, n_points = pts.shape[:2]
+    if valid.dtype != torch.bool:
+        fault(f'valid must be bool, got {valid.dtype}')
+    if tuple(valid.shape) != (n_streams, n_points):
+        fault(f'valid has shape {tuple(valid.shape)}, pts '
+              f'{tuple(pts.shape)}: stream or point counts differ')
+    n_levels = spec.max_level + 1
+    if len(prev_u8) != n_levels or len(cur_u8) != n_levels:
+        fault(f'{len(prev_u8)} previous and {len(cur_u8)} current levels, '
+              f'spec.max_level + 1 = {n_levels}')
+    if n_levels > LK_KERNEL_MAX_LEVELS:
+        fault(f'{n_levels} levels, the kernel takes at most '
+              f'{LK_KERNEL_MAX_LEVELS}')
+    if spec.win != LK_KERNEL_WIN:
+        fault(f'window {spec.win}: the kernel is built for window '
+              f'{LK_KERNEL_WIN} only')
+    dims = []
+    for lvl, (p, c) in enumerate(zip(prev_u8, cur_u8)):
+        for side, t in (('previous', p), ('current', c)):
+            if t.dtype != torch.float32 or t.dim() != 3:
+                fault(f'{side} level {lvl} must be float32 [S, h, w], got '
+                      f'{t.dtype} {tuple(t.shape)}')
+            if t.shape[0] != n_streams:
+                fault(f'{side} level {lvl} has {t.shape[0]} streams, pts '
+                      f'{n_streams}')
+            if t.shape[1] < 1 or t.shape[2] < 1:
+                fault(f'{side} level {lvl} is empty: {tuple(t.shape)}')
+        if p.shape != c.shape:
+            fault(f'level {lvl}: previous {tuple(p.shape)}, current '
+                  f'{tuple(c.shape)}')
+        dims.append((int(p.shape[1]), int(p.shape[2])))
+    tensors = [('pts', pts), ('valid', valid)] + \
+        [(f'previous level {i}', t) for i, t in enumerate(prev_u8)] + \
+        [(f'current level {i}', t) for i, t in enumerate(cur_u8)]
+    for name, t in tensors:
+        if t.device != pts.device:
+            fault(f'{name} is on {t.device}, pts on {pts.device}')
+        if not t.is_contiguous():
+            fault(f'{name} is not contiguous')
+    return LkLevels(int(n_streams), int(n_points), tuple(dims))
+
+
+@functools.cache
+def _lk_lib():
+    """The built LK kernel library with its C signatures declared."""
+    from .cuda_build import load
+    lib = load('lk_pyramidal')
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.lk_pyramidal_forward.argtypes = [
+        ctypes.POINTER(vp), ctypes.POINTER(vp), ctypes.POINTER(ci), ci,
+        vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.lk_pyramidal_forward.restype = ci
+    lib.lk_error_string.argtypes = [ci]
+    lib.lk_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def lk_pyramidal(prev_u8, cur_u8, pts: torch.Tensor, valid: torch.Tensor,
+                 spec: FlowSpec):
+    """Pyramidal LK (``lk_pyramidal_reference`` says what it computes):
+    on CUDA tensors one launch of ``csrc/lk_pyramidal.cu``, built at first
+    use, which runs every level and every Gauss-Newton step of each point
+    in one thread with no host sync; on CPU tensors the plain version.
+    Arguments and results as the plain version's (``pts`` [P, 2] or [S, P,
+    2]); on the card ``lk_level_table``'s checks apply, and any other
+    device raises. ``lk_pyramidal.launches`` counts kernel launches."""
+    if pts.device.type == 'cpu':
+        return lk_pyramidal_reference(prev_u8, cur_u8, pts, valid, spec)
+    if pts.device.type != 'cuda':
+        raise ValueError(f'lk_pyramidal: unsupported device {pts.device}')
+    if pts.dim() == 2:
+        new_pts, ok, err = lk_pyramidal([p[None] for p in prev_u8],
+                                        [p[None] for p in cur_u8], pts[None],
+                                        valid[None], spec)
+        return new_pts[0], ok[0], err[0]
+    table = lk_level_table(prev_u8, cur_u8, pts, valid, spec)
+    new_pts = torch.empty_like(pts)
+    status = torch.empty_like(valid)
+    err = torch.empty(valid.shape, dtype=torch.float32, device=pts.device)
+    n_levels = len(table.dims)
+    prev_ptrs = (ctypes.c_void_p * n_levels)(*(t.data_ptr() for t in prev_u8))
+    cur_ptrs = (ctypes.c_void_p * n_levels)(*(t.data_ptr() for t in cur_u8))
+    hw = (ctypes.c_int * (2 * n_levels))(*(d for hw_ in table.dims
+                                           for d in hw_))
+    lib = _lk_lib()
+    code = lib.lk_pyramidal_forward(
+        prev_ptrs, cur_ptrs, hw, n_levels, pts.data_ptr(), valid.data_ptr(),
+        new_pts.data_ptr(), status.data_ptr(), err.data_ptr(), table.streams,
+        table.points, spec.win, spec.iters,
+        torch.cuda.current_stream(pts.device).cuda_stream)
+    if code:
+        raise RuntimeError('lk_pyramidal kernel: '
+                           + lib.lk_error_string(code).decode())
+    lk_pyramidal.launches += 1
+    return new_pts, status, err
+
+
+lk_pyramidal.launches = 0
 
 
 # ---------------------------------------------------------------------------
