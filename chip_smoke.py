@@ -8,9 +8,9 @@ Phases, each raising on failure (the exit code is then non-zero):
 1. device: requires CUDA, prints the card and its power limit, turns TF32
    off for matrix products and convolutions;
 2. build: compiles the OSBlock kernel (csrc/osnet_block.cu) and the
-   pyramidal-LK kernel (csrc/lk_pyramidal.cu) from the sources in this
-   checkout, one ``nvcc`` each, both at once, and prints ptxas's registers
-   and spills;
+   pyramidal-LK kernels (csrc/lk_pyramidal.cu: a tile of lanes a point,
+   and one thread a point) from the sources in this checkout, one
+   ``nvcc`` each, both at once, and prints ptxas's registers and spills;
 3. kernel vs its plain version at the six OSNet-x0.25 block shapes (64
    crops, bf16; two calls bitwise equal), with each shape's time (20
    back-to-back launches between two CUDA events), bound, roofline share
@@ -27,8 +27,9 @@ Phases, each raising on failure (the exit code is then non-zero):
    real YOLO graph ran; 20 frames through ``step``, then 20 through
    ``step_batch`` in chunks of 5; equal snapshots, visible tracks, finite
    Kalman state, the OSBlock kernel launched 6 times per association
-   frame and the LK kernel once per frame after the first of each run
-   (every frame but the first tracks, the detection frames too); the float
+   frame and an LK kernel once per frame after the first of each run
+   (every frame but the first tracks, the detection frames too; one
+   kernel a run, the one ``lk_design`` picks for its points); the float
    run also times a gap frame's stages alone (phase 16 prints them);
 7. detector zoo: every registered YOLO and SSD with random weights at its
    full input size on a 1280x720 frame: raw head shapes, finite values,
@@ -88,17 +89,26 @@ Phases, each raising on failure (the exit code is then non-zero):
    different brightness against each stream's own extraction, and a
    control with the ranges pooled over the streams that must fail the
    same bound;
-16. pyramidal LK: the kernel against its plain version on the same
-   inputs run on the CPU (and the shares against its run on the card,
-   beside the card's plain run against the CPU's) at the main path's
-   shape (1 stream, flow budget 48: 1,792 points) and at 8 differing
-   streams with budget 128 (34,816 points), on textured 1280x720 frames
-   with a known drift per stream, to the tolerance of the port against
-   JAX; two calls bitwise equal; the drift recovered; each time (20
-   launches between two CUDA events, after warm-up) beside its bound, the
-   plain version's time, and the gap frame's stages alone from phases 6
-   and 13. Phases 5-15 run under a counter of plain-LK calls on CUDA
-   tensors, which must stay 0.
+16. pyramidal LK, both kernels (a tile of lanes a point; one thread a
+   point), each against the plain version on the same inputs run on the
+   CPU, bit for bit and at the tolerance of the port against JAX (and the
+   shares against its run on the card, beside the card's plain run
+   against the CPU's), at the main path's shape (1 stream, flow budget
+   48: 1,792 points) and at 8 differing streams with budget 128 (34,816
+   points), on textured 1280x720 frames with a known drift per stream;
+   the wrapper launches the kernel ``lk_design`` picks; two calls bitwise
+   equal; the drift recovered; then the two kernels in turns (tile, one
+   thread, one thread, tile), each with its device time a launch (100
+   launches of the C entry between two CUDA events, queued behind a sleep
+   kernel), and the wrapper's time a call (20 calls between CUDA events)
+   and its host time a call (host clock, no sync) before and after the
+   turns, beside the bound, the roofline share, the plain version's time
+   and the SM clocks before and after; both kernels' device times on the
+   first 256, 512, ... of the 8 streams' 4,352 points (2,048 to 34,816
+   points), both sides of ``lk_design``'s threshold; and the gap frame's
+   stages alone from phases 6 and 13. Phases 5-15 run under a counter of
+   plain-LK calls on CUDA tensors, which must stay 0, and each LK kernel
+   must launch there.
 
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -109,6 +119,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 from unittest import mock
 
@@ -135,6 +146,13 @@ PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 # phase 16: (streams, flow budget) of the main path and of phase 13's
 # largest budget
 LK_CASES = ((1, 48), (8, 128))
+# phase 16: launches a device time averages over, and the sleep they
+# queue behind (cycles of the SM clock, about 10 ms at 1.98 GHz), so that
+# the card runs them back to back whatever the host's enqueue rate
+LK_TIMED_LAUNCHES = 100
+LK_SLEEP_CYCLES = 20_000_000
+# phase 16: the points a stream of the last case's sweep grow by
+LK_SWEEP_STEP = 256
 # the LK kernel against its plain version on the same inputs, run on the
 # CPU: the bounds of the port against JAX (tests/test_torch_flow.py::
 # test_lk_matches_jax), the same status on more than 99 % of the points,
@@ -243,11 +261,19 @@ def phase_device():
     log(smi)
     log('tf32: cudnn', torch.backends.cudnn.allow_tf32, 'matmul',
         torch.backends.cuda.matmul.allow_tf32)
-    return name
+    return name, smi
+
+
+def sm_clocks():
+    """The SM clock and its maximum, as nvidia-smi reads them now."""
+    return subprocess.run(
+        ['nvidia-smi', '--query-gpu=clocks.sm,clocks.max.sm',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True).stdout.strip()
 
 
 def phase_build():
-    """Both kernels, one ``nvcc`` each, started together."""
+    """Both kernel sources, one ``nvcc`` each, started together."""
     from concurrent.futures import ThreadPoolExecutor
     from fastmot_tpu_torch.ops import cuda_build
     names = ('osnet_block', 'lk_pyramidal')
@@ -257,7 +283,7 @@ def phase_build():
     for name, (path, seconds, nvcc_out) in zip(names, built):
         log(f'build: {name} {seconds:.2f} s -> {path.name}')
         for line in nvcc_out.splitlines():      # registers, spills, smem
-            if 'registers' in line or 'spill' in line:
+            if 'registers' in line or 'spill' in line or 'Compiling' in line:
                 log(f'ptxas {name}:', line.strip())
     log(f'build: {time.perf_counter() - t0:.2f} s for both')
 
@@ -422,12 +448,26 @@ def synth_tlbrs(frame_id, size, n=N_OBJECTS):
     return np.rint(np.stack([xs, ys, xs + w, ys + h], -1).astype(float))
 
 
+def reset_lk():
+    """Zeroes the LK kernels' launch counts."""
+    from fastmot_tpu_torch.ops.flow_kernels import lk_pyramidal
+    lk_pyramidal.launches = dict.fromkeys(lk_pyramidal.launches, 0)
+
+
+def lk_counts():
+    """The LK kernels' launches since ``reset_lk``, by design."""
+    from fastmot_tpu_torch.ops.flow_kernels import lk_pyramidal
+    return dict(lk_pyramidal.launches)
+
+
 def expect_lk(tag, launches, want):
-    """The LK kernel ran ``want`` times (one launch a tracked frame, for
-    all of a call's streams at once)."""
-    if launches != want:
-        raise AssertionError(f'{tag}: lk_pyramidal launched {launches} '
-                             f'times, expected {want}')
+    """The LK kernels ran ``want`` times in all (one launch a tracked
+    frame, for all of a call's streams at once), and one kernel only: a
+    run's point count, and so ``lk_design``'s pick, is fixed."""
+    if sum(launches.values()) != want or \
+            sum(n > 0 for n in launches.values()) != 1:
+        raise AssertionError(f'{tag}: lk_pyramidal launched {launches}, '
+                             f'expected {want} launches of one kernel')
 
 
 def snapshots(mot):
@@ -440,7 +480,6 @@ def phase_reference():
     against the JAX package by the CPU tests) on a small sequence. Returns
     the LK kernel's launches."""
     from fastmot_tpu_torch import MOT
-    from fastmot_tpu_torch.ops.flow_kernels import lk_pyramidal
     size, n_frames = (320, 240), 12
     frames = textured_frames(size, n_frames, seed=3)
     with tempfile.TemporaryDirectory() as tmp:
@@ -461,14 +500,14 @@ def phase_reference():
                    feature_extractor_cfgs=({'model': 'OSNet025'},),
                    tracker_cfg={'max_age': 6})
         runs = []
-        lk_pyramidal.launches = 0
+        reset_lk()
         for device in ('cpu', 'cuda'):
             mot = MOT(size, device=device, **cfg)
             mot.reset(1 / 30.0)
             for frame in frames:
                 mot.step(frame)
             runs.append(snapshots(mot))
-    lk = lk_pyramidal.launches
+    lk = lk_counts()
     expect_lk('reference', lk, n_frames - 1)
     cpu, gpu = runs
     for fid in cpu:
@@ -501,7 +540,6 @@ def phase_stream_reference():
     frame of every stream, boxes within 2 px. Returns the LK kernel's
     launches."""
     from fastmot_tpu_torch.detector import MAX_DETS, make_detections
-    from fastmot_tpu_torch.ops.flow_kernels import lk_pyramidal
     from fastmot_tpu_torch.parallel import StreamTracker
     size, n, n_frames, skip, n_obj = (320, 240), 2, 12, 3, 3
     frames = [textured_frames(size, n_frames, seed=20 + s) for s in range(n)]
@@ -510,7 +548,7 @@ def phase_stream_reference():
         e = np.random.default_rng(100 + s).normal(size=(n_obj, 512))
         emb[s, :n_obj] = e / np.linalg.norm(e, axis=1, keepdims=True)
     runs = []
-    lk_pyramidal.launches = 0
+    reset_lk()
     for device in ('cpu', 'cuda'):
         st = StreamTracker(size, 'euclidean', n, device=device, max_age=6)
         st.reset(1 / 30.0)
@@ -535,7 +573,7 @@ def phase_stream_reference():
                                  for t in trk.tracks.values())
                           for trk in st.trackers])
         runs.append(snaps)
-    lk = lk_pyramidal.launches
+    lk = lk_counts()
     expect_lk('stream tracker', lk, n_frames - 1)
     _same_rows('stream tracker', *runs)
     log(f'reference: StreamTracker GPU == CPU on {n_frames - 1} frames of '
@@ -567,11 +605,10 @@ def phase_legacy_api():
     launches."""
     from fastmot_tpu_torch import MultiTracker
     from fastmot_tpu_torch.detector import make_detections
-    from fastmot_tpu_torch.ops.flow_kernels import lk_pyramidal
     size, n_obj = (320, 240), 3
     frames = textured_frames(size, 5, seed=4)
     runs = []
-    lk_pyramidal.launches = 0
+    reset_lk()
     for device in ('cpu', 'cuda'):
         trk = MultiTracker(size, 'euclidean', device=device)
         trk.reset(1 / 30.0)
@@ -584,7 +621,7 @@ def phase_legacy_api():
             snaps.append([sorted((tid, t.tlbr.copy())
                                  for tid, t in trk.tracks.items())])
         runs.append(snaps)
-    lk = lk_pyramidal.launches
+    lk = lk_counts()
     expect_lk('legacy compute_flow', lk, len(frames) - 1)
     _same_rows('legacy compute_flow + apply_kalman', *runs)
     log('reference: compute_flow + apply_kalman GPU == CPU on 4 frames, '
@@ -637,7 +674,6 @@ def phase_main_path(detector_type='YOLO', tag='main path', int8=False,
     from fastmot_tpu_torch.detector import MAX_DETS, make_detections
     from fastmot_tpu_torch.models.layers import Conv
     from fastmot_tpu_torch.models.quantize import int8_conv
-    from fastmot_tpu_torch.ops.flow_kernels import lk_pyramidal
     from fastmot_tpu_torch.ops.osnet_block import osblock
     from fastmot_tpu_torch.utils import ConfigDecoder
 
@@ -686,7 +722,8 @@ def phase_main_path(detector_type='YOLO', tag='main path', int8=False,
 
     det.postprocess, det.postprocess_device = post, post_dev
 
-    osblock.launches = int8_conv.launches = lk_pyramidal.launches = 0
+    osblock.launches = int8_conv.launches = 0
+    reset_lk()
     mot.reset(1 / 30.0)
     step_ms = []
     for frame in frames:
@@ -714,7 +751,7 @@ def phase_main_path(detector_type='YOLO', tag='main path', int8=False,
     finite = finite and bool(torch.isfinite(state[0]).all()
                              and torch.isfinite(state[1]).all())
     launches, int8_launches = osblock.launches, int8_conv.launches
-    lk = lk_pyramidal.launches
+    lk = lk_counts()
 
     n_assoc = 2 * sum(1 for i in range(1, len(frames)) if i % skip == 0)
     n_detect = n_assoc + 2                   # frame 0 of each run detects
@@ -999,7 +1036,6 @@ def phase_multi_stream(single_ms, frames, dets, n_streams=N_STREAMS):
     the gap frame alone."""
     from fastmot_tpu_torch.detector import MAX_DETS
     from fastmot_tpu_torch.multichip import run_multi_stream
-    from fastmot_tpu_torch.ops.flow_kernels import lk_pyramidal
     from fastmot_tpu_torch.ops.osnet_block import osblock
     from fastmot_tpu_torch.parallel import MultiStreamMOT
 
@@ -1010,9 +1046,10 @@ def phase_multi_stream(single_ms, frames, dets, n_streams=N_STREAMS):
     det = mot.detector
     real_dev = det.postprocess_device_batch
 
-    osblock.launches = lk_pyramidal.launches = 0
+    osblock.launches = 0
+    reset_lk()
     (rows,), step_ms = run_multi_stream(mot, frames, dets)
-    launches, lk = osblock.launches, lk_pyramidal.launches
+    launches, lk = osblock.launches, lk_counts()
     n_assoc = sum(1 for i in range(1, n_frames) if i % skip == 0)
     visible = [len(list(mot.visible_tracks(s))) for s in range(n_streams)]
     state = mot.stream_tracker._dev_state
@@ -1107,7 +1144,6 @@ def phase_mesh(frames, dets, want_rows, single_multi_ms, n_streams=N_STREAMS):
     OSBlock launches of (a) and (b) and the LK launches of (a)-(c)."""
     import torch.distributed as dist
     from fastmot_tpu_torch import multichip
-    from fastmot_tpu_torch.ops.flow_kernels import lk_pyramidal
     from fastmot_tpu_torch.ops.osnet_block import osblock
     from fastmot_tpu_torch.parallel import MultiStreamMOT, make_stream_mesh
 
@@ -1122,9 +1158,10 @@ def phase_mesh(frames, dets, want_rows, single_multi_ms, n_streams=N_STREAMS):
             mot = MultiStreamMOT(n_streams=n_streams, device='cuda',
                                  mesh=make_stream_mesh(device='cuda'),
                                  **kwargs)
-            osblock.launches = lk_pyramidal.launches = 0
+            osblock.launches = 0
+            reset_lk()
             (rows,), step_ms = multichip.run_multi_stream(mot, frames, dets)
-            launches, lk = osblock.launches, lk_pyramidal.launches
+            launches, lk = osblock.launches, lk_counts()
         finally:
             dist.destroy_process_group()
     del mot
@@ -1170,8 +1207,10 @@ def phase_mesh(frames, dets, want_rows, single_multi_ms, n_streams=N_STREAMS):
         f'{time.perf_counter() - t0:.1f} s, spawn and build included, '
         f'lk_pyramidal launches {dry[0]["lk_launches"]}; phase 14 '
         f'{time.perf_counter() - t_phase:.1f} s')
-    return (launches + sum(o['osblock_launches'] for o in ranks),
-            lk + sum(o['lk_launches'] for o in ranks) + dry[0]['lk_launches'])
+    lk = Counter(lk)
+    for counts in [o['lk_launches'] for o in ranks] + [dry[0]['lk_launches']]:
+        lk.update(counts)
+    return launches + sum(o['osblock_launches'] for o in ranks), lk
 
 
 def threefry_numpy(key, x1, x2):
@@ -1548,27 +1587,110 @@ def lk_bound_ms(spec, prev, cur, valid, trace):
     return max(ops_ms, bytes_ms), ops_ms, bytes_ms, n_steps, pyramid_bytes
 
 
-def phase_lk(gap_stages, gap8_ms):
-    """The LK kernel against its plain version at LK_CASES, timed beside
-    its bound; then the gap frame's stages (phases 6 and 13)."""
+def lk_device_ms(entry, args, n=LK_TIMED_LAUNCHES, reps=3):
+    """Device time per launch of the C entry ``entry(*args)``: ``n``
+    launches between two CUDA events, queued behind ``torch.cuda._sleep``
+    so that the card runs them back to back whatever the host's enqueue
+    rate; the median of ``reps`` windows. Raises on a launch error, or if
+    the host took longer to queue the launches than the card slept."""
+    if entry(*args):
+        raise AssertionError('lk: launch failed')
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        s.record()
+        torch.cuda._sleep(LK_SLEEP_CYCLES)
+        a.record()
+        t0 = time.perf_counter()
+        codes = [entry(*args) for _ in range(n)]
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        b.record()
+        torch.cuda.synchronize()
+        if any(codes):
+            raise AssertionError(f'lk: launch failed ({set(codes)})')
+        if queued_ms >= s.elapsed_time(a):
+            raise AssertionError(f'lk: {n} launches took {queued_ms:.3f} ms '
+                                 f'to queue, the sleep '
+                                 f'{s.elapsed_time(a):.3f} ms')
+        times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
+
+
+def host_ms(fn, n=20, reps=5):
+    """Median over ``reps`` windows of ``n`` back-to-back calls of ``fn`` on
+    the host clock, with no sync inside a window, per call: what the host
+    spends on a call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e3 / n)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def lk_bit_equal(tag, got, want):
+    """Raises unless (new_pts, status, err) equal bit for bit."""
+    for name, g, w in zip(('new_pts', 'status', 'err'), got, want):
+        g, w = g.cpu(), w.cpu()
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        if not torch.equal(g, w):
+            raise AssertionError(f'lk {tag}: {name} differs on '
+                                 f'{int((g != w).sum())} entries')
+
+
+def phase_lk(gap_stages, gap8_ms, card):
+    """Both LK kernels against their plain version at LK_CASES and against
+    each other, bit for bit, and the wrapper's pick (``lk_design``); the
+    two timed in turns (device time; the wrapper's time per call and its
+    host time around them) beside the bound and the SM clocks before and
+    after; both on growing parts of the last case's points, across the
+    pick's threshold; then the gap frame's stages (phases 6 and 13).
+    Returns, by case, each kernel's mean device time, the case's pick,
+    bound, plain time, error and wrapper times, and the tile width."""
     from fastmot_tpu_torch.ops import flow_kernels as fk
     log('lk: host CPU capability '
         f'{torch.backends.cpu.get_cpu_capability()}; the kernel sums in the '
         '8-lane order of ATen\'s x86 CPU sum, which it then equals bit for '
         'bit')
-    out = {'max_abs_err': 0.0}
+    lib = fk.lk_library()
+    lanes, per_block = lib.lk_tile_lanes(), lib.lk_tile_points()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    entries = {d: getattr(lib, e) for d, e in fk.LK_ENTRIES.items()}
+    names = {'tile': f'tile kernel (G = {lanes})',
+             'per_thread': 'one thread a point'}
+    cases = {}
     for n_streams, f_cap in LK_CASES:
+        clocks = [sm_clocks()]
         spec, prev, cur, pts, valid, drift = lk_inputs(n_streams, f_cap)
+        n = valid.numel()
         tag = f'{n_streams} stream(s) x {pts.shape[1]} points'
-        before = fk.lk_pyramidal.launches
+        pick = fk.lk_design(n, sms)
+        before = lk_counts()
         got = fk.lk_pyramidal(prev, cur, pts, valid, spec)
         again = fk.lk_pyramidal(prev, cur, pts, valid, spec)
+        moved = {d: c - before[d] for d, c in lk_counts().items()}
+        if moved != {d: 2 * (d == pick) for d in entries}:
+            raise AssertionError(f'lk {tag}: launches moved by {moved}, '
+                                 f'lk_design picks {pick}')
+        each = {}
+        for d, entry in entries.items():
+            each[d], args = fk.lk_launch_args(prev, cur, pts, valid, spec)
+            if entry(*args):
+                raise AssertionError(f'lk {tag}: {names[d]} launch failed')
         torch.cuda.synchronize()
-        if fk.lk_pyramidal.launches != before + 2:
-            raise AssertionError(f'lk {tag}: launches moved by '
-                                 f'{fk.lk_pyramidal.launches - before}')
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f'lk {tag}: two calls differ')
+        log(f'lk {tag}: lk_design picks the {names[pick]} on the {sms} SMs '
+            f'(one thread a point: {-(-n // fk.LK_PER_THREAD_BLOCK)} blocks '
+            f'of {fk.LK_PER_THREAD_BLOCK}; tile kernel: {-(-n // per_block)} '
+            f'blocks of {per_block} points, {per_block * lanes} threads)')
+        lk_bit_equal(f'{tag}, two calls', got, again)
+        for d, o in each.items():
+            lk_bit_equal(f'{tag}, the pick vs the {names[d]}', got, o)
         if not (torch.isfinite(got[0]).all() and torch.isfinite(got[2]).all()
                 and got[0].shape == pts.shape and got[1].shape == valid.shape):
             raise AssertionError(f'lk {tag}: outputs not finite or of the '
@@ -1580,6 +1702,7 @@ def phase_lk(gap_stages, gap8_ms):
             valid.cpu(), spec)
         worst, _ = lk_agreement(f'{tag}, kernel vs plain on the CPU', got,
                                 plain_cpu)
+        lk_bit_equal(f'{tag}, kernel vs plain on the CPU', got, plain_cpu)
         lk_agreement(f'{tag}, kernel vs plain on the card', got, plain,
                      all_close=False)
         lk_agreement(f'{tag}, control: plain on the card vs plain on the '
@@ -1591,57 +1714,164 @@ def phase_lk(gap_stages, gap8_ms):
         if not np.abs(med - drift).max() < 0.05:
             raise AssertionError(f'lk {tag}: median motion {med.tolist()}, '
                                  f'drift {drift.tolist()}')
-        ms = launches_ms(lambda: fk.lk_pyramidal(prev, cur, pts, valid, spec))
+        # the kernels' device times in turns, through their C entries; the
+        # wrapper (which launches the pick) a call and its host time, before
+        # and after them (the outputs stay referenced while the entries
+        # write them)
+        timed_out, args = fk.lk_launch_args(prev, cur, pts, valid, spec)
+
+        def call():
+            fk.lk_pyramidal(prev, cur, pts, valid, spec)
+        times = {d: [] for d in entries}
+        wrapper = {'call_ms': [launches_ms(call)], 'host_ms': [host_ms(call)]}
+        for d in ('tile', 'per_thread', 'per_thread', 'tile'):
+            times[d].append(lk_device_ms(entries[d], args))
+        wrapper['call_ms'].append(launches_ms(call))
+        wrapper['host_ms'].append(host_ms(call))
+        clocks.append(sm_clocks())
         plain_ms = cuda_ms(lambda: fk.lk_pyramidal_reference(
             prev, cur, pts, valid, spec), n=5, warmup=1)
         bound, ops_ms, bytes_ms, n_steps, pyramid_bytes = lk_bound_ms(
             spec, prev, cur, valid, trace)
         most = sum(t.numel() * t.element_size() for t in prev + cur)
         by = 'bytes' if bytes_ms >= ops_ms else 'operations'
+        mean = {d: statistics.mean(t) for d, t in times.items()}
         log(f'lk {tag}: drift recovered (median motion within 0.05 px of '
             f'{drift.tolist()[:2]}...); {n_steps} Gauss-Newton steps '
             f'({n_steps / max(int(valid.sum()), 1):.2f} a valid point); '
-            f'kernel {ms * 1e3:.1f} us, bound {bound * 1e3:.3f} us ({by}; '
-            f'operations {ops_ms * 1e3:.3f} us, bytes {bytes_ms * 1e3:.3f} '
-            f'us, of which the pyramid sectors the taps touch '
-            f'{pyramid_bytes} B of the pyramids\' {most} B), roofline share '
-            f'{bound / ms:.4f}; plain {plain_ms:.3f} ms ({plain_ms / ms:.0f}x '
-            'the kernel)')
-        out['max_abs_err'] = max(out['max_abs_err'], worst)
-        key = '' if n_streams == 1 else f'_{n_streams}_streams'
-        out.update({f'ms{key}': ms, f'plain_ms{key}': plain_ms,
-                    f'bound_ms{key}': bound, f'bound_by{key}': by,
-                    f'roofline_share{key}': bound / ms})
+            f'bound {bound * 1e3:.3f} us ({by}; operations '
+            f'{ops_ms * 1e3:.3f} us, bytes {bytes_ms * 1e3:.3f} us, of which '
+            f'the pyramid sectors the taps touch {pyramid_bytes} B of the '
+            f'pyramids\' {most} B); plain {plain_ms:.3f} ms; {card}')
+
+        def us(v):
+            return ' / '.join(f'{x * 1e3:.2f}' for x in v)
+        for d, t in times.items():
+            log(f'lk {tag}, {names[d]}{" (the pick)" if d == pick else ""}: '
+                f'device {us(t)} us a launch (two turns, '
+                f'{LK_TIMED_LAUNCHES} launches each), roofline share '
+                f'{bound / mean[d]:.4f}; {card}')
+        log(f'lk {tag}, the wrapper (launching the {names[pick]}), before '
+            f'and after the turns: {us(wrapper["call_ms"])} us a call (20 '
+            f'between CUDA events), host {us(wrapper["host_ms"])} us a call '
+            f'(host clock, no sync); {card}')
+        if n_streams == 1:
+            # what a step costs: the step cap at 1 against its full value
+            capped = args[:12] + (1,) + args[13:]
+            for d in entries:
+                one, full = lk_device_ms(entries[d], capped), mean[d]
+                step = (full - one) / (spec.iters - 1)
+                log(f'lk {tag}, {names[d]}: device {one * 1e3:.2f} us a '
+                    f'launch at a step cap of 1 against {full * 1e3:.2f} at '
+                    f'{spec.iters}: {step * 1e3:.3f} us a unit of the cap; '
+                    f'{card}')
+        log(f'lk {tag}: SM clock, max before and after the turns: '
+            f'{clocks[0]}; {clocks[1]}')
+        key = f'{n_streams}_stream' + ('s' if n_streams > 1 else '')
+        cases[key] = {'pick': pick, 'max_abs_err': worst,
+                      'plain_ms': plain_ms, 'bound_ms': bound,
+                      'bound_by': by, 'ms': mean,
+                      **{m: statistics.mean(v) for m, v in wrapper.items()}}
+    lk_threshold_sweep(spec, prev, cur, pts, valid, entries, names, sms,
+                       card)
     log('lk gap frame, 1 stream (phase 6, flow budget '
         f'{gap_stages["flow budget"]}), each stage alone, synchronised, ms: '
         + '; '.join(f'{k} {v:.3f}' for k, v in gap_stages.items()
                     if k != 'flow budget')
-        + f' (with the plain LK loop: LK {PLAIN_LK_MS} ms of a gap frame)')
+        + f' (with the plain LK loop: LK {PLAIN_LK_MS} ms of a gap frame); '
+        + card)
     log(f'lk gap frame at {N_STREAMS} streams alone (phase 13): '
-        f'{gap8_ms:.3f} ms (with the plain LK loop: {PLAIN_GAP8_MS} ms)')
+        f'{gap8_ms:.3f} ms (with the plain LK loop: {PLAIN_GAP8_MS} ms); '
+        f'{card}')
+    return cases, lanes
+
+
+def lk_threshold_sweep(spec, prev, cur, pts, valid, entries, names, sms,
+                       card):
+    """Both LK kernels' device times on the first LK_SWEEP_STEP, 2
+    LK_SWEEP_STEP, ... points of every stream of one case, in turns (tile,
+    one thread, one thread, tile): both sides of ``lk_design``'s
+    threshold, with its pick and the faster beside them; the two kernels'
+    outputs bit-equal at every size."""
+    from fastmot_tpu_torch.ops import flow_kernels as fk
+    n_streams, n_points = pts.shape[:2]
+    for p in range(LK_SWEEP_STEP, n_points + 1, LK_SWEEP_STEP):
+        sub = (prev, cur, pts[:, :p].contiguous(),
+               valid[:, :p].contiguous(), spec)
+        n = n_streams * p
+        launch = {d: fk.lk_launch_args(*sub) for d in entries}
+        times = {d: [] for d in entries}
+        for d in ('tile', 'per_thread', 'per_thread', 'tile'):
+            times[d].append(lk_device_ms(entries[d], launch[d][1]))
+        lk_bit_equal(f'sweep, {n} points', launch['tile'][0],
+                     launch['per_thread'][0])
+        mean = {d: statistics.mean(t) for d, t in times.items()}
+        log(f'lk sweep, {n_streams} x {p} = {n} points '
+            f'({-(-n // fk.LK_PER_THREAD_BLOCK)} blocks of one thread a '
+            f'point on the {sms} SMs): '
+            + '; '.join(f'{names[d]} ' + ' / '.join(f'{x * 1e3:.2f}'
+                                                   for x in t)
+                        for d, t in times.items())
+            + f' us a launch; lk_design picks the '
+            f'{names[fk.lk_design(n, sms)]}, the faster is the '
+            f'{names[min(mean, key=mean.get)]}; {card}')
+
+
+def lk_kernel_entries(cases, launches, lanes):
+    """The kernels line's entries of the two LK kernels. Each takes its
+    unsuffixed times from the case whose pick it is (the main paths run it
+    there; the wrapper's time a call and host time are that case's), and
+    the other case's with the case's name as suffix."""
+    out = []
+    for design, name in (('tile', 'lk_pyramidal'),
+                         ('per_thread', 'lk_pyramidal_per_thread')):
+        own = next((c for c, r in cases.items() if r['pick'] == design),
+                   next(iter(cases)))
+        entry = {'name': name, 'route': 'cuda',
+                 'source': 'fastmot_tpu_torch/csrc/lk_pyramidal.cu',
+                 'replaces': 'fastmot_tpu/ops/flow_kernels.py:313',
+                 'launches': launches[design],
+                 'max_abs_err': max(r['max_abs_err'] for r in cases.values()),
+                 'library_ms': None, 'case': own}
+        if design == 'tile':
+            entry['tile_lanes'] = lanes
+        for case, r in cases.items():
+            key = '' if case == own else f'_{case}'
+            if r['pick'] == design:      # the wrapper launched this kernel
+                entry.update({f'call_ms{key}': r['call_ms'],
+                              f'host_ms{key}': r['host_ms']})
+            entry.update({
+                f'ms{key}': r['ms'][design],
+                f'plain_ms{key}': r['plain_ms'],
+                f'bound_ms{key}': r['bound_ms'],
+                f'bound_by{key}': r['bound_by'],
+                f'roofline_share{key}': r['bound_ms'] / r['ms'][design]})
+        out.append(entry)
     return out
 
 
 def main():
     from fastmot_tpu_torch.ops import flow_kernels as fk
     t0 = time.perf_counter()
-    name = phase_device()
+    name, card = phase_device()
     phase_build()
     kern = phase_kernel()
     worst_abs = max(kern['max_abs_err'],
                     phase_kernel(MULTI_BATCH)['max_abs_err'])
     phase_osnet()
     # the main paths run the plain LK on the CPU only (phase 5's CPU
-    # runs); on the card the kernel, every time
+    # runs); on the card a kernel, every time
     plain_on_card = [0]
     plain_lk = fk.lk_pyramidal_reference
 
     def counted_plain_lk(prev, cur, pts, *args, **kwargs):
         plain_on_card[0] += pts.is_cuda
         return plain_lk(prev, cur, pts, *args, **kwargs)
+    lk_launches = Counter()
     with mock.patch.object(fk, 'lk_pyramidal_reference', counted_plain_lk):
-        lk_launches = phase_reference() + phase_stream_reference() + \
-            phase_legacy_api()
+        for counts in (phase_reference(), phase_stream_reference(),
+                       phase_legacy_api()):
+            lk_launches.update(counts)
         main_run = phase_main_path(stages=True)
         launches, float_ms = main_run['osblock'], main_run['median']
         phase_zoo()
@@ -1651,7 +1881,8 @@ def main():
         phase_int8_conv()
         phase_osnet_int8()
         int8 = phase_main_path(tag='int8 main path', int8=True)
-        lk_launches += main_run['lk'] + ssd['lk'] + int8['lk']
+        for run in (main_run, ssd, int8):
+            lk_launches.update(run['lk'])
         log(f'main path step median: float {float_ms:.3f} ms, int8 '
             f'{int8["median"]:.3f} ms')
         frames, dets = multi_stream_inputs()
@@ -1660,14 +1891,18 @@ def main():
         launches += multi_launches
         mesh_launches, mesh_lk = phase_mesh(frames, dets, rows, multi_ms)
         launches += mesh_launches
-        lk_launches += multi_lk + mesh_lk
+        lk_launches.update(multi_lk)
+        lk_launches.update(mesh_lk)
         launches += phase_gaps(rows, gap_ms)
     if plain_on_card[0]:
         raise AssertionError(f'the plain LK ran {plain_on_card[0]} times on '
                              'the card in phases 5-15')
-    log(f'phases 5-15: lk_pyramidal launched {lk_launches} times on the '
-        'main paths, the plain LK 0 times on the card')
-    lk = phase_lk(main_run['gap stages'], gap_ms)
+    if not all(lk_launches[d] for d in fk.LK_ENTRIES):
+        raise AssertionError(f'phases 5-15: the LK kernels launched '
+                             f'{dict(lk_launches)} times; each must launch')
+    log(f'phases 5-15: the LK kernels launched {dict(lk_launches)} times on '
+        'the main paths, the plain LK 0 times on the card')
+    cases, lanes = phase_lk(main_run['gap stages'], gap_ms, card)
     log(f'every phase passed in {time.perf_counter() - t0:.1f} s')
     print(json.dumps({'kernels': [{
         'name': 'osblock', 'route': 'cuda',
@@ -1677,11 +1912,8 @@ def main():
         'ms': kern['ms'], 'plain_ms': kern['plain_ms'],
         'bound_ms': kern['bound_ms'], 'bound_by': kern['bound_by'],
         'library_ms': None,
-        'roofline_share': kern['roofline_share']}, dict({
-            'name': 'lk_pyramidal', 'route': 'cuda',
-            'source': 'fastmot_tpu_torch/csrc/lk_pyramidal.cu',
-            'replaces': 'fastmot_tpu/ops/flow_kernels.py:313',
-            'launches': lk_launches, 'library_ms': None}, **lk)]}))
+        'roofline_share': kern['roofline_share']}]
+        + lk_kernel_entries(cases, lk_launches, lanes)}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,
         'count': torch.cuda.device_count()}}))

@@ -312,7 +312,7 @@ def _dryrun_rank(n_devices: int, model_name: str, device: str) -> dict:
     def host(t):
         return t.cpu().numpy()
     return {'line': line, 'features': (fsl.start, fsl.stop),
-            'lk_launches': fk.lk_pyramidal.launches, 'cost': host(cost),
+            'lk_launches': dict(fk.lk_pyramidal.launches), 'cost': host(cost),
             'reid_cost': host(reid_cost),
             'col4row': host(col4row), 'valid': host(new_state[3]),
             'feat_sum': host(new_state[13]),
@@ -415,11 +415,12 @@ def multi_stream_rank(inputs, n_streams, model_parallel, mot_kwargs,
         dets = {k: f[k] for k in f.files}
     mot = MultiStreamMOT(n_streams=n_streams, device=device, mesh=mesh,
                          **mot_kwargs)
-    osblock.launches = lk_pyramidal.launches = 0
+    osblock.launches = 0
+    lk_pyramidal.launches = dict.fromkeys(lk_pyramidal.launches, 0)
     rows, step_ms = run_multi_stream(mot, frames, dets, sync_every_frame)
     return {'local_streams': list(mot.local_streams), 'rows': rows,
             'step_ms': step_ms, 'osblock_launches': osblock.launches,
-            'lk_launches': lk_pyramidal.launches,
+            'lk_launches': dict(lk_pyramidal.launches),
             'network_dets': mot.network_dets}
 
 

@@ -10,8 +10,9 @@ estimateAffinePartial2D, with every numeric choice kept:
 - cv2's COUNT | EPS criteria: per point, at most ``iters`` Gauss-Newton
   steps per level, stopping once a step is below 0.03 px (the JAX
   package's lockstep "double step" computes exactly this). On the card
-  ``lk_pyramidal`` is one launch of ``csrc/lk_pyramidal.cu`` (one thread
-  a point, every level and step, no host sync); on the CPU it runs
+  ``lk_pyramidal`` is one launch of ``csrc/lk_pyramidal.cu`` (every
+  level and step, no host sync; a tile of lanes a point, or one thread a
+  point where the points fill the card); on the CPU it runs
   ``lk_pyramidal_reference``, the same loop in lockstep over all points;
 - Shi-Tomasi response with one candidate per grid cell, the first
   row-major maximum winning ties;
@@ -359,88 +360,144 @@ def lk_level_table(prev_u8, cur_u8, pts: torch.Tensor, valid: torch.Tensor,
     if spec.win != LK_KERNEL_WIN:
         fault(f'window {spec.win}: the kernel is built for window '
               f'{LK_KERNEL_WIN} only')
+    device = pts.device
+    for name, t in (('pts', pts), ('valid', valid)):
+        if t.device != device:
+            fault(f'{name} is on {t.device}, pts on {device}')
+        if not t.is_contiguous():
+            fault(f'{name} is not contiguous')
     dims = []
     for lvl, (p, c) in enumerate(zip(prev_u8, cur_u8)):
         for side, t in (('previous', p), ('current', c)):
-            if t.dtype != torch.float32 or t.dim() != 3:
+            shape = t.shape
+            if t.dtype != torch.float32 or len(shape) != 3:
                 fault(f'{side} level {lvl} must be float32 [S, h, w], got '
-                      f'{t.dtype} {tuple(t.shape)}')
-            if t.shape[0] != n_streams:
-                fault(f'{side} level {lvl} has {t.shape[0]} streams, pts '
+                      f'{t.dtype} {tuple(shape)}')
+            if shape[0] != n_streams:
+                fault(f'{side} level {lvl} has {shape[0]} streams, pts '
                       f'{n_streams}')
-            if t.shape[1] < 1 or t.shape[2] < 1:
-                fault(f'{side} level {lvl} is empty: {tuple(t.shape)}')
+            if shape[1] < 1 or shape[2] < 1:
+                fault(f'{side} level {lvl} is empty: {tuple(shape)}')
+            if t.device != device:
+                fault(f'{side} level {lvl} is on {t.device}, pts on {device}')
+            if not t.is_contiguous():
+                fault(f'{side} level {lvl} is not contiguous')
         if p.shape != c.shape:
             fault(f'level {lvl}: previous {tuple(p.shape)}, current '
                   f'{tuple(c.shape)}')
         dims.append((int(p.shape[1]), int(p.shape[2])))
-    tensors = [('pts', pts), ('valid', valid)] + \
-        [(f'previous level {i}', t) for i, t in enumerate(prev_u8)] + \
-        [(f'current level {i}', t) for i, t in enumerate(cur_u8)]
-    for name, t in tensors:
-        if t.device != pts.device:
-            fault(f'{name} is on {t.device}, pts on {pts.device}')
-        if not t.is_contiguous():
-            fault(f'{name} is not contiguous')
     return LkLevels(int(n_streams), int(n_points), tuple(dims))
 
 
+# the C entries of csrc/lk_pyramidal.cu by design: a tile of lanes a point,
+# and one thread a point in blocks of LK_PER_THREAD_BLOCK (kThreads there)
+LK_ENTRIES = {'tile': 'lk_pyramidal_forward',
+              'per_thread': 'lk_pyramidal_forward_per_thread'}
+LK_PER_THREAD_BLOCK = 128
+# lk_design's threshold: the points a call needs per SM of the card for
+# one thread a point to be the faster kernel. On an H100 (132 SMs) the one
+# thread kernel takes 58-60 us up to 128 points an SM (a block of 128 on
+# every SM), the tile kernel 30 us up to 16 and its time grows with the
+# points, the two even at 10,240-11,264 points (78-85 an SM)
+LK_PER_THREAD_POINTS_PER_SM = 80
+
+
+def lk_design(n_points: int, n_sms: int) -> str:
+    """The LK kernel for a call of ``n_points`` points (all streams) on a
+    card of ``n_sms`` SMs: one thread a point from
+    LK_PER_THREAD_POINTS_PER_SM points an SM on, the tile kernel below
+    that. With few points the one-thread kernel's time is one point's
+    serial chain, which the tile kernel shortens by spreading a point over
+    lanes; with many the tile kernel's lanes repeat each point's scalar
+    work and it is the slower (PERF.md section 6, chip_smoke.py phase
+    16)."""
+    return ('per_thread' if n_points >= LK_PER_THREAD_POINTS_PER_SM * n_sms
+            else 'tile')
+
+
 @functools.cache
-def _lk_lib():
-    """The built LK kernel library with its C signatures declared."""
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.cache
+def lk_library() -> ctypes.CDLL:
+    """The built LK kernel library, its C signatures declared once."""
     from .cuda_build import load
     lib = load('lk_pyramidal')
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.lk_pyramidal_forward.argtypes = [
-        ctypes.POINTER(vp), ctypes.POINTER(vp), ctypes.POINTER(ci), ci,
-        vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
-    lib.lk_pyramidal_forward.restype = ci
+    for entry in LK_ENTRIES.values():
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(vp),
+                       ctypes.POINTER(ci), ci, vp, vp, vp, vp, vp, ci, ci,
+                       ci, ci, vp]
+        fn.restype = ci
+    for fn in (lib.lk_tile_lanes, lib.lk_tile_points):
+        fn.argtypes = []
+        fn.restype = ci
     lib.lk_error_string.argtypes = [ci]
     lib.lk_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def lk_launch_args(prev_u8, cur_u8, pts: torch.Tensor, valid: torch.Tensor,
+                   spec: FlowSpec):
+    """One kernel call on CUDA tensors [S, ...] as the C entries take it:
+    ``(outputs, args)``, the new (new_pts, status, err) and the entries'
+    argument tuple writing them on the current stream, after
+    ``lk_level_table``'s checks. ``entry(*args)`` launches once; the
+    arguments hold the tensors' addresses, so they serve as long as the
+    tensors live (chip_smoke.py and the card tests launch and time either
+    kernel with them)."""
+    table = lk_level_table(prev_u8, cur_u8, pts, valid, spec)
+    outputs = (torch.empty_like(pts), torch.empty_like(valid),
+               torch.empty(valid.shape, dtype=torch.float32,
+                           device=pts.device))
+    n_levels = len(table.dims)
+    ptrs = ctypes.c_void_p * n_levels
+    args = (ptrs(*(t.data_ptr() for t in prev_u8)),
+            ptrs(*(t.data_ptr() for t in cur_u8)),
+            (ctypes.c_int * (2 * n_levels))(*(d for hw in table.dims
+                                              for d in hw)),
+            n_levels, pts.data_ptr(), valid.data_ptr(),
+            *(t.data_ptr() for t in outputs), table.streams, table.points,
+            spec.win, spec.iters,
+            torch.cuda.current_stream(pts.device).cuda_stream)
+    return outputs, args
+
+
 def lk_pyramidal(prev_u8, cur_u8, pts: torch.Tensor, valid: torch.Tensor,
                  spec: FlowSpec):
     """Pyramidal LK (``lk_pyramidal_reference`` says what it computes):
-    on CUDA tensors one launch of ``csrc/lk_pyramidal.cu``, built at first
-    use, which runs every level and every Gauss-Newton step of each point
-    in one thread with no host sync; on CPU tensors the plain version.
+    on CUDA tensors one launch of a kernel of ``csrc/lk_pyramidal.cu``,
+    built at first use, which runs every level and every Gauss-Newton step
+    of each point with no host sync: the kernel ``lk_design`` picks for the
+    call's points and the card's SMs. On CPU tensors the plain version.
     Arguments and results as the plain version's (``pts`` [P, 2] or [S, P,
     2]); on the card ``lk_level_table``'s checks apply, and any other
-    device raises. ``lk_pyramidal.launches`` counts kernel launches."""
+    device raises. ``lk_pyramidal.launches[design]`` counts each kernel's
+    launches."""
     if pts.device.type == 'cpu':
         return lk_pyramidal_reference(prev_u8, cur_u8, pts, valid, spec)
     if pts.device.type != 'cuda':
         raise ValueError(f'lk_pyramidal: unsupported device {pts.device}')
     if pts.dim() == 2:
-        new_pts, ok, err = lk_pyramidal([p[None] for p in prev_u8],
-                                        [p[None] for p in cur_u8], pts[None],
-                                        valid[None], spec)
+        new_pts, ok, err = lk_pyramidal(
+            [p[None] for p in prev_u8], [c[None] for c in cur_u8], pts[None],
+            valid[None], spec)
         return new_pts[0], ok[0], err[0]
-    table = lk_level_table(prev_u8, cur_u8, pts, valid, spec)
-    new_pts = torch.empty_like(pts)
-    status = torch.empty_like(valid)
-    err = torch.empty(valid.shape, dtype=torch.float32, device=pts.device)
-    n_levels = len(table.dims)
-    prev_ptrs = (ctypes.c_void_p * n_levels)(*(t.data_ptr() for t in prev_u8))
-    cur_ptrs = (ctypes.c_void_p * n_levels)(*(t.data_ptr() for t in cur_u8))
-    hw = (ctypes.c_int * (2 * n_levels))(*(d for hw_ in table.dims
-                                           for d in hw_))
-    lib = _lk_lib()
-    code = lib.lk_pyramidal_forward(
-        prev_ptrs, cur_ptrs, hw, n_levels, pts.data_ptr(), valid.data_ptr(),
-        new_pts.data_ptr(), status.data_ptr(), err.data_ptr(), table.streams,
-        table.points, spec.win, spec.iters,
-        torch.cuda.current_stream(pts.device).cuda_stream)
+    outputs, args = lk_launch_args(prev_u8, cur_u8, pts, valid, spec)
+    design = lk_design(valid.numel(), _sm_count(pts.device))
+    lib = lk_library()
+    code = getattr(lib, LK_ENTRIES[design])(*args)
     if code:
         raise RuntimeError('lk_pyramidal kernel: '
                            + lib.lk_error_string(code).decode())
-    lk_pyramidal.launches += 1
-    return new_pts, status, err
+    lk_pyramidal.launches[design] += 1
+    return outputs
 
 
-lk_pyramidal.launches = 0
+lk_pyramidal.launches = dict.fromkeys(LK_ENTRIES, 0)
 
 
 # ---------------------------------------------------------------------------

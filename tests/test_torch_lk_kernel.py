@@ -7,10 +7,14 @@ equals the port's lockstep plain version ``lk_pyramidal_reference`` bit for
 bit and agrees with the JAX package's ``lk_pyramidal``, on 80x60 frames
 with 3 levels and points that never converge, sit on a flat window the
 gate rejects, are invalid or lie on the border; the wrapper on CPU tensors
-is the plain version; the argument checks raise on what the kernel does
-not take; the main path's LK arguments pass them; and the kernel's own
-source, built for the host with g++ through a shim of the few CUDA names
-it uses, equals the plain version bit for bit. The bit-for-bit checks
+is the plain version (with either kernel forced, or the pick of
+``lk_design``, whose threshold is checked); the argument checks raise on
+what the kernel does not take; the main path's LK arguments pass them; and
+the kernel's own source, built for the host with g++ through a shim of the
+few CUDA names it uses (a warp's lanes as host threads, the tile shuffles
+as meetings), equals the plain version bit for bit: the tile kernel and
+the one-thread kernel, also on warps whose tiles take 0, 1 and 10 steps
+and blocks that straddle two streams. The bit-for-bit checks
 rest on the order in which ATen's CPU sum adds a row's 25 terms, which
 ``aten_sum_lanes`` reads off this host and its failures name (with
 ``torch.backends.cpu.get_cpu_capability()``): the kernel sums in the
@@ -18,8 +22,10 @@ rest on the order in which ATen's CPU sum adds a row's 25 terms, which
 
 On the card (marker ``cuda``; they skip without one, and JAX is imported
 only by the one test that needs it, so this file runs where there is no
-JAX): the kernel against the plain version at the main path's shapes,
-repeatability, and one launch per ``lk_core`` call:
+JAX): the wrapper's pick bit-equal to the plain version run on the CPU,
+the two kernels bit-equal to each other at the main path's shapes, the
+wrapper launching ``lk_design``'s pick there, repeatability, and one
+launch of the pick (none of the other) per ``lk_core`` call:
 
     python -m pytest tests/test_torch_lk_kernel.py -m cuda
 """
@@ -52,6 +58,15 @@ STATUS_SHARE, CLOSE_SHARE, CLOSE_PX, MAX_PX = 0.99, 0.9, 1e-3, 0.1
 
 def T(a):
     return torch.from_numpy(np.array(a))
+
+
+def assert_bit_equal(got, want):
+    """(new_pts, status, err) equal bit for bit."""
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+        if g.dtype == torch.float32:
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
 
 
 def lk_frames(seed=0, h=60, w=80, pad=8):
@@ -316,15 +331,30 @@ def test_wrapper_on_cpu_is_the_plain_version(lk_case, streams):
                 [torch.stack([a, b.flip(-1)]) for a, b in zip(cur, cur)],
                 torch.stack([T(pts), T(pts[::-1].copy())]),
                 torch.stack([T(valid), T(valid[::-1].copy())]))
-    before = tfk.lk_pyramidal.launches
+    before = dict(tfk.lk_pyramidal.launches)
     got = tfk.lk_pyramidal(*args, TSPEC)
     want = tfk.lk_pyramidal_reference(*args, TSPEC)
     assert tfk.lk_pyramidal.launches == before
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype and g.shape == w.shape
-        assert torch.equal(g, w)
-        if g.dtype == torch.float32:
-            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert_bit_equal(got, want)
+
+
+# (points of a call, the card's SMs, the kernel lk_design picks): the
+# main path's 1 x 1,792 and phase 13's 8 x 4,352 on an H100's 132 SMs,
+# 2 and 3 of its streams (the tile kernel is the faster at 8,704 points,
+# one thread a point at 13,056), and both sides of the threshold at 132
+# and at 14 SMs
+K = tfk.LK_PER_THREAD_POINTS_PER_SM
+LK_PICKS = [(1792, 132, 'tile'), (8 * 4352, 132, 'per_thread'),
+            (2 * 4352, 132, 'tile'), (3 * 4352, 132, 'per_thread'),
+            (K * 132 - 1, 132, 'tile'), (K * 132, 132, 'per_thread'),
+            (K * 14 - 1, 14, 'tile'), (K * 14, 14, 'per_thread'),
+            (0, 132, 'tile')]
+
+
+@pytest.mark.parametrize('n_points,n_sms,want', LK_PICKS)
+def test_lk_design_picks_one_thread_from_its_threshold_on(n_points, n_sms,
+                                                         want):
+    assert tfk.lk_design(n_points, n_sms) == want
 
 
 def _kernel_args(n_streams=2):
@@ -398,7 +428,7 @@ def test_wrapper_raises_on_a_device_neither_cpu_nor_cuda():
     prev, cur, pts, valid = (x if isinstance(x, torch.Tensor) else
                              [t.to('meta') for t in x]
                              for x in _kernel_args())
-    before = tfk.lk_pyramidal.launches
+    before = dict(tfk.lk_pyramidal.launches)
     with pytest.raises(ValueError, match='unsupported device meta'):
         tfk.lk_pyramidal(prev, cur, pts.to('meta'), valid.to('meta'), TSPEC)
     assert tfk.lk_pyramidal.launches == before
@@ -447,25 +477,41 @@ def test_main_path_lk_arguments_pass_the_kernel_checks(monkeypatch):
 # ---------------------------------------------------------------------------
 
 # Just enough of CUDA for csrc/lk_pyramidal.cu to build with g++: the
-# launch becomes a loop over blocks and threads, and the rounded
-# intrinsics plain float operations (-ffp-contract=off: no FMA).
+# rounded intrinsics are plain float operations (-ffp-contract=off: no
+# FMA), and the launch runs each warp of each block in turn, its lanes as
+# host threads (so a static array serves as the block's shared memory).
+# __shfl_sync meets the other lanes of its mask: each writes its value
+# into the meeting's slots, all wait, each reads its source's, and the
+# next shuffle writes the other set of slots (a lane writes a set again
+# only after every lane has passed the next meeting, so after every read
+# of the last); __syncwarp is a meeting. A mask that is neither the whole
+# warp nor an aligned segment aborts, and so does a meeting that some
+# lane never joins.
 HOST_SHIM = r"""
 #pragma once
 #include <algorithm>
+#include <chrono>
 #include <cmath>
+#include <condition_variable>
 #include <cstdint>
+#include <cstdlib>
+#include <memory>
+#include <mutex>
+#include <thread>
+#include <vector>
 #define __device__
 #define __global__
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __restrict__
+#define __shared__ static
 using std::max;
 using std::min;
 struct float2 { float x, y; };
 inline float2 make_float2(float x, float y) { return {x, y}; }
 struct dim3 { unsigned x, y, z; dim3(unsigned a) : x(a), y(1), z(1) {} };
 struct uint3 { unsigned x, y, z; };
-static uint3 blockIdx, threadIdx;
+static thread_local uint3 blockIdx, threadIdx;
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -479,22 +525,99 @@ inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __fsqrt_rn(float a) { return std::sqrt(a); }
+
+struct Segment {
+  std::mutex m;
+  std::condition_variable cv;
+  int n = 0, waiting = 0, generation = 0;
+  float slot[2][32];
+  void meet() {
+    std::unique_lock<std::mutex> lock(m);
+    const int g = generation;
+    if (++waiting == n) {
+      waiting = 0;
+      ++generation;
+      cv.notify_all();
+    } else if (!cv.wait_for(lock, std::chrono::seconds(30),
+                            [&] { return generation != g; })) {
+      std::abort();
+    }
+  }
+};
+struct Warp {   // segments of 2^p lanes: seg[p][lane >> p]
+  std::vector<std::unique_ptr<Segment>> seg[6];
+  Warp() {
+    for (int p = 0; p < 6; ++p)
+      for (int k = 0; k < (32 >> p); ++k) {
+        seg[p].emplace_back(new Segment);
+        seg[p].back()->n = 1 << p;
+      }
+  }
+};
+static thread_local Warp* warp;
+static thread_local int flip[6];
+
+// The segment that meets for `mask`: the whole warp, or the lane's
+// aligned segment of popcount(mask) lanes; anything else aborts. Sets p
+// (its size is 2^p) and its first lane.
+inline Segment& meeting(unsigned mask, int& p, unsigned& first) {
+  const unsigned lane = threadIdx.x % 32;
+  const int n = __builtin_popcount(mask);
+  first = lane / n * n;
+  if ((n & (n - 1)) || mask != (n == 32 ? ~0u : (1u << n) - 1u) << first)
+    std::abort();
+  p = __builtin_ctz(static_cast<unsigned>(n));
+  return *warp->seg[p][lane >> p];
+}
+
+inline void __syncwarp(unsigned mask) {
+  int p;
+  unsigned first;
+  meeting(mask, p, first).meet();
+}
+
+inline float __shfl_sync(unsigned mask, float v, int src, int width) {
+  int p;
+  unsigned first;
+  Segment& s = meeting(mask, p, first);
+  const unsigned lane = threadIdx.x % 32;
+  if (width < 1 || width > __builtin_popcount(mask) || (width & (width - 1)))
+    std::abort();
+  float* slots = s.slot[flip[p]];
+  flip[p] ^= 1;
+  slots[lane - first] = v;
+  s.meet();
+  return slots[lane / width * width + src % width - first];
+}
+
 template <class F, class... A>
 void host_launch(dim3 grid, unsigned threads, F f, A... args) {
   for (unsigned b = 0; b < grid.x; ++b)
-    for (unsigned t = 0; t < threads; ++t) {
-      blockIdx = {b, 0, 0};
-      threadIdx = {t, 0, 0};
-      f(args...);
+    for (unsigned w0 = 0; w0 < threads; w0 += 32) {
+      Warp lanes_of_warp;
+      std::vector<std::thread> lanes;
+      for (unsigned t = w0; t < std::min(threads, w0 + 32); ++t)
+        lanes.emplace_back([&, b, t] {
+          blockIdx = {b, 0, 0};
+          threadIdx = {t, 0, 0};
+          warp = &lanes_of_warp;
+          f(args...);
+        });
+      for (auto& l : lanes) l.join();
     }
 }
 """
+
+# the C entries the host tests run: the tile kernel (G = 8) and one thread
+# a point
+HOST_ENTRIES = {'tile8': tfk.LK_ENTRIES['tile'],
+                'per_thread': tfk.LK_ENTRIES['per_thread']}
 
 
 @pytest.fixture(scope='module')
 def host_kernel(tmp_path_factory):
     """csrc/lk_pyramidal.cu built for the host with g++ and the shim, its
-    C entry point declared (ctypes)."""
+    C entries' signatures declared (ctypes)."""
     import ctypes
     import re
     import shutil
@@ -504,31 +627,57 @@ def host_kernel(tmp_path_factory):
         pytest.skip('needs g++')
     d = tmp_path_factory.mktemp('lk_host')
     (d / 'cuda_runtime.h').write_text(HOST_SHIM)
-    src, n = re.subn(r'(\w+<\w+>)<<<(\w+), (\w+), \w+, \w+>>>\(',
+    src, n = re.subn(r'(\w+<[\w, ]+>)<<<(\w+), (\w+), \w+, \w+>>>\(',
                      r'host_launch(\2, \3, \1, ',
                      (CSRC / 'lk_pyramidal.cu').read_text())
-    assert n == 1
+    assert n == 2
     (d / 'lk.cpp').write_text(src)
-    subprocess.run(['g++', '-O1', '-std=c++17', '-ffp-contract=off',
-                    '-fPIC', '-shared', '-I', str(d), '-o', str(d / 'lk.so'),
-                    str(d / 'lk.cpp')], check=True, capture_output=True)
+    subprocess.run(['g++', '-O1', '-std=c++17', '-pthread',
+                    '-ffp-contract=off', '-fPIC', '-shared', '-I', str(d),
+                    '-o', str(d / 'lk.so'), str(d / 'lk.cpp')],
+                   check=True, capture_output=True)
     lib = ctypes.CDLL(str(d / 'lk.so'))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.lk_pyramidal_forward.argtypes = [
-        ctypes.POINTER(vp), ctypes.POINTER(vp), ctypes.POINTER(ci), ci,
-        vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    for entry in HOST_ENTRIES.values():
+        getattr(lib, entry).argtypes = [
+            ctypes.POINTER(vp), ctypes.POINTER(vp), ctypes.POINTER(ci), ci,
+            vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
     return lib
 
 
+def host_run(entry, prev, cur, pts, valid, spec):
+    """One call of a host-built C entry on CPU tensors [S, ...]; returns
+    (new_pts, status, err)."""
+    import ctypes
+    table = tfk.lk_level_table(prev, cur, pts, valid, spec)
+    got = (torch.empty_like(pts), torch.empty_like(valid),
+           torch.empty(valid.shape))
+    n = len(table.dims)
+    code = entry(
+        (ctypes.c_void_p * n)(*(t.data_ptr() for t in prev)),
+        (ctypes.c_void_p * n)(*(t.data_ptr() for t in cur)),
+        (ctypes.c_int * (2 * n))(*(d for hw in table.dims for d in hw)), n,
+        pts.data_ptr(), valid.data_ptr(), *(g.data_ptr() for g in got),
+        table.streams, table.points, spec.win, spec.iters, None)
+    assert code == 0
+    return got
+
+
+def test_host_builds_have_their_tile_lanes(host_kernel):
+    assert host_kernel.lk_tile_lanes() == 8
+    assert host_kernel.lk_tile_points() == 16
+
+
+@pytest.mark.parametrize('build', sorted(HOST_ENTRIES))
 @pytest.mark.parametrize('max_level,iters',
                          [(2, 10), (1, 10), (2, 4), (2, 0), (0, 3)])
-def test_kernel_source_on_the_host_equals_plain_version(host_kernel,
+def test_kernel_source_on_the_host_equals_plain_version(host_kernel, build,
                                                         max_level, iters):
     """The kernel's source, run on the host over two streams whose frames
     differ, gives what the plain version gives, bit for bit, at the main
     path's window over other level counts and step caps (where ATen sums
-    in the kernel's order, which the first check holds)."""
-    import ctypes
+    in the kernel's order, which the first check holds): the tile kernel
+    and the one-thread-a-point kernel."""
     test_aten_sums_rows_in_the_kernels_order()
     spec = tfk.FlowSpec(**dict(SPEC_ARGS, max_level=max_level, iters=iters))
     frames = [lk_frames(seed=s) for s in (0, 1)]
@@ -537,22 +686,73 @@ def test_kernel_source_on_the_host_equals_plain_version(host_kernel,
     pts, valid = lk_points()
     pts = torch.stack([T(pts), T(pts[::-1].copy())])
     valid = torch.stack([T(valid), T(valid[::-1].copy())])
-    table = tfk.lk_level_table(prev, cur, pts, valid, spec)
-    got = (torch.empty_like(pts), torch.empty_like(valid),
-           torch.empty(valid.shape))
-    n = len(table.dims)
-    code = host_kernel.lk_pyramidal_forward(
-        (ctypes.c_void_p * n)(*(t.data_ptr() for t in prev)),
-        (ctypes.c_void_p * n)(*(t.data_ptr() for t in cur)),
-        (ctypes.c_int * (2 * n))(*(d for hw in table.dims for d in hw)), n,
-        pts.data_ptr(), valid.data_ptr(), *(g.data_ptr() for g in got),
-        table.streams, table.points, spec.win, spec.iters, None)
-    assert code == 0
-    want = tfk.lk_pyramidal_reference(prev, cur, pts, valid, spec)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-        if g.dtype == torch.float32:
-            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    got = host_run(getattr(host_kernel, HOST_ENTRIES[build]), prev, cur,
+                   pts, valid, spec)
+    assert_bit_equal(got, tfk.lk_pyramidal_reference(prev, cur, pts, valid,
+                                                     spec))
+
+
+# the points of one warp-aligned group of four (a warp of the tile
+# kernel), by their steps at the finest level:
+# invalid (none), on the flat window (the gate stops it after one), on the
+# fresh noise (the cap, 10), and a random point
+WARP_KINDS = ('invalid', 'flat', 'capped', 'random')
+
+
+def warp_case(per_stream=30, n_streams=2):
+    """Frames of two streams (seeds 0 and 1) and ``per_stream`` points a
+    stream, the flat index f of each point of kind WARP_KINDS[f % 4], so
+    warps straddle the streams (30 is not a multiple of a block's 16
+    points); returns (spec, prev, cur, pts, valid, steps [S, P, L] of the
+    per-point reference)."""
+    spec = TSPEC
+    frames = [lk_frames(seed=s) for s in range(n_streams)]
+    prev, cur = ([tfk.preprocess(spec, T(np.stack([f[i] for f in frames])))
+                  [1] for i in (0, 1)])
+    rng = np.random.default_rng(5)
+    n = per_stream * n_streams
+    kind = np.arange(n) % 4
+    pts = np.stack([rng.uniform(0, 79, n), rng.uniform(0, 59, n)], -1)
+    pts[kind == 1] = FLAT_PT
+    # a noise point whose steps reach the cap at the finest level on every
+    # stream's frames
+    capped = None
+    for p in NOISE_PTS:
+        steps = [lk_point_by_point([x[s].numpy() for x in prev],
+                                   [x[s].numpy() for x in cur],
+                                   np.array([p], F32), np.array([True]),
+                                   spec, aten_sum_lanes())[3]
+                 for s in range(n_streams)]
+        if all(st[0, 0] == spec.iters for st in steps):
+            capped = p
+            break
+    assert capped is not None
+    pts[kind == 2] = capped
+    pts = pts.astype(F32).reshape(n_streams, per_stream, 2)
+    valid = (kind != 0).reshape(n_streams, per_stream)
+    steps = np.stack([lk_point_by_point(
+        [x[s].numpy() for x in prev], [x[s].numpy() for x in cur], pts[s],
+        valid[s], spec, aten_sum_lanes())[3] for s in range(n_streams)])
+    return spec, prev, cur, T(pts), T(valid), steps
+
+
+@pytest.mark.parametrize('build', sorted(HOST_ENTRIES))
+def test_kernel_source_on_the_host_warps_of_mixed_step_counts(host_kernel,
+                                                              build):
+    """Warps whose tiles take 0, 1 and 10 steps at the same level, and
+    blocks and warps that straddle two streams: the host build equals the
+    plain version bit for bit."""
+    test_aten_sums_rows_in_the_kernels_order()
+    spec, prev, cur, pts, valid, steps = warp_case()
+    finest = steps[..., 0].reshape(-1)
+    kind = np.arange(len(finest)) % 4
+    assert np.all(finest[kind == 0] == 0) and np.all(finest[kind == 1] == 1)
+    assert np.all(finest[kind == 2] == spec.iters)
+    assert pts.shape[1] % 16 and pts.shape[1] % 4
+    got = host_run(getattr(host_kernel, HOST_ENTRIES[build]), prev, cur,
+                   pts, valid, spec)
+    assert_bit_equal(got, tfk.lk_pyramidal_reference(prev, cur, pts, valid,
+                                                     spec))
 
 
 # ---------------------------------------------------------------------------
@@ -606,26 +806,79 @@ def assert_lk_close(got, want, all_close=True):
     assert diff.max().item() < MAX_PX or not all_close
 
 
+# (streams, flow budget): the main path's and phase 13's largest
+# (chip_smoke.py LK_CASES)
+CARD_CASES = [(1, 48), (8, 128)]
+
+
+def launched():
+    """The LK kernels' launches so far, both designs."""
+    return sum(tfk.lk_pyramidal.launches.values())
+
+
+def run_kernel(design, prev, cur, pts, valid, spec):
+    """One launch of ``design``'s kernel through its C entry, past the
+    wrapper's pick (and its launch counts)."""
+    outputs, args = tfk.lk_launch_args(prev, cur, pts, valid, spec)
+    assert getattr(tfk.lk_library(), tfk.LK_ENTRIES[design])(*args) == 0
+    return outputs
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('n_streams,f_cap', [(1, 48), (8, 128)])
+@pytest.mark.parametrize('n_streams,f_cap', CARD_CASES)
 def test_lk_kernel_matches_plain_on_card(cuda_device, n_streams, f_cap):
     spec, prev, cur, pts, valid = main_path_case(n_streams, f_cap,
                                                  cuda_device)
-    before = tfk.lk_pyramidal.launches
+    before = launched()
     got = tfk.lk_pyramidal(prev, cur, pts, valid, spec)
     torch.cuda.synchronize()
-    assert tfk.lk_pyramidal.launches == before + 1
+    assert launched() == before + 1
     assert [tuple(g.shape) for g in got] == [tuple(pts.shape)] + \
         [tuple(valid.shape)] * 2
     assert all(bool(torch.isfinite(g).all()) for g in (got[0], got[2]))
-    # the kernel rounds as the plain version does on the CPU; run on the
-    # card the plain version sums in CUDA's order, which can move a point
-    # that never settles by pixels (chip_smoke.py, LK_MAX_PX)
-    assert_lk_close(got, tfk.lk_pyramidal_reference(
+    # the kernel rounds as the plain version does on the CPU, bit for bit
+    # where ATen sums in the kernel's order; run on the card the plain
+    # version sums in CUDA's order, which can move a point that never
+    # settles by pixels (chip_smoke.py, LK_MAX_PX)
+    want = tfk.lk_pyramidal_reference(
         [p.cpu() for p in prev], [c.cpu() for c in cur], pts.cpu(),
-        valid.cpu(), spec))
+        valid.cpu(), spec)
+    assert_lk_close(got, want)
+    test_aten_sums_rows_in_the_kernels_order()
+    assert_bit_equal([g.cpu() for g in got], want)
     assert_lk_close(got, tfk.lk_pyramidal_reference(prev, cur, pts, valid,
                                                     spec), all_close=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n_streams,f_cap', CARD_CASES)
+def test_tile_kernel_equals_per_thread_kernel_on_card(cuda_device,
+                                                      n_streams, f_cap):
+    spec, prev, cur, pts, valid = main_path_case(n_streams, f_cap,
+                                                 cuda_device, 3)
+    tile = run_kernel('tile', prev, cur, pts, valid, spec)
+    thread = run_kernel('per_thread', prev, cur, pts, valid, spec)
+    torch.cuda.synchronize()
+    assert_bit_equal([t.cpu() for t in tile], [t.cpu() for t in thread])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n_streams,f_cap', CARD_CASES)
+def test_wrapper_launches_the_pick_of_lk_design_on_card(cuda_device,
+                                                        n_streams, f_cap):
+    """One stream takes the tile kernel and 8 streams one thread a point
+    on an H100 (132 SMs); on any card, lk_design's pick."""
+    spec, prev, cur, pts, valid = main_path_case(n_streams, f_cap,
+                                                 cuda_device, 4)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    pick = tfk.lk_design(valid.numel(), sms)
+    if sms == 132:
+        assert pick == ('tile' if n_streams == 1 else 'per_thread')
+    before = dict(tfk.lk_pyramidal.launches)
+    tfk.lk_pyramidal(prev, cur, pts, valid, spec)
+    torch.cuda.synchronize()
+    assert tfk.lk_pyramidal.launches == {d: n + (d == pick)
+                                         for d, n in before.items()}
 
 
 @pytest.mark.cuda
@@ -641,19 +894,24 @@ def test_lk_kernel_is_bitwise_reproducible(cuda_device):
 def test_lk_core_launches_the_kernel_once_a_call(cuda_device):
     spec, prev, cur, pts, valid = main_path_case(2, 32, cuda_device, 2)
     full = pts / 0.5
-    before = tfk.lk_pyramidal.launches
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    picks = [tfk.lk_design(valid.numel(), sms),
+             tfk.lk_design(valid[0].numel(), sms)]
+    before = dict(tfk.lk_pyramidal.launches)
     tfk.lk_core(spec, prev, cur, full, valid)
-    assert tfk.lk_pyramidal.launches == before + 1
+    assert launched() == sum(before.values()) + 1
     tfk.lk_core(spec, [p[0] for p in prev], [c[0] for c in cur], full[0],
                 valid[0])
     torch.cuda.synchronize()
-    assert tfk.lk_pyramidal.launches == before + 2
+    # each call launches lk_design's pick, and nothing else
+    assert tfk.lk_pyramidal.launches == {d: n + picks.count(d)
+                                         for d, n in before.items()}
 
 
 @pytest.mark.cuda
 def test_lk_kernel_wrapper_rejects_what_it_does_not_take(cuda_device):
     spec, prev, cur, pts, valid = main_path_case(1, 32, cuda_device)
-    before = tfk.lk_pyramidal.launches
+    before = dict(tfk.lk_pyramidal.launches)
     with pytest.raises(ValueError, match='contiguous'):
         tfk.lk_pyramidal(prev, [_noncontiguous(cur[0])] + cur[1:], pts,
                          valid, spec)
