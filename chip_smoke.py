@@ -7,10 +7,11 @@ Phases, each raising on failure (the exit code is then non-zero):
 
 1. device: requires CUDA, prints the card and its power limit, turns TF32
    off for matrix products and convolutions;
-2. build: compiles the OSBlock kernel (csrc/osnet_block.cu) and the
+2. build: compiles the OSBlock kernel (csrc/osnet_block.cu), the
    pyramidal-LK kernels (csrc/lk_pyramidal.cu: a tile of lanes a point,
-   and one thread a point) from the sources in this checkout, one
-   ``nvcc`` each, both at once, and prints ptxas's registers and spills;
+   and one thread a point) and the gap-commit kernel (csrc/gap_commit.cu)
+   from the sources in this checkout, one ``nvcc`` each, all at once, and
+   prints ptxas's registers, shared memory and spills;
 3. kernel vs its plain version at the six OSNet-x0.25 block shapes (64
    crops, bf16; two calls bitwise equal), with each shape's time (20
    back-to-back launches between two CUDA events), bound, roofline share
@@ -20,7 +21,9 @@ Phases, each raising on failure (the exit code is then non-zero):
 5. reference: the tracker on a small synthetic sequence, GPU against the
    port's CPU path; ``StreamTracker`` at 2 streams (synthetic detections
    and embeddings) and the legacy ``compute_flow`` + ``apply_kalman``,
-   GPU against CPU; the LK kernel launched once a tracked frame on the GPU;
+   GPU against CPU; the LK kernel launched once a tracked frame on the GPU,
+   and the gap-commit kernel too (not on the legacy path, which keeps the
+   plain RANSAC and Kalman);
 6. main path: ``MOT`` at 1280x720 with cfg/mot.json (YOLOv4-512 with
    random weights, OSNet-x0.25, detector_frame_skip=5) on drifting
    textured frames, with 40 synthetic detections spliced in after the
@@ -108,7 +111,27 @@ Phases, each raising on failure (the exit code is then non-zero):
    points), both sides of ``lk_design``'s threshold; and the gap frame's
    stages alone from phases 6 and 13. Phases 5-15 run under a counter of
    plain-LK calls on CUDA tensors, which must stay 0, and each LK kernel
-   must launch there.
+   must launch there; likewise the plain gap commit
+   (``tracker.gap_commit_core``) on CUDA tensors and, outside the legacy
+   path and phase 15 (a), the host's RANSAC draws for the card
+   (``ransac_draws_batch``), which must stay 0, while the gap-commit
+   kernel launches once a tracked frame for all of a call's streams
+   (phases 5, 6, 9, 12, 13 and 14);
+17. the gap-commit kernel (RANSAC draws, homography and similarity RANSAC,
+   Kalman warp/predict/update and commit, one block a stream): its draws
+   bit-equal to ``ransac_draws_batch`` and to phase 15 (a)'s ``jax.random``
+   bits; the kernel against the plain version run on the CPU on a real
+   main-path gap frame (1 stream, flow budget 48, from phase 6) and on
+   phase 13's 8 streams at budget 128 (booleans may differ on at most 1 %
+   of the track slots, the share printed; H within 0.01 px at the frame's
+   corners, means within 1e-3 px and covariances within 1e-4 of a track's
+   largest entry where a stream's inliers agree), against the plain
+   version run on the card (the same rule), and on the synthetic cases of
+   tests/test_torch_gap_commit.py at that file's tolerances; two calls
+   bitwise equal; then its device time a launch (100 launches of the C
+   entry between CUDA events, queued behind a sleep kernel), the
+   wrapper's time a call and host time a call, the plain version's time on
+   the card, and the bound (``gap_commit_bound_ms``).
 
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -146,6 +169,17 @@ PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 # phase 16: (streams, flow budget) of the main path and of phase 13's
 # largest budget
 LK_CASES = ((1, 48), (8, 128))
+# phase 17, the gap-commit kernel against its plain version on a real gap
+# frame: the share of track slots whose booleans (valid, lost, pending,
+# has_klt, the estimate's validity) may differ (an inlier at the 3 px
+# threshold, or a box at a rounding boundary, can flip one), and the
+# tolerances of tests/test_torch_gap_commit.py where a stream's
+# background inliers agree
+GAP_BOOL_SHARE = 0.01
+GAP_H_PX, GAP_MEAN_PX, GAP_COV_REL, GAP_RATIO = 0.01, 1e-3, 1e-4, 1e-6
+# the H100 SXM's 32-bit integer rate (64 INT32 lanes an SM a clock, 132
+# SMs, 1.98 GHz; the draws' threefry rounds are integer work)
+PEAK_I32 = 132 * 64 * 1.98e9
 # phase 16: launches a device time averages over, and the sleep they
 # queue behind (cycles of the SM clock, about 10 ms at 1.98 GHz), so that
 # the card runs them back to back whatever the host's enqueue rate
@@ -273,10 +307,10 @@ def sm_clocks():
 
 
 def phase_build():
-    """Both kernel sources, one ``nvcc`` each, started together."""
+    """Every kernel source, one ``nvcc`` each, started together."""
     from concurrent.futures import ThreadPoolExecutor
     from fastmot_tpu_torch.ops import cuda_build
-    names = ('osnet_block', 'lk_pyramidal')
+    names = ('osnet_block', 'lk_pyramidal', 'gap_commit')
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(cuda_build.build, names))
@@ -285,7 +319,8 @@ def phase_build():
         for line in nvcc_out.splitlines():      # registers, spills, smem
             if 'registers' in line or 'spill' in line or 'Compiling' in line:
                 log(f'ptxas {name}:', line.strip())
-    log(f'build: {time.perf_counter() - t0:.2f} s for both')
+    log(f'build: {time.perf_counter() - t0:.2f} s for all '
+        f'{len(names)}')
 
 
 def _random_block(cin, features, gen):
@@ -449,9 +484,31 @@ def synth_tlbrs(frame_id, size, n=N_OBJECTS):
 
 
 def reset_lk():
-    """Zeroes the LK kernels' launch counts."""
+    """Zeroes the LK kernels' and the gap-commit kernel's launch counts."""
     from fastmot_tpu_torch.ops.flow_kernels import lk_pyramidal
+    from fastmot_tpu_torch.ops.gap_commit import gap_commit
     lk_pyramidal.launches = dict.fromkeys(lk_pyramidal.launches, 0)
+    gap_commit.launches = 0
+
+
+def gap_launches():
+    """The gap-commit kernel's launches since ``reset_lk``."""
+    from fastmot_tpu_torch.ops.gap_commit import gap_commit
+    return gap_commit.launches
+
+
+# the gap-commit kernel's launches on the main paths, by the run that
+# ``expect_gap`` checked them in (the kernels line's count)
+GAP_LAUNCHES = Counter()
+
+
+def expect_gap(tag, launches, want):
+    """The gap-commit kernel ran ``want`` times: once a tracked frame, for
+    all of a call's streams at once."""
+    if launches != want:
+        raise AssertionError(f'{tag}: gap_commit launched {launches} '
+                             f'times, expected {want}')
+    GAP_LAUNCHES[tag] += launches
 
 
 def lk_counts():
@@ -507,8 +564,9 @@ def phase_reference():
             for frame in frames:
                 mot.step(frame)
             runs.append(snapshots(mot))
-    lk = lk_counts()
+    lk, gap_n = lk_counts(), gap_launches()
     expect_lk('reference', lk, n_frames - 1)
+    expect_gap('reference', gap_n, n_frames - 1)
     cpu, gpu = runs
     for fid in cpu:
         ids_c = [t for t, _ in cpu[fid]]
@@ -523,7 +581,7 @@ def phase_reference():
     if not n_rows:
         raise AssertionError('reference run tracked nothing')
     log(f'reference: GPU == CPU on {len(cpu)} frames, {n_rows} track rows; '
-        f'lk_pyramidal launches {lk}')
+        f'lk_pyramidal launches {lk}, gap_commit launches {gap_n}')
     return lk
 
 
@@ -573,11 +631,13 @@ def phase_stream_reference():
                                  for t in trk.tracks.values())
                           for trk in st.trackers])
         runs.append(snaps)
-    lk = lk_counts()
+    lk, gap_n = lk_counts(), gap_launches()
     expect_lk('stream tracker', lk, n_frames - 1)
+    expect_gap('stream tracker', gap_n, n_frames - 1)
     _same_rows('stream tracker', *runs)
     log(f'reference: StreamTracker GPU == CPU on {n_frames - 1} frames of '
-        f'{n} streams; lk_pyramidal launches {lk}')
+        f'{n} streams; lk_pyramidal launches {lk}, gap_commit launches '
+        f'{gap_n}')
     return lk
 
 
@@ -623,19 +683,34 @@ def phase_legacy_api():
         runs.append(snaps)
     lk = lk_counts()
     expect_lk('legacy compute_flow', lk, len(frames) - 1)
+    # the legacy path keeps the plain RANSAC and Kalman (ROADMAP section 2)
+    expect_gap('legacy compute_flow', gap_launches(), 0)
     _same_rows('legacy compute_flow + apply_kalman', *runs)
     log('reference: compute_flow + apply_kalman GPU == CPU on 4 frames, '
         f'{len(runs[0][-1][0])} tracks; lk_pyramidal launches {lk}')
     return lk
 
 
+def unpatched(module, name):
+    """``module.name`` as it was before ``main`` put a counter around it."""
+    return PLAIN.get(name, getattr(module, name))
+
+
+# the plain versions main() counts on the card, before their counters
+PLAIN = {}
+
+
 def gap_stages_ms(mot, frames):
     """One gap frame of ``mot``'s tracker after a run, each stage alone and
-    the whole ``track`` call, synchronised (ms). The stages track from the
-    last frame to the one before, and the whole call alternates between
-    the two, so that LK has motion to track."""
+    the whole ``track`` call, synchronised (ms), the gap commit through its
+    wrapper (the kernel) and the plain version (with the host draws made
+    before) beside it; and the gap commit's arguments (one stream, phase
+    17's main-path case). The stages track from the last frame to the one
+    before, and the whole call alternates between the two, so that LK has
+    motion to track."""
     from fastmot_tpu_torch import tracker as tr
     from fastmot_tpu_torch.ops import flow_kernels as fk
+    from fastmot_tpu_torch.ops import gap_commit as gc
     trk = mot.tracker
     if trk._dev_state is None or trk._mirrors_dirty:
         trk._upload_state()
@@ -646,7 +721,14 @@ def gap_stages_ms(mot, frames):
     all_prev, all_valid, inside, forder, f_tlbrs, f_valid = \
         tr.gap_points_core(spec, state, prev, f_cap)
     all_cur, status = fk.lk_core(spec, prev[1], cur[1], all_prev, all_valid)
-    draws = fk.ransac_draws(trk.flow.seed, f_cap, 'cuda')
+    draws = tuple(u[0] for u in unpatched(fk, 'ransac_draws_batch')(
+        [trk.flow.seed], f_cap, 'cuda'))
+    plain = unpatched(tr, 'gap_commit_core')
+    args = (trk.kf_cfg, spec, float(trk.age_penalty), trk.confirm_hits,
+            tuple(a[None] for a in state), inside[None], f_tlbrs[None],
+            f_valid[None], forder[None], all_prev[None], all_cur[None],
+            status[None], [trk.flow.seed], trk._trans_mat, trk._acc_cov,
+            trk._frame_rect_dev)
 
     def whole():
         pair.reverse()
@@ -655,7 +737,8 @@ def gap_stages_ms(mot, frames):
         'preprocess': lambda: fk.preprocess(spec, pair[0]),
         'points': lambda: tr.gap_points_core(spec, state, prev, f_cap),
         'LK': lambda: fk.lk_core(spec, prev[1], cur[1], all_prev, all_valid),
-        'RANSAC + Kalman + commit': lambda: tr.gap_commit_core(
+        'RANSAC + Kalman + commit': lambda: gc.gap_commit(*args),
+        'RANSAC + Kalman + commit, plain': lambda: plain(
             trk.kf_cfg, spec, float(trk.age_penalty), trk.confirm_hits,
             state, inside, f_tlbrs, f_valid, forder, all_prev, all_cur,
             status, draws, trk._trans_mat, trk._acc_cov,
@@ -663,13 +746,14 @@ def gap_stages_ms(mot, frames):
         'whole gap frame (track)': whole}
     out = {name: wall_ms(fn) for name, fn in stages.items()}
     out['flow budget'] = f_cap
-    return out
+    return out, args
 
 
 def phase_main_path(detector_type='YOLO', tag='main path', int8=False,
                     stages=False):
     """Returns the OSBlock and LK kernels' launches, the step median and,
-    with ``stages``, ``gap_stages_ms`` after the run."""
+    with ``stages``, ``gap_stages_ms``'s times and arguments after the
+    run."""
     from fastmot_tpu_torch import MOT
     from fastmot_tpu_torch.detector import MAX_DETS, make_detections
     from fastmot_tpu_torch.models.layers import Conv
@@ -751,7 +835,7 @@ def phase_main_path(detector_type='YOLO', tag='main path', int8=False,
     finite = finite and bool(torch.isfinite(state[0]).all()
                              and torch.isfinite(state[1]).all())
     launches, int8_launches = osblock.launches, int8_conv.launches
-    lk = lk_counts()
+    lk, gap_n = lk_counts(), gap_launches()
 
     n_assoc = 2 * sum(1 for i in range(1, len(frames)) if i % skip == 0)
     n_detect = n_assoc + 2                   # frame 0 of each run detects
@@ -771,7 +855,8 @@ def phase_main_path(detector_type='YOLO', tag='main path', int8=False,
         ' '.join(f'{t:.1f}' for t in batch_ms))
     log(f'{tag}: visible tracks {visible}, association frames '
         f'{n_assoc}, osblock launches {launches}, int8_conv launches '
-        f'{int8_launches}, lk_pyramidal launches {lk}')
+        f'{int8_launches}, lk_pyramidal launches {lk}, gap_commit launches '
+        f'{gap_n}')
     if snap_step != snap_batch:
         raise AssertionError(f'{tag}: step and step_batch snapshots differ')
     if not visible:
@@ -785,6 +870,7 @@ def phase_main_path(detector_type='YOLO', tag='main path', int8=False,
                              f'{launches} and {int8_launches} times, '
                              f'expected {want}')
     expect_lk(tag, lk, 2 * (len(frames) - 1))     # step, then step_batch
+    expect_gap(tag, gap_n, 2 * (len(frames) - 1))
     if int8:
         log(f'{tag}: int8_conv launches per association frame '
             f'{det_convs + reid_convs} ({det_convs} detector convs, '
@@ -793,7 +879,7 @@ def phase_main_path(detector_type='YOLO', tag='main path', int8=False,
     out = {'osblock': launches, 'lk': lk,
            'median': statistics.median(step_ms)}
     if stages:
-        out['gap stages'] = gap_stages_ms(mot, frames)
+        out['gap stages'], out['gap args'] = gap_stages_ms(mot, frames)
     return out
 
 
@@ -1032,10 +1118,11 @@ def multi_stream_kwargs():
 def phase_multi_stream(single_ms, frames, dets, n_streams=N_STREAMS):
     """``MultiStreamMOT`` at 8 streams of 1280x720 with cfg/mot.json's
     detector, extractor, skip and tracker (bench.py config 5). Returns the
-    OSBlock and LK launches, every stream's final rows, the step median and
-    the gap frame alone."""
+    OSBlock and LK launches, every stream's final rows, the step median,
+    the gap frame alone and phase 17's 8-stream gap-commit arguments."""
     from fastmot_tpu_torch.detector import MAX_DETS
     from fastmot_tpu_torch.multichip import run_multi_stream
+    from fastmot_tpu_torch.ops import flow_kernels as fk
     from fastmot_tpu_torch.ops.osnet_block import osblock
     from fastmot_tpu_torch.parallel import MultiStreamMOT
 
@@ -1049,7 +1136,7 @@ def phase_multi_stream(single_ms, frames, dets, n_streams=N_STREAMS):
     osblock.launches = 0
     reset_lk()
     (rows,), step_ms = run_multi_stream(mot, frames, dets)
-    launches, lk = osblock.launches, lk_counts()
+    launches, lk, gap_n = osblock.launches, lk_counts(), gap_launches()
     n_assoc = sum(1 for i in range(1, n_frames) if i % skip == 0)
     visible = [len(list(mot.visible_tracks(s))) for s in range(n_streams)]
     state = mot.stream_tracker._dev_state
@@ -1068,8 +1155,9 @@ def phase_multi_stream(single_ms, frames, dets, n_streams=N_STREAMS):
         f'{single_ms:.3f} ms ({1e3 / single_ms:.2f} FPS)')
     log(f'multi-stream: visible tracks per stream {visible}, association '
         f'frames {n_assoc}, osblock launches {launches}, lk_pyramidal '
-        f'launches {lk}')
+        f'launches {lk}, gap_commit launches {gap_n}')
     expect_lk('multi-stream', lk, n_frames - 1)
+    expect_gap('multi-stream', gap_n, n_frames - 1)
     if not all(visible):
         raise AssertionError(f'multi-stream: a stream has no visible '
                              f'tracks: {visible}')
@@ -1115,7 +1203,29 @@ def phase_multi_stream(single_ms, frames, dets, n_streams=N_STREAMS):
     log('multi-stream stages alone, ms: ' + '; '.join(
         f'{name} {ms:.3f}' for name, ms in stage_ms.items()))
     return launches, lk, rows, statistics.median(step_ms), \
-        stage_ms['gap frame (preprocess, points, LK, RANSAC, Kalman)']
+        stage_ms['gap frame (preprocess, points, LK, RANSAC, Kalman)'], \
+        gap_commit_args_at(mot.stream_tracker, last, fk.MAX_FLOW_TRACKS)
+
+
+def gap_commit_args_at(st, frames, f_cap):
+    """The gap commit's arguments of ``st``'s next gap frame (``frames``
+    staged on the card) at flow budget ``f_cap``, as ``StreamTracker.track``
+    makes them: phase 17's 8-stream case."""
+    from fastmot_tpu_torch.tracker import gap_points_batch
+    from fastmot_tpu_torch.ops import flow_kernels as fk
+    if st._dirty:
+        st._stack_from_mirrors()
+    t0 = st.trackers[0]
+    spec, prev = t0.flow.spec, st._prev_pre
+    cur = st._preprocess(frames)
+    all_prev, all_valid, inside, forder, f_tlbrs, f_valid = (
+        t.contiguous() for t in gap_points_batch(spec, f_cap, st._dev_state,
+                                                 prev))
+    all_cur, status = fk.lk_core(spec, prev[1], cur[1], all_prev, all_valid)
+    return (st.kf_cfg, spec, float(t0.age_penalty), t0.confirm_hits,
+            st._dev_state, inside, f_tlbrs, f_valid, forder, all_prev,
+            all_cur, status, list(st._seeds), t0._trans_mat, t0._acc_cov,
+            t0._frame_rect_dev)
 
 
 def _same_streams(tag, got, want):
@@ -1162,6 +1272,7 @@ def phase_mesh(frames, dets, want_rows, single_multi_ms, n_streams=N_STREAMS):
             reset_lk()
             (rows,), step_ms = multichip.run_multi_stream(mot, frames, dets)
             launches, lk = osblock.launches, lk_counts()
+            gap_n = gap_launches()
         finally:
             dist.destroy_process_group()
     del mot
@@ -1169,13 +1280,15 @@ def phase_mesh(frames, dets, want_rows, single_multi_ms, n_streams=N_STREAMS):
     worst = _same_streams('mesh (a) 1 NCCL rank', rows, want_rows)
     log(f'mesh (a) 1 NCCL rank, 8 streams: rows == phase 13 on every '
         f'stream (boxes within {worst} px), osblock launches {launches}, '
-        f'lk_pyramidal launches {lk}; step ms median '
+        f'lk_pyramidal launches {lk}, gap_commit launches {gap_n}; step ms '
+        f'median '
         f"{statistics.median(step_ms):.3f} against phase 13's "
         f'{single_multi_ms:.3f}')
     if launches != 6 * n_assoc:
         raise AssertionError(f'mesh (a): osblock launched {launches} times, '
                              f'expected {6 * n_assoc}')
     expect_lk('mesh (a)', lk, len(frames) - 1)
+    expect_gap('mesh (a)', gap_n, len(frames) - 1)
 
     t_b = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1191,21 +1304,26 @@ def phase_mesh(frames, dets, want_rows, single_multi_ms, n_streams=N_STREAMS):
                                  f'{out["osblock_launches"]} times, '
                                  f'expected {6 * n_assoc}')
         expect_lk(f'mesh (b) rank {r}', out['lk_launches'], len(frames) - 1)
+        expect_gap(f'mesh (b) rank {r}', out['gap_commit_launches'],
+                   len(frames) - 1)
     worst = _same_streams('mesh (b) 2 gloo ranks', rows_b, want_rows)
     log(f'mesh (b) 2 gloo ranks on one card, streams '
         f'{[o["local_streams"] for o in ranks]}: rows == phase 13 on every '
         f'stream (boxes within {worst} px), osblock launches '
         f'{[o["osblock_launches"] for o in ranks]}, lk_pyramidal launches '
-        f'{[o["lk_launches"] for o in ranks]}; step ms medians '
+        f'{[o["lk_launches"] for o in ranks]}, gap_commit launches '
+        f'{[o["gap_commit_launches"] for o in ranks]}; step ms medians '
         f'{[round(statistics.median(o["step_ms"]), 3) for o in ranks]}; '
         f'{time.perf_counter() - t_b:.1f} s, spawn and build included')
 
     t0 = time.perf_counter()
     dry = multichip.dryrun_multichip(1, device='cuda')
     expect_lk('mesh (c)', dry[0]['lk_launches'], 1)
+    expect_gap('mesh (c)', dry[0]['gap_commit_launches'], 1)
     log(f'mesh (c) dryrun_multichip(1) over NCCL: '
         f'{time.perf_counter() - t0:.1f} s, spawn and build included, '
-        f'lk_pyramidal launches {dry[0]["lk_launches"]}; phase 14 '
+        f'lk_pyramidal launches {dry[0]["lk_launches"]}, gap_commit '
+        f'launches {dry[0]["gap_commit_launches"]}; phase 14 '
         f'{time.perf_counter() - t_phase:.1f} s')
     lk = Counter(lk)
     for counts in [o['lk_launches'] for o in ranks] + [dry[0]['lk_launches']]:
@@ -1587,14 +1705,14 @@ def lk_bound_ms(spec, prev, cur, valid, trace):
     return max(ops_ms, bytes_ms), ops_ms, bytes_ms, n_steps, pyramid_bytes
 
 
-def lk_device_ms(entry, args, n=LK_TIMED_LAUNCHES, reps=3):
+def lk_device_ms(entry, args, n=LK_TIMED_LAUNCHES, reps=3, tag='lk'):
     """Device time per launch of the C entry ``entry(*args)``: ``n``
     launches between two CUDA events, queued behind ``torch.cuda._sleep``
     so that the card runs them back to back whatever the host's enqueue
     rate; the median of ``reps`` windows. Raises on a launch error, or if
     the host took longer to queue the launches than the card slept."""
     if entry(*args):
-        raise AssertionError('lk: launch failed')
+        raise AssertionError(f'{tag}: launch failed')
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -1608,10 +1726,10 @@ def lk_device_ms(entry, args, n=LK_TIMED_LAUNCHES, reps=3):
         b.record()
         torch.cuda.synchronize()
         if any(codes):
-            raise AssertionError(f'lk: launch failed ({set(codes)})')
+            raise AssertionError(f'{tag}: launch failed ({set(codes)})')
         if queued_ms >= s.elapsed_time(a):
-            raise AssertionError(f'lk: {n} launches took {queued_ms:.3f} ms '
-                                 f'to queue, the sleep '
+            raise AssertionError(f'{tag}: {n} launches took '
+                                 f'{queued_ms:.3f} ms to queue, the sleep '
                                  f'{s.elapsed_time(a):.3f} ms')
         times.append(a.elapsed_time(b) / n)
     return statistics.median(times)
@@ -1850,7 +1968,268 @@ def lk_kernel_entries(cases, launches, lanes):
     return out
 
 
+def gap_agreement(tag, args, got, want, check=True):
+    """The gap commit's outputs ``got`` against a plain run's ``want`` on
+    the inputs ``args`` ([S, ...]): the share of the valid track slots
+    whose booleans (valid, lost_pending, lost, has_klt, the estimate's
+    validity) differ, at most GAP_BOOL_SHARE; on the streams whose h_ok and
+    background inliers agree, H within GAP_H_PX at the frame's corners,
+    and on their slots whose booleans agree the estimates equal, the
+    inlier ratios within GAP_RATIO, the means within GAP_MEAN_PX and the
+    covariances within GAP_COV_REL of the track's largest entry. Raises
+    (with ``check``) or prints. Returns the largest mean and H differences
+    (px) over the compared slots and streams."""
+    from tests.test_torch_gap_commit import unpack
+    (g_st, g_info), (w_st, w_info) = (
+        ([a.cpu().numpy() for a in r[0]], r[1].cpu().numpy())
+        for r in (got, want))
+    spec = args[1]
+    n_s, n_t = w_st[0].shape[:2]
+    n_bg = args[9].shape[1] - args[6].shape[1] * 32
+    valid_in = args[4][3].cpu().numpy()
+    w_f, h_f = spec.size
+    corners = np.array([[0, 0, 1], [w_f - 1, 0, 1], [0, h_f - 1, 1],
+                        [w_f - 1, h_f - 1, 1]], np.float64)
+    differ, same_streams, faults = 0, 0, []
+    worst_mean = worst_h = 0.0
+    for s in range(n_s):
+        g, w = unpack(g_info[s], n_bg, n_t), unpack(w_info[s], n_bg, n_t)
+        bools = [(g_st[i][s], w_st[i][s]) for i in (3, 9)] + [
+            (g[k] > 0.5, w[k] > 0.5) for k in ('lost', 'has_klt', 'est_ok')]
+        slot_differs = np.zeros(n_t, bool)
+        for a, b in bools:
+            slot_differs |= a != b
+        stream_same = g['h_ok'][0] == w['h_ok'][0] and np.array_equal(
+            g['bg_inlier'], w['bg_inlier'])
+        if g['h_ok'][0] != w['h_ok'][0]:
+            slot_differs |= True
+        differ += int((slot_differs & valid_in[s]).sum())
+        if not stream_same:
+            continue
+        same_streams += 1
+        if w['h_ok'][0] > 0.5:
+            proj = [corners @ x['h_mat'].astype(np.float64).reshape(3, 3).T
+                    for x in (g, w)]
+            d = float(np.abs(proj[0][:, :2] / proj[0][:, 2:]
+                             - proj[1][:, :2] / proj[1][:, 2:]).max())
+            worst_h = max(worst_h, d)
+            if d > GAP_H_PX:
+                faults.append(f'stream {s}: H {d:.3g} px off at a corner')
+        ok = ~slot_differs
+        d = float(np.abs(g_st[0][s][ok] - w_st[0][s][ok]).max(initial=0.0))
+        worst_mean = max(worst_mean, d)
+        scale = np.abs(w_st[1][s][ok]).max(axis=(1, 2), keepdims=True)
+        cov = float((np.abs(g_st[1][s][ok] - w_st[1][s][ok])
+                     / np.maximum(scale, 1e-30)).max(initial=0.0))
+        est = g['klt_tlbrs'].reshape(-1, 4)[ok & (w['est_ok'] > 0.5)]
+        est_w = w['klt_tlbrs'].reshape(-1, 4)[ok & (w['est_ok'] > 0.5)]
+        ratio = float(np.abs(g['new_inl'] - w['new_inl'])[ok].max(
+            initial=0.0))
+        if d > GAP_MEAN_PX or cov > GAP_COV_REL or ratio > GAP_RATIO \
+                or not np.array_equal(est, est_w):
+            faults.append(f'stream {s}: means {d:.3g} px, covariances '
+                          f'{cov:.3g} relative, inlier ratios {ratio:.3g}, '
+                          f'estimates equal {np.array_equal(est, est_w)}')
+    n_valid = int(valid_in.sum())
+    share = differ / max(n_valid, 1)
+    log(f'gap_commit {tag}: booleans differ on {differ} of {n_valid} valid '
+        f'track slots ({share:.4f}); {same_streams} of {n_s} streams with '
+        f'equal h_ok and background inliers: H up to {worst_h:.3g} px at '
+        f'the corners, means up to {worst_mean:.3g} px'
+        + (f'; {"; ".join(faults)}' if faults else ''))
+    if check and (share > GAP_BOOL_SHARE or faults):
+        raise AssertionError(f'gap_commit {tag}: share {share:.4f}, '
+                             f'{faults}')
+    return worst_mean, worst_h
+
+
+def gap_commit_bound_ms(args, result):
+    """The least time the card could take for one gap commit on ``args``
+    with this run's data (``result`` gives the inliers and the updated
+    tracks): the inputs read once and the outputs written once over the
+    memory rate, and the float32 operations (a product, sum, quotient or
+    root each) over the f32 rate and the draws' 32-bit integer operations
+    over PEAK_I32, counted for what the data needs: the homography's 256
+    hypotheses on the valid background points and two refits on its
+    inliers, the similarity fits of the valid flow tracks, the Kalman warp
+    and predict of the valid slots and the update of those with an
+    estimate. Returns (bound, bound_by, ops_ms, bytes_ms)."""
+    from tests.test_torch_gap_commit import unpack
+    states, infos = result
+    n_s, n_t = args[4][0].shape[:2]
+    f_cap, n_points = args[6].shape[1], args[9].shape[1]
+    n_bg = n_points - f_cap * 32
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (*(args[4][i] for i in (0, 1, 2, 3, 4, 5, 9, 10,
+                                                  11, 12)),
+                           *args[5:12], args[13], args[14], args[15]))
+    nbytes += sum(states[i].numel() * states[i].element_size()
+                  for i in (0, 1, 2, 3, 9, 10, 11, 12))
+    nbytes += infos.numel() * infos.element_size()
+    status = args[11].cpu().numpy()
+    f_valid = args[7].cpu().numpy()
+    valid = args[4][3].cpu().numpy()
+    info = infos.cpu().numpy()
+    flops = int_ops = 0
+    for s in range(n_s):
+        n_v = int(status[s, f_cap * 32:].sum())
+        u = unpack(info[s], n_bg, n_t)
+        inl, has_klt = int(u['bg_inlier'].sum()), int(u['has_klt'].sum())
+        n_trk = int(f_valid[s].sum())
+        # homography: Hartley (24 a point), 256 x (the DLT rows 24, the
+        # 8x8 normal equations 712, Cholesky and substitutions 332, the
+        # denormalisation 90) and their scores (19 a point); two refits
+        # (the 44 sums over two rows an inlier 176, the solve 430, the
+        # rescoring 19 a point)
+        flops += 24 * n_bg + 256 * (1158 + 19 * n_v) \
+            + 2 * (176 * inl + 430 + 19 * n_v)
+        # similarity, a valid track: 64 hypotheses (23 each, 13 a point
+        # scored), two refits (8 sums of 14 a point, the 4x4 solve 66, 13
+        # a point rescored), the box estimate 20
+        flops += n_trk * (64 * (23 + 13 * 32) + 2 * (14 * 32 + 66 + 13 * 32)
+                          + 20)
+        # Kalman: warp 956 and predict 2,365 a valid slot, the update
+        # 1,200 a slot with an estimate, the commit 20 a slot
+        flops += int(valid[s].sum()) * (956 + 2365) + 1200 * has_klt \
+            + 20 * n_t
+        # draws: 2 key derivations, 1,024 homography and 128 per valid
+        # track uniforms and n_trk split keys, each threefry about 120
+        # integer operations (20 rounds of add, rotate, xor; 5 key
+        # injections) and 3 to make the float
+        int_ops += 123 * (2 + 1024 + n_trk * 129)
+    ops_ms = (flops / PEAK_F32 + int_ops / PEAK_I32) * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    by = 'bytes' if bytes_ms >= ops_ms else 'operations'
+    return max(ops_ms, bytes_ms), by, ops_ms, bytes_ms
+
+
+def phase_gap_commit(main_args, multi_args, card):
+    """Phase 17: the gap-commit kernel's draws, the kernel against its
+    plain version (the main path's gap frame, phase 13's 8 streams at
+    budget 128, the CPU tests' synthetic cases), two calls equal, and its
+    times beside the bound. Returns the cases' numbers for the kernels
+    line."""
+    from fastmot_tpu_torch.ops import flow_kernels as fk
+    from fastmot_tpu_torch.ops import gap_commit as gc
+    import tests.test_torch_gap_commit as tg
+    t_phase = time.perf_counter()
+    # (a) the draws
+    seeds = sorted(JAX_DRAW_BITS) + [1, 2 ** 31 - 1, 123456789]
+    for f_cap in (16, 48, 128):
+        got = gc.kernel_draws(seeds, f_cap, 'cuda')
+        want = fk.ransac_draws_batch(seeds, f_cap, 'cpu')
+        for g, w in zip(got, want):
+            if not torch.equal(g.cpu().view(torch.int32), w.view(torch.int32)):
+                raise AssertionError(f'gap_commit draws at f_cap {f_cap} '
+                                     'differ from ransac_draws_batch')
+        if f_cap == 16:
+            u_h, u_a = (u.cpu().numpy().view(np.int32) for u in got)
+            for s, seed in enumerate(seeds):
+                if seed in JAX_DRAW_BITS and (
+                        int(u_h[s, 0, 0]), int(u_h[s, -1, -1]),
+                        int(u_a[s, 0, 0, 0]), int(u_a[s, -1, -1, -1])) \
+                        != JAX_DRAW_BITS[seed]:
+                    raise AssertionError(f'gap_commit draws of seed {seed} '
+                                         'differ from jax.random')
+    log(f'gap_commit draws == ransac_draws_batch bit for bit (seeds '
+        f'{seeds}, flow budgets 16, 48 and 128) and == the jax.random bits '
+        f'of seeds {sorted(JAX_DRAW_BITS)}')
+
+    # (b) the synthetic cases of the CPU tests, at their tolerances
+    for kinds in [(k,) for k in tg.CASES] + [
+            ('camera', 'lost', 'all_invalid'),
+            ('few_matches', 'few_bg', 'out_of_frame')]:
+        for f_cap in (32, 48):
+            args = tg.commit_args(kinds, f_cap, list(range(3, 3 + len(kinds))))
+            got = gc.gap_commit(*[tuple(x.cuda() for x in a)
+                                  if isinstance(a, tuple) else
+                                  a.cuda() if isinstance(a, torch.Tensor)
+                                  else a for a in args])
+            got = (tuple(a.cpu() for a in got[0]), got[1].cpu())
+            want = gc.gap_commit_reference(*args)
+            for s, kind in enumerate(kinds):
+                tg.assert_commit_close(tg.per_stream(got, s),
+                                       tg.per_stream(want, s),
+                                       f'{kind} (stream {s}, {f_cap}): ')
+    log('gap_commit on the synthetic cases of tests/test_torch_gap_commit.py '
+        '(one stream of each, two mixes of three; flow budgets 32 and 48): '
+        '== the plain version on the CPU at that file\'s tolerances')
+
+    # (c) real gap frames: kernel against the plain version on the CPU and
+    # on the card, two calls equal, then the times
+    lib = gc.gap_commit_library()
+    cases = {}
+    for key, args in (('1_stream', main_args), ('8_streams', multi_args)):
+        n_s, f_cap = args[4][0].shape[0], args[6].shape[1]
+        tag = f'{n_s} stream(s) x flow budget {f_cap}'
+        got = gc.gap_commit(*args)
+        again = gc.gap_commit(*args)
+        torch.cuda.synchronize()
+        for a, b in zip(got[0] + (got[1],), again[0] + (again[1],)):
+            if not torch.equal(a, b):
+                raise AssertionError(f'gap_commit {tag}: two calls differ')
+        if not (torch.isfinite(got[0][0]).all()
+                and torch.isfinite(got[0][1]).all()
+                and torch.isfinite(got[1]).all()):
+            raise AssertionError(f'gap_commit {tag}: outputs not finite')
+        cpu_args = [tuple(x.cpu() for x in a) if isinstance(a, tuple) else
+                    a.cpu() if isinstance(a, torch.Tensor) else a
+                    for a in args]
+        worst, worst_h = gap_agreement(f'{tag}, kernel vs plain on the CPU',
+                                       args, got,
+                                       gc.gap_commit_reference(*cpu_args))
+        plain_card = gc.gap_commit_reference(*args)
+        gap_agreement(f'{tag}, kernel vs plain on the card', args, got,
+                      plain_card, check=False)
+        bound, by, ops_ms, bytes_ms = gap_commit_bound_ms(args, got)
+        _, launch = gc.gap_commit_launch_args(*args)
+        device = [lk_device_ms(lib.gap_commit_forward, launch,
+                               tag='gap_commit') for _ in range(2)]
+
+        def call():
+            gc.gap_commit(*args)
+        call_ms, call_host = launches_ms(call), host_ms(call)
+        plain_ms = wall_ms(lambda: gc.gap_commit_reference(*args))
+        ms = statistics.mean(device)
+        per_window = ' / '.join(f'{d * 1e3:.2f}' for d in device)
+        log(f'gap_commit {tag}: device {per_window} us a launch'
+            f' (two windows of {LK_TIMED_LAUNCHES} launches); '
+            f'the wrapper {call_ms * 1e3:.2f} us a call, host '
+            f'{call_host * 1e3:.2f} us a call; plain on the card '
+            f'{plain_ms:.3f} ms; bound {bound * 1e3:.4f} us ({by}: '
+            f'operations {ops_ms * 1e3:.4f} us, bytes {bytes_ms * 1e3:.4f} '
+            f'us), roofline share {bound / ms:.5f}: the launch latency, not '
+            f'the work, sets the time; {card}')
+        cases[key] = {'ms': ms, 'call_ms': call_ms, 'host_ms': call_host,
+                      'plain_ms': plain_ms, 'bound_ms': bound,
+                      'bound_by': by, 'max_abs_err': worst,
+                      'h_corner_px': worst_h}
+    log(f'gap_commit phase: {time.perf_counter() - t_phase:.1f} s')
+    return cases
+
+
+def gap_kernel_entry(cases):
+    """The kernels line's entry of the gap-commit kernel: the main path's
+    case unsuffixed, the 8-stream case's numbers suffixed."""
+    entry = {'name': 'gap_commit', 'route': 'cuda',
+             'source': 'fastmot_tpu_torch/csrc/gap_commit.cu',
+             'replaces': 'fastmot_tpu/tracker.py:264',
+             'launches': sum(GAP_LAUNCHES.values()),
+             'max_abs_err': max(c['max_abs_err'] for c in cases.values()),
+             'library_ms': None, 'case': '1_stream'}
+    for case, r in cases.items():
+        key = '' if case == '1_stream' else f'_{case}'
+        entry.update({f'ms{key}': r['ms'], f'plain_ms{key}': r['plain_ms'],
+                      f'bound_ms{key}': r['bound_ms'],
+                      f'bound_by{key}': r['bound_by'],
+                      f'call_ms{key}': r['call_ms'],
+                      f'host_ms{key}': r['host_ms'],
+                      f'roofline_share{key}': r['bound_ms'] / r['ms']})
+    return entry
+
+
 def main():
+    from fastmot_tpu_torch import tracker as tr
     from fastmot_tpu_torch.ops import flow_kernels as fk
     t0 = time.perf_counter()
     name, card = phase_device()
@@ -1859,18 +2238,42 @@ def main():
     worst_abs = max(kern['max_abs_err'],
                     phase_kernel(MULTI_BATCH)['max_abs_err'])
     phase_osnet()
-    # the main paths run the plain LK on the CPU only (phase 5's CPU
-    # runs); on the card a kernel, every time
-    plain_on_card = [0]
+    # the main paths run the plain LK and the plain gap commit on the CPU
+    # only (phase 5's CPU runs); on the card a kernel, every time, and the
+    # gap commit's RANSAC draws are made there, not on the host (but on the
+    # legacy path and in phase 15 (a), which draw on the host on purpose)
+    plain_on_card = Counter()
     plain_lk = fk.lk_pyramidal_reference
+    PLAIN.update(gap_commit_core=tr.gap_commit_core,
+                 ransac_draws_batch=fk.ransac_draws_batch)
+    host_draws = [False]
 
     def counted_plain_lk(prev, cur, pts, *args, **kwargs):
-        plain_on_card[0] += pts.is_cuda
+        plain_on_card['lk_pyramidal_reference'] += pts.is_cuda
         return plain_lk(prev, cur, pts, *args, **kwargs)
+
+    def counted_plain_commit(*args):
+        plain_on_card['gap_commit_core'] += args[4][0].is_cuda
+        return PLAIN['gap_commit_core'](*args)
+
+    def counted_draws(seeds, f_cap, device):
+        if not host_draws[0]:
+            plain_on_card['ransac_draws_batch'] += \
+                torch.device(device).type == 'cuda'
+        return PLAIN['ransac_draws_batch'](seeds, f_cap, device)
+
+    def drawing_on_the_host(phase, *args):
+        host_draws[0] = True
+        try:
+            return phase(*args)
+        finally:
+            host_draws[0] = False
     lk_launches = Counter()
-    with mock.patch.object(fk, 'lk_pyramidal_reference', counted_plain_lk):
+    with mock.patch.object(fk, 'lk_pyramidal_reference', counted_plain_lk), \
+            mock.patch.object(tr, 'gap_commit_core', counted_plain_commit), \
+            mock.patch.object(fk, 'ransac_draws_batch', counted_draws):
         for counts in (phase_reference(), phase_stream_reference(),
-                       phase_legacy_api()):
+                       drawing_on_the_host(phase_legacy_api)):
             lk_launches.update(counts)
         main_run = phase_main_path(stages=True)
         launches, float_ms = main_run['osblock'], main_run['median']
@@ -1886,23 +2289,26 @@ def main():
         log(f'main path step median: float {float_ms:.3f} ms, int8 '
             f'{int8["median"]:.3f} ms')
         frames, dets = multi_stream_inputs()
-        multi_launches, multi_lk, rows, multi_ms, gap_ms = \
+        multi_launches, multi_lk, rows, multi_ms, gap_ms, gap8_args = \
             phase_multi_stream(float_ms, frames, dets)
         launches += multi_launches
         mesh_launches, mesh_lk = phase_mesh(frames, dets, rows, multi_ms)
         launches += mesh_launches
         lk_launches.update(multi_lk)
         lk_launches.update(mesh_lk)
-        launches += phase_gaps(rows, gap_ms)
-    if plain_on_card[0]:
-        raise AssertionError(f'the plain LK ran {plain_on_card[0]} times on '
-                             'the card in phases 5-15')
+        launches += drawing_on_the_host(phase_gaps, rows, gap_ms)
+    if any(plain_on_card.values()):
+        raise AssertionError(f'plain versions ran on the card in phases '
+                             f'5-15: {dict(plain_on_card)}')
     if not all(lk_launches[d] for d in fk.LK_ENTRIES):
         raise AssertionError(f'phases 5-15: the LK kernels launched '
                              f'{dict(lk_launches)} times; each must launch')
     log(f'phases 5-15: the LK kernels launched {dict(lk_launches)} times on '
-        'the main paths, the plain LK 0 times on the card')
+        'the main paths, the plain LK 0 times on the card; the gap-commit '
+        f'kernel {sum(GAP_LAUNCHES.values())} times ({dict(GAP_LAUNCHES)}), '
+        'the plain gap commit and the host draws for the card 0 times')
     cases, lanes = phase_lk(main_run['gap stages'], gap_ms, card)
+    gap_cases = phase_gap_commit(main_run['gap args'], gap8_args, card)
     log(f'every phase passed in {time.perf_counter() - t0:.1f} s')
     print(json.dumps({'kernels': [{
         'name': 'osblock', 'route': 'cuda',
@@ -1913,7 +2319,8 @@ def main():
         'bound_ms': kern['bound_ms'], 'bound_by': kern['bound_by'],
         'library_ms': None,
         'roofline_share': kern['roofline_share']}]
-        + lk_kernel_entries(cases, lk_launches, lanes)}))
+        + lk_kernel_entries(cases, lk_launches, lanes)
+        + [gap_kernel_entry(gap_cases)]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,
         'count': torch.cuda.device_count()}}))

@@ -22,6 +22,13 @@ CSRC = Path(__file__).resolve().parents[1] / 'csrc'
 BUILD_DIR = CSRC / 'build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
               '-std=c++17', '-shared', '-Xcompiler', '-fPIC')
+# a kernel's own flags: gap_commit rounds every product and sum on its own
+# (no FMA contraction), as its host build in the tests does
+KERNEL_FLAGS = {'gap_commit': ('-fmad=false',)}
+
+
+def nvcc_flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + KERNEL_FLAGS.get(name, ())
 
 
 def find_nvcc() -> str:
@@ -42,7 +49,8 @@ def find_nvcc() -> str:
 def library_path(name: str) -> Path:
     src = CSRC / f'{name}.cu'
     digest = hashlib.sha256(src.read_bytes()
-                            + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                            + ' '.join(nvcc_flags(name)).encode()
+                            ).hexdigest()[:16]
     return BUILD_DIR / f'{name}-{digest}.so'
 
 
@@ -55,7 +63,7 @@ def build(name: str) -> tuple[Path, float, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, '-Xptxas', '-v', '-o', tmp,
+    cmd = [find_nvcc(), *nvcc_flags(name), '-Xptxas', '-v', '-o', tmp,
            str(CSRC / f'{name}.cu')]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)

@@ -584,7 +584,7 @@ def ransac_homography(prev_pts, cur_pts, valid, u, inlier_thresh: int):
     samp = _sample_idx(valid, u)                         # [HYP_H, 4]
     r1, r2 = _dlt_rows(p_n[samp], q_n[samp])
     h_cand = _solve_dlt(torch.cat([r1, r2], dim=1)).reshape(-1, 3, 3)
-    t2_inv = torch.linalg.inv(t2)
+    t2_inv = torch.linalg.inv_ex(t2)[0]
     h_px = t2_inv[None] @ h_cand @ t1[None]
     proj = _apply_h(h_px[:, None], prev_pts[None])
     err2 = torch.sum((proj - cur_pts[None]) ** 2, -1)

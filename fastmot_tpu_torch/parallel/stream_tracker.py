@@ -14,8 +14,9 @@ them, stream by stream, through ``MultiTracker.sync(infos=...)``.
 Kept from the JAX package: the densest stream picks the flow budget
 ``f_cap`` of all streams; every stream's RANSAC seed starts at 0 at
 ``init`` and goes up by one per gap frame, and its draws come from its own
-seed (one ``ransac_draws_batch`` call for all streams, JAX's draws bit for
-bit); the pending infos replay stream-major at ``sync`` (``Track._count``
+seed (JAX's draws bit for bit: on the card the gap-commit kernel makes them
+in its one launch for all streams, on the CPU one ``ransac_draws_batch``
+call); the pending infos replay stream-major at ``sync`` (``Track._count``
 is global, so the order sets the IDs).
 
 With ``mesh`` (``parallel.make_stream_mesh``) this rank owns the
@@ -42,11 +43,11 @@ import torch.distributed as dist
 from .. import kalman as kf
 from ..device import torch_device
 from ..ops import flow_kernels as fk
+from ..ops import gap_commit as gc
 from ..track import Track
 from ..tracker import (MAX_DETS, MAX_TRACKS, MultiTracker,
                        assoc_costs_batch, commit_batch, fetch_infos,
-                       finals_core, gap_commit_batch, gap_points_batch,
-                       stages_scan_core)
+                       finals_core, gap_points_batch, stages_scan_core)
 from .streams import axis_size
 
 __all__ = ['StreamTracker']
@@ -212,16 +213,18 @@ class StreamTracker:
         spec = t0.flow.spec
         prev = self._prev_pre
         cur = self._preprocess(frames)
-        all_prev, all_valid, inside, forder, f_tlbrs, f_valid = \
-            gap_points_batch(spec, f_cap, self._dev_state, prev)
+        # the kernel takes contiguous tensors; under vmap the flow order is
+        # a slice of each stream's argsort
+        all_prev, all_valid, inside, forder, f_tlbrs, f_valid = (
+            t.contiguous() for t in gap_points_batch(spec, f_cap,
+                                                     self._dev_state, prev))
         all_cur, status = fk.lk_core(spec, prev[1], cur[1], all_prev,
                                      all_valid)
-        # each stream's draws from its own seed, uploaded together
-        draws = fk.ransac_draws_batch(self._seeds, f_cap, self.device)
-        new_state, infos = gap_commit_batch(
+        # one call for all streams, each with the draws of its own seed
+        new_state, infos = gc.gap_commit(
             self.kf_cfg, spec, float(t0.age_penalty), t0.confirm_hits,
             self._dev_state, inside, f_tlbrs, f_valid, forder, all_prev,
-            all_cur, status, draws, t0._trans_mat, t0._acc_cov,
+            all_cur, status, self._seeds, t0._trans_mat, t0._acc_cov,
             t0._frame_rect_dev)
         self._dev_state = new_state
         self._prev_pre = cur

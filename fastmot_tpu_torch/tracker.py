@@ -14,10 +14,12 @@ The per-frame pure functions keep the JAX package's names and arguments
 ``stage_core``, ``stages_scan_core``, ``finals_core``, ``commit_part``
 and ``scan_finals_commit_core``. They run eagerly, one frame at a time:
 the JAX package's scan/chain kernels and its split-dispatch variants are
-TPU dispatch structure and are not ported. The RANSAC draws of a gap frame
-are the JAX package's for the flow seed, bit for bit
-(``ops.flow_kernels.ransac_draws``), and are passed in as ``draws``.
-``*_batch`` run the loop-free cores over a leading stream axis
+TPU dispatch structure and are not ported. A gap frame's post-LK half runs
+through ``ops.gap_commit.gap_commit``: on the card one launch of its kernel
+for all of a call's streams, which draws the JAX package's RANSAC uniforms
+for each flow seed bit for bit; on the CPU ``gap_commit_core`` (the plain
+version, which takes the draws of ``ops.flow_kernels.ransac_draws`` as
+``draws``). ``*_batch`` run the loop-free cores over a leading stream axis
 (``parallel.StreamTracker``); ``stage_core``, ``stages_scan_core`` and
 ``finals_core`` take that axis themselves. ``compute_flow``/``apply_kalman``
 are the JAX package's legacy per-track API.
@@ -40,6 +42,7 @@ from .kalman import KalmanConfig
 from .ops import assignment as asg
 from .ops import distance as dist
 from .ops import flow_kernels as fk
+from .ops import gap_commit as gc
 from .ops import geometry as geom
 from .track import Track
 
@@ -246,14 +249,18 @@ def gap_commit_core(cfg: KalmanConfig, spec, age_penalty: float,
 
 def lk_commit_core(cfg: KalmanConfig, spec, age_penalty: float,
                    confirm_hits: int, prev_u8, cur_u8, all_prev, all_valid,
-                   state, inside, f_tlbrs, f_valid, forder, draws,
+                   state, inside, f_tlbrs, f_valid, forder, seed,
                    trans, acc_cov, frame_tlbr):
-    """Pyramidal LK, then ``gap_commit_core``."""
+    """Pyramidal LK, then the gap commit of the uint32 RANSAC ``seed``
+    (``ops.gap_commit.gap_commit``: on the card one kernel launch with the
+    draws made there, on the CPU ``gap_commit_core``)."""
     all_cur, status = fk.lk_core(spec, prev_u8, cur_u8, all_prev, all_valid)
-    return gap_commit_core(cfg, spec, age_penalty, confirm_hits, state,
-                           inside, f_tlbrs, f_valid, forder, all_prev,
-                           all_cur, status, draws, trans, acc_cov,
-                           frame_tlbr)
+    new_state, info = gc.gap_commit(
+        cfg, spec, age_penalty, confirm_hits, tuple(a[None] for a in state),
+        inside[None], f_tlbrs[None], f_valid[None], forder[None],
+        all_prev[None], all_cur[None], status[None], [seed], trans, acc_cov,
+        frame_tlbr)
+    return tuple(a[0] for a in new_state), info[0]
 
 
 # ---------------------------------------------------------------------------
@@ -855,11 +862,11 @@ class MultiTracker:
         (cur_state, all_prev, all_valid, inside, forder, f_tlbrs,
          f_valid) = gap_pre_core(spec, frame, self._dev_state, prev_state,
                                  f_cap)
-        draws = fk.ransac_draws(self.flow.seed, f_cap, self.device)
         new_state, info = lk_commit_core(
             self.kf_cfg, spec, float(self.age_penalty), self.confirm_hits,
             prev_state[1], cur_state[1], all_prev, all_valid,
-            self._dev_state, inside, f_tlbrs, f_valid, forder, draws,
+            self._dev_state, inside, f_tlbrs, f_valid, forder,
+            self.flow.seed,
             self._trans_mat, self._acc_cov, self._frame_rect_dev)
         self._dev_state = new_state
         self.flow.advance(cur_state)

@@ -237,9 +237,10 @@ def test_ransac_draws_batch_is_per_seed():
 
 
 def test_gap_frame_matches_jax(states):
-    """One whole gap frame: points, LK, RANSAC with the JAX draws, the
-    Kalman warp/predict/update and the commit (the tracker's per-frame
-    functions against their JAX twins)."""
+    """One whole gap frame: points, LK, RANSAC with the port's draws of
+    the same seed (JAX's, bit for bit), the Kalman warp/predict/update and
+    the commit (the tracker's per-frame functions against their JAX
+    twins)."""
     frames, jst, tst = states
     cfg = jkf.KalmanConfig()
     t_cap, f_cap = jtr.MAX_TRACKS, 32
@@ -267,8 +268,8 @@ def test_gap_frame_matches_jax(states):
     pts = ttr.gap_points_core(TSPEC, tstate_in, tst[0], f_cap)
     tstate, tinfo = ttr.lk_commit_core(
         tkf.KalmanConfig(), TSPEC, 2.0, 1, tst[0][1], tst[1][1], pts[0],
-        pts[1], tstate_in, pts[2], pts[4], pts[5], pts[3],
-        jax_draws(7, f_cap), T(trans), T(acc), T(rect))
+        pts[1], tstate_in, pts[2], pts[4], pts[5], pts[3], 7, T(trans),
+        T(acc), T(rect))
     np.testing.assert_array_equal(pts[3].numpy(), np.asarray(forder))
     np.testing.assert_array_equal(tinfo.numpy()[0], np.asarray(jinfo)[0])
     for i in (2, 3, 9, 12):             # boxes, valid, lost_pending, kpv
