@@ -118,9 +118,14 @@ Phases, each raising on failure (the exit code is then non-zero):
    kernel launches once a tracked frame for all of a call's streams
    (phases 5, 6, 9, 12, 13 and 14);
 17. the gap-commit kernel (RANSAC draws, homography and similarity RANSAC,
-   Kalman warp/predict/update and commit, one block a stream): its draws
+   Kalman warp/predict/update and commit; two launches a call, a
+   stream's homography, its tracks' similarity fits and its Kalman slots
+   spread over blocks): its draws
    bit-equal to ``ransac_draws_batch`` and to phase 15 (a)'s ``jax.random``
-   bits; the kernel against the plain version run on the CPU on a real
+   bits; every output, to the bit, on each synthetic call of
+   tests/test_torch_gap_commit.py::OUTPUT_SHA256 (the sha256 the first
+   design, one block a stream, gave); the kernel against the plain
+   version run on the CPU on a real
    main-path gap frame (1 stream, flow budget 48, from phase 6) and on
    phase 13's 8 streams at budget 128 (booleans may differ on at most 1 %
    of the track slots, the share printed; H within 0.01 px at the frame's
@@ -128,15 +133,17 @@ Phases, each raising on failure (the exit code is then non-zero):
    largest entry where a stream's inliers agree), against the plain
    version run on the card (the same rule), and on the synthetic cases of
    tests/test_torch_gap_commit.py at that file's tolerances; two calls
-   bitwise equal; then its device time a launch (100 launches of the C
-   entry between CUDA events, queued behind a sleep kernel), the
-   wrapper's time a call and host time a call, the plain version's time on
-   the card, and the bound (``gap_commit_bound_ms``).
+   bitwise equal; each launch's registers and shared memory as ptxas
+   reported them; then its device time a call (100 calls of the C entry,
+   each its two launches, between CUDA events, queued behind a sleep
+   kernel), the wrapper's time a call and host time a call, the plain
+   version's time on the card, and the bound (``gap_commit_bound_ms``).
 
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
 """
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -177,6 +184,8 @@ LK_CASES = ((1, 48), (8, 128))
 # background inliers agree
 GAP_BOOL_SHARE = 0.01
 GAP_H_PX, GAP_MEAN_PX, GAP_COV_REL, GAP_RATIO = 0.01, 1e-3, 1e-4, 1e-6
+# the gap commit's two launches (csrc/gap_commit.cu), in their order
+GAP_KERNELS = ('gap_fit_kernel', 'gap_kalman_kernel')
 # the H100 SXM's 32-bit integer rate (64 INT32 lanes an SM a clock, 132
 # SMs, 1.98 GHz; the draws' threefry rounds are integer work)
 PEAK_I32 = 132 * 64 * 1.98e9
@@ -321,6 +330,7 @@ def phase_build():
                 log(f'ptxas {name}:', line.strip())
     log(f'build: {time.perf_counter() - t0:.2f} s for all '
         f'{len(names)}')
+    return {name: nvcc_out for name, (_, _, nvcc_out) in zip(names, built)}
 
 
 def _random_block(cin, features, gen):
@@ -2103,12 +2113,33 @@ def gap_commit_bound_ms(args, result):
     return max(ops_ms, bytes_ms), by, ops_ms, bytes_ms
 
 
-def phase_gap_commit(main_args, multi_args, card):
+def ptxas_kernels(nvcc_out):
+    """{kernel: 'N registers, ... smem, spills'} of each __global__ in
+    ``nvcc -Xptxas -v``'s output."""
+    out, name = {}, None
+    for line in nvcc_out.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = next((k for k in GAP_KERNELS if k in m.group(1)),
+                        m.group(1))
+        m = re.search(r'(\d+) bytes spill stores', line)
+        if m and name:
+            out[name] = f'{m.group(1)} bytes spilled'
+        m = re.search(r'Used (\d+) registers.*?(\d+) bytes smem', line)
+        if m and name:
+            out[name] = (f'{m.group(1)} registers, {m.group(2)} bytes '
+                         f'shared memory, ' + out.get(name, 'no spill line'))
+    return out
+
+
+def phase_gap_commit(main_args, multi_args, card, nvcc_out):
     """Phase 17: the gap-commit kernel's draws, the kernel against its
     plain version (the main path's gap frame, phase 13's 8 streams at
-    budget 128, the CPU tests' synthetic cases), two calls equal, and its
-    times beside the bound. Returns the cases' numbers for the kernels
-    line."""
+    budget 128, the CPU tests' synthetic cases) and against the outputs
+    the first design gave (their sha256), two calls equal, each role's
+    registers and shared memory (``nvcc_out``: the build's ptxas
+    output), and its times beside the bound. Returns the cases' numbers
+    for the kernels line."""
     from fastmot_tpu_torch.ops import flow_kernels as fk
     from fastmot_tpu_torch.ops import gap_commit as gc
     import tests.test_torch_gap_commit as tg
@@ -2154,6 +2185,23 @@ def phase_gap_commit(main_args, multi_args, card):
     log('gap_commit on the synthetic cases of tests/test_torch_gap_commit.py '
         '(one stream of each, two mixes of three; flow budgets 32 and 48): '
         '== the plain version on the CPU at that file\'s tolerances')
+    for case in tg.OUTPUT_SHA256:
+        new, info = gc.gap_commit(*[tuple(x.cuda() for x in a)
+                                    if isinstance(a, tuple) else
+                                    a.cuda() if isinstance(a, torch.Tensor)
+                                    else a for a in tg.hash_case_args(case)])
+        got = tg.output_sha256([new[i] for i in gc.STATE_OUT] + [info])
+        differ = [i for i, (g, w) in enumerate(zip(
+            got, tg.OUTPUT_SHA256[case])) if g != w]
+        if differ:
+            raise AssertionError(f'gap_commit {tg.hash_case_id(case)}: '
+                                 f'outputs {differ} differ from the first '
+                                 'design\'s')
+    log(f'gap_commit on the {len(tg.OUTPUT_SHA256)} synthetic calls of '
+        'tests/test_torch_gap_commit.py::OUTPUT_SHA256: every output\'s '
+        'sha256 == the first design\'s (one block a stream), bit for bit')
+    for name, line in ptxas_kernels(nvcc_out).items():
+        log(f'gap_commit ptxas {name}: {line}')
 
     # (c) real gap frames: kernel against the plain version on the CPU and
     # on the card, two calls equal, then the times
@@ -2192,14 +2240,18 @@ def phase_gap_commit(main_args, multi_args, card):
         plain_ms = wall_ms(lambda: gc.gap_commit_reference(*args))
         ms = statistics.mean(device)
         per_window = ' / '.join(f'{d * 1e3:.2f}' for d in device)
-        log(f'gap_commit {tag}: device {per_window} us a launch'
-            f' (two windows of {LK_TIMED_LAUNCHES} launches); '
+        n_t = args[4][0].shape[1]
+        log(f'gap_commit {tag}: device {per_window} us a call of its two '
+            f'launches ({n_s * gc.H_PARTS} homography and '
+            f'{n_s * -(-f_cap // 8)} similarity blocks, then '
+            f'{n_s * -(-n_t // 32)} Kalman blocks; two windows of '
+            f'{LK_TIMED_LAUNCHES} calls); '
             f'the wrapper {call_ms * 1e3:.2f} us a call, host '
             f'{call_host * 1e3:.2f} us a call; plain on the card '
             f'{plain_ms:.3f} ms; bound {bound * 1e3:.4f} us ({by}: '
             f'operations {ops_ms * 1e3:.4f} us, bytes {bytes_ms * 1e3:.4f} '
-            f'us), roofline share {bound / ms:.5f}: the launch latency, not '
-            f'the work, sets the time; {card}')
+            f'us), roofline share {bound / ms:.5f}: the dependent chain, '
+            f'not the work, sets the time; {card}')
         cases[key] = {'ms': ms, 'call_ms': call_ms, 'host_ms': call_host,
                       'plain_ms': plain_ms, 'bound_ms': bound,
                       'bound_by': by, 'max_abs_err': worst,
@@ -2233,7 +2285,7 @@ def main():
     from fastmot_tpu_torch.ops import flow_kernels as fk
     t0 = time.perf_counter()
     name, card = phase_device()
-    phase_build()
+    nvcc_out = phase_build()
     kern = phase_kernel()
     worst_abs = max(kern['max_abs_err'],
                     phase_kernel(MULTI_BATCH)['max_abs_err'])
@@ -2308,7 +2360,8 @@ def main():
         f'kernel {sum(GAP_LAUNCHES.values())} times ({dict(GAP_LAUNCHES)}), '
         'the plain gap commit and the host draws for the card 0 times')
     cases, lanes = phase_lk(main_run['gap stages'], gap_ms, card)
-    gap_cases = phase_gap_commit(main_run['gap args'], gap8_args, card)
+    gap_cases = phase_gap_commit(main_run['gap args'], gap8_args, card,
+                                 nvcc_out['gap_commit'])
     log(f'every phase passed in {time.perf_counter() - t0:.1f} s')
     print(json.dumps({'kernels': [{
         'name': 'osblock', 'route': 'cuda',

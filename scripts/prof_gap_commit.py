@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""Where the gap-commit kernel (fastmot_tpu_torch/csrc/gap_commit.cu)
-spends its time, on one NVIDIA GPU:
+"""Where the gap-commit kernels (fastmot_tpu_torch/csrc/gap_commit.cu)
+spend their time, on one NVIDIA GPU:
 
     python3 scripts/prof_gap_commit.py [--launches 100]
 
-It builds a copy of the kernel that records ``clock64`` in thread 0 of the
-first block at each phase boundary (into ``fastmot_tpu_torch/csrc/
-build/``), runs it once on the synthetic camera case of
-tests/test_torch_gap_commit.py at 1 stream x flow budget 48 and at 8
-streams x 128, with the main path's 256 background points, and prints
-the SM cycles each phase took (a phase inside the similarity rounds
-summed over the rounds), beside the device time a
-launch of the unstamped kernel (CUDA events around ``--launches``
-launches queued behind a sleep, as chip_smoke.py phase 17 times it).
+It builds a copy of the source that records, in thread 0 of the first
+block of each role (the homography and similarity roles of the first
+launch, the Kalman role of the second), ``clock64`` and the global timer
+at each phase boundary (into
+``fastmot_tpu_torch/csrc/build/``), runs it once on the synthetic camera
+case of tests/test_torch_gap_commit.py at 1 stream x flow budget 48 and
+at 8 streams x 128, with the main path's 256 background points, and
+prints for each role the SM cycles each phase took in that block, and
+when (global timer, ns from the first stamp of the call) each role's
+first block started and ended, beside the device time a launch of the
+unstamped kernels (CUDA events around ``--launches`` calls queued behind
+a sleep, as chip_smoke.py phase 17 times them).
 """
 import argparse
 import ctypes
@@ -30,54 +33,90 @@ import tests.test_torch_gap_commit as tg  # noqa: E402
 from fastmot_tpu_torch.ops import gap_commit as gc  # noqa: E402
 from fastmot_tpu_torch.ops.flow_kernels import BG_KP  # noqa: E402
 
-# (text in csrc/gap_commit.cu, the phase that ends there): the stamp goes
-# where the text has '@', at the start of a line
+# (text in csrc/gap_commit.cu, the phase that ends there, role): the stamp
+# goes where the text has '@'; a role's first mark starts its clock
 PHASE_MARKS = [
-    ('@  // ---- stage the background points', 'launch'),
-    ('@  // ---- homography RANSAC', 'staging'),
-    ('@    // a hypothesis a thread', 'Hartley + order'),
-    ('@    int score = 0;', 'hypotheses: draws + 8x8 solves'),
-    ('@    // the first hypothesis of the highest count',
-     'hypotheses: scores'),
-    ('@    // two guarded refits over the inliers', 'arg-max + inliers'),
-    ('@    if (tid == 0) {\n      const float h22', 'refits'),
-    ('@  // ---- per-track similarity RANSAC', 'h22 + h_ok'),
-    ('@    int cnt = 0;\n    if (live) {', 'similarity: matches'),
-    ('@    uint32_t k1 = 0, k2 = 0;', 'similarity: order'),
-    ('@    float sim[4] = {0.f, 0.f, 0.f, 0.f};', 'similarity: hypotheses'),
-    ('@    for (int it = 0; it < 2; ++it) {\n      // the 8 sums',
-     'similarity: arg-max'),
-    ('@    if (live && lane == 0) {', 'similarity: refits'),
-    ('@  // ---- slot scatter, Kalman, commit', 'similarity: estimates'),
-    ('@    float mean[8], cov[8][8];', 'slot scatter + keypoints'),
-    ('@    kalman_warp(', 'Kalman loads'),
-    ('@    kalman_predict(', 'Kalman warp'),
-    ('@    if (has_klt) {\n      const float z[4]', 'Kalman predict'),
-    ('@    // as_tlbr, then intersection', 'Kalman update'),
-    ('@  if (tid < 10) info[tid]', 'commit + info'),
+    ('@  const int s = block / kHParts, part = block % kHParts;',
+     'start', 'homography'),
+    ('@  const float cntf = n_valid > 1.f ? n_valid : 1.f;',
+     'staging + Hartley', 'homography'),
+    ('@  // a hypothesis a thread', 'order', 'homography'),
+    ('@  if (part == 0) {\n#pragma unroll\n    for (int i = 0; i < 9; ++i) '
+     'sc.hyps', 'draws + 8x8 solves', 'homography'),
+    ('  sc.counts[part * kHypH + tid] = score;\n@',
+     'scores (a share of the points)', 'homography'),
+    ('@  const int f_cap = p.f_cap;\n  const int blocks = (f_cap + kWarps',
+     'start', 'similarity'),
+    ('@  if (t < f_cap) {\n    const Keys keys', 'staging the boxes',
+     'similarity'),
+    ('@    tp[warp][lane] = a;', 'matches', 'similarity'),
+    ('@    // 64 two-point hypotheses', 'order', 'similarity'),
+    ('@    const int best = kHypA - 1 - key % kHypA;',
+     'hypotheses + arg-max', 'similarity'),
+    ('@    const uint32_t bits = __ballot_sync(kFull, inl && ok);', 'refits',
+     'similarity'),
+    ('      sc.kp_bits[t] = bits;\n@', 'estimate', 'similarity'),
+    ('@  const int s = block / blocks, part = block % blocks;', 'start',
+     'Kalman'),
+    ('@  if (tid < f_cap) {\n    const int64_t slot = p.forder',
+     'loads', 'Kalman'),
+    ("@  // the slot's inputs, and its keypoints' copy, need nothing",
+     'slot scatter + staging + Hartley', 'Kalman'),
+    ('@  // ---- launch 1 done', 'slot inputs + keypoints copied', 'Kalman'),
+    ('@  const Scratch sc = scratch_of(p, s);\n  {\n    int score = 0;',
+     'waiting for launch 1', 'Kalman'),
+    ("@    // two guarded refits over the inliers' DLT rows",
+     'arg-max + inliers', 'Kalman'),
+    ('@      tree_sum<44>(terms, sm.red, nrm);',
+     'refits: terms (and rescores)',
+     'Kalman'),
+    ('@      if (tid < 32) chol_factor_rows(nrm, lmat);',
+     'refits: the 44 sums\' tree', 'Kalman'),
+    ('@      if (tid == 0) {\n        float l[8][8], rhs[8];',
+     'refits: 8x8 factor (warp 0)', 'Kalman'),
+    ('@      const bool inl_new = valid_pt && h_err2(h_ref',
+     'refits: substitutions (thread 0)', 'Kalman'),
+    ('@    if (tid < 9) {\n      const float h22', 'refits: rescores',
+     'Kalman'),
+    ('@  // ---- Kalman and commit', 'h22 + info', 'Kalman'),
+    ('@    __syncwarp();\n    // row r\'s nonzeros, in order',
+     'Kalman: slot, a Jacobian row', 'Kalman'),
+    ('@  // predict with size-scaled', 'Kalman warp: J C J^T', 'Kalman'),
+    ('@  // the correction by the flow', 'Kalman predict', 'Kalman'),
+    ('@  // as_tlbr, then intersection', 'Kalman update', 'Kalman'),
+    ('@  if (!has_slot) return;', 'commit', 'Kalman'),
+    ('  o[slot] = ev && in_flow;\n@', 'writes', 'Kalman'),
 ]
+ROLES = ('homography', 'similarity', 'Kalman')
+N_STAMPS = 4096
 
 
 def phase_library():
-    """Builds the kernel with a clock64 stamp at each of PHASE_MARKS."""
+    """Builds the kernels with a stamp at each of PHASE_MARKS."""
     from fastmot_tpu_torch.ops import cuda_build
     src = (cuda_build.CSRC / 'gap_commit.cu').read_text()
-    for i, (mark, _) in enumerate(PHASE_MARKS):
+    for i, (mark, _, _) in enumerate(PHASE_MARKS):
         text = mark.replace('@', '')
         if src.count(text) != 1:
             raise RuntimeError(f'phase mark not found once: {text!r}')
-        stamp = ('if (blockIdx.x == 0 && threadIdx.x == 0 && g_n < 4096) '
-                 f'{{ g_ids[g_n] = {i}; g_stamps[g_n++] = clock64(); }}\n')
+        stamp = ('if (block == 0 && threadIdx.x == 0) { const int n_ = '
+                 f'atomicAdd(&g_n, 1); if (n_ < {N_STAMPS}) {{ g_ids[n_] = '
+                 f'{i}; g_stamps[n_] = clock64(); unsigned long long t_; '
+                 'asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_)); '
+                 'g_times[n_] = t_; } }\n')
         src = src.replace(text, mark.replace('@', stamp))
-    src = src.replace('namespace {', '__device__ long long g_stamps[4096];\n'
-                      '__device__ int g_ids[4096];\n__device__ int g_n;\n'
-                      'namespace {', 1)
-    src += ('extern "C" int gap_commit_stamps(long long* out, int* ids, '
-            'int reset) {\n'
+    src = src.replace('namespace {', f'__device__ long long g_stamps['
+                      f'{N_STAMPS}];\n__device__ unsigned long long g_times['
+                      f'{N_STAMPS}];\n__device__ int g_ids[{N_STAMPS}];\n'
+                      '__device__ int g_n;\nnamespace {', 1)
+    src += ('extern "C" int gap_commit_stamps(long long* out, '
+            'unsigned long long* times, int* ids, int reset) {\n'
             '  int n = 0;\n'
             '  if (reset) return (int)cudaMemcpyToSymbol(g_n, &n, sizeof n);\n'
             '  cudaMemcpyFromSymbol(&n, g_n, sizeof n);\n'
+            f'  n = n < {N_STAMPS} ? n : {N_STAMPS};\n'
             '  cudaMemcpyFromSymbol(out, g_stamps, sizeof(long long) * n);\n'
+            '  cudaMemcpyFromSymbol(times, g_times, 8 * n);\n'
             '  cudaMemcpyFromSymbol(ids, g_ids, sizeof(int) * n);\n'
             '  return n;\n}\n')
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -107,35 +146,43 @@ def main():
     cases = {'1 stream x 48': cuda_args(['camera'], 48),
              '8 streams x 128': cuda_args(['camera'] * 8, 128)}
     times = {}
-    for tag, a in cases.items():       # the unstamped kernel first
+    for tag, a in cases.items():       # the unstamped kernels first
         _, launch = gc.gap_commit_launch_args(*a)
         times[tag] = chip_smoke.lk_device_ms(
             gc.gap_commit_library().gap_commit_forward, launch,
             n=args.launches, tag='gap_commit')
     from fastmot_tpu_torch.ops import cuda_build
     lib = phase_library()
-    lib.gap_commit_stamps.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                      ctypes.c_int]
+    lib.gap_commit_stamps.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
     lib.gap_commit_stamps.restype = ctypes.c_int
     cuda_build.load = lambda name: lib
     gc.gap_commit_library.cache_clear()
     for tag, a in cases.items():
         gc.gap_commit(*a)
         torch.cuda.synchronize()
-        lib.gap_commit_stamps(None, None, 1)
+        lib.gap_commit_stamps(None, None, None, 1)
         gc.gap_commit(*a)
         torch.cuda.synchronize()
-        stamps, ids = (ctypes.c_longlong * 4096)(), (ctypes.c_int * 4096)()
-        n = lib.gap_commit_stamps(stamps, ids, 0)
-        sums = {}
-        for i in range(1, n):
-            label = PHASE_MARKS[ids[i]][1]
-            sums[label] = sums.get(label, 0) + stamps[i] - stamps[i - 1]
-        total = stamps[n - 1] - stamps[0]
-        print(f'gap_commit {tag}: {times[tag] * 1e3:.2f} us a launch '
-              f'unstamped; {total} cycles from the first stamp to the last '
-              f'in block 0; ' + ', '.join(f'{k} {v} ({v / total:.1%})'
-                                          for k, v in sums.items())
+        stamps = (ctypes.c_longlong * N_STAMPS)()
+        clock = (ctypes.c_ulonglong * N_STAMPS)()
+        ids = (ctypes.c_int * N_STAMPS)()
+        n = lib.gap_commit_stamps(stamps, clock, ids, 0)
+        t0 = min(clock[i] for i in range(n))
+        parts = []
+        for role in ROLES:
+            mine = [i for i in range(n) if PHASE_MARKS[ids[i]][2] == role]
+            sums = {}
+            for a_, b_ in zip(mine, mine[1:]):
+                label = PHASE_MARKS[ids[b_]][1]
+                sums[label] = sums.get(label, 0) + stamps[b_] - stamps[a_]
+            total = stamps[mine[-1]] - stamps[mine[0]]
+            parts.append(
+                f'{role} block 0 at {clock[mine[0]] - t0}-'
+                f'{clock[mine[-1]] - t0} ns, {total} cycles: '
+                + ', '.join(f'{k} {v} ({v / total:.1%})'
+                            for k, v in sums.items()))
+        print(f'gap_commit {tag}: {times[tag] * 1e3:.2f} us a call '
+              f'unstamped (two launches); ' + '; '.join(parts)
               + f'; {card}', flush=True)
 
 

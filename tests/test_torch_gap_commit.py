@@ -5,10 +5,15 @@ frame, for every stream of a call.
 
 On the CPU the kernel's own source is built for the host with g++ through a
 shim of the few CUDA names it uses (a block's 256 threads as host threads,
-``__syncthreads`` as a barrier of all of them, ``__shared__`` as static
-storage: the blocks run in turn), under ``-ffp-contract=off`` as the card's
-build runs under ``-fmad=false``. That build
+``__syncthreads`` as a barrier of all of them, ``__syncwarp``, shuffles
+and ballots as meetings of a warp's 32, ``__shared__`` as static storage:
+a launch's blocks run in turn, and its launches one after another), under
+``-ffp-contract=off`` as the card's build runs under ``-fmad=false``. That
+build
 
+- gives, to the bit, every output that the first design of the kernel
+  (one block a stream) gave on each synthetic call (``OUTPUT_SHA256``),
+  and its block and warp trees pair as that design's did;
 - draws JAX's threefry uniforms bit for bit (``ransac_draws_batch``, itself
   held to ``jax.random`` by tests/test_torch_flow.py);
 - matches the plain version (``tracker.gap_commit_core``) at 1 and 3
@@ -35,6 +40,7 @@ without one, and JAX is imported only by the CPU tests that need it):
     python -m pytest tests/test_torch_gap_commit.py -m cuda
 """
 import ctypes
+import hashlib
 import re
 import shutil
 import subprocess
@@ -247,6 +253,214 @@ def assert_commit_close(got, want, tag=''):
                                       err_msg=tag + name)
 
 
+# The sha256 of each output's bytes (``gap_commit_launch_args``' outputs:
+# the 8 written state fields in STATE_OUT order, then the info) that the
+# first design of csrc/gap_commit.cu (one block of 256 threads a stream)
+# gave, built for the host, on every synthetic call of the host tests:
+# (the streams' cases, flow budget, background points), seeds
+# HASH_SEEDS[number of streams]. The redesign keeps every sum order, so
+# its host build and its card build give them too. (The camera case gives
+# the same bytes at budgets 32, 48 and 128: its tracks are the same seven.)
+HASH_SEEDS = {1: [11], 3: [5, 2 ** 32 - 1, 77]}
+OUTPUT_SHA256 = {
+    (('camera',), 32, 96): (
+        '27ee17180ac1c40cddd6c0e5c5a47bb1c95478afa2d1f9025d879808798bad30',
+        '951ef5baa88da68bd18789f0d932b54238961a246613b73ae5c335784306b893',
+        '32552abec4b44fce28aa1c91aa891e1a007fa64e70fb19228b064ad6884ac3af',
+        '458e696b9c5378470145aedf2e41e638aa1b8433202edc0570931f5fc435f00e',
+        '0b1b0c9c7f91eae825ed6fb7702130527ec6894c2dd9e1297624071d8a42687d',
+        '5a04f0e1dba66ea4f471e0e60c4cfb9cd49fbf82d49ebf6af414b5168cb87caa',
+        '394479be50669288414e55de26077e3e47ca879149a783e3501546d1ea64a274',
+        '78a1daf958e0348ba40b009fb6e22dd6c1f825a7ad080625d4486e81df775155',
+        'd5f2f9b388278ab9e128825c8f7560f8c35d466d98cc2c0c6a6c08c912b1409d'),
+    (('few_bg',), 32, 96): (
+        '4898a87aaaf15b2ef4d953aeacf40fa3d7c36aaada477e4eedaddca3b97052b3',
+        '702dbc2ba7a7884265cbc7f3465809ffb7a21f938fc8437980236fac9c8ff606',
+        '8f822c5bc469db8186c423c34e1b312ea628fe18ef3e7c190c49c828d4e02dc6',
+        '38723a2e5e8a17aa7950dc008209944e898f69a7bd10a23c839d341e935fd5ca',
+        '38723a2e5e8a17aa7950dc008209944e898f69a7bd10a23c839d341e935fd5ca',
+        '5a04f0e1dba66ea4f471e0e60c4cfb9cd49fbf82d49ebf6af414b5168cb87caa',
+        '394479be50669288414e55de26077e3e47ca879149a783e3501546d1ea64a274',
+        'ad7facb2586fc6e966c004d7d1d16b024f5805ff7cb47c7a85dabd8b48892ca7',
+        '4bd0ec4764f8986435f48738f8123573444a0c1afcaa62fb832a815ba683f7ef'),
+    (('few_matches',), 32, 96): (
+        '6e59a40ea113dc3d0b4291721cd99dcf250418b0757c8bed204f430499a642e8',
+        'e9dea3975b2f2715b2c00c1263d9c55c90af7ceb438c479ef11ee44363d2c6c0',
+        '1410561f99b8012d1fa6eb5d19f9a5f82e5a8aef4b6e28a37efc43e738c80b93',
+        '458e696b9c5378470145aedf2e41e638aa1b8433202edc0570931f5fc435f00e',
+        '0b1b0c9c7f91eae825ed6fb7702130527ec6894c2dd9e1297624071d8a42687d',
+        'aaa9535c71fe75cacb189869941bdbcef110edf37013f74a217aaf53559257bf',
+        '394479be50669288414e55de26077e3e47ca879149a783e3501546d1ea64a274',
+        '2ced1e588a510c3764a738972b6d9ff069f4932e148e37dbd444eb3dca81570c',
+        '2d38aa0bd780498676498ff7f3cabb60aa7241c2081d3c6d25a777405eab8388'),
+    (('out_of_frame',), 32, 96): (
+        '47896eaa3de33f0955630dd5c7c30241ab33f1d045d5f1dc9c9fd5eefec07188',
+        '901e19a91f006f2f66ca60440fbf1e1df61098d939b324e76883142e356948e7',
+        'c13dc748c0aca4bcc660284e18a69e0b2d8a27feadb1aa00302062aa30e52030',
+        '458e696b9c5378470145aedf2e41e638aa1b8433202edc0570931f5fc435f00e',
+        '0b1b0c9c7f91eae825ed6fb7702130527ec6894c2dd9e1297624071d8a42687d',
+        '3857e87e634af403d7f8b09f7d2662f17bbcb667cb9476c26dbde3ea0b876e9d',
+        '0306dd5f29f984b8b6dc95016528a667b6ca03518f6ec26085175cb20c07a293',
+        '59449bd0ae5cd7e1d9ba8a1ddc198fba8547873f49b6c39e33dbb8afb91e9496',
+        'e666554fdc32ef1e8e4a0844ba404a0ae09f4e86190f5b8269797c123ddd5be9'),
+    (('lost',), 32, 96): (
+        '0a486eac7bf52dd0d7b49cb605bd61429986055fd7da2a9b874ab1f45273543d',
+        '4f70375dae7737dc641ee7a2becd1b9cb4d77f72e1592cc0ce13d909ba5fcd64',
+        '496214575f787ab3e4098020c1be3be28685668d4bfcc56a323cbcc501ae8ae6',
+        '103f8f5e0aa2ec1fdf30d636f85cea007a12b71a700d2cbcd94bf96c514a7d51',
+        '8bd6f6ec00dbaf70b53ea727850d52492acb599cad07127684bc79c0e36d348c',
+        '5dff1bf48fe0b6a1622d3387d823ad2577cf334e410199c88b0ea4512ae126d6',
+        'ee0a85198dbfc0dfdcae9866280d7f7f25e76f61bd58ce21c0e08f5dc724a9e4',
+        'ea07a518a9d55a6c8f7556f9d051511be6bd826082c8f8c4aec454ca470dc29b',
+        '40b21ab3bc038bdf0b5ca915c2487d1a612bc46bc08903faab6b605a505e89c9'),
+    (('all_invalid',), 32, 96): (
+        '1983acc578a369b9268963da4d1beb5ebcf56ee685f7918c987837d639951d03',
+        'd790611dcb37523b944f78bb92737e86329d6359f4e649a651e234e69c23e588',
+        'cf6ebf36960a20f0efe3fefb5d179760a99f98713fb284982599f841ccb46c86',
+        '38723a2e5e8a17aa7950dc008209944e898f69a7bd10a23c839d341e935fd5ca',
+        '0b1b0c9c7f91eae825ed6fb7702130527ec6894c2dd9e1297624071d8a42687d',
+        '477d09e10c3d7a0f84444412511080fac174173e243793d1220f7862c8a90bd7',
+        '75c4338daaf470b347cea11cde0f9d9e0e12209d501e4f2850f1ce2587669b16',
+        'ad7facb2586fc6e966c004d7d1d16b024f5805ff7cb47c7a85dabd8b48892ca7',
+        'ee2784e68d84c59bacbc923541d783dd77eee9469c1517a945032f10ebb045e1'),
+    (('camera',), 48, 96): (
+        '27ee17180ac1c40cddd6c0e5c5a47bb1c95478afa2d1f9025d879808798bad30',
+        '951ef5baa88da68bd18789f0d932b54238961a246613b73ae5c335784306b893',
+        '32552abec4b44fce28aa1c91aa891e1a007fa64e70fb19228b064ad6884ac3af',
+        '458e696b9c5378470145aedf2e41e638aa1b8433202edc0570931f5fc435f00e',
+        '0b1b0c9c7f91eae825ed6fb7702130527ec6894c2dd9e1297624071d8a42687d',
+        '5a04f0e1dba66ea4f471e0e60c4cfb9cd49fbf82d49ebf6af414b5168cb87caa',
+        '394479be50669288414e55de26077e3e47ca879149a783e3501546d1ea64a274',
+        '78a1daf958e0348ba40b009fb6e22dd6c1f825a7ad080625d4486e81df775155',
+        'd5f2f9b388278ab9e128825c8f7560f8c35d466d98cc2c0c6a6c08c912b1409d'),
+    (('few_bg',), 48, 96): (
+        '4898a87aaaf15b2ef4d953aeacf40fa3d7c36aaada477e4eedaddca3b97052b3',
+        '702dbc2ba7a7884265cbc7f3465809ffb7a21f938fc8437980236fac9c8ff606',
+        '8f822c5bc469db8186c423c34e1b312ea628fe18ef3e7c190c49c828d4e02dc6',
+        '38723a2e5e8a17aa7950dc008209944e898f69a7bd10a23c839d341e935fd5ca',
+        '38723a2e5e8a17aa7950dc008209944e898f69a7bd10a23c839d341e935fd5ca',
+        '5a04f0e1dba66ea4f471e0e60c4cfb9cd49fbf82d49ebf6af414b5168cb87caa',
+        '394479be50669288414e55de26077e3e47ca879149a783e3501546d1ea64a274',
+        'ad7facb2586fc6e966c004d7d1d16b024f5805ff7cb47c7a85dabd8b48892ca7',
+        '4bd0ec4764f8986435f48738f8123573444a0c1afcaa62fb832a815ba683f7ef'),
+    (('few_matches',), 48, 96): (
+        '6e59a40ea113dc3d0b4291721cd99dcf250418b0757c8bed204f430499a642e8',
+        'e9dea3975b2f2715b2c00c1263d9c55c90af7ceb438c479ef11ee44363d2c6c0',
+        '1410561f99b8012d1fa6eb5d19f9a5f82e5a8aef4b6e28a37efc43e738c80b93',
+        '458e696b9c5378470145aedf2e41e638aa1b8433202edc0570931f5fc435f00e',
+        '0b1b0c9c7f91eae825ed6fb7702130527ec6894c2dd9e1297624071d8a42687d',
+        'aaa9535c71fe75cacb189869941bdbcef110edf37013f74a217aaf53559257bf',
+        '394479be50669288414e55de26077e3e47ca879149a783e3501546d1ea64a274',
+        '2ced1e588a510c3764a738972b6d9ff069f4932e148e37dbd444eb3dca81570c',
+        '2d38aa0bd780498676498ff7f3cabb60aa7241c2081d3c6d25a777405eab8388'),
+    (('out_of_frame',), 48, 96): (
+        '47896eaa3de33f0955630dd5c7c30241ab33f1d045d5f1dc9c9fd5eefec07188',
+        '901e19a91f006f2f66ca60440fbf1e1df61098d939b324e76883142e356948e7',
+        'c13dc748c0aca4bcc660284e18a69e0b2d8a27feadb1aa00302062aa30e52030',
+        '458e696b9c5378470145aedf2e41e638aa1b8433202edc0570931f5fc435f00e',
+        '0b1b0c9c7f91eae825ed6fb7702130527ec6894c2dd9e1297624071d8a42687d',
+        '3857e87e634af403d7f8b09f7d2662f17bbcb667cb9476c26dbde3ea0b876e9d',
+        '0306dd5f29f984b8b6dc95016528a667b6ca03518f6ec26085175cb20c07a293',
+        '59449bd0ae5cd7e1d9ba8a1ddc198fba8547873f49b6c39e33dbb8afb91e9496',
+        'e666554fdc32ef1e8e4a0844ba404a0ae09f4e86190f5b8269797c123ddd5be9'),
+    (('lost',), 48, 96): (
+        '0a486eac7bf52dd0d7b49cb605bd61429986055fd7da2a9b874ab1f45273543d',
+        '4f70375dae7737dc641ee7a2becd1b9cb4d77f72e1592cc0ce13d909ba5fcd64',
+        '496214575f787ab3e4098020c1be3be28685668d4bfcc56a323cbcc501ae8ae6',
+        '103f8f5e0aa2ec1fdf30d636f85cea007a12b71a700d2cbcd94bf96c514a7d51',
+        '8bd6f6ec00dbaf70b53ea727850d52492acb599cad07127684bc79c0e36d348c',
+        '5dff1bf48fe0b6a1622d3387d823ad2577cf334e410199c88b0ea4512ae126d6',
+        'ee0a85198dbfc0dfdcae9866280d7f7f25e76f61bd58ce21c0e08f5dc724a9e4',
+        'ea07a518a9d55a6c8f7556f9d051511be6bd826082c8f8c4aec454ca470dc29b',
+        '40b21ab3bc038bdf0b5ca915c2487d1a612bc46bc08903faab6b605a505e89c9'),
+    (('all_invalid',), 48, 96): (
+        '1983acc578a369b9268963da4d1beb5ebcf56ee685f7918c987837d639951d03',
+        'd790611dcb37523b944f78bb92737e86329d6359f4e649a651e234e69c23e588',
+        'cf6ebf36960a20f0efe3fefb5d179760a99f98713fb284982599f841ccb46c86',
+        '38723a2e5e8a17aa7950dc008209944e898f69a7bd10a23c839d341e935fd5ca',
+        '0b1b0c9c7f91eae825ed6fb7702130527ec6894c2dd9e1297624071d8a42687d',
+        '477d09e10c3d7a0f84444412511080fac174173e243793d1220f7862c8a90bd7',
+        '75c4338daaf470b347cea11cde0f9d9e0e12209d501e4f2850f1ce2587669b16',
+        'ad7facb2586fc6e966c004d7d1d16b024f5805ff7cb47c7a85dabd8b48892ca7',
+        'ee2784e68d84c59bacbc923541d783dd77eee9469c1517a945032f10ebb045e1'),
+    (('camera', 'lost', 'all_invalid'), 32, 96): (
+        '77a59278b16667c85df7937d3ac4cff27fdb02393c0c0306c35a395a92d1a10d',
+        '8594ca87b66d562ced9c433865dd57e4f53e0baf05a3047a085c1f6ed42f3d77',
+        '91b36ee9cf77f4d897b1cb1486bb6e05eb697350a7eeca3973afe991278b18bf',
+        '866c9c83e908645f3c9d875ffc745a6b534f1b5233544392ff402baa9473ddb7',
+        '4b290af8121dafd11f27bc433acce1c268979831e80eb4a2c86c2a7f9a1c084f',
+        'a67864cc8ac0105afe45a47cc8e60ededcac7de23074d02d6aabc0699e7bd93d',
+        'af30cc54386f8c450179f929eec0db42bef6ff6a84e2a61e1ba7548056d5622d',
+        'c9eb8a233cb6463bf0fd563004a340f21efdf20f621f6c86410355902796c64d',
+        'f7ecfb5daa8d424578e610d18ae3fa9e12dcd0c9a9e983cc044e57d7e4f06848'),
+    (('few_matches', 'few_bg', 'out_of_frame'), 32, 96): (
+        'a33ef7a4e2006e955d055851ff7ccff97c91435751ca9c309ebe4b70ed012cbb',
+        '28a8bf0dbd8f914e605017a370a5f850bc2d086eb217280eaeba3870e1fbdc0e',
+        '04c1225ffa81f928ba62cee7ac8814cae7df0b931613fce916b7d8e0b7dad4b7',
+        'efde0aa27a36d3369dcaf8555897577d6fa9b58ffdb966d1bb9813b50b520c2b',
+        '0359718add6341a84b29659396d29d87d2bf7227044b3314f27ee61765d3c4f6',
+        '9772c6f532c4fa39b6c7cef812a4068b338af754890c87bcc001bf9b9961cf24',
+        'f4ebda08a0b7bf1542f17a377fb1d884776b902e67e9b1dfc00ac8595c239ccf',
+        'ea2ce5f1966596489e1882ebb1cd4bf16346b536eae0efcc7e650fd4be7c9893',
+        'c9fe1da0718d2ecb3a72247f1d3f5679e03f367566465ab72d0fb4eae3675f47'),
+    (('camera', 'lost', 'all_invalid'), 48, 96): (
+        '77a59278b16667c85df7937d3ac4cff27fdb02393c0c0306c35a395a92d1a10d',
+        '8594ca87b66d562ced9c433865dd57e4f53e0baf05a3047a085c1f6ed42f3d77',
+        '91b36ee9cf77f4d897b1cb1486bb6e05eb697350a7eeca3973afe991278b18bf',
+        '866c9c83e908645f3c9d875ffc745a6b534f1b5233544392ff402baa9473ddb7',
+        '4b290af8121dafd11f27bc433acce1c268979831e80eb4a2c86c2a7f9a1c084f',
+        'a67864cc8ac0105afe45a47cc8e60ededcac7de23074d02d6aabc0699e7bd93d',
+        'af30cc54386f8c450179f929eec0db42bef6ff6a84e2a61e1ba7548056d5622d',
+        'c9eb8a233cb6463bf0fd563004a340f21efdf20f621f6c86410355902796c64d',
+        'f7ecfb5daa8d424578e610d18ae3fa9e12dcd0c9a9e983cc044e57d7e4f06848'),
+    (('few_matches', 'few_bg', 'out_of_frame'), 48, 96): (
+        'a33ef7a4e2006e955d055851ff7ccff97c91435751ca9c309ebe4b70ed012cbb',
+        '28a8bf0dbd8f914e605017a370a5f850bc2d086eb217280eaeba3870e1fbdc0e',
+        '04c1225ffa81f928ba62cee7ac8814cae7df0b931613fce916b7d8e0b7dad4b7',
+        'efde0aa27a36d3369dcaf8555897577d6fa9b58ffdb966d1bb9813b50b520c2b',
+        '0359718add6341a84b29659396d29d87d2bf7227044b3314f27ee61765d3c4f6',
+        '9772c6f532c4fa39b6c7cef812a4068b338af754890c87bcc001bf9b9961cf24',
+        'f4ebda08a0b7bf1542f17a377fb1d884776b902e67e9b1dfc00ac8595c239ccf',
+        'ea2ce5f1966596489e1882ebb1cd4bf16346b536eae0efcc7e650fd4be7c9893',
+        'c9fe1da0718d2ecb3a72247f1d3f5679e03f367566465ab72d0fb4eae3675f47'),
+    (('camera',), 128, 96): (
+        '27ee17180ac1c40cddd6c0e5c5a47bb1c95478afa2d1f9025d879808798bad30',
+        '951ef5baa88da68bd18789f0d932b54238961a246613b73ae5c335784306b893',
+        '32552abec4b44fce28aa1c91aa891e1a007fa64e70fb19228b064ad6884ac3af',
+        '458e696b9c5378470145aedf2e41e638aa1b8433202edc0570931f5fc435f00e',
+        '0b1b0c9c7f91eae825ed6fb7702130527ec6894c2dd9e1297624071d8a42687d',
+        '5a04f0e1dba66ea4f471e0e60c4cfb9cd49fbf82d49ebf6af414b5168cb87caa',
+        '394479be50669288414e55de26077e3e47ca879149a783e3501546d1ea64a274',
+        '78a1daf958e0348ba40b009fb6e22dd6c1f825a7ad080625d4486e81df775155',
+        'd5f2f9b388278ab9e128825c8f7560f8c35d466d98cc2c0c6a6c08c912b1409d'),
+    (('camera',), 48, 256): (
+        'e028e2f3274671677c74201cc79befebc3be7a518342904f8de3c4d8201b43d6',
+        '4ea12b009901497f79488a5db53efcac907aa4b5d269c50fa93672ffcfd7de8c',
+        '32552abec4b44fce28aa1c91aa891e1a007fa64e70fb19228b064ad6884ac3af',
+        '458e696b9c5378470145aedf2e41e638aa1b8433202edc0570931f5fc435f00e',
+        '0b1b0c9c7f91eae825ed6fb7702130527ec6894c2dd9e1297624071d8a42687d',
+        '5a04f0e1dba66ea4f471e0e60c4cfb9cd49fbf82d49ebf6af414b5168cb87caa',
+        '394479be50669288414e55de26077e3e47ca879149a783e3501546d1ea64a274',
+        '78a1daf958e0348ba40b009fb6e22dd6c1f825a7ad080625d4486e81df775155',
+        '09fa621459b2ac2df2985a931ef6495758a7a65d3e0eff3333e21a4d400f7ae7'),
+}
+
+
+def output_sha256(outputs):
+    return tuple(hashlib.sha256(t.cpu().contiguous().numpy().tobytes())
+                 .hexdigest() for t in outputs)
+
+
+def hash_case_args(case):
+    kinds, f_cap, n_bg = case
+    return commit_args(kinds, f_cap, HASH_SEEDS[len(kinds)], n_bg=n_bg)
+
+
+def hash_case_id(case):
+    kinds, f_cap, n_bg = case
+    return f"{'-'.join(kinds)}-{f_cap}-{n_bg}"
+
+
 def test_cases_are_what_they_say():
     """The plain version on each case: the homography fails where fewer
     than 4 background points are valid and holds elsewhere; tracks with 2
@@ -285,20 +499,29 @@ def test_cases_are_what_they_say():
 
 # Just enough of CUDA for csrc/gap_commit.cu to build with g++: a launch
 # runs the blocks in turn, each block's threads as host threads (so the
-# kernel's static __shared__ arrays serve as the block's shared memory),
-# and __syncthreads is a barrier of all of them (a mutex and condition
-# variable; a barrier some thread never reaches aborts after 60 s).
+# kernel's static __shared__ arrays serve as the block's shared memory);
+# __syncthreads and __syncthreads_count are a barrier of all of them (a
+# mutex and condition variable; a barrier some thread never reaches aborts
+# after 60 s), __syncwarp a barrier of a warp's 32 threads, and a shuffle
+# or ballot an exchange through the warp's slots and that barrier (two
+# slot rows in turn, so a lane writes a row only after every lane has read
+# it). The programmatic-dependent-launch calls do nothing: the launches
+# already run one after another. cudaLaunchKernelEx is a launch.
 HOST_SHIM = r"""
 #pragma once
 #include <math.h>
+#include <atomic>
 #include <chrono>
 #include <condition_variable>
+#include <cstddef>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <memory>
 #include <mutex>
 #include <thread>
 #include <vector>
+#define __host__
 #define __device__
 #define __global__
 #define __forceinline__ inline
@@ -308,6 +531,10 @@ HOST_SHIM = r"""
 struct float2 { float x, y; };
 inline float2 make_float2(float x, float y) { return {x, y}; }
 struct uint3 { unsigned x, y, z; };
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
 static thread_local uint3 blockIdx, threadIdx;
 typedef void* cudaStream_t;
 typedef int cudaError_t;
@@ -321,15 +548,20 @@ inline float __uint_as_float(uint32_t u) {
   std::memcpy(&f, &u, 4);
   return f;
 }
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
 
 struct Barrier {
   std::mutex m;
   std::condition_variable cv;
-  int n = 0, waiting = 0, generation = 0;
-  void meet() {
+  int n = 0, waiting = 0, generation = 0, count = 0, result = 0;
+  // waits for the group; returns how many of it met with a nonzero pred
+  int meet(int pred = 0) {
     std::unique_lock<std::mutex> lock(m);
     const int g = generation;
+    count += pred != 0;
     if (++waiting == n) {
+      result = count;
+      count = 0;
       waiting = 0;
       ++generation;
       cv.notify_all();
@@ -337,26 +569,185 @@ struct Barrier {
                             [&] { return generation != g; })) {
       std::abort();
     }
+    return result;
   }
 };
+// a warp's barrier: its threads spin (yielding the core) on a generation
+// count, cheaper than a sleep for the many short waits of shuffles
+struct SpinBarrier {
+  std::atomic<int> waiting{0}, generation{0};
+  int n = 0;
+  void meet() {
+    const int g = generation.load(std::memory_order_acquire);
+    if (waiting.fetch_add(1, std::memory_order_acq_rel) + 1 == n) {
+      waiting.store(0, std::memory_order_relaxed);
+      generation.fetch_add(1, std::memory_order_release);
+      return;
+    }
+    const auto t0 = std::chrono::steady_clock::now();
+    for (int spins = 1; generation.load(std::memory_order_acquire) == g;
+         ++spins) {
+      std::this_thread::yield();
+      if (spins % 4096 == 0 && std::chrono::steady_clock::now() - t0
+                                   > std::chrono::seconds(60))
+        std::abort();
+    }
+  }
+};
+struct Warp {
+  SpinBarrier barrier;
+  uint64_t slot[2][32];
+  int row[32] = {};
+};
 static thread_local Barrier* block_barrier;
+static thread_local Warp* this_warp;
 inline void __syncthreads() { block_barrier->meet(); }
+inline int __syncthreads_count(int pred) { return block_barrier->meet(pred); }
+inline void __syncwarp(unsigned = 0xFFFFFFFFu) { this_warp->barrier.meet(); }
+// every lane puts v in its slot and, after the warp's barrier, reads the
+// slots of the row (read(row))
+template <class T, class Read>
+auto warp_exchange(T v, Read read) {
+  Warp& w = *this_warp;
+  const int lane = threadIdx.x % 32, row = w.row[lane];
+  w.row[lane] ^= 1;
+  uint64_t bits = 0;
+  std::memcpy(&bits, &v, sizeof(T));
+  w.slot[row][lane] = bits;
+  w.barrier.meet();
+  return read(w.slot[row]);
+}
+template <class T>
+T lane_value(const uint64_t* slots, int lane) {
+  T out;
+  std::memcpy(&out, &slots[lane], sizeof(T));
+  return out;
+}
+template <class T>
+T __shfl_sync(unsigned, T v, int src) {
+  return warp_exchange(v, [&](const uint64_t* r) {
+    return lane_value<T>(r, src);
+  });
+}
+template <class T>
+T __shfl_down_sync(unsigned, T v, int d) {
+  const int l = threadIdx.x % 32;
+  return warp_exchange(v, [&](const uint64_t* r) {
+    return lane_value<T>(r, l + d < 32 ? l + d : l);
+  });
+}
+template <class T>
+T __shfl_xor_sync(unsigned, T v, int m) {
+  const int l = threadIdx.x % 32;
+  return warp_exchange(v, [&](const uint64_t* r) {
+    return lane_value<T>(r, l ^ m);
+  });
+}
+inline unsigned __ballot_sync(unsigned, int pred) {
+  return warp_exchange(pred != 0, [](const uint64_t* r) {
+    unsigned out = 0;
+    for (int l = 0; l < 32; ++l) out |= static_cast<unsigned>(r[l] != 0) << l;
+    return out;
+  });
+}
+inline void cudaTriggerProgrammaticLaunchCompletion() {}
+inline void cudaGridDependencySynchronize() {}
 
+// the blocks in turn on one team of host threads, which meet after each
+// block (a thread that returned early waits there)
 template <class F, class... A>
 void host_launch(int grid, int threads, F f, A... args) {
-  for (int b = 0; b < grid; ++b) {
-    Barrier barrier;
-    barrier.n = threads;
-    std::vector<std::thread> pool;
-    for (int t = 0; t < threads; ++t)
-      pool.emplace_back([&, b, t] {
+  Barrier barrier, block_end;
+  barrier.n = block_end.n = threads;
+  const int n_warps = (threads + 31) / 32;
+  std::unique_ptr<Warp[]> warps(new Warp[n_warps]);
+  for (int w = 0; w < n_warps; ++w) warps[w].barrier.n = 32;
+  std::vector<std::thread> pool;
+  for (int t = 0; t < threads; ++t)
+    pool.emplace_back([&, t] {
+      threadIdx = {static_cast<unsigned>(t), 0, 0};
+      block_barrier = &barrier;
+      this_warp = &warps[t / 32];
+      for (int b = 0; b < grid; ++b) {
         blockIdx = {static_cast<unsigned>(b), 0, 0};
-        threadIdx = {static_cast<unsigned>(t), 0, 0};
-        block_barrier = &barrier;
         f(args...);
-      });
-    for (auto& th : pool) th.join();
+        block_end.meet();
+      }
+    });
+  for (auto& th : pool) th.join();
+}
+
+enum cudaLaunchAttributeID {
+  cudaLaunchAttributeProgrammaticStreamSerialization = 1
+};
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  union { int programmaticStreamSerializationAllowed; } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+template <class... E, class... A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
+                               void (*f)(E...), A&&... args) {
+  host_launch(cfg->gridDim.x, cfg->blockDim.x, f, args...);
+  return cudaSuccess;
+}
+"""
+
+
+# Appended to the host build of csrc/gap_commit.cu (the same translation
+# unit, so its block tree is in reach): the first design's shared-memory
+# trees, the kernel's own tree_sum, and the shim's __syncthreads_count and
+# __ballot_sync, each on the blocks of a flat array.
+HOST_PROBES = r"""
+// every level through shared memory: the first design's block_sum (n =
+// kThreads) and its similarity tree (n = 32)
+template <int n>
+__global__ void shared_tree(const float* x, float* out) {
+  __shared__ float red[n];
+  const int tid = threadIdx.x;
+  red[tid] = x[blockIdx.x * n + tid];
+  __syncthreads();
+  for (int h = n / 2; h > 0; h >>= 1) {
+    if (tid < h) red[tid] = red[tid] + red[tid + h];
+    __syncthreads();
   }
+  if (tid == 0) out[blockIdx.x] = red[0];
+}
+__global__ void block_tree(const float* x, float* out) {
+  __shared__ float red[1][kThreads / 2], sum[1];
+  float v[1] = {x[blockIdx.x * kThreads + threadIdx.x]};
+  tree_sum<1>(v, red, sum);
+  if (threadIdx.x == 0) out[blockIdx.x] = sum[0];
+}
+__global__ void warp_tree(const float* x, float* out) {
+  float v = x[blockIdx.x * 32 + threadIdx.x];
+  for (int h = 16; h > 0; h >>= 1) v = v + __shfl_down_sync(kFull, v, h);
+  if (threadIdx.x == 0) out[blockIdx.x] = v;
+}
+__global__ void count_and_ballot(const int* pred, int* count,
+                                 unsigned* ballot) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  count[i] = __syncthreads_count(pred[i]);
+  ballot[i] = __ballot_sync(kFull, pred[i]);
+}
+extern "C" {
+void probe_trees(const float* x, float* out, int blocks) {
+  host_launch(blocks, kThreads, shared_tree<kThreads>, x, out);
+  host_launch(blocks, kThreads, block_tree, x, out + blocks);
+  host_launch(blocks * kWarps, 32, shared_tree<32>, x, out + 2 * blocks);
+  host_launch(blocks * kWarps, 32, warp_tree, x,
+              out + 2 * blocks + blocks * kWarps);
+}
+void probe_count_and_ballot(const int* pred, int* count, unsigned* ballot,
+                            int blocks) {
+  host_launch(blocks, kThreads, count_and_ballot, pred, count, ballot);
+}
 }
 """
 
@@ -373,19 +764,19 @@ def host_kernel(tmp_path_factory):
     src, n = re.subn(r'(\w+)<<<(\w+), (\w+), \w+, \w+>>>\(',
                      r'host_launch(\2, \3, \1, ',
                      (CSRC / 'gap_commit.cu').read_text())
-    assert n == 2
-    (d / 'gap.cpp').write_text(src)
+    assert n == 1  # the draws; the roles launch by cudaLaunchKernelEx
+    (d / 'gap.cpp').write_text(src + HOST_PROBES)
     subprocess.run(['g++', '-O1', '-std=c++17', '-pthread',
                     '-ffp-contract=off', '-fPIC', '-shared', '-I', str(d),
                     '-o', str(d / 'gap.so'), str(d / 'gap.cpp')],
                    check=True, capture_output=True)
     lib = ctypes.CDLL(str(d / 'gap.so'))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.gap_commit_forward.argtypes = [
-        ctypes.POINTER(vp), ctypes.POINTER(ci), ctypes.POINTER(ctypes.c_float),
-        ctypes.POINTER(ctypes.c_uint32), vp]
+    lib.gap_commit_forward.argtypes = gc.FORWARD_ARGTYPES
     lib.gap_commit_draws.argtypes = [ctypes.POINTER(ctypes.c_uint32), ci, ci,
                                      vp, vp, vp]
+    lib.probe_trees.argtypes = [vp, vp, ci]
+    lib.probe_count_and_ballot.argtypes = [vp, vp, vp, ci]
     return lib
 
 
@@ -418,6 +809,78 @@ def test_host_draws_equal_ransac_draws_bit_for_bit(host_kernel, f_cap):
     want = tfk.ransac_draws_batch(seeds, f_cap, 'cpu')
     for g, w in zip((u_h, u_a), want):
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.parametrize('case', OUTPUT_SHA256, ids=hash_case_id)
+def test_host_kernel_outputs_equal_the_first_design(host_kernel, case):
+    """Every output of the host build, to the bit, is what the first
+    design gave on the same call (``OUTPUT_SHA256``)."""
+    args = hash_case_args(case)          # alive while the kernel reads
+    outputs, launch = gc.gap_commit_launch_args(*args)
+    assert host_kernel.gap_commit_forward(*launch) == 0
+    assert output_sha256(outputs) == OUTPUT_SHA256[case]
+
+
+def test_host_trees_pair_as_the_first_design(host_kernel):
+    """The kernel's block tree (``tree_sum``: three levels through shared
+    memory, five by ``__shfl_down_sync`` in a warp) and a warp's shuffle
+    tree give the shared-memory trees' sums bit for bit, on floats of six
+    decades whose sums depend on the order (a sequential sum differs)."""
+    rng = np.random.default_rng(4)
+    blocks = 6
+    x = (rng.normal(size=blocks * 256)
+         * 10.0 ** rng.uniform(-3, 3, blocks * 256)).astype(F32)
+    out = np.zeros(2 * blocks + 2 * blocks * 8, F32)
+    host_kernel.probe_trees(x.ctypes.data, out.ctypes.data, blocks)
+    shared, block, shared32, warp = np.split(
+        out, [blocks, 2 * blocks, 2 * blocks + 8 * blocks])
+    np.testing.assert_array_equal(block.view(np.int32),
+                                  shared.view(np.int32))
+    np.testing.assert_array_equal(warp.view(np.int32),
+                                  shared32.view(np.int32))
+    # the same pairs in numpy, and an order that rounds otherwise
+    for n, got in ((256, block), (32, warp)):
+        tree = x.reshape(-1, n)
+        while tree.shape[1] > 1:
+            h = tree.shape[1] // 2
+            tree = tree[:, :h] + tree[:, h:]
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      tree[:, 0].view(np.int32))
+    seq = np.zeros(blocks, F32)
+    for k in range(256):
+        seq = seq + x.reshape(blocks, 256)[:, k]
+    assert np.any(seq != block)
+
+
+def test_host_syncthreads_count_and_ballot(host_kernel):
+    """``__syncthreads_count`` gives each thread its block's count of
+    nonzero predicates; ``__ballot_sync`` each lane its warp's bits."""
+    rng = np.random.default_rng(5)
+    blocks = 3
+    # none, about 30 % and all of a block's predicates nonzero
+    share = np.array([[0.0], [0.3], [1.0]])
+    pred = ((rng.uniform(size=(blocks, 256)) < share).reshape(-1)
+            * rng.integers(1, 9, blocks * 256)).astype(np.int32)
+    count = np.zeros(blocks * 256, np.int32)
+    ballot = np.zeros(blocks * 256, np.uint32)
+    host_kernel.probe_count_and_ballot(
+        pred.ctypes.data, count.ctypes.data, ballot.ctypes.data, blocks)
+    want = (pred.reshape(blocks, 256) != 0).sum(1)
+    np.testing.assert_array_equal(count.reshape(blocks, 256),
+                                  np.repeat(want[:, None], 256, 1))
+    bits = (pred.reshape(-1, 32) != 0).astype(np.uint64) \
+        << np.arange(32, dtype=np.uint64)
+    np.testing.assert_array_equal(
+        ballot.reshape(-1, 32),
+        np.repeat(bits.sum(1).astype(np.uint32)[:, None], 32, 1))
+
+
+def test_host_scratch_size_is_the_wrappers(host_kernel):
+    """The kernel's scratch a stream (``gap_commit_scratch_words``) is
+    what the wrapper allocates (``scratch_words``)."""
+    for f_cap in (1, 16, 48, 128):
+        assert host_kernel.gap_commit_scratch_words(f_cap) \
+            == gc.scratch_words(f_cap)
 
 
 @pytest.mark.parametrize('f_cap', [32, 48])
@@ -647,6 +1110,16 @@ def test_kernel_matches_plain_version(cuda, kinds):
     got = (tuple(a.cpu() for a in got[0]), got[1].cpu())
     for s, kind in enumerate(kinds):
         assert_commit_close(per_stream(got, s), per_stream(want, s), kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', OUTPUT_SHA256, ids=hash_case_id)
+def test_kernel_outputs_equal_the_first_design(cuda, case):
+    """Every output of the card's kernel, through the wrapper, to the
+    bit, is what the first design's host build gave (``OUTPUT_SHA256``)."""
+    new, info = gc.gap_commit(*_to(hash_case_args(case), cuda))
+    assert output_sha256([new[i] for i in gc.STATE_OUT] + [info]) \
+        == OUTPUT_SHA256[case]
 
 
 @pytest.mark.cuda
