@@ -9,9 +9,11 @@ Phases, each raising on failure (the exit code is then non-zero):
    off for matrix products and convolutions;
 2. build: compiles the OSBlock kernel (csrc/osnet_block.cu), the
    pyramidal-LK kernels (csrc/lk_pyramidal.cu: a tile of lanes a point,
-   and one thread a point) and the gap-commit kernel (csrc/gap_commit.cu)
-   from the sources in this checkout, one ``nvcc`` each, all at once, and
-   prints ptxas's registers, shared memory and spills;
+   and one thread a point), the gap-commit kernel (csrc/gap_commit.cu),
+   the preprocess kernel (csrc/flow_preprocess.cu) and the gap-points
+   kernel (csrc/gap_points.cu) from the sources in this checkout, one
+   ``nvcc`` each, all at once, and prints ptxas's registers, shared memory
+   and spills;
 3. kernel vs its plain version at the six OSNet-x0.25 block shapes (64
    crops, bf16; two calls bitwise equal), with each shape's time (20
    back-to-back launches between two CUDA events), bound, roofline share
@@ -33,7 +35,9 @@ Phases, each raising on failure (the exit code is then non-zero):
    frame and an LK kernel once per frame after the first of each run
    (every frame but the first tracks, the detection frames too; one
    kernel a run, the one ``lk_design`` picks for its points); the float
-   run also times a gap frame's stages alone (phase 16 prints them);
+   run also times a gap frame's stages alone, the preprocess and the point
+   assembly through their kernels with their plain versions beside them
+   (phase 16 prints them);
 7. detector zoo: every registered YOLO and SSD with random weights at its
    full input size on a 1280x720 frame: raw head shapes, finite values,
    the median time of the whole detector; SSDMobileNetV1 and YOLOv4-tiny
@@ -116,7 +120,13 @@ Phases, each raising on failure (the exit code is then non-zero):
    path and phase 15 (a), the host's RANSAC draws for the card
    (``ransac_draws_batch``), which must stay 0, while the gap-commit
    kernel launches once a tracked frame for all of a call's streams
-   (phases 5, 6, 9, 12, 13 and 14);
+   (phases 5, 6, 9, 12, 13 and 14); and the plain preprocess
+   (``preprocess_reference``) and the plain point assembly
+   (``tracker.gap_points_core``, ``tracker.gap_points_batch``) on CUDA
+   tensors, which must stay 0, while the preprocess kernel launches once a
+   frame and the gap-points kernel once a tracked frame, each for all of a
+   call's streams (the legacy path's ``Flow.predict`` takes the preprocess
+   kernel and keeps the plain ``flow_points_core``);
 17. the gap-commit kernel (RANSAC draws, homography and similarity RANSAC,
    Kalman warp/predict/update and commit; two launches a call, a
    stream's homography, its tracks' similarity fits and its Kalman slots
@@ -137,7 +147,19 @@ Phases, each raising on failure (the exit code is then non-zero):
    reported them; then its device time a call (100 calls of the C entry,
    each its two launches, between CUDA events, queued behind a sleep
    kernel), the wrapper's time a call and host time a call, the plain
-   version's time on the card, and the bound (``gap_commit_bound_ms``).
+   version's time on the card, and the bound (``gap_commit_bound_ms``);
+18. the preprocess kernel and the gap-points kernel on phase 6's real gap
+   frame (1 stream, its flow budget of 48) and phase 13's 8 streams at
+   budget 128: each against its plain version run on the CPU (the points
+   bit for bit; the preprocess at tests/test_torch_flow_preprocess.py's
+   ``assert_state_close`` tolerances, with the share of bit-equal values
+   and of moved points printed) and run on the card (the shares printed);
+   two calls bitwise equal; each launch's registers and shared memory as
+   ptxas reported them; then each kernel's device time a call (100 calls
+   of the C entry between CUDA events, queued behind a sleep kernel), the
+   wrapper's time a call and host time a call, the plain version's time on
+   the card, and the bound (``preprocess_bound_ms``,
+   ``gap_points_bound_ms``).
 
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -184,8 +206,11 @@ LK_CASES = ((1, 48), (8, 128))
 # background inliers agree
 GAP_BOOL_SHARE = 0.01
 GAP_H_PX, GAP_MEAN_PX, GAP_COV_REL, GAP_RATIO = 0.01, 1e-3, 1e-4, 1e-6
-# the gap commit's two launches (csrc/gap_commit.cu), in their order
+# the gap commit's two launches (csrc/gap_commit.cu), in their order; the
+# preprocess's launch and the point assembly's two
 GAP_KERNELS = ('gap_fit_kernel', 'gap_kalman_kernel')
+FLOW_KERNELS = ('preprocess_kernel', 'points_owner_kernel',
+                'points_select_kernel')
 # the H100 SXM's 32-bit integer rate (64 INT32 lanes an SM a clock, 132
 # SMs, 1.98 GHz; the draws' threefry rounds are integer work)
 PEAK_I32 = 132 * 64 * 1.98e9
@@ -319,7 +344,8 @@ def phase_build():
     """Every kernel source, one ``nvcc`` each, started together."""
     from concurrent.futures import ThreadPoolExecutor
     from fastmot_tpu_torch.ops import cuda_build
-    names = ('osnet_block', 'lk_pyramidal', 'gap_commit')
+    names = ('osnet_block', 'lk_pyramidal', 'gap_commit', 'flow_preprocess',
+             'gap_points')
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(cuda_build.build, names))
@@ -494,11 +520,38 @@ def synth_tlbrs(frame_id, size, n=N_OBJECTS):
 
 
 def reset_lk():
-    """Zeroes the LK kernels' and the gap-commit kernel's launch counts."""
-    from fastmot_tpu_torch.ops.flow_kernels import lk_pyramidal
+    """Zeroes the LK kernels', the gap-commit kernel's, the preprocess
+    kernel's and the gap-points kernel's launch counts."""
+    from fastmot_tpu_torch.ops.flow_kernels import lk_pyramidal, preprocess
     from fastmot_tpu_torch.ops.gap_commit import gap_commit
+    from fastmot_tpu_torch.ops.gap_points import gap_points
     lk_pyramidal.launches = dict.fromkeys(lk_pyramidal.launches, 0)
-    gap_commit.launches = 0
+    gap_commit.launches = preprocess.launches = gap_points.launches = 0
+
+
+def flow_counts():
+    """The preprocess and gap-points kernels' launches since
+    ``reset_lk``."""
+    from fastmot_tpu_torch.ops.flow_kernels import preprocess
+    from fastmot_tpu_torch.ops.gap_points import gap_points
+    return preprocess.launches, gap_points.launches
+
+
+# the preprocess and gap-points kernels' launches on the main paths, by
+# kernel (the kernels line's counts)
+FLOW_LAUNCHES = Counter()
+
+
+def expect_flow(tag, counts, frames, tracked):
+    """The preprocess kernel ran once a frame (``frames``) and the
+    gap-points kernel once a tracked frame (``tracked``), each for all of a
+    call's streams."""
+    if tuple(counts) != (frames, tracked):
+        raise AssertionError(f'{tag}: preprocess and gap_points launched '
+                             f'{tuple(counts)} times, expected '
+                             f'{(frames, tracked)}')
+    FLOW_LAUNCHES['flow_preprocess'] += counts[0]
+    FLOW_LAUNCHES['gap_points'] += counts[1]
 
 
 def gap_launches():
@@ -574,9 +627,10 @@ def phase_reference():
             for frame in frames:
                 mot.step(frame)
             runs.append(snapshots(mot))
-    lk, gap_n = lk_counts(), gap_launches()
+    lk, gap_n, flow_n = lk_counts(), gap_launches(), flow_counts()
     expect_lk('reference', lk, n_frames - 1)
     expect_gap('reference', gap_n, n_frames - 1)
+    expect_flow('reference', flow_n, n_frames, n_frames - 1)
     cpu, gpu = runs
     for fid in cpu:
         ids_c = [t for t, _ in cpu[fid]]
@@ -591,7 +645,8 @@ def phase_reference():
     if not n_rows:
         raise AssertionError('reference run tracked nothing')
     log(f'reference: GPU == CPU on {len(cpu)} frames, {n_rows} track rows; '
-        f'lk_pyramidal launches {lk}, gap_commit launches {gap_n}')
+        f'lk_pyramidal launches {lk}, gap_commit launches {gap_n}, '
+        f'preprocess and gap_points launches {flow_n}')
     return lk
 
 
@@ -641,13 +696,14 @@ def phase_stream_reference():
                                  for t in trk.tracks.values())
                           for trk in st.trackers])
         runs.append(snaps)
-    lk, gap_n = lk_counts(), gap_launches()
+    lk, gap_n, flow_n = lk_counts(), gap_launches(), flow_counts()
     expect_lk('stream tracker', lk, n_frames - 1)
     expect_gap('stream tracker', gap_n, n_frames - 1)
+    expect_flow('stream tracker', flow_n, n_frames, n_frames - 1)
     _same_rows('stream tracker', *runs)
     log(f'reference: StreamTracker GPU == CPU on {n_frames - 1} frames of '
         f'{n} streams; lk_pyramidal launches {lk}, gap_commit launches '
-        f'{gap_n}')
+        f'{gap_n}, preprocess and gap_points launches {flow_n}')
     return lk
 
 
@@ -693,8 +749,11 @@ def phase_legacy_api():
         runs.append(snaps)
     lk = lk_counts()
     expect_lk('legacy compute_flow', lk, len(frames) - 1)
-    # the legacy path keeps the plain RANSAC and Kalman (ROADMAP section 2)
+    # the legacy path keeps the plain RANSAC and Kalman and the plain point
+    # assembly of host-sorted tracks (ROADMAP section 2); Flow.init and
+    # Flow.predict preprocess through the kernel
     expect_gap('legacy compute_flow', gap_launches(), 0)
+    expect_flow('legacy compute_flow', flow_counts(), len(frames), 0)
     _same_rows('legacy compute_flow + apply_kalman', *runs)
     log('reference: compute_flow + apply_kalman GPU == CPU on 4 frames, '
         f'{len(runs[0][-1][0])} tracks; lk_pyramidal launches {lk}')
@@ -712,15 +771,17 @@ PLAIN = {}
 
 def gap_stages_ms(mot, frames):
     """One gap frame of ``mot``'s tracker after a run, each stage alone and
-    the whole ``track`` call, synchronised (ms), the gap commit through its
-    wrapper (the kernel) and the plain version (with the host draws made
-    before) beside it; and the gap commit's arguments (one stream, phase
-    17's main-path case). The stages track from the last frame to the one
-    before, and the whole call alternates between the two, so that LK has
-    motion to track."""
+    the whole ``track`` call, synchronised (ms), the preprocess, the point
+    assembly and the gap commit through their wrappers (the kernels) and
+    their plain versions (the gap commit's with the host draws made before)
+    beside them; the gap commit's arguments (one stream, phase 17's
+    main-path case) and the preprocess's and point assembly's (phase 18's).
+    The stages track from the last frame to the one before, and the whole
+    call alternates between the two, so that LK has motion to track."""
     from fastmot_tpu_torch import tracker as tr
     from fastmot_tpu_torch.ops import flow_kernels as fk
     from fastmot_tpu_torch.ops import gap_commit as gc
+    from fastmot_tpu_torch.ops import gap_points as gp
     trk = mot.tracker
     if trk._dev_state is None or trk._mirrors_dirty:
         trk._upload_state()
@@ -729,7 +790,7 @@ def gap_stages_ms(mot, frames):
     f_cap = fk.flow_budget(sum(1 for t in trk.tracks.values() if t.active))
     cur = fk.preprocess(spec, pair[0])
     all_prev, all_valid, inside, forder, f_tlbrs, f_valid = \
-        tr.gap_points_core(spec, state, prev, f_cap)
+        gp.gap_points(spec, state, prev, f_cap)
     all_cur, status = fk.lk_core(spec, prev[1], cur[1], all_prev, all_valid)
     draws = tuple(u[0] for u in unpatched(fk, 'ransac_draws_batch')(
         [trk.flow.seed], f_cap, 'cuda'))
@@ -743,9 +804,13 @@ def gap_stages_ms(mot, frames):
     def whole():
         pair.reverse()
         trk.track(pair[0])
+    plain_pre = unpatched(fk, 'preprocess_reference')
+    plain_points = unpatched(tr, 'gap_points_core')
     stages = {
         'preprocess': lambda: fk.preprocess(spec, pair[0]),
-        'points': lambda: tr.gap_points_core(spec, state, prev, f_cap),
+        'preprocess, plain': lambda: plain_pre(spec, pair[0]),
+        'points': lambda: gp.gap_points(spec, state, prev, f_cap),
+        'points, plain': lambda: plain_points(spec, state, prev, f_cap),
         'LK': lambda: fk.lk_core(spec, prev[1], cur[1], all_prev, all_valid),
         'RANSAC + Kalman + commit': lambda: gc.gap_commit(*args),
         'RANSAC + Kalman + commit, plain': lambda: plain(
@@ -756,7 +821,7 @@ def gap_stages_ms(mot, frames):
         'whole gap frame (track)': whole}
     out = {name: wall_ms(fn) for name, fn in stages.items()}
     out['flow budget'] = f_cap
-    return out, args
+    return out, args, (spec, pair[0].clone(), state, prev, f_cap)
 
 
 def phase_main_path(detector_type='YOLO', tag='main path', int8=False,
@@ -845,7 +910,7 @@ def phase_main_path(detector_type='YOLO', tag='main path', int8=False,
     finite = finite and bool(torch.isfinite(state[0]).all()
                              and torch.isfinite(state[1]).all())
     launches, int8_launches = osblock.launches, int8_conv.launches
-    lk, gap_n = lk_counts(), gap_launches()
+    lk, gap_n, flow_n = lk_counts(), gap_launches(), flow_counts()
 
     n_assoc = 2 * sum(1 for i in range(1, len(frames)) if i % skip == 0)
     n_detect = n_assoc + 2                   # frame 0 of each run detects
@@ -866,7 +931,7 @@ def phase_main_path(detector_type='YOLO', tag='main path', int8=False,
     log(f'{tag}: visible tracks {visible}, association frames '
         f'{n_assoc}, osblock launches {launches}, int8_conv launches '
         f'{int8_launches}, lk_pyramidal launches {lk}, gap_commit launches '
-        f'{gap_n}')
+        f'{gap_n}, preprocess and gap_points launches {flow_n}')
     if snap_step != snap_batch:
         raise AssertionError(f'{tag}: step and step_batch snapshots differ')
     if not visible:
@@ -881,6 +946,7 @@ def phase_main_path(detector_type='YOLO', tag='main path', int8=False,
                              f'expected {want}')
     expect_lk(tag, lk, 2 * (len(frames) - 1))     # step, then step_batch
     expect_gap(tag, gap_n, 2 * (len(frames) - 1))
+    expect_flow(tag, flow_n, 2 * len(frames), 2 * (len(frames) - 1))
     if int8:
         log(f'{tag}: int8_conv launches per association frame '
             f'{det_convs + reid_convs} ({det_convs} detector convs, '
@@ -889,7 +955,8 @@ def phase_main_path(detector_type='YOLO', tag='main path', int8=False,
     out = {'osblock': launches, 'lk': lk,
            'median': statistics.median(step_ms)}
     if stages:
-        out['gap stages'], out['gap args'] = gap_stages_ms(mot, frames)
+        out['gap stages'], out['gap args'], out['flow args'] = \
+            gap_stages_ms(mot, frames)
     return out
 
 
@@ -1129,7 +1196,8 @@ def phase_multi_stream(single_ms, frames, dets, n_streams=N_STREAMS):
     """``MultiStreamMOT`` at 8 streams of 1280x720 with cfg/mot.json's
     detector, extractor, skip and tracker (bench.py config 5). Returns the
     OSBlock and LK launches, every stream's final rows, the step median,
-    the gap frame alone and phase 17's 8-stream gap-commit arguments."""
+    the gap frame alone, and phase 17's 8-stream gap-commit arguments and
+    phase 18's preprocess and point-assembly arguments."""
     from fastmot_tpu_torch.detector import MAX_DETS
     from fastmot_tpu_torch.multichip import run_multi_stream
     from fastmot_tpu_torch.ops import flow_kernels as fk
@@ -1147,6 +1215,7 @@ def phase_multi_stream(single_ms, frames, dets, n_streams=N_STREAMS):
     reset_lk()
     (rows,), step_ms = run_multi_stream(mot, frames, dets)
     launches, lk, gap_n = osblock.launches, lk_counts(), gap_launches()
+    flow_n = flow_counts()
     n_assoc = sum(1 for i in range(1, n_frames) if i % skip == 0)
     visible = [len(list(mot.visible_tracks(s))) for s in range(n_streams)]
     state = mot.stream_tracker._dev_state
@@ -1165,9 +1234,11 @@ def phase_multi_stream(single_ms, frames, dets, n_streams=N_STREAMS):
         f'{single_ms:.3f} ms ({1e3 / single_ms:.2f} FPS)')
     log(f'multi-stream: visible tracks per stream {visible}, association '
         f'frames {n_assoc}, osblock launches {launches}, lk_pyramidal '
-        f'launches {lk}, gap_commit launches {gap_n}')
+        f'launches {lk}, gap_commit launches {gap_n}, preprocess and '
+        f'gap_points launches {flow_n}')
     expect_lk('multi-stream', lk, n_frames - 1)
     expect_gap('multi-stream', gap_n, n_frames - 1)
+    expect_flow('multi-stream', flow_n, n_frames, n_frames - 1)
     if not all(visible):
         raise AssertionError(f'multi-stream: a stream has no visible '
                              f'tracks: {visible}')
@@ -1212,30 +1283,32 @@ def phase_multi_stream(single_ms, frames, dets, n_streams=N_STREAMS):
                 for name, fn in stages.items()}
     log('multi-stream stages alone, ms: ' + '; '.join(
         f'{name} {ms:.3f}' for name, ms in stage_ms.items()))
+    gap8_args, flow8_args = gap_commit_args_at(mot.stream_tracker, last,
+                                               fk.MAX_FLOW_TRACKS)
     return launches, lk, rows, statistics.median(step_ms), \
         stage_ms['gap frame (preprocess, points, LK, RANSAC, Kalman)'], \
-        gap_commit_args_at(mot.stream_tracker, last, fk.MAX_FLOW_TRACKS)
+        gap8_args, flow8_args
 
 
 def gap_commit_args_at(st, frames, f_cap):
     """The gap commit's arguments of ``st``'s next gap frame (``frames``
     staged on the card) at flow budget ``f_cap``, as ``StreamTracker.track``
-    makes them: phase 17's 8-stream case."""
-    from fastmot_tpu_torch.tracker import gap_points_batch
+    makes them: phase 17's 8-stream case; and the preprocess's and point
+    assembly's (phase 18's)."""
     from fastmot_tpu_torch.ops import flow_kernels as fk
+    from fastmot_tpu_torch.ops import gap_points as gp
     if st._dirty:
         st._stack_from_mirrors()
     t0 = st.trackers[0]
     spec, prev = t0.flow.spec, st._prev_pre
     cur = st._preprocess(frames)
-    all_prev, all_valid, inside, forder, f_tlbrs, f_valid = (
-        t.contiguous() for t in gap_points_batch(spec, f_cap, st._dev_state,
-                                                 prev))
+    all_prev, all_valid, inside, forder, f_tlbrs, f_valid = gp.gap_points(
+        spec, st._dev_state, prev, f_cap)
     all_cur, status = fk.lk_core(spec, prev[1], cur[1], all_prev, all_valid)
     return (st.kf_cfg, spec, float(t0.age_penalty), t0.confirm_hits,
             st._dev_state, inside, f_tlbrs, f_valid, forder, all_prev,
             all_cur, status, list(st._seeds), t0._trans_mat, t0._acc_cov,
-            t0._frame_rect_dev)
+            t0._frame_rect_dev), (spec, frames, st._dev_state, prev, f_cap)
 
 
 def _same_streams(tag, got, want):
@@ -1282,7 +1355,7 @@ def phase_mesh(frames, dets, want_rows, single_multi_ms, n_streams=N_STREAMS):
             reset_lk()
             (rows,), step_ms = multichip.run_multi_stream(mot, frames, dets)
             launches, lk = osblock.launches, lk_counts()
-            gap_n = gap_launches()
+            gap_n, flow_n = gap_launches(), flow_counts()
         finally:
             dist.destroy_process_group()
     del mot
@@ -1299,6 +1372,7 @@ def phase_mesh(frames, dets, want_rows, single_multi_ms, n_streams=N_STREAMS):
                              f'expected {6 * n_assoc}')
     expect_lk('mesh (a)', lk, len(frames) - 1)
     expect_gap('mesh (a)', gap_n, len(frames) - 1)
+    expect_flow('mesh (a)', flow_n, len(frames), len(frames) - 1)
 
     t_b = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1316,6 +1390,9 @@ def phase_mesh(frames, dets, want_rows, single_multi_ms, n_streams=N_STREAMS):
         expect_lk(f'mesh (b) rank {r}', out['lk_launches'], len(frames) - 1)
         expect_gap(f'mesh (b) rank {r}', out['gap_commit_launches'],
                    len(frames) - 1)
+        expect_flow(f'mesh (b) rank {r}', (out['preprocess_launches'],
+                                           out['gap_points_launches']),
+                    len(frames), len(frames) - 1)
     worst = _same_streams('mesh (b) 2 gloo ranks', rows_b, want_rows)
     log(f'mesh (b) 2 gloo ranks on one card, streams '
         f'{[o["local_streams"] for o in ranks]}: rows == phase 13 on every '
@@ -1330,6 +1407,9 @@ def phase_mesh(frames, dets, want_rows, single_multi_ms, n_streams=N_STREAMS):
     dry = multichip.dryrun_multichip(1, device='cuda')
     expect_lk('mesh (c)', dry[0]['lk_launches'], 1)
     expect_gap('mesh (c)', dry[0]['gap_commit_launches'], 1)
+    # the dryrun's one gap step preprocesses its two frames
+    expect_flow('mesh (c)', (dry[0]['preprocess_launches'],
+                             dry[0]['gap_points_launches']), 2, 1)
     log(f'mesh (c) dryrun_multichip(1) over NCCL: '
         f'{time.perf_counter() - t0:.1f} s, spawn and build included, '
         f'lk_pyramidal launches {dry[0]["lk_launches"]}, gap_commit '
@@ -2120,8 +2200,8 @@ def ptxas_kernels(nvcc_out):
     for line in nvcc_out.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = next((k for k in GAP_KERNELS if k in m.group(1)),
-                        m.group(1))
+            name = next((k for k in GAP_KERNELS + FLOW_KERNELS
+                         if k in m.group(1)), m.group(1))
         m = re.search(r'(\d+) bytes spill stores', line)
         if m and name:
             out[name] = f'{m.group(1)} bytes spilled'
@@ -2280,6 +2360,216 @@ def gap_kernel_entry(cases):
     return entry
 
 
+def preprocess_bound_ms(spec, frames, state):
+    """The least time the card could take for one preprocess call: the
+    frames read once and the state written once over the memory rate, and
+    the float32 operations over the f32 rate (gray 5 a frame pixel; its
+    gradients, products, 3x3 sums, response and cell maximum 30 a frame
+    pixel and 30 a bg pixel; a resized pixel 7, a 2x2 mean 4 and a uint8
+    rounding 3 a level pixel). Returns (bound, bound_by)."""
+    n_px = frames.numel() // 3
+    n_s = frames.shape[0] if frames.dim() == 4 else 1
+    bw, bh = spec.bg_size
+    levels = sum(t.numel() for t in state[0])
+    lvl0 = state[0][0].numel()
+    out_bytes = sum(t.numel() * 4 for t in state[0] + state[1]) + sum(
+        t.numel() * 4 for t in state[2:])
+    ops = 35 * n_px + 37 * n_s * bh * bw + 10 * lvl0 + 7 * (levels - lvl0)
+    ops_ms = ops / PEAK_F32 * 1e3
+    bytes_ms = (frames.numel() + out_bytes) / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), 'bytes' if bytes_ms >= ops_ms \
+        else 'operations'
+
+
+def gap_points_bound_ms(args, outputs):
+    """The least time the card could take for one point assembly with this
+    run's data: the bytes it must read once (of every track slot the depth
+    key's y2, validity and age; of the f_cap flow rows the rest of the box,
+    the keypoints and their validity; the candidates and bg candidates)
+    and its outputs written once over the memory rate, and the comparisons
+    over the f32 rate: each candidate and bg candidate against each valid
+    flow track's box (4), a keypoint against the nearer valid boxes (4
+    each), and for each valid track the ellipse and quality tests of its
+    box's candidates (10). Returns (bound, bound_by)."""
+    from fastmot_tpu_torch.ops import gap_points as gp
+    spec, states, prev, f_cap = args
+    inputs = gp._inputs(states, prev)
+    tlbrs, valid, ages, kps, kp_valid = inputs[:5]
+    n_slots = valid.numel()
+    n_rows = n_slots // valid.shape[-1] * f_cap           # streams x f_cap
+    k = kp_valid.shape[-1]
+    nbytes = (n_slots * (tlbrs.element_size() + valid.element_size()
+                         + ages.element_size())
+              + n_rows * (3 * tlbrs.element_size()
+                          + 2 * k * kps.element_size()
+                          + k * kp_valid.element_size())
+              + sum(t.numel() * t.element_size() for t in inputs[5:])
+              + sum(t.numel() * t.element_size() for t in outputs))
+    f_valid = outputs[5].reshape(-1, f_cap).cpu()
+    inside = outputs[2].reshape(-1, f_cap, 4).cpu()
+    n_c = inputs[6].shape[-1]
+    n_bg = inputs[8].shape[-1]
+    ops = 0
+    for s in range(f_valid.shape[0]):
+        n_v = int(f_valid[s].sum())
+        box = inside[s][f_valid[s]]
+        cells = ((box[:, 2] - box[:, 0]).clamp(min=0) / 8 + 1) * \
+            ((box[:, 3] - box[:, 1]).clamp(min=0) / 8 + 1)
+        ops += 4 * (n_c + n_bg) * n_v + 4 * 32 * n_v * (n_v - 1) // 2 \
+            + 10 * float(cells.sum())
+    ops_ms = ops / PEAK_F32 * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), 'bytes' if bytes_ms >= ops_ms \
+        else 'operations'
+
+
+def phase_flow_kernels(main_args, multi_args, card, nvcc_out):
+    """Phase 18: the preprocess and gap-points kernels against their plain
+    versions (on the CPU and on the card) on phase 6's gap frame (1 stream)
+    and phase 13's 8 streams at budget 128, two calls equal, ptxas's
+    registers and shared memory, then the times beside the bounds. Returns
+    each kernel's cases for the kernels line."""
+    from fastmot_tpu_torch.ops import flow_kernels as fk
+    from fastmot_tpu_torch.ops import gap_points as gp
+    import tests.test_torch_flow_preprocess as tp
+    import tests.test_torch_gap_points as tg
+    t_phase = time.perf_counter()
+    for name in ('flow_preprocess', 'gap_points'):
+        for kernel, line in ptxas_kernels(nvcc_out[name]).items():
+            log(f'{name} ptxas {kernel}: {line}')
+    pre_lib, pts_lib = fk.preprocess_library(), gp.gap_points_library()
+
+    def cpu(x):
+        if isinstance(x, torch.Tensor):
+            return x.cpu()
+        if isinstance(x, (list, tuple)):
+            return type(x)(cpu(y) for y in x)
+        return x
+    out = {'flow_preprocess': {}, 'gap_points': {}}
+    for key, (spec, frames, states, prev, f_cap) in (
+            ('1_stream', main_args), ('8_streams', multi_args)):
+        n_s = frames.shape[0] if frames.dim() == 4 else 1
+        tag = f'{n_s} stream(s) x flow budget {f_cap}'
+        # the preprocess
+        got = fk.preprocess(spec, frames)
+        again = fk.preprocess(spec, frames)
+        torch.cuda.synchronize()
+        flat, flat2 = tp.flat_state(got), tp.flat_state(again)
+        if not all(torch.equal(a, b) for a, b in zip(flat, flat2)):
+            raise AssertionError(f'preprocess {tag}: two calls differ')
+        if not all(torch.isfinite(t).all() for t in flat):
+            raise AssertionError(f'preprocess {tag}: outputs not finite')
+        want = fk.preprocess_reference(spec, frames.cpu())
+        u8_moved, moved = tp.assert_state_close(got, want, spec, frames,
+                                                tag)
+        n_all = sum(t.numel() for t in flat)
+        equal = sum(int((g.cpu().view(torch.int32)
+                         == w.view(torch.int32)).sum())
+                    for g, w in zip(flat, tp.flat_state(want)))
+        worst = max(float((g.cpu() - w).abs().max())
+                    for g, w in zip(flat, tp.flat_state(want)))
+        plain_card = fk.preprocess_reference(spec, frames)
+        equal_card = sum(int((g.view(torch.int32)
+                              == w.view(torch.int32)).sum())
+                         for g, w in zip(flat, tp.flat_state(plain_card)))
+        log(f'preprocess {tag}: kernel vs plain on the CPU: '
+            f'{equal / n_all:.6f} of {n_all} values bit-equal, largest '
+            f'difference {worst}, uint8 moved {u8_moved}, bg points moved '
+            f'{moved} (assert_state_close holds); vs plain on the card: '
+            f'{equal_card / n_all:.6f} bit-equal')
+        state, launch = fk.preprocess_launch_args(spec, frames)
+        device = [lk_device_ms(pre_lib.flow_preprocess_forward, launch,
+                               tag='preprocess') for _ in range(2)]
+
+        def call_pre():
+            fk.preprocess(spec, frames)
+        call_ms, call_host = launches_ms(call_pre), host_ms(call_pre)
+        plain_ms = wall_ms(lambda: fk.preprocess_reference(spec, frames))
+        bound, by = preprocess_bound_ms(spec, frames, got)
+        ms = statistics.mean(device)
+        log(f'preprocess {tag}: device '
+            f'{" / ".join(f"{d * 1e3:.2f}" for d in device)} us a call (one '
+            f'launch; two windows of {LK_TIMED_LAUNCHES} calls); the wrapper '
+            f'{call_ms * 1e3:.2f} us a call, host {call_host * 1e3:.2f} us a '
+            f'call; plain on the card {plain_ms:.3f} ms; bound '
+            f'{bound * 1e3:.4f} us ({by}), roofline share {bound / ms:.5f}; '
+            f'{card}')
+        out['flow_preprocess'][key] = {
+            'ms': ms, 'call_ms': call_ms, 'host_ms': call_host,
+            'plain_ms': plain_ms, 'bound_ms': bound, 'bound_by': by,
+            'max_abs_err': worst}
+        # the point assembly
+        args = (spec, states, prev, f_cap)
+        got = gp.gap_points(*args)
+        again = gp.gap_points(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f'gap_points {tag}: two calls differ')
+        want = gp.gap_points_reference(*cpu(args))
+        tg.assert_points_equal(tuple(g.cpu() for g in got), want,
+                               f'gap_points {tag} vs the CPU')
+        plain_card = gp.gap_points_reference(*args)
+        same_card = all(torch.equal(g, w) for g, w in zip(got, plain_card))
+        n_valid = int(got[1].sum())
+        log(f'gap_points {tag}: kernel == plain on the CPU bit for bit '
+            f'({n_valid} valid points of {got[1].numel()}); == plain on the '
+            f'card: {same_card}')
+        outputs, launch = gp.gap_points_launch_args(*args)
+        device = [lk_device_ms(pts_lib.gap_points_forward, launch,
+                               tag='gap_points') for _ in range(2)]
+
+        def call_pts():
+            gp.gap_points(*args)
+        call_ms, call_host = launches_ms(call_pts), host_ms(call_pts)
+        plain_ms = wall_ms(lambda: gp.gap_points_reference(*args))
+        bound, by = gap_points_bound_ms(args, got)
+        ms = statistics.mean(device)
+        log(f'gap_points {tag}: device '
+            f'{" / ".join(f"{d * 1e3:.2f}" for d in device)} us a call (two '
+            f'launches: {n_s * -(-prev[3].shape[-1] // gp.OWNER_CHUNK)} owner '
+            f'blocks, '
+            f'then {n_s * (f_cap + 1)} track and bg blocks; two windows of '
+            f'{LK_TIMED_LAUNCHES} calls); the wrapper {call_ms * 1e3:.2f} us '
+            f'a call, host {call_host * 1e3:.2f} us a call; plain on the '
+            f'card {plain_ms:.3f} ms; bound {bound * 1e3:.4f} us ({by}), '
+            f'roofline share {bound / ms:.5f}: the chain of a track\'s '
+            f'selection, not the work, sets the time; {card}')
+        out['gap_points'][key] = {
+            'ms': ms, 'call_ms': call_ms, 'host_ms': call_host,
+            'plain_ms': plain_ms, 'bound_ms': bound, 'bound_by': by,
+            'max_abs_err': 0.0}
+    log(f'flow kernels phase: {time.perf_counter() - t_phase:.1f} s')
+    return out
+
+
+def flow_kernel_entries(cases):
+    """The kernels line's entries of the preprocess and gap-points kernels:
+    the main path's case unsuffixed, the 8-stream case's numbers
+    suffixed."""
+    meta = {'flow_preprocess': ('fastmot_tpu_torch/csrc/flow_preprocess.cu',
+                                'fastmot_tpu/ops/flow_kernels.py:716'),
+            'gap_points': ('fastmot_tpu_torch/csrc/gap_points.cu',
+                           'fastmot_tpu/tracker.py:243')}
+    entries = []
+    for name, (source, replaces) in meta.items():
+        entry = {'name': name, 'route': 'cuda', 'source': source,
+                 'replaces': replaces, 'launches': FLOW_LAUNCHES[name],
+                 'max_abs_err': max(c['max_abs_err']
+                                    for c in cases[name].values()),
+                 'library_ms': None, 'case': '1_stream'}
+        for case, r in cases[name].items():
+            key = '' if case == '1_stream' else f'_{case}'
+            entry.update({f'ms{key}': r['ms'],
+                          f'plain_ms{key}': r['plain_ms'],
+                          f'bound_ms{key}': r['bound_ms'],
+                          f'bound_by{key}': r['bound_by'],
+                          f'call_ms{key}': r['call_ms'],
+                          f'host_ms{key}': r['host_ms'],
+                          f'roofline_share{key}': r['bound_ms'] / r['ms']})
+        entries.append(entry)
+    return entries
+
+
 def main():
     from fastmot_tpu_torch import tracker as tr
     from fastmot_tpu_torch.ops import flow_kernels as fk
@@ -2297,7 +2587,10 @@ def main():
     plain_on_card = Counter()
     plain_lk = fk.lk_pyramidal_reference
     PLAIN.update(gap_commit_core=tr.gap_commit_core,
-                 ransac_draws_batch=fk.ransac_draws_batch)
+                 ransac_draws_batch=fk.ransac_draws_batch,
+                 preprocess_reference=fk.preprocess_reference,
+                 gap_points_core=tr.gap_points_core,
+                 gap_points_batch=tr.gap_points_batch)
     host_draws = [False]
 
     def counted_plain_lk(prev, cur, pts, *args, **kwargs):
@@ -2314,6 +2607,12 @@ def main():
                 torch.device(device).type == 'cuda'
         return PLAIN['ransac_draws_batch'](seeds, f_cap, device)
 
+    def counted(name, is_cuda):
+        def plain(*args):
+            plain_on_card[name] += is_cuda(*args)
+            return PLAIN[name](*args)
+        return plain
+
     def drawing_on_the_host(phase, *args):
         host_draws[0] = True
         try:
@@ -2323,7 +2622,14 @@ def main():
     lk_launches = Counter()
     with mock.patch.object(fk, 'lk_pyramidal_reference', counted_plain_lk), \
             mock.patch.object(tr, 'gap_commit_core', counted_plain_commit), \
-            mock.patch.object(fk, 'ransac_draws_batch', counted_draws):
+            mock.patch.object(fk, 'ransac_draws_batch', counted_draws), \
+            mock.patch.object(fk, 'preprocess_reference', counted(
+                'preprocess_reference', lambda spec, f: f.is_cuda)), \
+            mock.patch.object(tr, 'gap_points_core', counted(
+                'gap_points_core', lambda spec, st, *a: st[2].is_cuda)), \
+            mock.patch.object(tr, 'gap_points_batch', counted(
+                'gap_points_batch', lambda spec, f_cap, st, pre:
+                st[2].is_cuda)):
         for counts in (phase_reference(), phase_stream_reference(),
                        drawing_on_the_host(phase_legacy_api)):
             lk_launches.update(counts)
@@ -2341,8 +2647,8 @@ def main():
         log(f'main path step median: float {float_ms:.3f} ms, int8 '
             f'{int8["median"]:.3f} ms')
         frames, dets = multi_stream_inputs()
-        multi_launches, multi_lk, rows, multi_ms, gap_ms, gap8_args = \
-            phase_multi_stream(float_ms, frames, dets)
+        (multi_launches, multi_lk, rows, multi_ms, gap_ms, gap8_args,
+         flow8_args) = phase_multi_stream(float_ms, frames, dets)
         launches += multi_launches
         mesh_launches, mesh_lk = phase_mesh(frames, dets, rows, multi_ms)
         launches += mesh_launches
@@ -2358,10 +2664,14 @@ def main():
     log(f'phases 5-15: the LK kernels launched {dict(lk_launches)} times on '
         'the main paths, the plain LK 0 times on the card; the gap-commit '
         f'kernel {sum(GAP_LAUNCHES.values())} times ({dict(GAP_LAUNCHES)}), '
-        'the plain gap commit and the host draws for the card 0 times')
+        'the plain gap commit and the host draws for the card 0 times; the '
+        f'preprocess and gap-points kernels {dict(FLOW_LAUNCHES)} times, '
+        'their plain versions 0 times on the card')
     cases, lanes = phase_lk(main_run['gap stages'], gap_ms, card)
     gap_cases = phase_gap_commit(main_run['gap args'], gap8_args, card,
                                  nvcc_out['gap_commit'])
+    flow_cases = phase_flow_kernels(main_run['flow args'], flow8_args, card,
+                                    nvcc_out)
     log(f'every phase passed in {time.perf_counter() - t0:.1f} s')
     print(json.dumps({'kernels': [{
         'name': 'osblock', 'route': 'cuda',
@@ -2373,7 +2683,8 @@ def main():
         'library_ms': None,
         'roofline_share': kern['roofline_share']}]
         + lk_kernel_entries(cases, lk_launches, lanes)
-        + [gap_kernel_entry(gap_cases)]}))
+        + [gap_kernel_entry(gap_cases)]
+        + flow_kernel_entries(flow_cases)}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,
         'count': torch.cuda.device_count()}}))

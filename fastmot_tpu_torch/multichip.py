@@ -154,8 +154,8 @@ def dryrun_multichip(n_devices: int, device: str = 'cuda') -> list[dict]:
 
 def _dryrun_rank(n_devices: int, model_name: str, device: str) -> dict:
     """The multi-stream step on this rank: real cores, tiny shapes.
-    Returns the ``dryrun ok`` line, this rank's feature slice, its LK
-    and gap-commit kernel launches and, as
+    Returns the ``dryrun ok`` line, this rank's feature slice, its LK,
+    gap-commit, preprocess and gap-points kernel launches and, as
     numpy, the association's costs, its matches (``col4row``), the tracks'
     validity and the new history store."""
     from .detector import _resize_bilinear
@@ -166,10 +166,11 @@ def _dryrun_rank(n_devices: int, model_name: str, device: str) -> dict:
     from .ops import distance as dist_ops
     from .ops import flow_kernels as fk
     from .ops.gap_commit import gap_commit
+    from .ops.gap_points import gap_points
     from .parallel.streams import (axis_size, make_stream_mesh,
                                    shard_conv_channels)
     from .tracker import (assoc_costs_batch, commit_batch, finals_core,
-                          gap_points_batch, stages_scan_core)
+                          stages_scan_core)
 
     dev = torch.device('cuda', torch.cuda.current_device()) \
         if device == 'cuda' else torch.device('cpu')
@@ -259,9 +260,8 @@ def _dryrun_rank(n_devices: int, model_name: str, device: str) -> dict:
         # 2. gap frame: points, LK, RANSAC, Kalman over this rank's streams
         f_cap = fk.MAX_FLOW_TRACKS
         prev, cur = fk.preprocess(spec, f0), fk.preprocess(spec, f1)
-        all_prev, all_valid, inside, forder, f_tlbrs, f_valid = (
-            t.contiguous() for t in gap_points_batch(spec, f_cap, state,
-                                                     prev))
+        all_prev, all_valid, inside, forder, f_tlbrs, f_valid = \
+            gap_points(spec, state, prev, f_cap)
         all_cur, status = fk.lk_core(spec, prev[1], cur[1], all_prev,
                                      all_valid)
         state, _ = gap_commit(
@@ -314,7 +314,9 @@ def _dryrun_rank(n_devices: int, model_name: str, device: str) -> dict:
         return t.cpu().numpy()
     return {'line': line, 'features': (fsl.start, fsl.stop),
             'lk_launches': dict(fk.lk_pyramidal.launches),
-            'gap_commit_launches': gap_commit.launches, 'cost': host(cost),
+            'gap_commit_launches': gap_commit.launches,
+            'preprocess_launches': fk.preprocess.launches,
+            'gap_points_launches': gap_points.launches, 'cost': host(cost),
             'reid_cost': host(reid_cost),
             'col4row': host(col4row), 'valid': host(new_state[3]),
             'feat_sum': host(new_state[13]),
@@ -405,11 +407,12 @@ def multi_stream_rank(inputs, n_streams, model_parallel, mot_kwargs,
     model_parallel=, device=mesh_device)`` mesh over the frames of
     ``inputs/frames.npy`` (``[F, S, H, W, 3]``, read for this rank's streams
     only) and the detections of ``inputs/dets.npz`` (``splice_detections``);
-    returns this rank's ``local_streams``, rows, step times, OSBlock, LK
-    and gap-commit kernel launches and what its detector's network found
-    (``network_dets``)."""
-    from .ops.flow_kernels import lk_pyramidal
+    returns this rank's ``local_streams``, rows, step times, OSBlock, LK,
+    gap-commit, preprocess and gap-points kernel launches and what its
+    detector's network found (``network_dets``)."""
+    from .ops.flow_kernels import lk_pyramidal, preprocess
     from .ops.gap_commit import gap_commit
+    from .ops.gap_points import gap_points
     from .ops.osnet_block import osblock
     from .parallel import MultiStreamMOT, make_stream_mesh
     mesh = make_stream_mesh(model_parallel=model_parallel, device=mesh_device)
@@ -420,12 +423,14 @@ def multi_stream_rank(inputs, n_streams, model_parallel, mot_kwargs,
                          **mot_kwargs)
     osblock.launches = 0
     lk_pyramidal.launches = dict.fromkeys(lk_pyramidal.launches, 0)
-    gap_commit.launches = 0
+    gap_commit.launches = preprocess.launches = gap_points.launches = 0
     rows, step_ms = run_multi_stream(mot, frames, dets, sync_every_frame)
     return {'local_streams': list(mot.local_streams), 'rows': rows,
             'step_ms': step_ms, 'osblock_launches': osblock.launches,
             'lk_launches': dict(lk_pyramidal.launches),
             'gap_commit_launches': gap_commit.launches,
+            'preprocess_launches': preprocess.launches,
+            'gap_points_launches': gap_points.launches,
             'network_dets': mot.network_dets}
 
 

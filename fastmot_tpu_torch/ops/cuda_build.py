@@ -22,9 +22,10 @@ CSRC = Path(__file__).resolve().parents[1] / 'csrc'
 BUILD_DIR = CSRC / 'build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
               '-std=c++17', '-shared', '-Xcompiler', '-fPIC')
-# a kernel's own flags: gap_commit rounds every product and sum on its own
-# (no FMA contraction), as its host build in the tests does
-KERNEL_FLAGS = {'gap_commit': ('-fmad=false',)}
+# a kernel's own flags: these round every product and sum on their own (no
+# FMA contraction), as their host builds in the tests do
+KERNEL_FLAGS = {name: ('-fmad=false',) for name in
+                ('gap_commit', 'flow_preprocess', 'gap_points')}
 
 
 def nvcc_flags(name: str) -> tuple[str, ...]:

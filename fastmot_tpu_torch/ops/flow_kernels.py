@@ -6,7 +6,10 @@ estimateAffinePartial2D, with every numeric choice kept:
 
 - the float32 image pyramid (bilinear resize to the flow scale, then 2x2
   means), with LK samples read from it rounded to uint8 and interpolated
-  in float32;
+  in float32; on the card ``preprocess`` is one launch of
+  ``csrc/flow_preprocess.cu`` for all streams (the pyramid, its uint8
+  rounding and both candidate grids), on the CPU
+  ``preprocess_reference``;
 - cv2's COUNT | EPS criteria: per point, at most ``iters`` Gauss-Newton
   steps per level, stopping once a step is below 0.03 px (the JAX
   package's lockstep "double step" computes exactly this). On the card
@@ -87,14 +90,38 @@ class FlowSpec:
 # Image helpers
 # ---------------------------------------------------------------------------
 
+def _taps(n_in: int, n_out: int, device):
+    """One axis of ``resize_bilinear``: each output sample's two source
+    samples and their weights, as F.interpolate's bilinear resize
+    (align_corners=False) takes them. The source coordinate float32(in /
+    out) * (d + 0.5) - 0.5 is exact in float64 before its one rounding."""
+    scale = float(np.float32(n_in) / np.float32(n_out))
+    d = torch.arange(n_out, dtype=torch.float64, device=device)
+    src = (scale * (d + 0.5) - 0.5).float().clamp(min=0.0)
+    i0 = src.floor().long().clamp(max=n_in - 1)
+    w1 = (src - i0.float()).clamp(0.0, 1.0)
+    i1 = i0 + (i0 < n_in - 1).long()
+    return i0, i1, 1.0 - w1, w1
+
+
 def resize_bilinear(img: torch.Tensor, out_hw) -> torch.Tensor:
     """[..., h, w] float32 bilinear resize, half-pixel centres, edge clamp:
-    the same two-tap hat weights as the JAX package's interpolation
-    matrices."""
+    F.interpolate's bilinear (align_corners=False, no antialias), the same
+    two-tap hat weights as the JAX package's interpolation matrices. Along
+    each row, then down each column, every product and sum rounded on its
+    own (F.interpolate's CPU kernel fuses them, in an order that depends on
+    the output's size), so the preprocess kernel takes one order at every
+    size; where the weights are 0.5 (the 1/2 and 1/10 of a 1280x720 frame)
+    every product is exact and the two agree bit for bit."""
     h, w = img.shape[-2:]
-    out = F.interpolate(img.reshape(-1, 1, h, w), size=tuple(out_hw),
-                        mode='bilinear', align_corners=False, antialias=False)
-    return out.reshape(img.shape[:-2] + tuple(out_hw))
+    y0, y1, wy0, wy1 = _taps(h, out_hw[0], img.device)
+    x0, x1, wx0, wx1 = _taps(w, out_hw[1], img.device)
+
+    def along_rows(rows):
+        return rows[..., x0] * wx0 + rows[..., x1] * wx1
+
+    return (along_rows(img[..., y0, :]) * wy0[:, None]
+            + along_rows(img[..., y1, :]) * wy1[:, None])
 
 
 def downsample2(img: torch.Tensor) -> torch.Tensor:
@@ -119,8 +146,12 @@ def shi_tomasi_response(img: torch.Tensor) -> torch.Tensor:
         return s[..., :, :-2] + s[..., :, 1:-1] + s[..., :, 2:]
 
     sxx, syy, sxy = box3(ix * ix), box3(iy * iy), box3(ix * iy)
+    # the float32 root rounded correctly, as XLA and the preprocess kernel
+    # take it: ATen's vectorised CPU sqrt can be an ulp low (in about 0.7 %
+    # of values), while a float32's root taken in float64 (itself within an
+    # ulp) lies far inside a float32 rounding midpoint's distance
     det_term = torch.sqrt(torch.clamp((sxx - syy) ** 2 + 4.0 * sxy ** 2,
-                                      min=0.0))
+                                      min=0.0).double()).float()
     return 0.5 * ((sxx + syy) - det_term)
 
 
@@ -149,13 +180,10 @@ def in_box(pts: torch.Tensor, tlbr: torch.Tensor) -> torch.Tensor:
             & (pts[..., 1] >= tlbr[..., 1]) & (pts[..., 1] <= tlbr[..., 3]))
 
 
-def preprocess(spec: FlowSpec, frame: torch.Tensor):
-    """[H, W, 3] uint8 BGR frame -> flow state ``(pyr, pyr_u8, cand_pts,
-    cand_score, bg_pts, bg_score)``: the float32 pyramid, its levels
-    rounded to uint8 values (kept as float32), the full-res corner
-    candidates and the background candidates. A stack of frames [S, H,
-    W, 3] gives the same state with a leading stream axis on every
-    tensor."""
+def preprocess_reference(spec: FlowSpec, frame: torch.Tensor):
+    """The plain version of ``preprocess``: gray, ``resize_bilinear``,
+    ``downsample2``, ``shi_tomasi_response`` and ``grid_candidates`` as
+    eager torch ops."""
     f = frame.float()
     gray = f[..., 2] * 0.299 + f[..., 1] * 0.587 + f[..., 0] * 0.114
     ow, oh = spec.opt_size
@@ -170,6 +198,143 @@ def preprocess(spec: FlowSpec, frame: torch.Tensor):
     bg_scale = torch.tensor(spec.bg_scale, dtype=torch.float32,
                             device=frame.device)
     return (pyr, pyr_u8, cand_pts, cand_score, bg_pts / bg_scale, bg_score)
+
+
+# csrc/flow_preprocess.cu's limits: levels a 32 x 32 tile of level 0 holds
+# (kMaxLevels), and the frames a launch takes (its grid's y extent)
+PREPROCESS_MAX_LEVELS = 6
+PREPROCESS_MAX_STREAMS = 65535
+_ALIGN = 64                    # floats: each output starts 256 B aligned
+
+
+@dataclasses.dataclass(frozen=True)
+class _PreLayout:
+    """One kind of preprocess call (spec, frame size, streams): the
+    kernel's int and float arrays, the buffer's size in floats, and each
+    output as (shape, strides, offset) in the state's order."""
+    ints: ctypes.Array
+    floats: ctypes.Array
+    size: int
+    outputs: tuple
+
+
+@functools.cache
+def _pre_layout(spec: FlowSpec, n_streams: int, h: int, w: int,
+                stream_axis: bool) -> _PreLayout:
+    def fault(msg):
+        raise ValueError(f'preprocess: {msg}')
+
+    n_levels = spec.max_level + 1
+    if n_levels > PREPROCESS_MAX_LEVELS:
+        fault(f'{n_levels} levels: the kernel takes at most '
+              f'{PREPROCESS_MAX_LEVELS}')
+    if not 1 <= n_streams <= PREPROCESS_MAX_STREAMS:
+        fault(f'{n_streams} frames: the kernel takes 1 to '
+              f'{PREPROCESS_MAX_STREAMS}')
+    ow, oh = spec.opt_size
+    bw, bh = spec.bg_size
+    dims = [(oh, ow)]
+    for _ in range(spec.max_level):
+        dims.append((dims[-1][0] // 2, dims[-1][1] // 2))
+    if min(min(d) for d in dims) < 1 or min(bh, bw) < 1:
+        fault(f'level sizes {dims} and bg size {(bh, bw)}: every level '
+              'must keep a pixel')
+    g, gb = (h // CELL) * (w // CELL), (bh // BG_CELL) * (bw // BG_CELL)
+    lead = (n_streams,) if stream_axis else ()
+    shapes = ([lead + d for d in dims] * 2
+              + [lead + (g, 2), lead + (g,), lead + (gb, 2), lead + (gb,)])
+    outputs, size = [], 0
+    for shape in shapes:
+        strides = tuple(math.prod(shape[j + 1:]) for j in range(len(shape)))
+        outputs.append((shape, strides, size))
+        size += -(-n_streams * math.prod(shape[len(lead):]) // _ALIGN) \
+            * _ALIGN
+    offsets = [o for _, _, o in outputs]
+    ints = (n_streams, h, w, n_levels, oh, ow, bh, bw,
+            *(offsets[:n_levels] + [0] * (PREPROCESS_MAX_LEVELS - n_levels)),
+            *(offsets[n_levels:2 * n_levels]
+              + [0] * (PREPROCESS_MAX_LEVELS - n_levels)),
+            *offsets[2 * n_levels:])
+    if size >= 2 ** 31:
+        fault(f'{size} floats of state: the kernel indexes at most 2^31')
+    return _PreLayout((ctypes.c_int * len(ints))(*ints),
+                      (ctypes.c_float * 2)(*spec.bg_scale), size,
+                      tuple(outputs))
+
+
+@functools.cache
+def preprocess_library() -> ctypes.CDLL:
+    """The built preprocess kernel library, its C signatures declared
+    once."""
+    from .cuda_build import load
+    lib = load('flow_preprocess')
+    vp = ctypes.c_void_p
+    lib.flow_preprocess_forward.argtypes = [
+        vp, vp, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float),
+        vp]
+    lib.flow_preprocess_forward.restype = ctypes.c_int
+    lib.flow_preprocess_error_string.argtypes = [ctypes.c_int]
+    lib.flow_preprocess_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def preprocess_launch_args(spec: FlowSpec, frame: torch.Tensor):
+    """One kernel call on ``frame`` ([H, W, 3] or [S, H, W, 3] uint8,
+    contiguous) as ``flow_preprocess_forward`` takes it: ``(state, args)``,
+    the state's tensors (views of one float32 buffer on the frame's device)
+    and the entry's argument tuple writing them (on the current CUDA stream
+    for a CUDA frame). Raises ValueError on a frame the kernel does not
+    take. The arguments hold the tensors' addresses, so they serve as long
+    as the frame and the state live."""
+    if frame.dtype != torch.uint8 or frame.dim() not in (3, 4) \
+            or frame.shape[-1] != 3:
+        raise ValueError(f'preprocess: frames must be uint8 [H, W, 3] or '
+                         f'[S, H, W, 3], got {frame.dtype} '
+                         f'{tuple(frame.shape)}')
+    if not frame.is_contiguous():
+        raise ValueError('preprocess: the frames are not contiguous')
+    stream_axis = frame.dim() == 4
+    n_streams = frame.shape[0] if stream_axis else 1
+    h, w = frame.shape[-3:-1]
+    layout = _pre_layout(spec, int(n_streams), int(h), int(w), stream_axis)
+    buf = torch.empty(layout.size, dtype=torch.float32, device=frame.device)
+    views = [buf.as_strided(shape, strides, offset)
+             for shape, strides, offset in layout.outputs]
+    n_levels = spec.max_level + 1
+    state = (views[:n_levels], views[n_levels:2 * n_levels],
+             *views[2 * n_levels:])
+    stream = torch._C._cuda_getCurrentRawStream(frame.device.index) \
+        if frame.device.type == 'cuda' else None
+    return state, (frame.data_ptr(), buf.data_ptr(), layout.ints,
+                   layout.floats, stream)
+
+
+def preprocess(spec: FlowSpec, frame: torch.Tensor):
+    """[H, W, 3] uint8 BGR frame -> flow state ``(pyr, pyr_u8, cand_pts,
+    cand_score, bg_pts, bg_score)``: the float32 pyramid, its levels
+    rounded to uint8 values (kept as float32), the full-res corner
+    candidates and the background candidates. A stack of frames [S, H,
+    W, 3] gives the same state with a leading stream axis on every
+    tensor. On a CUDA frame one launch of ``csrc/flow_preprocess.cu``
+    (built at first use; ``preprocess_launch_args``' checks apply), the
+    state views of one buffer; on a CPU frame ``preprocess_reference``;
+    any other device raises. ``preprocess.launches`` counts the kernel's
+    launches."""
+    if frame.device.type == 'cpu':
+        return preprocess_reference(spec, frame)
+    if frame.device.type != 'cuda':
+        raise ValueError(f'preprocess: unsupported device {frame.device}')
+    state, args = preprocess_launch_args(spec, frame)
+    lib = preprocess_library()
+    code = lib.flow_preprocess_forward(*args)
+    if code:
+        raise RuntimeError('preprocess kernel: '
+                           + lib.flow_preprocess_error_string(code).decode())
+    preprocess.launches += 1
+    return state
+
+
+preprocess.launches = 0
 
 
 def _topk_stable(x: torch.Tensor, k: int):

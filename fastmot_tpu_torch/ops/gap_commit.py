@@ -32,7 +32,7 @@ from . import flow_kernels as fk
 STATE_IN = (0, 1, 2, 3, 4, 5, 9, 10, 11, 12)
 # the new state's fields the kernel writes; the others pass through
 STATE_OUT = (0, 1, 2, 3, 9, 10, 11, 12)
-N_STATE = 15                 # tracker.N_STATE (tracker imports this module)
+N_STATE = 15                 # tracker.N_STATE, which asserts they agree
 KERNEL_MAX_TRACKS = 256      # kMaxTracks
 KERNEL_MAX_BG = 256          # kMaxBg
 H_PARTS = 16                 # kHParts: the homography's blocks a stream

@@ -3,9 +3,11 @@
 
 ``StreamTracker`` holds ONE device state with a leading stream axis and
 runs each frame's work once for all streams: the flow preprocess, the
-point assembly, LK and the gap commit of a gap frame; the costs, the
-cascade stages, the greedy finals and the commit of an association frame
-(``tracker.*_batch``, ``tracker.stages_scan_core``,
+point assembly, LK and the gap commit of a gap frame (on the card a kernel
+each, ``ops.flow_kernels.preprocess``, ``ops.gap_points.gap_points``,
+``ops.flow_kernels.lk_pyramidal`` and ``ops.gap_commit.gap_commit``); the
+costs, the cascade stages, the greedy finals and the commit of an
+association frame (``tracker.*_batch``, ``tracker.stages_scan_core``,
 ``tracker.finals_core``).
 The per-stream ``MultiTracker`` host shells are presentation mirrors:
 ``sync`` fetches every stream's info vectors in one transfer and replays
@@ -44,10 +46,11 @@ from .. import kalman as kf
 from ..device import torch_device
 from ..ops import flow_kernels as fk
 from ..ops import gap_commit as gc
+from ..ops import gap_points as gp
 from ..track import Track
 from ..tracker import (MAX_DETS, MAX_TRACKS, MultiTracker,
                        assoc_costs_batch, commit_batch, fetch_infos,
-                       finals_core, gap_points_batch, stages_scan_core)
+                       finals_core, stages_scan_core)
 from .streams import axis_size
 
 __all__ = ['StreamTracker']
@@ -213,11 +216,8 @@ class StreamTracker:
         spec = t0.flow.spec
         prev = self._prev_pre
         cur = self._preprocess(frames)
-        # the kernel takes contiguous tensors; under vmap the flow order is
-        # a slice of each stream's argsort
-        all_prev, all_valid, inside, forder, f_tlbrs, f_valid = (
-            t.contiguous() for t in gap_points_batch(spec, f_cap,
-                                                     self._dev_state, prev))
+        all_prev, all_valid, inside, forder, f_tlbrs, f_valid = \
+            gp.gap_points(spec, self._dev_state, prev, f_cap)
         all_cur, status = fk.lk_core(spec, prev[1], cur[1], all_prev,
                                      all_valid)
         # one call for all streams, each with the draws of its own seed

@@ -14,7 +14,10 @@ The per-frame pure functions keep the JAX package's names and arguments
 ``stage_core``, ``stages_scan_core``, ``finals_core``, ``commit_part``
 and ``scan_finals_commit_core``. They run eagerly, one frame at a time:
 the JAX package's scan/chain kernels and its split-dispatch variants are
-TPU dispatch structure and are not ported. A gap frame's post-LK half runs
+TPU dispatch structure and are not ported. A gap frame's pre-LK half runs
+through ``ops.flow_kernels.preprocess`` and ``ops.gap_points.gap_points``
+(on the card a kernel each; on the CPU their plain versions,
+``preprocess_reference`` and ``gap_points_core``), its post-LK half
 through ``ops.gap_commit.gap_commit``: on the card one launch of its kernel
 for all of a call's streams, which draws the JAX package's RANSAC uniforms
 for each flow seed bit for bit; on the CPU ``gap_commit_core`` (the plain
@@ -43,6 +46,7 @@ from .ops import assignment as asg
 from .ops import distance as dist
 from .ops import flow_kernels as fk
 from .ops import gap_commit as gc
+from .ops import gap_points as gp
 from .ops import geometry as geom
 from .track import Track
 
@@ -60,6 +64,9 @@ FEAT_DIM = 512
 # 10 inl [T]      11 kps [T,K,2]  12 kpv [T,K]
 # 13 feat_sum [T,F]  14 feat_count [T]
 N_STATE = 15
+# ops.gap_points and ops.gap_commit (imported above) keep this count to
+# check a call's state, and read their fields by index (their STATE_IN)
+assert gp.N_STATE == gc.N_STATE == N_STATE
 
 # history store tuple layout (per history slot)
 #  0 hist_sum [H,F]  1 hist_count [H]  2 h_labels [H]  3 h_valid [H]
@@ -163,16 +170,18 @@ def _flat_info(*arrays) -> torch.Tensor:
 
 def gap_pre_core(spec, cur_frame, state, prev_state, f_cap: int):
     """Current-frame preprocess + depth sort + corner management + LK point
-    assembly."""
+    assembly (``ops.flow_kernels.preprocess`` and ``ops.gap_points.
+    gap_points``: on the card a kernel each, on the CPU their plain
+    versions)."""
     cur_state = fk.preprocess(spec, cur_frame)
-    return (cur_state,) + gap_points_core(spec, state, prev_state, f_cap)
+    return (cur_state,) + gp.gap_points(spec, state, prev_state, f_cap)
 
 
 def gap_points_core(spec, state, prev_state, f_cap: int):
     """Depth sort (near first) + corner management + LK point assembly
-    over the first ``f_cap`` active tracks."""
-    tlbrs, valid, ages = state[2], state[3], state[4]
-    kps, kp_valid = state[11], state[12]
+    over the first ``f_cap`` active tracks: the plain version of
+    ``ops.gap_points.gap_points`` for one stream."""
+    tlbrs, valid, ages, kps, kp_valid = (state[i] for i in gp.STATE_IN)
     active = valid & (ages < 2)
     key = -tlbrs[:, 3] + ages.to(torch.float32) * 1e-3
     key = torch.where(active, key, torch.full_like(key, float('inf')))

@@ -4,31 +4,32 @@ spend their time, on one NVIDIA GPU:
 
     python3 scripts/prof_gap_commit.py [--launches 100]
 
-It builds a copy of the source that records, in thread 0 of the first
-block of each role (the homography and similarity roles of the first
-launch, the Kalman role of the second), ``clock64`` and the global timer
-at each phase boundary (into
-``fastmot_tpu_torch/csrc/build/``), runs it once on the synthetic camera
-case of tests/test_torch_gap_commit.py at 1 stream x flow budget 48 and
-at 8 streams x 128, with the main path's 256 background points, and
-prints for each role the SM cycles each phase took in that block, and
-when (global timer, ns from the first stamp of the call) each role's
+It builds a copy of the source that records, in thread 0 of every block,
+``clock64`` and the global timer at each phase boundary
+(scripts/kernel_stamps.py), runs it once on the synthetic camera case of
+tests/test_torch_gap_commit.py at 1 stream x flow budget 48 and at 8
+streams x 128, with the main path's 256 background points, and prints
+for each role (the homography and similarity roles of the first launch,
+the Kalman role of the second) the SM cycles each phase took in the
+role's first block, and when (global timer, ns from the first stamp of
+the call) each role's
 first block started and ended, beside the device time a launch of the
 unstamped kernels (CUDA events around ``--launches`` calls queued behind
 a sleep, as chip_smoke.py phase 17 times them).
 """
 import argparse
-import ctypes
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
+import kernel_stamps  # noqa: E402
 import tests.test_torch_gap_commit as tg  # noqa: E402
 from fastmot_tpu_torch.ops import gap_commit as gc  # noqa: E402
 from fastmot_tpu_torch.ops.flow_kernels import BG_KP  # noqa: E402
@@ -88,44 +89,6 @@ PHASE_MARKS = [
     ('  o[slot] = ev && in_flow;\n@', 'writes', 'Kalman'),
 ]
 ROLES = ('homography', 'similarity', 'Kalman')
-N_STAMPS = 4096
-
-
-def phase_library():
-    """Builds the kernels with a stamp at each of PHASE_MARKS."""
-    from fastmot_tpu_torch.ops import cuda_build
-    src = (cuda_build.CSRC / 'gap_commit.cu').read_text()
-    for i, (mark, _, _) in enumerate(PHASE_MARKS):
-        text = mark.replace('@', '')
-        if src.count(text) != 1:
-            raise RuntimeError(f'phase mark not found once: {text!r}')
-        stamp = ('if (block == 0 && threadIdx.x == 0) { const int n_ = '
-                 f'atomicAdd(&g_n, 1); if (n_ < {N_STAMPS}) {{ g_ids[n_] = '
-                 f'{i}; g_stamps[n_] = clock64(); unsigned long long t_; '
-                 'asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_)); '
-                 'g_times[n_] = t_; } }\n')
-        src = src.replace(text, mark.replace('@', stamp))
-    src = src.replace('namespace {', f'__device__ long long g_stamps['
-                      f'{N_STAMPS}];\n__device__ unsigned long long g_times['
-                      f'{N_STAMPS}];\n__device__ int g_ids[{N_STAMPS}];\n'
-                      '__device__ int g_n;\nnamespace {', 1)
-    src += ('extern "C" int gap_commit_stamps(long long* out, '
-            'unsigned long long* times, int* ids, int reset) {\n'
-            '  int n = 0;\n'
-            '  if (reset) return (int)cudaMemcpyToSymbol(g_n, &n, sizeof n);\n'
-            '  cudaMemcpyFromSymbol(&n, g_n, sizeof n);\n'
-            f'  n = n < {N_STAMPS} ? n : {N_STAMPS};\n'
-            '  cudaMemcpyFromSymbol(out, g_stamps, sizeof(long long) * n);\n'
-            '  cudaMemcpyFromSymbol(times, g_times, 8 * n);\n'
-            '  cudaMemcpyFromSymbol(ids, g_ids, sizeof(int) * n);\n'
-            '  return n;\n}\n')
-    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    path = cuda_build.BUILD_DIR / 'gap_commit_phases.cu'
-    path.write_text(src)
-    lib = cuda_build.BUILD_DIR / 'gap_commit_phases.so'
-    subprocess.run([cuda_build.find_nvcc(), *cuda_build.nvcc_flags(
-        'gap_commit'), '-o', str(lib), str(path)], check=True)
-    return ctypes.CDLL(str(lib))
 
 
 def cuda_args(kinds, f_cap):
@@ -152,33 +115,31 @@ def main():
             gc.gap_commit_library().gap_commit_forward, launch,
             n=args.launches, tag='gap_commit')
     from fastmot_tpu_torch.ops import cuda_build
-    lib = phase_library()
-    lib.gap_commit_stamps.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
-    lib.gap_commit_stamps.restype = ctypes.c_int
+    lib = kernel_stamps.stamped_library(
+        'gap_commit', [m for m, _, _ in PHASE_MARKS])
     cuda_build.load = lambda name: lib
     gc.gap_commit_library.cache_clear()
     for tag, a in cases.items():
         gc.gap_commit(*a)
         torch.cuda.synchronize()
-        lib.gap_commit_stamps(None, None, None, 1)
+        kernel_stamps.read_stamps(lib)
         gc.gap_commit(*a)
         torch.cuda.synchronize()
-        stamps = (ctypes.c_longlong * N_STAMPS)()
-        clock = (ctypes.c_ulonglong * N_STAMPS)()
-        ids = (ctypes.c_int * N_STAMPS)()
-        n = lib.gap_commit_stamps(stamps, clock, ids, 0)
-        t0 = min(clock[i] for i in range(n))
+        mark, block, clock, time = kernel_stamps.read_stamps(lib)
+        t0 = time.min()
         parts = []
         for role in ROLES:
-            mine = [i for i in range(n) if PHASE_MARKS[ids[i]][2] == role]
+            ids = [i for i, m in enumerate(PHASE_MARKS) if m[2] == role]
+            ours = np.isin(mark, ids)
+            mine = np.flatnonzero(ours & (block == block[ours].min()))
             sums = {}
             for a_, b_ in zip(mine, mine[1:]):
-                label = PHASE_MARKS[ids[b_]][1]
-                sums[label] = sums.get(label, 0) + stamps[b_] - stamps[a_]
-            total = stamps[mine[-1]] - stamps[mine[0]]
+                label = PHASE_MARKS[mark[b_]][1]
+                sums[label] = sums.get(label, 0) + clock[b_] - clock[a_]
+            total = clock[mine[-1]] - clock[mine[0]]
             parts.append(
-                f'{role} block 0 at {clock[mine[0]] - t0}-'
-                f'{clock[mine[-1]] - t0} ns, {total} cycles: '
+                f'{role} block 0 at {time[mine[0]] - t0}-'
+                f'{time[mine[-1]] - t0} ns, {total} cycles: '
                 + ', '.join(f'{k} {v} ({v / total:.1%})'
                             for k, v in sums.items()))
         print(f'gap_commit {tag}: {times[tag] * 1e3:.2f} us a call '

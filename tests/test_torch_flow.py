@@ -53,8 +53,9 @@ def states():
 
 
 def test_resize_matches_jax_lerp_matrices(rng):
-    """F.interpolate(bilinear, align_corners=False, antialias=False) has
-    the hat weights of the JAX package's interpolation matrices."""
+    """``resize_bilinear`` (F.interpolate's bilinear, align_corners=False,
+    no antialias) has the hat weights of the JAX package's interpolation
+    matrices."""
     img = rng.uniform(0, 255, (240, 320)).astype(np.float32)
     for out_hw in ((120, 160), (24, 32), (97, 131)):
         got = tfk.resize_bilinear(T(img), out_hw).numpy()
