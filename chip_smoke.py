@@ -150,11 +150,12 @@ Phases, each raising on failure (the exit code is then non-zero):
    version's time on the card, and the bound (``gap_commit_bound_ms``);
 18. the preprocess kernel and the gap-points kernel on phase 6's real gap
    frame (1 stream, its flow budget of 48) and phase 13's 8 streams at
-   budget 128: each against its plain version run on the CPU (the points
-   bit for bit; the preprocess at tests/test_torch_flow_preprocess.py's
-   ``assert_state_close`` tolerances, with the share of bit-equal values
-   and of moved points printed) and run on the card (the shares printed);
-   two calls bitwise equal; each launch's registers and shared memory as
+   budget 128: each against its plain version run on the CPU, every value
+   bit for bit (the bit-equal share printed), and run on the card (the
+   share printed); two calls bitwise equal; every output, to the bit, on
+   each synthetic call of tests/test_torch_flow_preprocess.py's and
+   tests/test_torch_gap_points.py's ``OUTPUT_SHA256`` (the sha256 the first
+   designs gave); each launch's registers, shared memory and spills as
    ptxas reported them; then each kernel's device time a call (100 calls
    of the C entry between CUDA events, queued behind a sleep kernel), the
    wrapper's time a call and host time a call, the plain version's time on
@@ -2205,10 +2206,11 @@ def ptxas_kernels(nvcc_out):
         m = re.search(r'(\d+) bytes spill stores', line)
         if m and name:
             out[name] = f'{m.group(1)} bytes spilled'
-        m = re.search(r'Used (\d+) registers.*?(\d+) bytes smem', line)
+        m = re.search(r'Used (\d+) registers(?:.*?(\d+) bytes smem)?', line)
         if m and name:
-            out[name] = (f'{m.group(1)} registers, {m.group(2)} bytes '
-                         f'shared memory, ' + out.get(name, 'no spill line'))
+            out[name] = (f'{m.group(1)} registers, {m.group(2) or 0} bytes '
+                         f'static shared memory, '
+                         + out.get(name, 'no spill line'))
     return out
 
 
@@ -2439,12 +2441,32 @@ def phase_flow_kernels(main_args, multi_args, card, nvcc_out):
             log(f'{name} ptxas {kernel}: {line}')
     pre_lib, pts_lib = fk.preprocess_library(), gp.gap_points_library()
 
-    def cpu(x):
+    def to(x, device):
         if isinstance(x, torch.Tensor):
-            return x.cpu()
+            return x.to(device)
         if isinstance(x, (list, tuple)):
-            return type(x)(cpu(y) for y in x)
+            return type(x)(to(y, device) for y in x)
         return x
+
+    def cpu(x):
+        return to(x, 'cpu')
+
+    # the synthetic calls of the CPU tests, against the first designs' sha256
+    for name, mod, run in (
+            ('preprocess', tp, lambda case: fk.preprocess(
+                case[0], case[1].cuda())),
+            ('gap_points', tg,
+             lambda case: gp.gap_points(*to(case, 'cuda')))):
+        differ = [mod.hash_case_id(key) for key in mod.OUTPUT_SHA256
+                  if mod.output_sha256(run(mod.hash_case(key)))
+                  != mod.OUTPUT_SHA256[key]]
+        if differ:
+            raise AssertionError(f'{name}: outputs of {differ} differ from '
+                                 'the first design\'s')
+        log(f'{name} on the {len(mod.OUTPUT_SHA256)} synthetic calls of '
+            f'{mod.__name__}.OUTPUT_SHA256: every output == the first '
+            'design\'s, bit for bit')
+
     out = {'flow_preprocess': {}, 'gap_points': {}}
     for key, (spec, frames, states, prev, f_cap) in (
             ('1_stream', main_args), ('8_streams', multi_args)):
@@ -2460,8 +2482,7 @@ def phase_flow_kernels(main_args, multi_args, card, nvcc_out):
         if not all(torch.isfinite(t).all() for t in flat):
             raise AssertionError(f'preprocess {tag}: outputs not finite')
         want = fk.preprocess_reference(spec, frames.cpu())
-        u8_moved, moved = tp.assert_state_close(got, want, spec, frames,
-                                                tag)
+        tp.assert_state_equal(got, want, spec, f'preprocess {tag} vs the CPU')
         n_all = sum(t.numel() for t in flat)
         equal = sum(int((g.cpu().view(torch.int32)
                          == w.view(torch.int32)).sum())
@@ -2474,8 +2495,7 @@ def phase_flow_kernels(main_args, multi_args, card, nvcc_out):
                          for g, w in zip(flat, tp.flat_state(plain_card)))
         log(f'preprocess {tag}: kernel vs plain on the CPU: '
             f'{equal / n_all:.6f} of {n_all} values bit-equal, largest '
-            f'difference {worst}, uint8 moved {u8_moved}, bg points moved '
-            f'{moved} (assert_state_close holds); vs plain on the card: '
+            f'difference {worst}; vs plain on the card: '
             f'{equal_card / n_all:.6f} bit-equal')
         state, launch = fk.preprocess_launch_args(spec, frames)
         device = [lk_device_ms(pre_lib.flow_preprocess_forward, launch,
@@ -2524,11 +2544,13 @@ def phase_flow_kernels(main_args, multi_args, card, nvcc_out):
         plain_ms = wall_ms(lambda: gp.gap_points_reference(*args))
         bound, by = gap_points_bound_ms(args, got)
         ms = statistics.mean(device)
+        owner_blocks = -(-(prev[3].shape[-1] + prev[5].shape[-1])
+                         // gp.OWNER_CHUNK)
         log(f'gap_points {tag}: device '
             f'{" / ".join(f"{d * 1e3:.2f}" for d in device)} us a call (two '
-            f'launches: {n_s * -(-prev[3].shape[-1] // gp.OWNER_CHUNK)} owner '
-            f'blocks, '
-            f'then {n_s * (f_cap + 1)} track and bg blocks; two windows of '
+            f'launches: {n_s * owner_blocks} owner blocks, then '
+            f'{n_s * (states[2].shape[-2] + 1)} track and bg blocks '
+            f'beside them until the owners are read; two windows of '
             f'{LK_TIMED_LAUNCHES} calls); the wrapper {call_ms * 1e3:.2f} us '
             f'a call, host {call_host * 1e3:.2f} us a call; plain on the '
             f'card {plain_ms:.3f} ms; bound {bound * 1e3:.4f} us ({by}), '

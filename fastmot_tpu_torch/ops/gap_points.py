@@ -4,8 +4,9 @@ every stream of a call.
 
 ``gap_points`` is the entry the tracker's gap frames call. On CUDA tensors
 it calls ``csrc/gap_points.cu`` (built at first use: two launches, the
-candidates' owners, then a block a track and one a stream for the
-background; no host sync); on CPU tensors it runs the plain version,
+candidates' owners, then, a programmatic dependent launch beside them, a
+block a track slot and one a stream for the background; no host sync); on
+CPU tensors it runs the plain version,
 ``gap_points_reference`` (``tracker.gap_points_core`` for one stream,
 ``tracker.gap_points_batch`` for several); any other device raises. The
 two agree bit for bit (tests/test_torch_gap_points.py).
@@ -23,7 +24,7 @@ import torch
 
 from . import flow_kernels as fk
 
-KERNEL_MAX_TRACKS = 256      # kMaxTracks in csrc/gap_points.cu
+KERNEL_MAX_TRACKS = 255      # kMaxTracks in csrc/gap_points.cu
 OWNER_CHUNK = 256            # kOwnerChunk: the candidates an owner block tests
 N_STATE = 15                 # tracker.N_STATE, which asserts they agree
 # the state fields the kernel reads (N_STATE indices): boxes, validity,

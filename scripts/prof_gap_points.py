@@ -7,12 +7,14 @@ spend their time, on one NVIDIA GPU:
 It builds a copy of the source that records, in thread 0 of every block,
 the global timer at each phase boundary (scripts/kernel_stamps.py), warms
 it up, runs it once at 1 stream x flow budget 48 (40 tracks, the main
-path's) and at 8 streams x 128 (110 tracks a stream), on textured 1280x720 frames preprocessed by the
-preprocess kernel, with chip_smoke.py's synthetic boxes and random
-keypoints inside them, and prints when the owner launch and the select
-launch ran (ns from the first block's start), the median and largest
-time of each phase of a track's block (keypoint propagation, the owned
-candidates' count and best score, the selection, the -inf places, the
+path's) and at 8 streams x 128 (110 tracks a stream), on textured 1280x720
+frames preprocessed by the preprocess kernel, with chip_smoke.py's
+synthetic boxes and random keypoints inside them, and prints when the
+owner launch and the select launch ran (ns from the first block's start)
+and when the select blocks passed their wait for the owners, the median
+and largest time of each phase of a track's block (the depth order and
+the clipped boxes, the keypoints' propagation, the wait, the owned
+candidates' count and staging, the selection, the -inf places, the
 writes) and of each background block's phases, beside the device time a
 call of the unstamped kernels (CUDA events around 100 calls queued behind
 a sleep, as chip_smoke.py phase 18 times them).
@@ -37,27 +39,44 @@ MAX_BLOCKS = 8192         # blocks a launch
 # (text in csrc/gap_points.cu with '@' where the stamp goes, launch, slot)
 MARKS = [
     ('points_owner_kernel(const Params p) {\n@', 0, 0),
-    ('    owner[c] = static_cast<uint8_t>(o);\n  }\n@}', 0, 7),
+    ('    owner[c] = o == ~0ull ? kNoOwner : static_cast<uint8_t>(o);\n  }\n@}',
+     0, 7),
     ('points_select_kernel(const Params p) {\n@', 1, 0),
-    ('      + static_cast<size_t>(s) * (p.n_cands + p.n_bg);\n'
-     '  __syncthreads();\n@', 1, 1),
-    ('    atomicMax(&best, my_best);\n  }\n  __syncthreads();\n@', 1, 2),
-    ('  if (!need) {\n@', 1, 5),
-    ('  const int n_sel = select_top(n_win, kKp, elig, sh, stage, chosen, '
-     'picked);\n@', 1, 3),
-    ('  if (n_sel < kKp) fill_rest(p.n_cands, kKp, n_sel, elig_at, flags, '
-     'picked);\n@', 1, 4),
-    ('  atomicMax(&best, my_best);\n  __syncthreads();\n@', 1, 2),
-    ('                               picked);\n@', 1, 3),
-    ('    fill_rest(p.n_bg, p.bg_keep, n_sel, elig_at, flags, picked);\n@',
-     1, 4),
-    ('    bg_points(p, s, stage);\n@}', 1, 7),
+    # a track's block
+    ('  const bool* kpv = p.kpv + t * kKp;\n@', 1, 1),
+    ('@  cudaGridDependencySynchronize();\n  const uint8_t* owner = p.owner\n'
+     '      + static_cast<size_t>(s) * (p.n_cands + p.n_bg);\n  int my_owned',
+     1, 2),
+    ('  cudaGridDependencySynchronize();\n@  const uint8_t* owner = p.owner\n'
+     '      + static_cast<size_t>(s) * (p.n_cands + p.n_bg);\n  int my_owned',
+     1, 3),
+    ('  const int owned = block_sum(my_owned, sh.wsum);  // its barrier '
+     'publishes\n@', 1, 4),
+    ('@  if (n_sel < kKp) fill_rest(p.n_cands, kKp, n_sel, elig_at, sh);\n',
+     1, 5),
+    ('  if (n_sel < kKp) fill_rest(p.n_cands, kKp, n_sel, elig_at, sh);\n@',
+     1, 6),
+    ('      out_valid[tid] = prop;\n    }\n@    return;', 1, 7),
+    ('    out_valid[tid] = tid < n_sel;\n  }\n@}', 1, 7),
+    # the background block
+    ('  const float thr = 0.01f * fmaxf(unord(best), 1e-6f);\n@', 1, 2),
+    ('  cudaGridDependencySynchronize();\n@  const uint8_t* owner = p.owner\n'
+     '      + static_cast<size_t>(s) * (p.n_cands + p.n_bg) + p.n_cands;',
+     1, 3),
+    ('                kStage);\n  }\n  __syncthreads();\n@  int n_sel;', 1, 4),
+    ('@  if (n_sel < p.bg_keep) fill_rest(', 1, 5),
+    ('  if (n_sel < p.bg_keep) fill_rest(p.n_bg, p.bg_keep, n_sel, elig_at, '
+     'sh);\n@', 1, 6),
+    ('    p.all_valid[base + k] = k < n_sel;\n  }\n@}', 1, 7),
 ]
-TRACK_PHASES = (('propagation', 0, 1), ('owned count and best', 1, 2),
-                ('selection', 2, 3), ('-inf places', 3, 4),
-                ('writes', 4, 7))
-BG_PHASES = (('best score', 0, 2), ('selection', 2, 3),
-             ('-inf places', 3, 4), ('writes', 4, 7))
+TRACK_PHASES = (('flow row and nearer boxes', 0, 1),
+                ('propagation and the cells ahead', 1, 2),
+                ('wait for the owners', 2, 3),
+                ('owned count and staging', 3, 4), ('selection', 4, 5),
+                ('-inf places', 5, 6), ('writes', 6, 7))
+BG_PHASES = (('best score', 0, 2), ('wait for the owners', 2, 3),
+             ('staging', 3, 4), ('selection', 4, 5), ('-inf places', 5, 6),
+             ('writes', 6, 7))
 
 
 def stamps(lib):
@@ -118,23 +137,32 @@ def main():
         st = stamps(lib)
         n_items = args[2][3].shape[-1] + args[2][5].shape[-1]
         own = st[0, :n_streams * -(-n_items // gp.OWNER_CHUNK)]
-        sel = st[1, :n_streams * (f_cap + 1)].reshape(n_streams, f_cap + 1,
+        t_cap = args[1][2].shape[-2]              # a block a track slot
+        sel = st[1, :n_streams * (t_cap + 1)].reshape(n_streams, t_cap + 1,
                                                        SLOTS)
-        t0 = own[:, 0].min()
+        t0 = min(own[:, 0].min(), sel[..., 0].min())
+        tracks = sel[:, :t_cap].reshape(-1, SLOTS)
+        tracks = tracks[tracks[:, 1] > 0]           # the flow rows' blocks
+        waited = np.concatenate([tracks[:, 3], sel[:, t_cap, 3]])
         log = [f'gap_points {n_streams} x {f_cap} ({n_tracks} tracks a '
                f'stream): owner launch {own[:, 0].min() - t0}-'
                f'{own[:, 7].max() - t0} ns, select launch '
-               f'{sel[..., 0].min() - t0}-{sel[..., 7].max() - t0} ns']
-        tracks = sel[:, :f_cap].reshape(-1, SLOTS)
-        need = tracks[:, 3] > 0
-        spans = [(name, tracks[need, b] - tracks[need, a])
-                 for name, a, b in TRACK_PHASES]
-        log.append(f'  {int(need.sum())} of {len(tracks)} track blocks '
-                   'select new keypoints; their phases, median / largest '
-                   'ns: ' + '; '.join(
-                       f'{name} {int(np.median(d))} / {int(d.max())}'
-                       for name, d in spans))
-        bg = sel[:, f_cap]
+               f'{sel[..., 0].min() - t0}-{sel[..., 7].max() - t0} ns, its '
+               f'flow rows and bg past the wait {waited.min() - t0}-'
+               f'{waited.max() - t0} ns']
+        need = tracks[:, 5] > 0
+        for name, rows, phases in (
+                ('select new keypoints', need, TRACK_PHASES),
+                ('keep theirs', ~need, TRACK_PHASES[:4])):
+            spans = [(label, tracks[rows, b] - tracks[rows, a])
+                     for label, a, b in phases]
+            if rows.any():
+                log.append(
+                    f'  {int(rows.sum())} of {len(tracks)} track blocks '
+                    f'{name}; their phases, median / largest ns: '
+                    + '; '.join(f'{label} {int(np.median(d))} / '
+                                f'{int(d.max())}' for label, d in spans))
+        bg = sel[:, t_cap]
         log.append('  background blocks, median / largest ns: ' + '; '.join(
             f'{name} {int(np.median(bg[:, b] - bg[:, a]))} / '
             f'{int((bg[:, b] - bg[:, a]).max())}' for name, a, b in BG_PHASES

@@ -1,0 +1,336 @@
+"""Host builds of the port's hand kernels for the CPU tests.
+
+``build_host(name, ...)`` compiles ``fastmot_tpu_torch/csrc/<name>.cu`` with
+g++ through ``HOST_SHIM``, a header that stands in for ``cuda_runtime.h``
+with just enough of CUDA for the kernels of csrc/gap_commit.cu,
+csrc/flow_preprocess.cu and csrc/gap_points.cu:
+
+- a launch (``kernel<<<grid, block, smem, stream>>>(...)``, rewritten into
+  ``host_launch``, or ``cudaLaunchKernelEx``) runs its blocks one after
+  another on one team of host threads, which meet after each block: the
+  block's own thread count, or ``set_host_threads(n)``'s where a test sets
+  one (the kernels stride their loops by ``blockDim.x`` and take whole
+  warps, so any multiple of 32 computes the same);
+- ``__syncthreads`` and ``__syncthreads_count`` are a barrier of the team
+  (a mutex and condition variable; a barrier some thread never reaches
+  aborts after 60 s);
+- ``__syncwarp``, the shuffles, ``__ballot_sync`` and ``__match_any_sync``
+  are meetings of a warp's 32 threads: each lane puts its value in its
+  slot and, after the warp's spinning barrier, reads the slots of the row
+  (two slot rows in turn, so a lane writes a row only after every lane
+  has read it);
+- ``__shared__`` arrays are static storage (a block's threads share them,
+  and blocks run in turn), and a dynamic ``extern __shared__`` array is a
+  static one of ``HOST_DYNAMIC_SMEM`` bytes;
+- the atomics are the compiler's ``__atomic`` builtins; the
+  programmatic-dependent-launch calls do nothing, since the launches
+  already run one after another;
+- ``-ffp-contract=off`` rounds every product and sum on its own, as the
+  card's build under ``-fmad=false`` does, so the two builds agree bit for
+  bit.
+"""
+import ctypes
+import re
+import shutil
+import subprocess
+
+import pytest
+
+HOST_SHIM = r"""
+#pragma once
+#include <math.h>
+#include <algorithm>
+#include <atomic>
+#include <chrono>
+#include <condition_variable>
+#include <cstddef>
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+#include <memory>
+#include <mutex>
+#include <thread>
+#include <vector>
+#define __host__
+#define __device__
+#define __global__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __restrict__
+#define __shared__ static
+#define __align__(n) alignas(n)
+#define HOST_DYNAMIC_SMEM (1 << 18)
+using std::max;
+using std::min;
+struct float2 { float x, y; };
+inline float2 make_float2(float x, float y) { return {x, y}; }
+struct alignas(16) float4 { float x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+struct uint3 { unsigned x, y, z; };
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+static thread_local uint3 blockIdx, threadIdx;
+static thread_local dim3 blockDim, gridDim;
+typedef void* cudaStream_t;
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+inline cudaError_t cudaGetLastError() { return 0; }
+inline const char* cudaGetErrorString(cudaError_t e) {
+  return e ? "invalid value" : "no error";
+}
+template <class F>
+cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int bytes) {
+  return bytes <= HOST_DYNAMIC_SMEM ? cudaSuccess : cudaErrorInvalidValue;
+}
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, 4);
+  return u;
+}
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline int __ffs(int v) { return __builtin_ffs(v); }
+inline int __clzll(long long v) {
+  return v ? __builtin_clzll(static_cast<unsigned long long>(v)) : 64;
+}
+inline int atomicAdd(int* p, int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
+}
+inline unsigned atomicMax(unsigned* p, unsigned v) {
+  unsigned old = __atomic_load_n(p, __ATOMIC_RELAXED);
+  while (old < v && !__atomic_compare_exchange_n(
+             p, &old, v, true, __ATOMIC_RELAXED, __ATOMIC_RELAXED)) {
+  }
+  return old;
+}
+inline unsigned atomicMin(unsigned* p, unsigned v) {
+  unsigned old = __atomic_load_n(p, __ATOMIC_RELAXED);
+  while (old > v && !__atomic_compare_exchange_n(
+             p, &old, v, true, __ATOMIC_RELAXED, __ATOMIC_RELAXED)) {
+  }
+  return old;
+}
+
+struct Barrier {
+  std::mutex m;
+  std::condition_variable cv;
+  int n = 0, waiting = 0, generation = 0, count = 0, result = 0;
+  // waits for the group; returns how many of it met with a nonzero pred
+  int meet(int pred = 0) {
+    std::unique_lock<std::mutex> lock(m);
+    const int g = generation;
+    count += pred != 0;
+    if (++waiting == n) {
+      result = count;
+      count = 0;
+      waiting = 0;
+      ++generation;
+      cv.notify_all();
+    } else if (!cv.wait_for(lock, std::chrono::seconds(60),
+                            [&] { return generation != g; })) {
+      std::abort();
+    }
+    return result;
+  }
+};
+// a warp's barrier: its threads spin (yielding the core) on a generation
+// count, cheaper than a sleep for the many short waits of shuffles, and
+// after a few rounds sleep on a condition variable, so that a machine
+// whose cores are busy with other teams still gets to the last arrival
+struct SpinBarrier {
+  std::atomic<int> waiting{0}, generation{0};
+  int n = 0;
+  std::mutex m;
+  std::condition_variable cv;
+  void meet() {
+    const int g = generation.load(std::memory_order_acquire);
+    if (waiting.fetch_add(1, std::memory_order_acq_rel) + 1 == n) {
+      waiting.store(0, std::memory_order_relaxed);
+      {
+        std::lock_guard<std::mutex> lock(m);
+        generation.fetch_add(1, std::memory_order_release);
+      }
+      cv.notify_all();
+      return;
+    }
+    auto passed = [&] {
+      return generation.load(std::memory_order_acquire) != g;
+    };
+    for (int spins = 0; spins < 64; ++spins) {
+      if (passed()) return;
+      std::this_thread::yield();
+    }
+    std::unique_lock<std::mutex> lock(m);
+    if (!cv.wait_for(lock, std::chrono::seconds(60), passed)) std::abort();
+  }
+};
+struct Warp {
+  SpinBarrier barrier;
+  uint64_t slot[2][32];
+  int row[32] = {};
+};
+static thread_local Barrier* block_barrier;
+static thread_local Warp* this_warp;
+inline void __syncthreads() { block_barrier->meet(); }
+inline int __syncthreads_count(int pred) { return block_barrier->meet(pred); }
+inline void __syncwarp(unsigned = 0xFFFFFFFFu) { this_warp->barrier.meet(); }
+// every lane puts v in its slot and, after the warp's barrier, reads the
+// slots of the row (read(row))
+template <class T, class Read>
+auto warp_exchange(T v, Read read) {
+  Warp& w = *this_warp;
+  const int lane = threadIdx.x % 32, row = w.row[lane];
+  w.row[lane] ^= 1;
+  uint64_t bits = 0;
+  std::memcpy(&bits, &v, sizeof(T));
+  w.slot[row][lane] = bits;
+  w.barrier.meet();
+  return read(w.slot[row]);
+}
+template <class T>
+T lane_value(const uint64_t* slots, int lane) {
+  T out;
+  std::memcpy(&out, &slots[lane], sizeof(T));
+  return out;
+}
+template <class T>
+T __shfl_sync(unsigned, T v, int src) {
+  return warp_exchange(v, [&](const uint64_t* r) {
+    return lane_value<T>(r, src);
+  });
+}
+template <class T>
+T __shfl_up_sync(unsigned, T v, int d) {
+  const int l = threadIdx.x % 32;
+  return warp_exchange(v, [&](const uint64_t* r) {
+    return lane_value<T>(r, l - d >= 0 ? l - d : l);
+  });
+}
+template <class T>
+T __shfl_down_sync(unsigned, T v, int d) {
+  const int l = threadIdx.x % 32;
+  return warp_exchange(v, [&](const uint64_t* r) {
+    return lane_value<T>(r, l + d < 32 ? l + d : l);
+  });
+}
+template <class T>
+T __shfl_xor_sync(unsigned, T v, int m) {
+  const int l = threadIdx.x % 32;
+  return warp_exchange(v, [&](const uint64_t* r) {
+    return lane_value<T>(r, l ^ m);
+  });
+}
+inline unsigned __ballot_sync(unsigned, int pred) {
+  return warp_exchange(pred != 0, [](const uint64_t* r) {
+    unsigned out = 0;
+    for (int l = 0; l < 32; ++l) out |= static_cast<unsigned>(r[l] != 0) << l;
+    return out;
+  });
+}
+template <class T>
+unsigned __match_any_sync(unsigned, T v) {
+  return warp_exchange(v, [&](const uint64_t* r) {
+    const uint64_t mine = r[threadIdx.x % 32];
+    unsigned out = 0;
+    for (int l = 0; l < 32; ++l) out |= static_cast<unsigned>(r[l] == mine) << l;
+    return out;
+  });
+}
+inline void cudaTriggerProgrammaticLaunchCompletion() {}
+inline void cudaGridDependencySynchronize() {}
+
+static int host_threads = 0;
+// the team size of every launch from now on (0: each block's own)
+extern "C" void set_host_threads(int n) { host_threads = n; }
+
+// the blocks in turn on one team of host threads, which meet after each
+// block (a thread that returned early waits there)
+template <class F, class... A>
+void host_launch(dim3 grid, int threads, F f, A... args) {
+  const int n = host_threads > 0 ? host_threads : threads;
+  Barrier barrier, block_end;
+  barrier.n = block_end.n = n;
+  const int n_warps = (n + 31) / 32;
+  std::unique_ptr<Warp[]> warps(new Warp[n_warps]);
+  for (int w = 0; w < n_warps; ++w) warps[w].barrier.n = min(32, n - 32 * w);
+  std::vector<std::thread> team;
+  for (int t = 0; t < n; ++t)
+    team.emplace_back([&, t] {
+      threadIdx = {static_cast<unsigned>(t), 0, 0};
+      blockDim = dim3(n);
+      gridDim = grid;
+      block_barrier = &barrier;
+      this_warp = &warps[t / 32];
+      for (unsigned y = 0; y < grid.y; ++y)
+        for (unsigned b = 0; b < grid.x; ++b) {
+          blockIdx = {b, y, 0};
+          f(args...);
+          block_end.meet();
+        }
+    });
+  for (auto& th : team) th.join();
+}
+
+enum cudaLaunchAttributeID {
+  cudaLaunchAttributeProgrammaticStreamSerialization = 1
+};
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  union { int programmaticStreamSerializationAllowed; } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+template <class... E, class... A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
+                               void (*f)(E...), A&&... args) {
+  host_launch(cfg->gridDim, cfg->blockDim.x, f, args...);
+  return cudaSuccess;
+}
+"""
+
+
+def build_host(name, tmp_path_factory, defines=(), extra='', launches=1,
+               opt='-O2'):
+    """``csrc/<name>.cu`` built for the host with g++ and ``HOST_SHIM``, as
+    a ctypes library with ``set_host_threads`` declared: each
+    ``kernel<<<grid, block, smem, stream>>>(`` becomes a ``host_launch``
+    (``launches`` of them; the rest launch by ``cudaLaunchKernelEx``), a
+    dynamic ``extern __shared__`` array static storage, ``extra`` is
+    appended to the source (the same translation unit) and ``defines`` are
+    ``-D`` flags."""
+    from fastmot_tpu_torch.ops.cuda_build import CSRC
+    if shutil.which('g++') is None:
+        pytest.skip('needs g++')
+    d = tmp_path_factory.mktemp(f'{name}_host')
+    (d / 'cuda_runtime.h').write_text(HOST_SHIM)
+    src, n = re.subn(r'(\w+)<<<(\w+), (\w+), \w+, \w+>>>\(',
+                     r'host_launch(\2, \3, \1, ',
+                     (CSRC / f'{name}.cu').read_text())
+    assert n == launches, (name, n)
+    src = re.sub(r'extern __shared__ (.*?)(\w+) (\w+)\[\];',
+                 r'static \1\2 \3[HOST_DYNAMIC_SMEM / sizeof(\2)];', src)
+    (d / f'{name}.cpp').write_text(src + extra)
+    built = subprocess.run(
+        ['g++', opt, '-std=c++17', '-pthread', '-ffp-contract=off',
+         '-fno-strict-aliasing', '-fPIC', '-shared', *defines, '-I', str(d),
+         '-o', str(d / f'{name}.so'), str(d / f'{name}.cpp')],
+        capture_output=True, text=True)
+    assert built.returncode == 0, built.stderr[-4000:]
+    lib = ctypes.CDLL(str(d / f'{name}.so'))
+    lib.set_host_threads.argtypes = [ctypes.c_int]
+    return lib

@@ -3,29 +3,30 @@
 rounding, the Shi-Tomasi grid candidates and the background candidates of
 a gap frame, for every stream of a call.
 
-On the CPU the kernel's own source is built for the host with g++ through a
-shim of the few CUDA names it uses (``HOST_SHIM``: a launch runs its blocks
-in turn, each with a team of host threads, ``__syncthreads`` a barrier of
-the team, ``__shared__`` static storage; ``-ffp-contract=off`` as the
-card's build runs under ``-fmad=false``). The kernel strides every loop by
-its block's thread count, so the tests run it with one and with three
-threads a block. That build equals the plain version
-(``preprocess_reference``) bit for bit, every level, uint8 level,
-candidate and score, on textured frames, on frames whose cells hold tied
-responses (a period-4 pattern and flat patches), at 320x240 and 250x170
-(odd levels and cells truncate), at one and two streams, and off the
+On the CPU the kernel's own source is built for the host with g++ through
+tests/cuda_host_shim.py (a launch runs its blocks in turn on a team of host
+threads, ``__syncthreads`` a barrier of the team, the shuffles meetings of
+a warp's 32, ``__shared__`` and the dynamic shared memory static storage;
+``-ffp-contract=off`` as the card's build runs under ``-fmad=false``). The
+kernel strides every loop by its block's thread count and takes whole
+warps, so the tests run it with 32 and with 64 threads a block. That build
+equals the plain version (``preprocess_reference``) bit for bit, every
+level, uint8 level, candidate and score, on textured frames, on frames
+whose cells hold tied responses (a period-4 pattern and flat patches), at
+320x240 and 250x170 (odd levels and cells truncate; 250 px rows are 750
+bytes, so no 16-byte load group is aligned past the first row), at one and
+two streams, at the 64-px tiles' ragged right and bottom edges, and off the
 main path's integer resize ratios (flow scale 0.37, bg scale 0.13, where
-the bilinear weights are not 0.5). The plain resize (``resize_bilinear``)
-rounds each product and sum on its own, as the kernel does, and agrees
-with F.interpolate within 1e-4 (bit for bit at the main path's ratios). On
-the card, ``chip_smoke.py`` holds the kernel to ``assert_state_close``'s
-tolerances and prints the bit-equal share: the float levels within 1e-4 of
-the plain version's, the uint8 levels equal except where the float lies
-within 1e-3 of .5, the full-resolution candidates equal, a bg candidate's
-point moved only where its cell's two best responses lie within the bg
-response's tolerance. The
-plain version and the host build match the JAX package's
-``_preprocess_jit`` at tests/test_torch_flow.py's tolerances.
+the bilinear weights are not 0.5, and 321x241, whose flow size is not half
+the frame: the pyramid takes its own tiles), and gives every output that
+the first design (three roles side by side) gave on each synthetic call
+(``OUTPUT_SHA256``). The plain resize (``resize_bilinear``) rounds each
+product and sum on its own, as the kernel does, and agrees with
+F.interpolate within 1e-4 (bit for bit at the main path's ratios). On the
+card, ``chip_smoke.py`` holds the kernel to the plain version run on the
+CPU bit for bit, and to ``OUTPUT_SHA256``. The plain version and the host
+build match the JAX package's ``_preprocess_jit`` at
+tests/test_torch_flow.py's tolerances.
 
 On the card (marker ``cuda``; they skip without one, and JAX is imported
 only by the CPU tests that need it):
@@ -33,9 +34,7 @@ only by the CPU tests that need it):
     python -m pytest tests/test_torch_flow_preprocess.py -m cuda
 """
 import ctypes
-import re
-import shutil
-import subprocess
+import hashlib
 
 import numpy as np
 import pytest
@@ -44,13 +43,12 @@ import torch
 
 from fastmot_tpu_torch.ops import flow_kernels as tfk
 
+from .cuda_host_shim import build_host
+
 SIZES = ((320, 240), (250, 170))            # (W, H)
 KINDS = ('texture', 'ties')
-# assert_state_close: the float levels' bound, the band around .5 where a
-# uint8 level may round the other way, and the bg responses' bound (a bg
-# pixel within 1e-4 moves its response by at most this much at these
-# frames' gradients)
-LEVEL_ATOL, HALF_BAND, BG_SCORE_RTOL = 1e-4, 1e-3, 1e-3
+# resize_bilinear against F.interpolate: two float32 ulps at 255
+LEVEL_ATOL = 1e-4
 
 
 def spec_of(size, opt_scale=(0.5, 0.5), bg_scale=(0.1, 0.1)):
@@ -119,43 +117,6 @@ def cell_margin(resp, cell):
     return r[..., -1] - r[..., -2]
 
 
-def assert_state_close(got, want, spec, frames, tag=''):
-    """The stated tolerances of the kernel against the plain version where
-    the resize's order of operations is not the plain version's: float
-    levels within LEVEL_ATOL; uint8 levels equal except where the float
-    lies within HALF_BAND of .5; full-resolution candidates (gray, no
-    resize) equal; bg scores within BG_SCORE_RTOL of the stream's largest,
-    and a bg point moved only in a cell whose best two responses are
-    within that bound. Returns the shares of uint8 values in the band that
-    differ and of bg points that moved."""
-    n = spec.max_level + 1
-    got, want = [t.cpu() for t in flat_state(got)], flat_state(want)
-    u8_moved = 0
-    for lvl in range(n):
-        g, w = got[lvl], want[lvl]
-        assert (g - w).abs().max() <= LEVEL_ATOL, (tag, lvl)
-        gu, wu = got[n + lvl], want[n + lvl]
-        near = ((w - torch.floor(w)) - 0.5).abs() <= HALF_BAND
-        assert torch.equal(gu[~near], wu[~near]), (tag, lvl)
-        u8_moved += int((gu != wu).sum())
-    assert torch.equal(got[2 * n], want[2 * n]), tag
-    assert torch.equal(got[2 * n + 1], want[2 * n + 1]), tag
-    (g_bp, g_bs), (w_bp, w_bs) = got[2 * n + 2:], want[2 * n + 2:]
-    scale = w_bs.abs().amax(-1, keepdim=True).clamp(min=1e-6)
-    assert ((g_bs - w_bs).abs() <= BG_SCORE_RTOL * scale).all(), tag
-    frames = frames.float().cpu()
-    gray = frames[..., 2] * 0.299 + frames[..., 1] * 0.587 \
-        + frames[..., 0] * 0.114
-    bw, bh = spec.bg_size
-    resp = tfk.shi_tomasi_response(tfk.resize_bilinear(gray, (bh, bw)))
-    margin = torch.from_numpy(cell_margin(resp.numpy(), tfk.BG_CELL))
-    moved = (g_bp != w_bp).any(-1)
-    assert (margin[moved] <= 2 * BG_SCORE_RTOL * scale.expand_as(margin)
-            [moved]).all(), tag
-    return u8_moved / max(1, sum(t.numel() for t in want[n:2 * n])), \
-        float(moved.float().mean())
-
-
 def assert_matches_jax(state, jstate, spec, tag=''):
     """tests/test_torch_flow.py::test_preprocess_matches_jax's tolerances,
     one stream."""
@@ -186,145 +147,6 @@ def assert_matches_jax(state, jstate, spec, tag=''):
 # The host build
 # ---------------------------------------------------------------------------
 
-# Just enough of CUDA for csrc/flow_preprocess.cu and csrc/gap_points.cu to
-# build with g++. A launch runs its blocks one after another on one team of
-# host_threads host threads (set_host_threads; the kernels stride their
-# loops by blockDim.x, so any count computes the same), which meet after
-# each block; __syncthreads is a barrier of the team (a mutex and condition
-# variable; a barrier some thread never reaches aborts after 60 s), the
-# atomics are the compiler's, and __shared__ arrays are static storage.
-HOST_SHIM = r"""
-#pragma once
-#include <math.h>
-#include <algorithm>
-#include <chrono>
-#include <condition_variable>
-#include <cstdint>
-#include <cstdlib>
-#include <cstring>
-#include <mutex>
-#include <thread>
-#include <vector>
-#define __device__
-#define __global__
-#define __forceinline__ inline
-#define __launch_bounds__(...)
-#define __shared__ static
-using std::max;
-using std::min;
-struct uint3 { unsigned x, y, z; };
-struct dim3 {
-  unsigned x, y, z;
-  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
-};
-static thread_local uint3 blockIdx, threadIdx;
-static thread_local dim3 blockDim;
-typedef void* cudaStream_t;
-typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-inline cudaError_t cudaGetLastError() { return 0; }
-inline const char* cudaGetErrorString(cudaError_t e) {
-  return e ? "invalid value" : "no error";
-}
-inline unsigned __float_as_uint(float f) {
-  unsigned u;
-  std::memcpy(&u, &f, 4);
-  return u;
-}
-inline float __uint_as_float(unsigned u) {
-  float f;
-  std::memcpy(&f, &u, 4);
-  return f;
-}
-inline int atomicAdd(int* p, int v) {
-  return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
-}
-inline unsigned atomicMax(unsigned* p, unsigned v) {
-  unsigned old = __atomic_load_n(p, __ATOMIC_RELAXED);
-  while (old < v && !__atomic_compare_exchange_n(
-             p, &old, v, true, __ATOMIC_RELAXED, __ATOMIC_RELAXED)) {
-  }
-  return old;
-}
-inline unsigned atomicMin(unsigned* p, unsigned v) {
-  unsigned old = __atomic_load_n(p, __ATOMIC_RELAXED);
-  while (old > v && !__atomic_compare_exchange_n(
-             p, &old, v, true, __ATOMIC_RELAXED, __ATOMIC_RELAXED)) {
-  }
-  return old;
-}
-
-struct Barrier {
-  std::mutex m;
-  std::condition_variable cv;
-  int n = 0, waiting = 0, generation = 0;
-  void meet() {
-    std::unique_lock<std::mutex> lock(m);
-    const int g = generation;
-    if (++waiting == n) {
-      waiting = 0;
-      ++generation;
-      cv.notify_all();
-    } else if (!cv.wait_for(lock, std::chrono::seconds(60),
-                            [&] { return generation != g; })) {
-      std::abort();
-    }
-  }
-};
-static thread_local Barrier* block_barrier;
-inline void __syncthreads() { block_barrier->meet(); }
-
-static int host_threads = 1;
-extern "C" void set_host_threads(int n) { host_threads = n; }
-
-template <class F, class... A>
-void host_launch(dim3 grid, int, F f, A... args) {
-  const int n = host_threads;
-  Barrier barrier, block_end;
-  barrier.n = block_end.n = n;
-  std::vector<std::thread> team;
-  for (int t = 0; t < n; ++t)
-    team.emplace_back([&, t] {
-      threadIdx = {static_cast<unsigned>(t), 0, 0};
-      blockDim = dim3(n);
-      block_barrier = &barrier;
-      for (unsigned y = 0; y < grid.y; ++y)
-        for (unsigned b = 0; b < grid.x; ++b) {
-          blockIdx = {b, y, 0};
-          f(args...);
-          block_end.meet();
-        }
-    });
-  for (auto& th : team) th.join();
-}
-"""
-
-
-def build_host(name, tmp_path_factory, defines=()):
-    """``csrc/<name>.cu`` built for the host with g++ and ``HOST_SHIM``
-    (each ``kernel<<<grid, block, 0, stream>>>(`` a ``host_launch``) and
-    the macro ``defines`` (``-D`` flags), as a ctypes library with
-    ``set_host_threads`` declared."""
-    from fastmot_tpu_torch.ops.cuda_build import CSRC
-    if shutil.which('g++') is None:
-        pytest.skip('needs g++')
-    d = tmp_path_factory.mktemp(f'{name}_host')
-    (d / 'cuda_runtime.h').write_text(HOST_SHIM)
-    src, n = re.subn(r'(\w+)<<<(\w+), (\w+), \w+, \w+>>>\(',
-                     r'host_launch(\2, \3, \1, ',
-                     (CSRC / f'{name}.cu').read_text())
-    assert n >= 1
-    (d / f'{name}.cpp').write_text(src)
-    subprocess.run(['g++', '-O2', '-std=c++17', '-pthread',
-                    '-ffp-contract=off', '-fPIC', '-shared', *defines, '-I',
-                    str(d), '-o', str(d / f'{name}.so'),
-                    str(d / f'{name}.cpp')],
-                   check=True, capture_output=True)
-    lib = ctypes.CDLL(str(d / f'{name}.so'))
-    lib.set_host_threads.argtypes = [ctypes.c_int]
-    return lib
-
-
 @pytest.fixture(scope='module')
 def host_kernel(tmp_path_factory):
     lib = build_host('flow_preprocess', tmp_path_factory)
@@ -335,16 +157,17 @@ def host_kernel(tmp_path_factory):
     return lib
 
 
-def host_run(lib, spec, frames, threads=3):
-    """One call of the host-built kernel on CPU frames: the state, as
-    ``preprocess`` returns it."""
+def host_run(lib, spec, frames, threads=32):
+    """One call of the host-built kernel on CPU frames, ``threads`` host
+    threads a block (0: the launch's own): the state, as ``preprocess``
+    returns it."""
     lib.set_host_threads(threads)
     state, args = tfk.preprocess_launch_args(spec, frames)
     assert lib.flow_preprocess_forward(*args) == 0
     return state
 
 
-@pytest.mark.parametrize('threads', [1, 3])
+@pytest.mark.parametrize('threads', [32, 64])
 @pytest.mark.parametrize('kind', KINDS)
 @pytest.mark.parametrize('size', SIZES, ids=lambda s: f'{s[0]}x{s[1]}')
 def test_host_kernel_equals_plain_version(host_kernel, size, kind, threads):
@@ -369,7 +192,7 @@ def test_host_kernel_two_streams(host_kernel, size):
     got = host_run(host_kernel, spec, frames)
     assert_state_equal(got, tfk.preprocess_reference(spec, frames), spec)
     for s in range(2):
-        alone = host_run(host_kernel, spec, frames[s], 1)
+        alone = host_run(host_kernel, spec, frames[s], 64)
         for g, a in zip(flat_state(got), flat_state(alone)):
             assert torch.equal(g[s], a)
 
@@ -384,6 +207,92 @@ def test_host_kernel_off_the_integer_ratios(host_kernel, kind):
     got = host_run(host_kernel, spec, frames)
     assert_state_equal(got, tfk.preprocess_reference(spec, frames), spec,
                        kind)
+
+
+# Each synthetic call's outputs as the first design of the kernel (three
+# roles side by side) gave them: (kind, (W, H), flow scale, bg scale,
+# streams, seed) -> the sha256 of the state's 16 tensors' bytes in order
+OUTPUT_SHA256 = {
+    ('texture', (320, 240), 0.5, 0.1, 1, 0):
+        'a9d483f151a13fa47d6000755773913bf1bc372285b919ee8d200ab381031ade',
+    ('ties', (250, 170), 0.5, 0.1, 2, 1):
+        '329b36797d394d14c2d67caf5aa68e6cf6436c71d7af94c139a9ae4c7df18067',
+    ('texture', (320, 240), 0.37, 0.13, 2, 7):
+        'dc0f4905b07a3f83637f101cb9db0d2695c35594f9653a7c8694874ffc3137e1',
+    ('ties', (250, 170), 0.37, 0.13, 1, 3):
+        '2c157403e29ea72856d87d0b48f5ade52c65c50a8af2508152b5f3af5e388fc1',
+    ('texture', (336, 200), 0.5, 0.1, 1, 4):
+        '215c727e5e5bb759b831196d87cbe01a67bca56e624e4445c31bc62520fa04d0',
+    ('ties', (326, 202), 0.5, 0.1, 2, 5):
+        '51f1e3deee253fc81b3d2067c70886b5b267312bec528adf7de1a8d282a43e4b',
+    ('texture', (321, 241), 0.5, 0.1, 1, 6):
+        'cafbd4e70e6c56149ac4722408b4ed60a36f9544540581ca0f278db6e12640e0',
+}
+
+
+def hash_case(case):
+    """(spec, frames) of an OUTPUT_SHA256 call."""
+    kind, size, opt, bg, n_streams, seed = case
+    return (spec_of(size, (opt, opt), (bg, bg)),
+            frames_of(kind, size, n_streams, seed))
+
+
+def output_sha256(state):
+    h = hashlib.sha256()
+    for t in flat_state(state):
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def hash_case_id(case):
+    kind, size, opt, bg, n_streams, _ = case
+    return f'{kind}-{size[0]}x{size[1]}-{opt}-{bg}-{n_streams}'
+
+
+@pytest.mark.parametrize('case', OUTPUT_SHA256, ids=hash_case_id)
+def test_host_kernel_outputs_equal_the_first_design(host_kernel, case):
+    """Every output of the host build, to the bit, is what the first design
+    gave on the same call (``OUTPUT_SHA256``)."""
+    spec, frames = hash_case(case)
+    assert output_sha256(host_run(host_kernel, spec, frames)) \
+        == OUTPUT_SHA256[case]
+
+
+# (W, H) of frames at the tiles' edges: 336x200 ragged right and bottom
+# (5.25 x 3.125 tiles of 64 px) with rows of 1,008 B, a multiple of 16;
+# 326x202 ragged, rows of 978 B (no 16-byte group aligned but the first
+# row's); 321x241, whose flow size 160x120 is not half of it, so the
+# pyramid takes its own tiles
+EDGE_SIZES = ((336, 200), (326, 202), (321, 241))
+
+
+@pytest.mark.parametrize('kind', KINDS)
+@pytest.mark.parametrize('size', EDGE_SIZES, ids=lambda s: f'{s[0]}x{s[1]}')
+def test_host_kernel_at_the_tiles_edges(host_kernel, size, kind):
+    """Frames at the edge cases of the staging and of the pyramid's nesting
+    (EDGE_SIZES), at two streams: bit for bit."""
+    spec = spec_of(size)
+    ow, oh = spec.opt_size
+    assert ((size[0] % 64, size[1] % 64) != (0, 0)
+            and ((size[0] * 3) % 16 != 0) == (size != (336, 200))
+            and (size == (ow * 2, oh * 2)) == (size != (321, 241)))
+    frames = frames_of(kind, size, 2, 8)
+    assert_state_equal(host_run(host_kernel, spec, frames, 64),
+                       tfk.preprocess_reference(spec, frames), spec,
+                       f'{kind} {size}')
+
+
+@pytest.mark.parametrize('kind,size,n_streams', [
+    ('texture', (320, 240), 1), ('ties', (326, 202), 2)])
+def test_host_kernel_with_its_own_block(host_kernel, kind, size, n_streams):
+    """The kernel's own 256 threads a block (the frame role's column pass
+    on five warps beside the pyramid's levels 0-2 on the other three,
+    which teams of 32 and 64 threads run one after the other): bit for
+    bit."""
+    spec = spec_of(size)
+    frames = frames_of(kind, size, n_streams, 9)
+    assert_state_equal(host_run(host_kernel, spec, frames, 0),
+                       tfk.preprocess_reference(spec, frames), spec, kind)
 
 
 @pytest.mark.parametrize('out_hw', [(360, 640), (72, 128), (266, 474),

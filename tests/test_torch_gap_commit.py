@@ -3,8 +3,9 @@
 similarity RANSAC, Kalman warp/predict/update and the commit of a gap
 frame, for every stream of a call.
 
-On the CPU the kernel's own source is built for the host with g++ through a
-shim of the few CUDA names it uses (a block's 256 threads as host threads,
+On the CPU the kernel's own source is built for the host with g++ through
+tests/cuda_host_shim.py, the shim the three hand kernels' tests share (a
+block's 256 threads as host threads,
 ``__syncthreads`` as a barrier of all of them, ``__syncwarp``, shuffles
 and ballots as meetings of a warp's 32, ``__shared__`` as static storage:
 a launch's blocks run in turn, and its launches one after another), under
@@ -41,9 +42,6 @@ without one, and JAX is imported only by the CPU tests that need it):
 """
 import ctypes
 import hashlib
-import re
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -53,6 +51,8 @@ from fastmot_tpu_torch import kalman as tkf
 from fastmot_tpu_torch import tracker as ttr
 from fastmot_tpu_torch.ops import flow_kernels as tfk
 from fastmot_tpu_torch.ops import gap_commit as gc
+
+from .cuda_host_shim import build_host
 
 F32 = np.float32
 SIZE = (320, 240)
@@ -497,209 +497,6 @@ def test_cases_are_what_they_say():
 # The kernel's own source, built for the host
 # ---------------------------------------------------------------------------
 
-# Just enough of CUDA for csrc/gap_commit.cu to build with g++: a launch
-# runs the blocks in turn, each block's threads as host threads (so the
-# kernel's static __shared__ arrays serve as the block's shared memory);
-# __syncthreads and __syncthreads_count are a barrier of all of them (a
-# mutex and condition variable; a barrier some thread never reaches aborts
-# after 60 s), __syncwarp a barrier of a warp's 32 threads, and a shuffle
-# or ballot an exchange through the warp's slots and that barrier (two
-# slot rows in turn, so a lane writes a row only after every lane has read
-# it). The programmatic-dependent-launch calls do nothing: the launches
-# already run one after another. cudaLaunchKernelEx is a launch.
-HOST_SHIM = r"""
-#pragma once
-#include <math.h>
-#include <atomic>
-#include <chrono>
-#include <condition_variable>
-#include <cstddef>
-#include <cstdint>
-#include <cstdlib>
-#include <cstring>
-#include <memory>
-#include <mutex>
-#include <thread>
-#include <vector>
-#define __host__
-#define __device__
-#define __global__
-#define __forceinline__ inline
-#define __launch_bounds__(...)
-#define __restrict__
-#define __shared__ static
-struct float2 { float x, y; };
-inline float2 make_float2(float x, float y) { return {x, y}; }
-struct uint3 { unsigned x, y, z; };
-struct dim3 {
-  unsigned x, y, z;
-  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
-};
-static thread_local uint3 blockIdx, threadIdx;
-typedef void* cudaStream_t;
-typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-inline cudaError_t cudaGetLastError() { return 0; }
-inline const char* cudaGetErrorString(cudaError_t e) {
-  return e ? "invalid value" : "no error";
-}
-inline float __uint_as_float(uint32_t u) {
-  float f;
-  std::memcpy(&f, &u, 4);
-  return f;
-}
-inline int __popc(unsigned v) { return __builtin_popcount(v); }
-
-struct Barrier {
-  std::mutex m;
-  std::condition_variable cv;
-  int n = 0, waiting = 0, generation = 0, count = 0, result = 0;
-  // waits for the group; returns how many of it met with a nonzero pred
-  int meet(int pred = 0) {
-    std::unique_lock<std::mutex> lock(m);
-    const int g = generation;
-    count += pred != 0;
-    if (++waiting == n) {
-      result = count;
-      count = 0;
-      waiting = 0;
-      ++generation;
-      cv.notify_all();
-    } else if (!cv.wait_for(lock, std::chrono::seconds(60),
-                            [&] { return generation != g; })) {
-      std::abort();
-    }
-    return result;
-  }
-};
-// a warp's barrier: its threads spin (yielding the core) on a generation
-// count, cheaper than a sleep for the many short waits of shuffles
-struct SpinBarrier {
-  std::atomic<int> waiting{0}, generation{0};
-  int n = 0;
-  void meet() {
-    const int g = generation.load(std::memory_order_acquire);
-    if (waiting.fetch_add(1, std::memory_order_acq_rel) + 1 == n) {
-      waiting.store(0, std::memory_order_relaxed);
-      generation.fetch_add(1, std::memory_order_release);
-      return;
-    }
-    const auto t0 = std::chrono::steady_clock::now();
-    for (int spins = 1; generation.load(std::memory_order_acquire) == g;
-         ++spins) {
-      std::this_thread::yield();
-      if (spins % 4096 == 0 && std::chrono::steady_clock::now() - t0
-                                   > std::chrono::seconds(60))
-        std::abort();
-    }
-  }
-};
-struct Warp {
-  SpinBarrier barrier;
-  uint64_t slot[2][32];
-  int row[32] = {};
-};
-static thread_local Barrier* block_barrier;
-static thread_local Warp* this_warp;
-inline void __syncthreads() { block_barrier->meet(); }
-inline int __syncthreads_count(int pred) { return block_barrier->meet(pred); }
-inline void __syncwarp(unsigned = 0xFFFFFFFFu) { this_warp->barrier.meet(); }
-// every lane puts v in its slot and, after the warp's barrier, reads the
-// slots of the row (read(row))
-template <class T, class Read>
-auto warp_exchange(T v, Read read) {
-  Warp& w = *this_warp;
-  const int lane = threadIdx.x % 32, row = w.row[lane];
-  w.row[lane] ^= 1;
-  uint64_t bits = 0;
-  std::memcpy(&bits, &v, sizeof(T));
-  w.slot[row][lane] = bits;
-  w.barrier.meet();
-  return read(w.slot[row]);
-}
-template <class T>
-T lane_value(const uint64_t* slots, int lane) {
-  T out;
-  std::memcpy(&out, &slots[lane], sizeof(T));
-  return out;
-}
-template <class T>
-T __shfl_sync(unsigned, T v, int src) {
-  return warp_exchange(v, [&](const uint64_t* r) {
-    return lane_value<T>(r, src);
-  });
-}
-template <class T>
-T __shfl_down_sync(unsigned, T v, int d) {
-  const int l = threadIdx.x % 32;
-  return warp_exchange(v, [&](const uint64_t* r) {
-    return lane_value<T>(r, l + d < 32 ? l + d : l);
-  });
-}
-template <class T>
-T __shfl_xor_sync(unsigned, T v, int m) {
-  const int l = threadIdx.x % 32;
-  return warp_exchange(v, [&](const uint64_t* r) {
-    return lane_value<T>(r, l ^ m);
-  });
-}
-inline unsigned __ballot_sync(unsigned, int pred) {
-  return warp_exchange(pred != 0, [](const uint64_t* r) {
-    unsigned out = 0;
-    for (int l = 0; l < 32; ++l) out |= static_cast<unsigned>(r[l] != 0) << l;
-    return out;
-  });
-}
-inline void cudaTriggerProgrammaticLaunchCompletion() {}
-inline void cudaGridDependencySynchronize() {}
-
-// the blocks in turn on one team of host threads, which meet after each
-// block (a thread that returned early waits there)
-template <class F, class... A>
-void host_launch(int grid, int threads, F f, A... args) {
-  Barrier barrier, block_end;
-  barrier.n = block_end.n = threads;
-  const int n_warps = (threads + 31) / 32;
-  std::unique_ptr<Warp[]> warps(new Warp[n_warps]);
-  for (int w = 0; w < n_warps; ++w) warps[w].barrier.n = 32;
-  std::vector<std::thread> pool;
-  for (int t = 0; t < threads; ++t)
-    pool.emplace_back([&, t] {
-      threadIdx = {static_cast<unsigned>(t), 0, 0};
-      block_barrier = &barrier;
-      this_warp = &warps[t / 32];
-      for (int b = 0; b < grid; ++b) {
-        blockIdx = {static_cast<unsigned>(b), 0, 0};
-        f(args...);
-        block_end.meet();
-      }
-    });
-  for (auto& th : pool) th.join();
-}
-
-enum cudaLaunchAttributeID {
-  cudaLaunchAttributeProgrammaticStreamSerialization = 1
-};
-struct cudaLaunchAttribute {
-  cudaLaunchAttributeID id;
-  union { int programmaticStreamSerializationAllowed; } val;
-};
-struct cudaLaunchConfig_t {
-  dim3 gridDim, blockDim;
-  size_t dynamicSmemBytes;
-  cudaStream_t stream;
-  cudaLaunchAttribute* attrs;
-  unsigned numAttrs;
-};
-template <class... E, class... A>
-cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
-                               void (*f)(E...), A&&... args) {
-  host_launch(cfg->gridDim.x, cfg->blockDim.x, f, args...);
-  return cudaSuccess;
-}
-"""
-
-
 # Appended to the host build of csrc/gap_commit.cu (the same translation
 # unit, so its block tree is in reach): the first design's shared-memory
 # trees, the kernel's own tree_sum, and the shim's __syncthreads_count and
@@ -754,23 +551,12 @@ void probe_count_and_ballot(const int* pred, int* count, unsigned* ballot,
 
 @pytest.fixture(scope='module')
 def host_kernel(tmp_path_factory):
-    """csrc/gap_commit.cu built for the host with g++ and the shim, its C
-    entries' signatures declared (ctypes)."""
-    from fastmot_tpu_torch.ops.cuda_build import CSRC
-    if shutil.which('g++') is None:
-        pytest.skip('needs g++')
-    d = tmp_path_factory.mktemp('gap_host')
-    (d / 'cuda_runtime.h').write_text(HOST_SHIM)
-    src, n = re.subn(r'(\w+)<<<(\w+), (\w+), \w+, \w+>>>\(',
-                     r'host_launch(\2, \3, \1, ',
-                     (CSRC / 'gap_commit.cu').read_text())
-    assert n == 1  # the draws; the roles launch by cudaLaunchKernelEx
-    (d / 'gap.cpp').write_text(src + HOST_PROBES)
-    subprocess.run(['g++', '-O1', '-std=c++17', '-pthread',
-                    '-ffp-contract=off', '-fPIC', '-shared', '-I', str(d),
-                    '-o', str(d / 'gap.so'), str(d / 'gap.cpp')],
-                   check=True, capture_output=True)
-    lib = ctypes.CDLL(str(d / 'gap.so'))
+    """csrc/gap_commit.cu built for the host with g++ and the shared shim
+    (tests/cuda_host_shim.py: a block's 256 threads as host threads), the
+    probes appended, its C entries' signatures declared (ctypes)."""
+    # one <<< launch, the draws; the roles launch by cudaLaunchKernelEx
+    lib = build_host('gap_commit', tmp_path_factory, extra=HOST_PROBES,
+                     opt='-O1')
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.gap_commit_forward.argtypes = gc.FORWARD_ARGTYPES
     lib.gap_commit_draws.argtypes = [ctypes.POINTER(ctypes.c_uint32), ci, ci,
