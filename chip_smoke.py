@@ -10,8 +10,9 @@ Phases, each raising on failure (the exit code is then non-zero):
 2. build: compiles the OSBlock kernel (csrc/osnet_block.cu), the
    pyramidal-LK kernels (csrc/lk_pyramidal.cu: a tile of lanes a point,
    and one thread a point), the gap-commit kernel (csrc/gap_commit.cu),
-   the preprocess kernel (csrc/flow_preprocess.cu) and the gap-points
-   kernel (csrc/gap_points.cu) from the sources in this checkout, one
+   the preprocess kernel (csrc/flow_preprocess.cu), the gap-points
+   kernel (csrc/gap_points.cu) and the association solvers' kernels
+   (csrc/assoc_solvers.cu) from the sources in this checkout, one
    ``nvcc`` each, all at once, and prints ptxas's registers, shared memory
    and spills;
 3. kernel vs its plain version at the six OSNet-x0.25 block shapes (64
@@ -37,7 +38,12 @@ Phases, each raising on failure (the exit code is then non-zero):
    kernel a run, the one ``lk_design`` picks for its points); the float
    run also times a gap frame's stages alone, the preprocess and the point
    assembly through their kernels with their plain versions beside them
-   (phase 16 prints them);
+   (phase 16 prints them), and an association frame's stages alone
+   (``assoc_stages_ms``: the detector's net, its NMS, crops + OSNet, the
+   costs, the cascade and the finals through the kernels and through the
+   plain versions, the commit, the whole ``update_device_fused`` call),
+   the host syncs a call of the cascade and the finals, and the cascade
+   kernel's bidding rounds by stage and phase;
 7. detector zoo: every registered YOLO and SSD with random weights at its
    full input size on a 1280x720 frame: raw head shapes, finite values,
    the median time of the whole detector; SSDMobileNetV1 and YOLOv4-tiny
@@ -69,7 +75,8 @@ Phases, each raising on failure (the exit code is then non-zero):
    association frame (one OSNet call on 1,024 crops, not one per stream),
    streams 0 and 1 equal, the LK kernel once a frame for all 8 streams;
    the step medians and the aggregate FPS beside phase 6's single-stream
-   median, then each stage alone;
+   median, then each stage alone, and the 8-stream association's cascade
+   and finals alone through the kernels and the plain versions;
 14. mesh (``parallel.make_stream_mesh``, torch.distributed): (a) phase 13
    over a 1x1 NCCL mesh in this process, (b) phase 13 over two spawned
    gloo ranks sharing the card as a (2, 1) mesh, 4 streams each, (c)
@@ -160,7 +167,32 @@ Phases, each raising on failure (the exit code is then non-zero):
    of the C entry between CUDA events, queued behind a sleep kernel), the
    wrapper's time a call and host time a call, the plain version's time on
    the card, and the bound (``preprocess_bound_ms``,
-   ``gap_points_bound_ms``).
+   ``gap_points_bound_ms``);
+19. the association solvers' kernels (csrc/assoc_solvers.cu: the whole
+   auction cascade of a call in one launch, a block a stream; the finals'
+   greedy matchings in another, a block a stream and problem): each
+   against its plain version (``cascade_reference``,
+   ``greedy_match_reference``) run on the CPU and on the card, bit for
+   bit, on phase 6's real association arguments (1 stream) and phase 13's
+   (8 streams), on contested problems at the kernels' full width (the
+   stage-1 cascade of scripts/prof_auction.py, 64 tracks and 40
+   detections padded to 128, and its one-stage auction, at 1 and 8
+   streams; greedy problems of the finals' shapes and gates that take
+   tens of matches), and on the seeded cases of
+   tests/test_torch_assoc_solvers.py; the matches, rounds and bids
+   logged; two calls equal; ``stages_scan_core`` and ``finals_core`` on
+   the real arguments under ``torch.cuda.set_sync_debug_mode('error')``;
+   each kernel's registers
+   and shared memory as ptxas reported them; then each kernel's device
+   time a call (100 calls of the C entry between CUDA events, queued
+   behind a sleep kernel), the wrapper's time a call and host time a
+   call, the plain version's time on the card, and the bound of the work
+   each case's data needs (``cascade_bound_ms``, ``greedy_bound_ms``: the
+   live entries only, the bids the run made). Phases 5-14 count both
+   kernels' launches: one cascade and one greedy launch an association
+   frame, for all of a call's streams (``expect_assoc``); and calls of the
+   plain solvers (``auction_lap_reference``, ``cascade_reference``,
+   ``greedy_match_reference``) on CUDA tensors, which must stay 0.
 
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -210,6 +242,8 @@ GAP_H_PX, GAP_MEAN_PX, GAP_COV_REL, GAP_RATIO = 0.01, 1e-3, 1e-4, 1e-6
 # the gap commit's two launches (csrc/gap_commit.cu), in their order; the
 # preprocess's launch and the point assembly's two
 GAP_KERNELS = ('gap_fit_kernel', 'gap_kalman_kernel')
+# the association solvers' two kernels (csrc/assoc_solvers.cu)
+ASSOC_KERNELS = ('cascade_auction_kernel', 'greedy_match_kernel')
 FLOW_KERNELS = ('preprocess_kernel', 'points_owner_kernel',
                 'points_select_kernel')
 # the H100 SXM's 32-bit integer rate (64 INT32 lanes an SM a clock, 132
@@ -346,7 +380,7 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
     from fastmot_tpu_torch.ops import cuda_build
     names = ('osnet_block', 'lk_pyramidal', 'gap_commit', 'flow_preprocess',
-             'gap_points')
+             'gap_points', 'assoc_solvers')
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(cuda_build.build, names))
@@ -522,12 +556,15 @@ def synth_tlbrs(frame_id, size, n=N_OBJECTS):
 
 def reset_lk():
     """Zeroes the LK kernels', the gap-commit kernel's, the preprocess
-    kernel's and the gap-points kernel's launch counts."""
+    kernel's, the gap-points kernel's and the association solvers' launch
+    counts."""
+    from fastmot_tpu_torch.ops import assignment as asg
     from fastmot_tpu_torch.ops.flow_kernels import lk_pyramidal, preprocess
     from fastmot_tpu_torch.ops.gap_commit import gap_commit
     from fastmot_tpu_torch.ops.gap_points import gap_points
     lk_pyramidal.launches = dict.fromkeys(lk_pyramidal.launches, 0)
     gap_commit.launches = preprocess.launches = gap_points.launches = 0
+    asg.cascade_auction.launches = asg.greedy_match.launches = 0
 
 
 def flow_counts():
@@ -629,9 +666,12 @@ def phase_reference():
                 mot.step(frame)
             runs.append(snapshots(mot))
     lk, gap_n, flow_n = lk_counts(), gap_launches(), flow_counts()
+    assoc_n = assoc_counts()
     expect_lk('reference', lk, n_frames - 1)
     expect_gap('reference', gap_n, n_frames - 1)
     expect_flow('reference', flow_n, n_frames, n_frames - 1)
+    # an association frame every third frame after the first (3, 6, 9)
+    expect_assoc('reference', assoc_n, (n_frames - 1) // 3)
     cpu, gpu = runs
     for fid in cpu:
         ids_c = [t for t, _ in cpu[fid]]
@@ -647,7 +687,8 @@ def phase_reference():
         raise AssertionError('reference run tracked nothing')
     log(f'reference: GPU == CPU on {len(cpu)} frames, {n_rows} track rows; '
         f'lk_pyramidal launches {lk}, gap_commit launches {gap_n}, '
-        f'preprocess and gap_points launches {flow_n}')
+        f'preprocess and gap_points launches {flow_n}, cascade_auction and '
+        f'greedy_match launches {assoc_n}')
     return lk
 
 
@@ -698,13 +739,17 @@ def phase_stream_reference():
                           for trk in st.trackers])
         runs.append(snaps)
     lk, gap_n, flow_n = lk_counts(), gap_launches(), flow_counts()
+    assoc_n = assoc_counts()
     expect_lk('stream tracker', lk, n_frames - 1)
     expect_gap('stream tracker', gap_n, n_frames - 1)
     expect_flow('stream tracker', flow_n, n_frames, n_frames - 1)
+    expect_assoc('stream tracker', assoc_n,
+                 sum(1 for f in range(1, n_frames) if f % skip == 0))
     _same_rows('stream tracker', *runs)
     log(f'reference: StreamTracker GPU == CPU on {n_frames - 1} frames of '
         f'{n} streams; lk_pyramidal launches {lk}, gap_commit launches '
-        f'{gap_n}, preprocess and gap_points launches {flow_n}')
+        f'{gap_n}, preprocess and gap_points launches {flow_n}, '
+        f'cascade_auction and greedy_match launches {assoc_n}')
     return lk
 
 
@@ -755,6 +800,7 @@ def phase_legacy_api():
     # Flow.predict preprocess through the kernel
     expect_gap('legacy compute_flow', gap_launches(), 0)
     expect_flow('legacy compute_flow', flow_counts(), len(frames), 0)
+    expect_assoc('legacy compute_flow', assoc_counts(), 0)
     _same_rows('legacy compute_flow + apply_kalman', *runs)
     log('reference: compute_flow + apply_kalman GPU == CPU on 4 frames, '
         f'{len(runs[0][-1][0])} tracks; lk_pyramidal launches {lk}')
@@ -828,8 +874,8 @@ def gap_stages_ms(mot, frames):
 def phase_main_path(detector_type='YOLO', tag='main path', int8=False,
                     stages=False):
     """Returns the OSBlock and LK kernels' launches, the step median and,
-    with ``stages``, ``gap_stages_ms``'s times and arguments after the
-    run."""
+    with ``stages``, ``gap_stages_ms``'s and ``assoc_stages_ms``'s times
+    and arguments after the run."""
     from fastmot_tpu_torch import MOT
     from fastmot_tpu_torch.detector import MAX_DETS, make_detections
     from fastmot_tpu_torch.models.layers import Conv
@@ -912,6 +958,7 @@ def phase_main_path(detector_type='YOLO', tag='main path', int8=False,
                              and torch.isfinite(state[1]).all())
     launches, int8_launches = osblock.launches, int8_conv.launches
     lk, gap_n, flow_n = lk_counts(), gap_launches(), flow_counts()
+    assoc_n = assoc_counts()
 
     n_assoc = 2 * sum(1 for i in range(1, len(frames)) if i % skip == 0)
     n_detect = n_assoc + 2                   # frame 0 of each run detects
@@ -932,7 +979,8 @@ def phase_main_path(detector_type='YOLO', tag='main path', int8=False,
     log(f'{tag}: visible tracks {visible}, association frames '
         f'{n_assoc}, osblock launches {launches}, int8_conv launches '
         f'{int8_launches}, lk_pyramidal launches {lk}, gap_commit launches '
-        f'{gap_n}, preprocess and gap_points launches {flow_n}')
+        f'{gap_n}, preprocess and gap_points launches {flow_n}, '
+        f'cascade_auction and greedy_match launches {assoc_n}')
     if snap_step != snap_batch:
         raise AssertionError(f'{tag}: step and step_batch snapshots differ')
     if not visible:
@@ -948,6 +996,7 @@ def phase_main_path(detector_type='YOLO', tag='main path', int8=False,
     expect_lk(tag, lk, 2 * (len(frames) - 1))     # step, then step_batch
     expect_gap(tag, gap_n, 2 * (len(frames) - 1))
     expect_flow(tag, flow_n, 2 * len(frames), 2 * (len(frames) - 1))
+    expect_assoc(tag, assoc_n, n_assoc)
     if int8:
         log(f'{tag}: int8_conv launches per association frame '
             f'{det_convs + reid_convs} ({det_convs} detector convs, '
@@ -958,6 +1007,14 @@ def phase_main_path(detector_type='YOLO', tag='main path', int8=False,
     if stages:
         out['gap stages'], out['gap args'], out['flow args'] = \
             gap_stages_ms(mot, frames)
+        out['assoc stages'], out['assoc syncs'], out['assoc args'] = \
+            assoc_stages_ms(mot, frames, staged)
+        # the cascade and the finals through the plain versions beside
+        solver_ms, syncs, out['assoc rounds'] = solver_stages_ms(
+            *out['assoc args'])
+        for name in ('cascade', 'finals'):
+            out['assoc stages'][f'{name}, plain'] = solver_ms[f'{name}, plain']
+            out['assoc syncs'][f'{name}, plain'] = syncs[f'{name}, plain']
     return out
 
 
@@ -1193,13 +1250,16 @@ def multi_stream_kwargs():
                 tracker_cfg=cfg['tracker_cfg'])
 
 
-def phase_multi_stream(single_ms, frames, dets, n_streams=N_STREAMS):
+def phase_multi_stream(single_ms, frames, dets, card, n_streams=N_STREAMS):
     """``MultiStreamMOT`` at 8 streams of 1280x720 with cfg/mot.json's
     detector, extractor, skip and tracker (bench.py config 5). Returns the
     OSBlock and LK launches, every stream's final rows, the step median,
-    the gap frame alone, and phase 17's 8-stream gap-commit arguments and
-    phase 18's preprocess and point-assembly arguments."""
+    the gap frame alone, and phase 17's 8-stream gap-commit arguments,
+    phase 18's preprocess and point-assembly arguments and phase 19's
+    association arguments (after the cascade and the finals alone at 8
+    streams, through the kernels and the plain versions)."""
     from fastmot_tpu_torch.detector import MAX_DETS
+    from fastmot_tpu_torch.tracker import assoc_costs_batch
     from fastmot_tpu_torch.multichip import run_multi_stream
     from fastmot_tpu_torch.ops import flow_kernels as fk
     from fastmot_tpu_torch.ops.osnet_block import osblock
@@ -1216,7 +1276,7 @@ def phase_multi_stream(single_ms, frames, dets, n_streams=N_STREAMS):
     reset_lk()
     (rows,), step_ms = run_multi_stream(mot, frames, dets)
     launches, lk, gap_n = osblock.launches, lk_counts(), gap_launches()
-    flow_n = flow_counts()
+    flow_n, assoc_n = flow_counts(), assoc_counts()
     n_assoc = sum(1 for i in range(1, n_frames) if i % skip == 0)
     visible = [len(list(mot.visible_tracks(s))) for s in range(n_streams)]
     state = mot.stream_tracker._dev_state
@@ -1236,7 +1296,9 @@ def phase_multi_stream(single_ms, frames, dets, n_streams=N_STREAMS):
     log(f'multi-stream: visible tracks per stream {visible}, association '
         f'frames {n_assoc}, osblock launches {launches}, lk_pyramidal '
         f'launches {lk}, gap_commit launches {gap_n}, preprocess and '
-        f'gap_points launches {flow_n}')
+        f'gap_points launches {flow_n}, cascade_auction and greedy_match '
+        f'launches {assoc_n}')
+    expect_assoc('multi-stream', assoc_n, n_assoc)
     expect_lk('multi-stream', lk, n_frames - 1)
     expect_gap('multi-stream', gap_n, n_frames - 1)
     expect_flow('multi-stream', flow_n, n_frames, n_frames - 1)
@@ -1286,9 +1348,22 @@ def phase_multi_stream(single_ms, frames, dets, n_streams=N_STREAMS):
         f'{name} {ms:.3f}' for name, ms in stage_ms.items()))
     gap8_args, flow8_args = gap_commit_args_at(mot.stream_tracker, last,
                                                fk.MAX_FLOW_TRACKS)
+    # the association's solvers alone at 8 streams, through the kernels and
+    # the plain versions
+    st = mot.stream_tracker
+    if st._dirty:
+        st._stack_from_mirrors()
+    t0 = st.trackers[0]
+    costs = assoc_costs_batch(t0._assoc_params(), st._dev_state,
+                              st._hist_store, det_b, emb[0])
+    assoc8_args = assoc_solver_args(t0, (costs, st._dev_state), det_b,
+                                    (t0.max_age + 2) // 2)
+    solver_ms, syncs, rounds = solver_stages_ms(*assoc8_args)
+    log_assoc_stages(f'multi-stream ({n_streams} streams)', solver_ms,
+                     syncs, rounds, card)
     return launches, lk, rows, statistics.median(step_ms), \
         stage_ms['gap frame (preprocess, points, LK, RANSAC, Kalman)'], \
-        gap8_args, flow8_args
+        gap8_args, flow8_args, assoc8_args
 
 
 def gap_commit_args_at(st, frames, f_cap):
@@ -1357,6 +1432,7 @@ def phase_mesh(frames, dets, want_rows, single_multi_ms, n_streams=N_STREAMS):
             (rows,), step_ms = multichip.run_multi_stream(mot, frames, dets)
             launches, lk = osblock.launches, lk_counts()
             gap_n, flow_n = gap_launches(), flow_counts()
+            assoc_n = assoc_counts()
         finally:
             dist.destroy_process_group()
     del mot
@@ -1374,6 +1450,7 @@ def phase_mesh(frames, dets, want_rows, single_multi_ms, n_streams=N_STREAMS):
     expect_lk('mesh (a)', lk, len(frames) - 1)
     expect_gap('mesh (a)', gap_n, len(frames) - 1)
     expect_flow('mesh (a)', flow_n, len(frames), len(frames) - 1)
+    expect_assoc('mesh (a)', assoc_n, n_assoc)
 
     t_b = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1394,6 +1471,7 @@ def phase_mesh(frames, dets, want_rows, single_multi_ms, n_streams=N_STREAMS):
         expect_flow(f'mesh (b) rank {r}', (out['preprocess_launches'],
                                            out['gap_points_launches']),
                     len(frames), len(frames) - 1)
+        expect_assoc(f'mesh (b) rank {r}', out['assoc_launches'], n_assoc)
     worst = _same_streams('mesh (b) 2 gloo ranks', rows_b, want_rows)
     log(f'mesh (b) 2 gloo ranks on one card, streams '
         f'{[o["local_streams"] for o in ranks]}: rows == phase 13 on every '
@@ -1411,6 +1489,7 @@ def phase_mesh(frames, dets, want_rows, single_multi_ms, n_streams=N_STREAMS):
     # the dryrun's one gap step preprocesses its two frames
     expect_flow('mesh (c)', (dry[0]['preprocess_launches'],
                              dry[0]['gap_points_launches']), 2, 1)
+    expect_assoc('mesh (c)', dry[0]['assoc_launches'], 1)
     log(f'mesh (c) dryrun_multichip(1) over NCCL: '
         f'{time.perf_counter() - t0:.1f} s, spawn and build included, '
         f'lk_pyramidal launches {dry[0]["lk_launches"]}, gap_commit '
@@ -2202,7 +2281,7 @@ def ptxas_kernels(nvcc_out):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = next((k for k in GAP_KERNELS + FLOW_KERNELS
-                         if k in m.group(1)), m.group(1))
+                         + ASSOC_KERNELS if k in m.group(1)), m.group(1))
         m = re.search(r'(\d+) bytes spill stores', line)
         if m and name:
             out[name] = f'{m.group(1)} bytes spilled'
@@ -2592,8 +2671,579 @@ def flow_kernel_entries(cases):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# The association solvers (phase 19, and the association frame's stages)
+# ---------------------------------------------------------------------------
+
+def assoc_counts():
+    """The cascade and greedy kernels' launches since ``reset_lk``."""
+    from fastmot_tpu_torch.ops import assignment as asg
+    return asg.cascade_auction.launches, asg.greedy_match.launches
+
+
+# the association kernels' launches on the main paths, by kernel (the
+# kernels line's counts)
+ASSOC_LAUNCHES = Counter()
+
+
+def expect_assoc(tag, counts, frames):
+    """The cascade kernel and the greedy kernel ran once an association
+    frame (``frames``) each, for all of a call's streams and stages."""
+    if tuple(counts) != (frames, frames):
+        raise AssertionError(f'{tag}: cascade_auction and greedy_match '
+                             f'launched {tuple(counts)} times, expected '
+                             f'{(frames, frames)}')
+    ASSOC_LAUNCHES['cascade_auction'] += counts[0]
+    ASSOC_LAUNCHES['greedy_match'] += counts[1]
+
+
+def plain_solvers():
+    """A context in which ``ops.assignment``'s plain solvers are the
+    originals, not ``main``'s counters (to time them on the card)."""
+    from contextlib import ExitStack
+    from fastmot_tpu_torch.ops import assignment as asg
+    stack = ExitStack()
+    for name in ('auction_lap_reference', 'cascade_reference',
+                 'greedy_match_reference'):
+        if name in PLAIN:
+            stack.enter_context(mock.patch.object(asg, name, PLAIN[name]))
+    return stack
+
+
+def count_syncs(fn):
+    """The host syncs a call of ``fn()`` makes after a first call, as
+    torch's CUDA sync debug mode reports them (a warning a synchronizing
+    call)."""
+    import warnings
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # the mode's own note that it is a prototype is not a sync
+    return sum('synchroniz' in str(w.message)
+               and 'debug mode' not in str(w.message) for w in caught)
+
+
+def assoc_solver_args(trk, scan_costs, det_dev, n_depth):
+    """The cascade's and the finals' arguments of an association frame, as
+    ``scan_finals_commit_core`` (one stream, ``trk`` a ``MultiTracker``)
+    or ``StreamTracker.update_device`` (``trk`` its first tracker, with
+    [S, ...] costs) makes them: ``(scan_args, eps, finals_args)``, the
+    finals on the cascade's result."""
+    from fastmot_tpu_torch import tracker as tr
+    (cost, iou_cost, reid_cost, occluded, h_reid_ok, depth_masks,
+     base_iou_active, base_unconf, u_det, col4row), st = scan_costs
+    scan_args = (n_depth, cost, iou_cost, tuple(depth_masks),
+                 base_iou_active, base_unconf, u_det, col4row)
+    u2, c2 = tr.stages_scan_core(*scan_args, eps=trk.assoc_eps)
+    finals_args = (trk.conf_thresh, trk.max_reid_cost,
+                   1.0 - trk.duplicate_thresh, trk.confirm_hits, st[2],
+                   st[3], st[4], st[5], det_dev[0], det_dev[2], reid_cost,
+                   h_reid_ok, occluded, u2, c2)
+    return scan_args, trk.assoc_eps, finals_args
+
+
+def cascade_call(scan_args, eps):
+    """``stages_scan_core``'s cascade as ``ops.assignment`` takes it, with a
+    stream axis: (costs, masks, cost_of, exclude, u_det, col4row)."""
+    n_depth, cost, iou_cost, depth_masks, ba, bu, u_det, col4row = scan_args
+    masks = tuple(depth_masks) + (ba, bu)
+    n = len(depth_masks)
+    one = cost.dim() == 2
+
+    def lead(t):
+        return t[None] if one else t
+    return ((lead(cost), lead(iou_cost)), tuple(lead(m) for m in masks),
+            (0,) * n + (1, 1), (False,) * n + (True, False), lead(u_det),
+            lead(col4row))
+
+
+def greedy_call(finals_args):
+    """The two greedy problems ``finals_core`` hands ``greedy_match``, with
+    a stream axis."""
+    from fastmot_tpu_torch import tracker as tr
+    from fastmot_tpu_torch.ops import assignment as asg
+    problems = []
+
+    def capture(p):
+        problems.extend(p)
+        return [PLAIN.get('greedy_match_reference',
+                          asg.greedy_match_reference)(*q) for q in p]
+    with mock.patch.object(asg, 'greedy_match', capture):
+        tr.finals_core(*finals_args)
+    if problems[0][0].dim() == 2:
+        problems = [(c[None], r[None], v[None], m)
+                    for c, r, v, m in problems]
+    return problems
+
+
+def cascade_rounds(call, eps):
+    """The cascade kernel's bidding rounds and the bids made in them, each
+    [S, stage, phase], on ``call`` (``cascade_call``'s arguments), from one
+    call of its C entry."""
+    from fastmot_tpu_torch.ops import assignment as asg
+    (_, _, _, rounds, bids), args, keep = asg.cascade_launch_args(
+        *call, eps, rounds=True)
+    if asg.assoc_solvers_library().cascade_auction_forward(*args):
+        raise AssertionError('cascade_auction: launch failed')
+    return rounds.cpu().numpy(), bids.cpu().numpy()
+
+
+def solver_stages_ms(scan_args, eps, finals_args):
+    """The cascade (``stages_scan_core``) and the finals (``finals_core``)
+    alone, synchronised (ms), each through the kernels and through the
+    plain versions; the host syncs a call of each makes; the kernel's
+    bidding rounds by stage and phase of each stream."""
+    from fastmot_tpu_torch import tracker as tr
+    from fastmot_tpu_torch.ops import assignment as asg
+    call = cascade_call(scan_args, eps)
+    plain_greedy = PLAIN.get('greedy_match_reference',
+                             asg.greedy_match_reference)
+
+    def cascade():
+        return tr.stages_scan_core(*scan_args, eps=eps)
+
+    def cascade_plain():
+        with plain_solvers():
+            return asg.cascade_reference(*call, eps)
+
+    def finals():
+        return tr.finals_core(*finals_args)
+
+    def finals_plain():
+        with plain_solvers(), mock.patch.object(
+                asg, 'greedy_match',
+                lambda p: [plain_greedy(*q) for q in p]):
+            return tr.finals_core(*finals_args)
+    out = {'cascade': wall_ms(cascade), 'cascade, plain':
+           wall_ms(cascade_plain, n=3, warmup=1),
+           'finals': wall_ms(finals), 'finals, plain':
+           wall_ms(finals_plain, n=3, warmup=1)}
+    syncs = {name: count_syncs(fn) for name, fn in (
+        ('cascade', cascade), ('cascade, plain', cascade_plain),
+        ('finals', finals), ('finals, plain', finals_plain))}
+    return out, syncs, cascade_rounds(call, eps)[0]
+
+
+def assoc_stages_ms(mot, frames, staged):
+    """One association frame of ``mot``'s main path after a run (its last
+    frame, the detections staged for its last association frame), each
+    stage alone and the whole ``update_device_fused`` call, synchronised
+    (ms): the detector's net (letterbox, YOLOv4, decode), its NMS
+    (``nms_and_gate``, and ``geom.greedy_suppress`` alone on the arguments
+    it got), crops + OSNet, the costs (``assoc_costs_core``), the cascade
+    (``stages_scan_core``), the finals (``finals_core``) and the commit
+    (``commit_part``). Returns the times, the host syncs a call of the
+    cascade and of the finals, and the solvers' arguments (phase 19's).
+    It calls only what every checkout of the port has, so that
+    scripts/assoc_stages_turns.py runs it on an earlier one too."""
+    from fastmot_tpu_torch import tracker as tr
+    from fastmot_tpu_torch.detector import nms_and_gate
+    from fastmot_tpu_torch.feature_extractor import extract_core
+    from fastmot_tpu_torch.models.yolo import decode_heads
+    from fastmot_tpu_torch.ops import geometry as geom
+    trk, det, ext = mot.tracker, mot.detector, mot.extractors[0]
+    if trk._dev_state is None or trk._mirrors_dirty:
+        trk._upload_state()
+    trk._ensure_hist_store()
+    det_dev = staged[max(staged)]
+    frame = torch.as_tensor(frames[-1], device=det_dev[0].device)
+    d_cap = int(det_dev[0].shape[0])
+    est = max(sum(1 for t in trk.tracks.values() if t.active),
+              trk._det_count_hint)
+    emb_cap = 64 if (est <= 56 and d_cap > 64) else d_cap
+    _, ih, iw = det.model.INPUT_SHAPE
+
+    def net():
+        heads = det.module(det.preprocess(frame))
+        return decode_heads(heads, det.model.ANCHORS, det.model.SCALES,
+                            (ih, iw), det.model.NEW_COORDS)[0]
+    det_out = net()
+
+    def nms():
+        return nms_and_gate(det_out, det.label_mask, det.conf_thresh,
+                            det.nms_thresh, det.max_area,
+                            det.min_aspect_ratio, det._scale_wh,
+                            det._offset)
+    suppress_args, real_suppress = [], geom.greedy_suppress
+    with mock.patch.object(geom, 'greedy_suppress', lambda *a: (
+            suppress_args.append(a), real_suppress(*a))[1]):
+        nms()
+    state, hist = trk._dev_state, trk._hist_store
+    params = trk._assoc_params()
+    costs, emb = tr.extract_costs_core(
+        ext.module, ext.out_hw, emb_cap, *params, frame, state, hist,
+        *det_dev)
+    n_depth = (trk.max_age + 2) // 2
+    scan_args, eps, finals_args = assoc_solver_args(trk, (costs, state),
+                                                    det_dev, n_depth)
+    cascade_out = (costs[3], finals_args[-1]) + tr.finals_core(*finals_args)
+    frame_id = mot.frame_count
+
+    def cascade():
+        return tr.stages_scan_core(*scan_args, eps=eps)
+
+    def finals():
+        return tr.finals_core(*finals_args)
+
+    stages = {
+        'detector net (letterbox, YOLOv4, decode)': net,
+        'NMS and gates (nms_and_gate)': nms,
+        f'greedy_suppress alone ({suppress_args[0][0].shape[-1]} '
+        'candidates)': lambda: real_suppress(*suppress_args[0]),
+        f'crops + OSNet ({emb_cap} crops)': lambda: extract_core(
+            ext.module, ext.out_hw, frame, det_dev[0][:emb_cap],
+            det_dev[3][:emb_cap]),
+        'costs (assoc_costs_core)': lambda: tr.assoc_costs_core(
+            *params, state, hist, *det_dev, emb, emb_cap=emb_cap),
+        'cascade (stages_scan_core)': cascade,
+        'finals (finals_core)': finals,
+        'commit (commit_part)': lambda: tr.commit_part(
+            trk.kf_cfg, trk.confirm_hits, trk.max_age, trk.history_size,
+            state, hist, *det_dev, emb, frame_id, trk._frame_rect_dev,
+            cascade_out)}
+    out = {name: wall_ms(fn) for name, fn in stages.items()}
+    syncs = {'cascade': count_syncs(cascade), 'finals': count_syncs(finals)}
+    out['whole association frame (update_device_fused)'] = wall_ms(
+        lambda: trk.update_device_fused(frame_id, frame, det_dev, ext))
+    trk.sync()
+    return out, syncs, (scan_args, eps, finals_args)
+
+
+def log_assoc_stages(tag, stage_ms, syncs, rounds, card):
+    log(f'{tag} association stages alone, ms: ' + '; '.join(
+        f'{name} {ms:.3f}' for name, ms in stage_ms.items()) + f'; {card}')
+    log(f'{tag} host syncs a call: ' + ', '.join(
+        f'{name} {n}' for name, n in syncs.items()))
+    log(f'{tag} cascade kernel bidding rounds [stream][stage][phase]: '
+        f'{rounds.tolist()} (sum {int(rounds.sum())})')
+
+
+def stage1_cost(t_live=64, d_live=40, cap=128, seed=0):
+    """The stage-1 cost of scripts/prof_auction.py, the bench workload's
+    contested regime: ``t_live`` track rows and ``d_live`` detections on a
+    1280 x 720 field in ``cap`` x ``cap`` padded matrices, appearance
+    nearly constant (0.35 + N(0, 2e-3)), motion a scaled Mahalanobis
+    distance of tracks placed near the detections, gated at 1.0 (motion)
+    and 0.9 (fused) to 1e5; an IoU-like cost beside it; the rows' masks of
+    the tracker's six cascade stages over ages 0-7 and hits 0-5. Returns
+    numpy (cost, iou, row_valid, col_valid, masks)."""
+    rng = np.random.default_rng(seed)
+    dx = rng.uniform(0, 1280, d_live)
+    dy = rng.uniform(0, 720, d_live)
+    tx = np.concatenate([dx + rng.normal(0, 12, d_live),
+                         rng.uniform(0, 1280, t_live - d_live)])
+    ty = np.concatenate([dy + rng.normal(0, 12, d_live),
+                         rng.uniform(0, 720, t_live - d_live)])
+    d2 = ((tx[:, None] - dx[None, :]) ** 2
+          + (ty[:, None] - dy[None, :]) ** 2) / (40.0 ** 2)
+    maha_norm = np.clip(d2, 0, 12.0) / 9.4877
+    app = 0.35 + rng.normal(0, 2e-3, (t_live, d_live))
+    fused = 0.8 * app + 0.2 * maha_norm
+    gated = np.where(maha_norm > 1.0, 1e5, fused)
+    gated = np.where(gated > 0.9, 1e5, gated)
+    cost = np.full((cap, cap), 1e5, np.float32)
+    cost[:t_live, :d_live] = gated
+    iou = np.full((cap, cap), 1e5, np.float32)
+    near = np.sqrt(d2) < 1.0
+    iou[:t_live, :d_live] = np.where(near, np.clip(np.sqrt(d2), 0, 1), 1e5)
+    ages = rng.integers(0, 8, cap)
+    hits = rng.integers(0, 6, cap)
+    valid = np.arange(cap) < t_live
+    confirmed = hits >= 3
+    n_depth = 4
+    masks = [valid & confirmed & (ages // 2 == d) for d in range(n_depth)]
+    masks += [valid & confirmed & (ages < 2), valid & ~confirmed]
+    return cost, iou, valid, np.arange(cap) < d_live, masks
+
+
+def stage1_case(n_streams, device='cuda'):
+    """``stage1_cost`` of seeds 0 .. ``n_streams`` - 1 on ``device``: the
+    one-stage auction's arguments (cost, row_valid, col_valid) and the
+    tracker's cascade (``cascade_call``'s form: four appearance + motion
+    stages, then the two IoU stages)."""
+    per = [stage1_cost(seed=s) for s in range(n_streams)]
+
+    def stack(k):
+        return torch.as_tensor(np.stack([p[k] for p in per]), device=device)
+    cost, iou, rv, cv = stack(0), stack(1), stack(2), stack(3)
+    n = len(per[0][4])
+    masks = tuple(torch.as_tensor(np.stack([p[4][k] for p in per]),
+                                  device=device) for k in range(n))
+    col4row = torch.full(rv.shape, -1, dtype=torch.int32, device=device)
+    return (cost, rv, cv), ((cost, iou), masks, (0,) * (n - 2) + (1, 1),
+                            (False,) * (n - 2) + (True, False), cv, col4row)
+
+
+def contested_greedy(problems, seed):
+    """Greedy problems of the finals' shapes and gates (``problems``, as
+    ``greedy_call`` gives them) that take tens of matches: the first 64
+    rows and 40 columns live (at most the problem's), costs uniform on [0,
+    2 max_cost) in steps of 1/64, so with exact ties."""
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for cost, _, _, max_cost in problems:
+        s, r, c = cost.shape
+        levels = max(2, int(128 * max_cost))
+        q = torch.randint(0, levels, (s, r, c), generator=gen) / 64.0
+        rv = (torch.arange(r) < min(r, 64)).expand(s, r).contiguous()
+        cv = (torch.arange(c) < min(c, 40)).expand(s, c).contiguous()
+        out.append((q.to(torch.float32).to(cost.device), rv.to(cost.device),
+                    cv.to(cost.device), max_cost))
+    return out
+
+
+def cascade_live(call, eps):
+    """Each stage's live rows [S, r] and live columns [S, c] on ``call``
+    (``cascade_call``'s arguments): the rows of its mask, less those an
+    earlier stage matched where it excludes them, and the detections no
+    earlier stage took. The kernel reads a stage's cost only where both
+    are live. From the plain version run a stage at a time on the CPU."""
+    from fastmot_tpu_torch.ops import assignment as asg
+    costs, masks, cost_of, exclude, u_det, col4row = (
+        tuple(t.cpu() for t in call[0]), tuple(m.cpu() for m in call[1]),
+        call[2], call[3], call[4].cpu(), call[5].cpu())
+    live = []
+    for k, mask in enumerate(masks):
+        live.append((mask & (col4row < 0) if exclude[k] else mask, u_det))
+        u_det, col4row = asg.cascade_reference(
+            (costs[cost_of[k]],), (mask,), (0,), (exclude[k],), u_det,
+            col4row, eps)
+    return live
+
+
+def cascade_bound_ms(call, live, bids):
+    """The least time an H100 could take for a cascade call, and what sets
+    it. Bytes: each cost entry some stage reads (a live row and a live
+    column of a stage of that cost) read once, the masks, u_det and
+    col4row read once and the outputs written once, over 3.35 TB/s.
+    Operations, over 67 TFLOP/s: a stage's benefit, 3 an entry it reads
+    (the clamp, the noise product, the sum); and each bid of the run (the
+    kernel's count, ``bids`` [S, stage, phase]) a subtraction and two
+    comparisons on each live column of its stage."""
+    costs, masks, cost_of = call[:3]
+    s, r, c = costs[0].shape
+    read = [torch.zeros((s, r, c), dtype=torch.bool) for _ in costs]
+    ops = 0
+    for k, (rows, cols) in enumerate(live):
+        entries = rows[:, :, None] & cols[:, None, :]
+        read[cost_of[k]] |= entries
+        ops += 3 * int(entries.sum())
+        ops += 3 * int((torch.as_tensor(bids[:, k].sum(1))
+                        * cols.sum(1)).sum())
+    nbytes = 4 * sum(int(t.sum()) for t in read) + len(masks) * s * r \
+        + 2 * (s * c + s * r * 4)
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return max(bytes_ms, ops_ms), ('bytes' if bytes_ms >= ops_ms
+                                   else 'operations')
+
+
+def greedy_bound_ms(problems, outputs):
+    """The same for a greedy call: each problem's live costs (a valid row
+    and a valid column), its masks read and its two outputs written once;
+    against a comparison a live entry a round. A match kills a live row
+    and a live column, so a stream's round t (of its matches and the one
+    that stops) has (rows - t) (columns - t) live entries."""
+    nbytes = ops = 0
+    for (cost, rv, cv, _), (r4c, c4r) in zip(problems, outputs):
+        rows, cols = rv.sum(1).tolist(), cv.sum(1).tolist()
+        matches = (c4r >= 0).sum(1).tolist()
+        nbytes += 4 * sum(a * b for a, b in zip(rows, cols)) + rv.numel() \
+            + cv.numel() + 4 * (r4c.numel() + c4r.numel())
+        ops += sum((a - t) * (b - t) for a, b, m in zip(rows, cols, matches)
+                   for t in range(m + 1))
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return max(bytes_ms, ops_ms), ('bytes' if bytes_ms >= ops_ms
+                                   else 'operations')
+
+
+def phase_assoc_solvers(main_args, multi_args, card, nvcc_out):
+    """Phase 19: the cascade and greedy kernels against their plain
+    versions (on the CPU and on the card), bit for bit, on phase 6's and
+    phase 13's real association arguments, on contested problems at the
+    kernels' full width (``stage1_case``, ``contested_greedy``) and on
+    the seeded cases of tests/test_torch_assoc_solvers.py;
+    ``stages_scan_core`` and ``finals_core`` on the real arguments under
+    ``torch.cuda.set_sync_debug_mode('error')``;
+    two calls equal; ptxas's registers and shared memory; then each
+    kernel's device time (100 calls of its C entry between CUDA events,
+    queued behind a sleep kernel), the wrapper's time and host time a
+    call, the plain version's time on the card, beside the bound. Returns
+    each kernel's cases for the kernels line."""
+    from fastmot_tpu_torch import tracker as tr
+    from fastmot_tpu_torch.ops import assignment as asg
+    import tests.test_torch_assoc_solvers as ta
+    t_phase = time.perf_counter()
+    for kernel, line in ptxas_kernels(nvcc_out).items():
+        log(f'assoc_solvers ptxas {kernel}: {line}')
+    lib = asg.assoc_solvers_library()
+
+    def cpu(x):
+        if isinstance(x, torch.Tensor):
+            return x.cpu()
+        if isinstance(x, (list, tuple)):
+            return type(x)(cpu(y) for y in x)
+        return x
+
+    def same(tag, got, want):
+        if not all(torch.equal(g.cpu(), w.cpu()) for g, w in zip(got, want)):
+            raise AssertionError(f'{tag}: the kernel differs from the plain '
+                                 'version')
+
+    # the seeded cases of the CPU tests: the kernel on the card against the
+    # plain version on the CPU
+    for kind in ta.AUCTION_KINDS:
+        cost, rv, cv, max_iters = (ta.T(a) if isinstance(a, np.ndarray)
+                                   else a for a in ta.auction_case(kind, 1))
+        same(f'auction {kind}', asg.auction_lap(
+            cost.cuda(), rv.cuda(), cv.cuda(), 1e-2, max_iters),
+            asg.auction_lap_reference(cost, rv, cv, 1e-2, max_iters))
+    for kind in ta.CASCADE_KINDS:
+        args, max_iters = ta.torch_cascade(ta.cascade_case(kind, 2))
+        dev = (tuple(c.cuda() for c in args[0]),
+               tuple(m.cuda() for m in args[1]), *args[2:4],
+               args[4].cuda(), args[5].cuda())
+        same(f'cascade {kind}', asg.cascade_auction(*dev,
+                                                    max_iters=max_iters),
+             asg.cascade_reference(*args, max_iters=max_iters))
+    for kind in ta.GREEDY_KINDS:
+        problems = [(ta.T(c), ta.T(r), ta.T(v), m)
+                    for c, r, v, m in ta.greedy_case(kind, 4)]
+        for got, p in zip(asg.greedy_match([
+                (c.cuda(), r.cuda(), v.cuda(), m)
+                for c, r, v, m in problems]), problems):
+            same(f'greedy {kind}', got, asg.greedy_match_reference(*p))
+    log(f'assoc_solvers on the seeded cases of {ta.__name__} '
+        f'({len(ta.AUCTION_KINDS)} auctions, {len(ta.CASCADE_KINDS)} '
+        f'cascades, {len(ta.GREEDY_KINDS)} greedy pairs): the kernels == '
+        'the plain versions on the CPU, bit for bit')
+
+    # the main paths' association arguments (phase 6's one stream, phase
+    # 13's eight), then contested problems at the kernels' full width: the
+    # stage-1 cascade of scripts/prof_auction.py (64 tracks, 40 detections,
+    # padded to 128) at 1 and 8 streams, and greedy problems of the finals'
+    # shapes and gates that take tens of matches
+    eps = main_args[1]
+    cases = [(case, cascade_call(scan_args, c_eps), c_eps,
+              greedy_call(finals_args), (scan_args, finals_args))
+             for case, (scan_args, c_eps, finals_args) in (
+                 ('1_stream', main_args),
+                 (f'{N_STREAMS}_streams', multi_args))]
+    for k, n in enumerate((1, N_STREAMS)):
+        auction, call = stage1_case(n)
+        cases.append((f'stage1_{n}_stream{"s" if n > 1 else ""}', call, eps,
+                      contested_greedy(cases[k][3], seed=n), auction))
+
+    out = {'cascade_auction': {}, 'greedy_match': {}}
+    for case, call, eps, problems, extra in cases:
+        costs, masks = call[:2]
+        rounds, bids = cascade_rounds(call, eps)
+        got = asg.cascade_auction(*call, eps)
+        again = asg.cascade_auction(*call, eps)
+        same(f'cascade {case}: two calls', got, again)
+        same(f'cascade {case} against the plain version on the CPU', got,
+             asg.cascade_reference(*cpu(call), eps))
+        same(f'cascade {case} against the plain version on the card', got,
+             asg.cascade_reference(*call, eps))
+        g_got = asg.greedy_match(problems)
+        g_again = asg.greedy_match(problems)
+        for k, p in enumerate(problems):
+            same(f'greedy {case} problem {k}: two calls', g_got[k],
+                 g_again[k])
+            same(f'greedy {case} problem {k} against the plain version on '
+                 'the CPU', g_got[k], asg.greedy_match_reference(*cpu(p)))
+            same(f'greedy {case} problem {k} against the plain version on '
+                 'the card', g_got[k], asg.greedy_match_reference(*p))
+        if case.startswith('stage1'):
+            # the one-stage auction of the same cost (auction_lap)
+            a_got = asg.auction_lap(*extra, eps)
+            same(f'auction {case} against the plain version on the CPU',
+                 a_got, asg.auction_lap_reference(*cpu(extra), eps))
+            note = (f'auction_lap == plain on the CPU, '
+                    f'{int((a_got[1] >= 0).sum())} pairs')
+        else:
+            # no host sync in the cascade or the finals
+            scan_args, finals_args = extra
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode('error')
+            try:
+                u2, c2 = tr.stages_scan_core(*scan_args, eps=eps)
+                tr.finals_core(*finals_args[:-2], u2, c2)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            note = ("stages_scan_core + finals_core ran under "
+                    "set_sync_debug_mode('error')")
+        matched = int((got[1] >= 0).sum())
+        log(f'assoc_solvers {case}: cascade == plain on the CPU and on the '
+            f'card, bit for bit ({matched} matches; rounds by stream, stage '
+            f'and phase {rounds.tolist()}, sum {int(rounds.sum())}; bids '
+            f'{int(bids.sum())}); greedy == plain, '
+            f'{[int((c >= 0).sum()) for _, c in g_got]} matches; two calls '
+            f'equal; {note}')
+
+        outputs, c_args, keep = asg.cascade_launch_args(*call, eps)
+        g_out, g_args, g_keep = asg.greedy_launch_args(problems)
+        for name, entry, args, wrapper, plain, bound in (
+                ('cascade_auction', lib.cascade_auction_forward, c_args,
+                 lambda: asg.cascade_auction(*call, eps),
+                 lambda: asg.cascade_reference(*call, eps),
+                 cascade_bound_ms(call, cascade_live(call, eps), bids)),
+                ('greedy_match', lib.greedy_match_forward, g_args,
+                 lambda: asg.greedy_match(problems),
+                 lambda: [asg.greedy_match_reference(*p) for p in problems],
+                 greedy_bound_ms(problems, g_got))):
+            dev_ms = lk_device_ms(entry, args, tag=name)
+            call_ms = launches_ms(wrapper)
+            host = host_ms(wrapper)
+            plain_ms = wall_ms(plain, n=3, warmup=1)
+            out[name][case] = {'ms': dev_ms, 'call_ms': call_ms,
+                               'host_ms': host, 'plain_ms': plain_ms,
+                               'bound_ms': bound[0], 'bound_by': bound[1],
+                               'max_abs_err': 0.0}
+            log(f'{name} {case}: device {dev_ms * 1e3:.2f} us a call (100 '
+                f'calls, one launch each); the wrapper {call_ms * 1e3:.2f} '
+                f'us a call, host {host * 1e3:.2f} us; plain on the card '
+                f'{plain_ms:.3f} ms; bound {bound[0] * 1e3:.6f} us '
+                f'({bound[1]}), roofline share {bound[0] / dev_ms:.6f}; '
+                f'{card}')
+        del keep, g_keep
+    log(f'assoc solvers phase: {time.perf_counter() - t_phase:.1f} s')
+    return out
+
+
+def assoc_kernel_entries(cases):
+    """The kernels line's entries of the cascade and greedy kernels: the
+    main path's case unsuffixed, the 8-stream case's numbers suffixed."""
+    replaces = {'cascade_auction': 'fastmot_tpu/ops/assignment.py:36',
+                'greedy_match': 'fastmot_tpu/ops/assignment.py:237'}
+    entries = []
+    for name, where in replaces.items():
+        entry = {'name': name, 'route': 'cuda',
+                 'source': 'fastmot_tpu_torch/csrc/assoc_solvers.cu',
+                 'replaces': where, 'launches': ASSOC_LAUNCHES[name],
+                 'max_abs_err': 0.0, 'library_ms': None, 'case': '1_stream'}
+        for case, r in cases[name].items():
+            key = '' if case == '1_stream' else f'_{case}'
+            entry.update({f'ms{key}': r['ms'],
+                          f'plain_ms{key}': r['plain_ms'],
+                          f'bound_ms{key}': r['bound_ms'],
+                          f'bound_by{key}': r['bound_by'],
+                          f'call_ms{key}': r['call_ms'],
+                          f'host_ms{key}': r['host_ms'],
+                          f'roofline_share{key}': r['bound_ms'] / r['ms']})
+        entries.append(entry)
+    return entries
+
+
 def main():
     from fastmot_tpu_torch import tracker as tr
+    from fastmot_tpu_torch.ops import assignment as asg
     from fastmot_tpu_torch.ops import flow_kernels as fk
     t0 = time.perf_counter()
     name, card = phase_device()
@@ -2612,7 +3262,10 @@ def main():
                  ransac_draws_batch=fk.ransac_draws_batch,
                  preprocess_reference=fk.preprocess_reference,
                  gap_points_core=tr.gap_points_core,
-                 gap_points_batch=tr.gap_points_batch)
+                 gap_points_batch=tr.gap_points_batch,
+                 auction_lap_reference=asg.auction_lap_reference,
+                 cascade_reference=asg.cascade_reference,
+                 greedy_match_reference=asg.greedy_match_reference)
     host_draws = [False]
 
     def counted_plain_lk(prev, cur, pts, *args, **kwargs):
@@ -2651,12 +3304,21 @@ def main():
                 'gap_points_core', lambda spec, st, *a: st[2].is_cuda)), \
             mock.patch.object(tr, 'gap_points_batch', counted(
                 'gap_points_batch', lambda spec, f_cap, st, pre:
-                st[2].is_cuda)):
+                st[2].is_cuda)), \
+            mock.patch.object(asg, 'auction_lap_reference', counted(
+                'auction_lap_reference', lambda cost, *a: cost.is_cuda)), \
+            mock.patch.object(asg, 'cascade_reference', counted(
+                'cascade_reference', lambda costs, *a: costs[0].is_cuda)), \
+            mock.patch.object(asg, 'greedy_match_reference', counted(
+                'greedy_match_reference', lambda cost, *a: cost.is_cuda)):
         for counts in (phase_reference(), phase_stream_reference(),
                        drawing_on_the_host(phase_legacy_api)):
             lk_launches.update(counts)
         main_run = phase_main_path(stages=True)
         launches, float_ms = main_run['osblock'], main_run['median']
+        log_assoc_stages('main path', main_run['assoc stages'],
+                         main_run['assoc syncs'], main_run['assoc rounds'],
+                         card)
         phase_zoo()
         phase_ssd_postprocess()
         ssd = phase_main_path('SSD', 'ssd main path')
@@ -2670,7 +3332,8 @@ def main():
             f'{int8["median"]:.3f} ms')
         frames, dets = multi_stream_inputs()
         (multi_launches, multi_lk, rows, multi_ms, gap_ms, gap8_args,
-         flow8_args) = phase_multi_stream(float_ms, frames, dets)
+         flow8_args, assoc8_args) = phase_multi_stream(float_ms, frames,
+                                                       dets, card)
         launches += multi_launches
         mesh_launches, mesh_lk = phase_mesh(frames, dets, rows, multi_ms)
         launches += mesh_launches
@@ -2688,12 +3351,16 @@ def main():
         f'kernel {sum(GAP_LAUNCHES.values())} times ({dict(GAP_LAUNCHES)}), '
         'the plain gap commit and the host draws for the card 0 times; the '
         f'preprocess and gap-points kernels {dict(FLOW_LAUNCHES)} times, '
-        'their plain versions 0 times on the card')
+        'their plain versions 0 times on the card; the cascade and greedy '
+        f'kernels {dict(ASSOC_LAUNCHES)} times, the plain solvers 0 times '
+        'on the card')
     cases, lanes = phase_lk(main_run['gap stages'], gap_ms, card)
     gap_cases = phase_gap_commit(main_run['gap args'], gap8_args, card,
                                  nvcc_out['gap_commit'])
     flow_cases = phase_flow_kernels(main_run['flow args'], flow8_args, card,
                                     nvcc_out)
+    assoc_cases = phase_assoc_solvers(main_run['assoc args'], assoc8_args,
+                                      card, nvcc_out['assoc_solvers'])
     log(f'every phase passed in {time.perf_counter() - t0:.1f} s')
     print(json.dumps({'kernels': [{
         'name': 'osblock', 'route': 'cuda',
@@ -2706,7 +3373,8 @@ def main():
         'roofline_share': kern['roofline_share']}]
         + lk_kernel_entries(cases, lk_launches, lanes)
         + [gap_kernel_entry(gap_cases)]
-        + flow_kernel_entries(flow_cases)}))
+        + flow_kernel_entries(flow_cases)
+        + assoc_kernel_entries(assoc_cases)}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,
         'count': torch.cuda.device_count()}}))

@@ -155,7 +155,8 @@ def dryrun_multichip(n_devices: int, device: str = 'cuda') -> list[dict]:
 def _dryrun_rank(n_devices: int, model_name: str, device: str) -> dict:
     """The multi-stream step on this rank: real cores, tiny shapes.
     Returns the ``dryrun ok`` line, this rank's feature slice, its LK,
-    gap-commit, preprocess and gap-points kernel launches and, as
+    gap-commit, preprocess and gap-points kernel launches, its cascade and
+    greedy kernel launches (``assoc_launches``) and, as
     numpy, the association's costs, its matches (``col4row``), the tracks'
     validity and the new history store."""
     from .detector import _resize_bilinear
@@ -163,6 +164,7 @@ def _dryrun_rank(n_devices: int, model_name: str, device: str) -> dict:
     from .models import registry
     from .models.layers import random_init_
     from .models.yolo import decode_heads
+    from .ops import assignment as asg
     from .ops import distance as dist_ops
     from .ops import flow_kernels as fk
     from .ops.gap_commit import gap_commit
@@ -316,7 +318,10 @@ def _dryrun_rank(n_devices: int, model_name: str, device: str) -> dict:
             'lk_launches': dict(fk.lk_pyramidal.launches),
             'gap_commit_launches': gap_commit.launches,
             'preprocess_launches': fk.preprocess.launches,
-            'gap_points_launches': gap_points.launches, 'cost': host(cost),
+            'gap_points_launches': gap_points.launches,
+            'assoc_launches': (asg.cascade_auction.launches,
+                               asg.greedy_match.launches),
+            'cost': host(cost),
             'reid_cost': host(reid_cost),
             'col4row': host(col4row), 'valid': host(new_state[3]),
             'feat_sum': host(new_state[13]),
@@ -408,8 +413,9 @@ def multi_stream_rank(inputs, n_streams, model_parallel, mot_kwargs,
     ``inputs/frames.npy`` (``[F, S, H, W, 3]``, read for this rank's streams
     only) and the detections of ``inputs/dets.npz`` (``splice_detections``);
     returns this rank's ``local_streams``, rows, step times, OSBlock, LK,
-    gap-commit, preprocess and gap-points kernel launches and what its
-    detector's network found (``network_dets``)."""
+    gap-commit, preprocess, gap-points, cascade and greedy kernel launches
+    and what its detector's network found (``network_dets``)."""
+    from .ops import assignment as asg
     from .ops.flow_kernels import lk_pyramidal, preprocess
     from .ops.gap_commit import gap_commit
     from .ops.gap_points import gap_points
@@ -424,6 +430,7 @@ def multi_stream_rank(inputs, n_streams, model_parallel, mot_kwargs,
     osblock.launches = 0
     lk_pyramidal.launches = dict.fromkeys(lk_pyramidal.launches, 0)
     gap_commit.launches = preprocess.launches = gap_points.launches = 0
+    asg.cascade_auction.launches = asg.greedy_match.launches = 0
     rows, step_ms = run_multi_stream(mot, frames, dets, sync_every_frame)
     return {'local_streams': list(mot.local_streams), 'rows': rows,
             'step_ms': step_ms, 'osblock_launches': osblock.launches,
@@ -431,6 +438,8 @@ def multi_stream_rank(inputs, n_streams, model_parallel, mot_kwargs,
             'gap_commit_launches': gap_commit.launches,
             'preprocess_launches': preprocess.launches,
             'gap_points_launches': gap_points.launches,
+            'assoc_launches': (asg.cascade_auction.launches,
+                               asg.greedy_match.launches),
             'network_dets': mot.network_dets}
 
 

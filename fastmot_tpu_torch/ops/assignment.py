@@ -4,12 +4,27 @@
 ``auction_lap`` is the same epsilon-scaling Bertsekas auction: square
 padding, forbidden entries clamped to ``forbid`` (4.5), the deterministic
 micro-bias, the pre-assignment of dead rows onto dead columns, prices
-reset at every phase, and 8 bidding rounds between convergence checks.
-The data-dependent loops run in Python over tensor ops; each convergence
-check is one host sync. Both solvers take a leading batch axis (one
-problem per stream) and loop once for the whole batch.
+reset at every phase, and the bidding rounds of each phase until every row
+is assigned. ``cascade_auction`` runs a list of such auctions in order, as
+the tracker's cascade stages do, each stage absorbing its matches before
+the next; ``greedy_match`` runs several greedy global-minimum matchings.
+All take a leading batch axis (one problem per stream).
+
+On CUDA tensors the three run the hand-written kernels of
+``csrc/assoc_solvers.cu`` (built at first use): the whole cascade of a
+call in one launch (``auction_lap`` is a cascade of one stage), all the
+greedy problems of a call in another, with no host sync. On CPU tensors
+they run the plain versions, ``auction_lap_reference``,
+``cascade_reference`` and ``greedy_match_reference``, whose data-dependent
+loops run in Python over tensor ops (one host sync per 8 bidding rounds,
+and per greedy match); any other device raises. The two agree bit for bit
+(tests/test_torch_assoc_solvers.py). ``cascade_auction.launches`` and
+``greedy_match.launches`` count the kernels' launches.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -17,6 +32,28 @@ CHI_SQ_INV_95 = 9.4877  # 0.95 quantile of chi-square distribution (4 dof)
 INF_COST = 1e5
 FORBID = 4.5
 _UNROLL = 8
+KERNEL_MAX_N = 128         # kMaxN in csrc/assoc_solvers.cu
+KERNEL_MAX_STAGES = 64     # kMaxStages
+KERNEL_MAX_PHASES = 40     # kMaxPhases
+KERNEL_MAX_GREEDY = 4096   # kMaxGreedy: a greedy problem's rows or columns
+KERNEL_MAX_PROBLEMS = 4    # kMaxProblems
+
+# the two entries' C signature
+FORWARD_ARGTYPES = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+                    ctypes.POINTER(ctypes.c_float), ctypes.c_void_p]
+
+
+@functools.cache
+def assoc_solvers_library() -> ctypes.CDLL:
+    """The built kernel library, its C signatures declared once."""
+    from .cuda_build import load
+    lib = load('assoc_solvers')
+    for entry in (lib.cascade_auction_forward, lib.greedy_match_forward):
+        entry.argtypes = FORWARD_ARGTYPES
+        entry.restype = ctypes.c_int
+    lib.assoc_solvers_error_string.argtypes = [ctypes.c_int]
+    lib.assoc_solvers_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _bias_noise(n: int, device) -> torch.Tensor:
@@ -28,22 +65,19 @@ def _bias_noise(n: int, device) -> torch.Tensor:
     return h.to(torch.float32) / 65536.0
 
 
-def auction_lap(cost: torch.Tensor,
+def auction_lap_reference(cost: torch.Tensor,
                 row_valid: torch.Tensor | None = None,
                 col_valid: torch.Tensor | None = None,
                 eps_final: float = 1e-3,
                 max_iters: int = 10000,
                 forbid: float = FORBID):
-    """Min-cost rectangular assignment. Returns ``(row4col, col4row)``
-    int32 index tensors, -1 where unmatched or matched only through a
-    forbidden/padded entry.
-
-    ``cost`` is ``[r, c]`` or a batch ``[B, r, c]`` of independent
-    problems (masks ``[B, r]``, ``[B, c]``) solved by one bidding loop: a
-    problem whose rows are all assigned bids no more, so each gets what it
-    would get alone (``jax.vmap`` of the JAX solver)."""
+    """The plain version of ``auction_lap``: the same arguments and
+    results, the eps phases and bidding rounds a Python loop over tensor
+    ops, one host sync per 8 rounds. A batch ``[B, r, c]`` is solved by one
+    bidding loop: a problem whose rows are all assigned bids no more, so
+    each gets what it would get alone (``jax.vmap`` of the JAX solver)."""
     if cost.dim() == 2:
-        r4c, c4r = auction_lap(
+        r4c, c4r = auction_lap_reference(
             cost[None], None if row_valid is None else row_valid[None],
             None if col_valid is None else col_valid[None], eps_final,
             max_iters, forbid)
@@ -138,17 +172,14 @@ def auction_lap(cost: torch.Tensor,
             col4row[:, :r].to(torch.int32))
 
 
-def greedy_match_arrays(cost: torch.Tensor, row_valid: torch.Tensor,
-                        col_valid: torch.Tensor, max_cost: float):
-    """Greedy global-minimum matching until the cost exceeds ``max_cost``;
-    ties go to the smallest flat index. Returns ``(row4col, col4row)``.
-
-    ``cost`` is ``[r, c]`` or a batch ``[B, r, c]``: one host sync per
+def greedy_match_reference(cost: torch.Tensor, row_valid: torch.Tensor,
+                           col_valid: torch.Tensor, max_cost: float):
+    """The plain version of ``greedy_match_arrays``: one host sync per
     round for the whole batch; a problem whose minimum is above
     ``max_cost`` stops taking matches while the others go on."""
     if cost.dim() == 2:
-        r4c, c4r = greedy_match_arrays(cost[None], row_valid[None],
-                                       col_valid[None], max_cost)
+        r4c, c4r = greedy_match_reference(cost[None], row_valid[None],
+                                          col_valid[None], max_cost)
         return r4c[0], c4r[0]
     device = cost.device
     b, r, c = cost.shape
@@ -174,6 +205,318 @@ def greedy_match_arrays(cost: torch.Tensor, row_valid: torch.Tensor,
                         & ((ri[:, None] == i[:, None, None])
                            | (ci[None, :] == j[:, None, None])))
     return row4col, col4row
+
+
+def eps_phases(eps_final: float) -> int:
+    """The eps phases of an auction: 0.5, 0.0625, ... while eps >=
+    ``eps_final``."""
+    eps, n = 0.5, 0
+    while eps >= eps_final:
+        n += 1
+        eps = eps / 8.0
+    return n
+
+
+def round_cap(max_iters: int) -> int:
+    """The bidding rounds a phase runs at most: the plain loop checks
+    convergence every 8 rounds while fewer than ``max_iters`` ran."""
+    return max(0, -(-int(max_iters) // _UNROLL) * _UNROLL)
+
+
+def _taken(n: int, idx: torch.Tensor) -> torch.Tensor:
+    """[..., n] mask of the entries of ``idx`` [..., m] in [0, n)."""
+    idx = torch.where((idx >= 0) & (idx < n), idx,
+                      torch.full_like(idx, n)).long()
+    out = torch.zeros(idx.shape[:-1] + (n + 1,), dtype=torch.bool,
+                      device=idx.device)
+    return out.scatter(-1, idx, True)[..., :n]
+
+
+def cascade_reference(costs, masks, cost_of, exclude, u_det, col4row,
+                      eps_final: float = 1e-2, max_iters: int = 10000,
+                      forbid: float = FORBID):
+    """The plain version of ``cascade_auction``: each stage's
+    ``auction_lap_reference`` in turn, its matches absorbed before the
+    next."""
+    for mask, k, excl in zip(masks, cost_of, exclude):
+        row_valid = mask & (col4row < 0) if excl else mask
+        _, c4r = auction_lap_reference(costs[k], row_valid, u_det,
+                                       eps_final, max_iters, forbid)
+        matched = (c4r >= 0) & row_valid
+        col4row = torch.where(matched, c4r, col4row)
+        u_det = u_det & ~_taken(u_det.shape[-1],
+                                torch.where(matched, c4r, -1))
+    return u_det, col4row
+
+
+def _fault(msg):
+    raise ValueError(f'assoc_solvers: {msg}')
+
+
+def _check(t, name, dtype, shape, device):
+    if not isinstance(t, torch.Tensor):
+        _fault(f'{name} is not a tensor')
+    if t.dtype != dtype:
+        _fault(f'{name} is {t.dtype}, expected {dtype}')
+    if tuple(t.shape) != shape:
+        _fault(f'{name} is {tuple(t.shape)}, expected {shape}')
+    if t.device != device:
+        _fault(f'{name} is on {t.device}, the costs on {device}')
+    return t if t.is_contiguous() else t.contiguous()
+
+
+def _stream(device):
+    return torch._C._cuda_getCurrentRawStream(device.index) \
+        if device.type == 'cuda' else None
+
+
+def cascade_launch_args(costs, masks, cost_of, exclude, u_det, col4row,
+                        eps_final: float = 1e-2, max_iters: int = 10000,
+                        forbid: float = FORBID, row4col: bool = False,
+                        rounds: bool = False):
+    """One kernel call as ``cascade_auction_forward`` takes it: ``(outputs,
+    args, keep)``. ``costs`` holds one or two cost tensors [S, r, c]
+    (float32), ``masks`` a row mask [S, r] (bool) a stage or None (every
+    row), ``cost_of`` and ``exclude`` a cost index and a flag a stage;
+    ``u_det`` [S, c] (bool) or None (every column), ``col4row`` [S, r]
+    (int32) or None (all -1). The outputs are (u_det, col4row, row4col,
+    rounds, bids): ``u_det`` only without ``row4col``, ``row4col`` [S, c]
+    where asked, and ``rounds`` and ``bids`` [S, K, phases] (the bidding
+    rounds of each stage and phase, and the bids made in them) where
+    ``rounds`` is asked, else None. On the current CUDA stream for CUDA tensors.
+    Raises ValueError on a wrong dtype, shape or device or sizes the kernel
+    does not take. ``keep`` holds the inputs the arguments point at (made
+    contiguous where they were not): keep it alive while the call runs."""
+    if not 1 <= len(costs) <= 2:
+        _fault(f'{len(costs)} costs: the kernel takes 1 or 2')
+    c0 = costs[0]
+    if not isinstance(c0, torch.Tensor) or c0.dim() != 3:
+        _fault('costs must be [S, r, c] tensors')
+    n_streams, rows, cols = (int(d) for d in c0.shape)
+    device = c0.device
+    n_stages = len(masks)
+    if not (len(cost_of) == len(exclude) == n_stages):
+        _fault(f'{n_stages} masks, {len(cost_of)} costs and '
+               f'{len(exclude)} exclude flags')
+    if not 1 <= n_stages <= KERNEL_MAX_STAGES:
+        _fault(f'{n_stages} stages: the kernel takes 1 to '
+               f'{KERNEL_MAX_STAGES}')
+    if n_streams < 1 or rows < 1 or cols < 1 or \
+            max(rows, cols) > KERNEL_MAX_N:
+        _fault(f'costs {tuple(c0.shape)}: the kernel takes 1 to '
+               f'{KERNEL_MAX_N} rows and columns and a stream at least')
+    if any(k not in range(len(costs)) for k in cost_of):
+        _fault(f'stage costs {tuple(cost_of)} outside the {len(costs)} '
+               'costs')
+    bias = min(1e-4, 0.25 * eps_final)
+    if not eps_final > bias:
+        _fault(f'eps_final {eps_final}: the pre-assignment needs it above '
+               f'the micro-bias {bias}')
+    n_phases = eps_phases(eps_final)
+    if n_phases > KERNEL_MAX_PHASES:
+        _fault(f'eps_final {eps_final}: {n_phases} phases, the kernel '
+               f'takes {KERNEL_MAX_PHASES}')
+    rc, r_only, c_only = (n_streams, rows, cols), (n_streams, rows), \
+        (n_streams, cols)
+    keep = [_check(c, f'costs[{k}]', torch.float32, rc, device)
+            for k, c in enumerate(costs)]
+    keep += [None if m is None else
+             _check(m, f'masks[{k}]', torch.bool, r_only, device)
+             for k, m in enumerate(masks)]
+    keep.append(None if u_det is None else
+                _check(u_det, 'u_det', torch.bool, c_only, device))
+    keep.append(None if col4row is None else
+                _check(col4row, 'col4row', torch.int32, r_only, device))
+    u_out = None if row4col else torch.empty(c_only, dtype=torch.bool,
+                                             device=device)
+    c4r_out = torch.empty(r_only, dtype=torch.int32, device=device)
+    r4c_out = torch.empty(c_only, dtype=torch.int32, device=device) \
+        if row4col else None
+    rounds_out, bids_out = (torch.empty(
+        (n_streams, n_stages, n_phases), dtype=torch.int32, device=device)
+        if rounds else None for _ in range(2))
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+    ptrs = [ptr(keep[0]), ptr(keep[1]) if len(costs) == 2 else 0,
+            ptr(keep[-2]), ptr(keep[-1]), ptr(u_out), ptr(c4r_out),
+            ptr(r4c_out), ptr(rounds_out), ptr(bids_out)]
+    ptrs += [ptr(m) for m in keep[len(costs):len(costs) + n_stages]]
+    ints = [n_streams, rows, cols, n_stages, n_phases,
+            min(round_cap(max_iters), 2 ** 31 - 1),
+            *(int(k) for k in cost_of), *(int(bool(e)) for e in exclude)]
+    args = ((ctypes.c_uint64 * len(ptrs))(*ptrs),
+            (ctypes.c_int * len(ints))(*ints),
+            (ctypes.c_float * 2)(bias, forbid), _stream(device))
+    return (u_out, c4r_out, r4c_out, rounds_out, bids_out), args, keep
+
+
+def _launch_cascade(args):
+    lib = assoc_solvers_library()
+    code = lib.cascade_auction_forward(*args)
+    if code:
+        raise RuntimeError('cascade_auction kernel: '
+                           + lib.assoc_solvers_error_string(code).decode())
+    cascade_auction.launches += 1
+
+
+def _device_of(t, name):
+    device = t.device
+    if device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'{name}: unsupported device {device}')
+    return device
+
+
+def cascade_auction(costs, masks, cost_of, exclude, u_det, col4row,
+                    eps_final: float = 1e-2, max_iters: int = 10000,
+                    forbid: float = FORBID):
+    """The auction stages of a cascade in order: stage k solves
+    ``auction_lap(costs[cost_of[k]], rows, u_det)`` over the rows of
+    ``masks[k]`` (less those already matched where ``exclude[k]``), then
+    its matches go into ``col4row`` and their columns leave ``u_det``.
+    Returns the new ``(u_det, col4row)``; the inputs are left as they are.
+
+    The costs are [S, r, c] (or [r, c], one stream), a mask [S, r], u_det
+    [S, c] bool, col4row [S, r] int32. On CUDA tensors one launch of
+    ``csrc/assoc_solvers.cu``'s ``cascade_auction_forward`` for all
+    streams and stages (``cascade_launch_args``' checks apply); on CPU
+    tensors ``cascade_reference``; any other device raises."""
+    device = _device_of(costs[0], 'cascade_auction')
+    if device.type == 'cpu':
+        return cascade_reference(costs, masks, cost_of, exclude, u_det,
+                                 col4row, eps_final, max_iters, forbid)
+    if costs[0].dim() == 2:
+        u, c = cascade_auction(
+            tuple(c[None] for c in costs),
+            tuple(None if m is None else m[None] for m in masks), cost_of,
+            exclude, u_det[None], col4row[None], eps_final, max_iters,
+            forbid)
+        return u[0], c[0]
+    outputs, args, keep = cascade_launch_args(
+        costs, masks, cost_of, exclude, u_det, col4row, eps_final,
+        max_iters, forbid)
+    _launch_cascade(args)
+    return outputs[0], outputs[1]
+
+
+cascade_auction.launches = 0
+
+
+def auction_lap(cost: torch.Tensor,
+                row_valid: torch.Tensor | None = None,
+                col_valid: torch.Tensor | None = None,
+                eps_final: float = 1e-3,
+                max_iters: int = 10000,
+                forbid: float = FORBID):
+    """Min-cost rectangular assignment. Returns ``(row4col, col4row)``
+    int32 index tensors, -1 where unmatched or matched only through a
+    forbidden/padded entry.
+
+    ``cost`` is ``[r, c]`` or a batch ``[B, r, c]`` of independent
+    problems (masks ``[B, r]``, ``[B, c]``), each getting what it would get
+    alone (``jax.vmap`` of the JAX solver). On CUDA tensors one launch of
+    the cascade kernel with one stage; on CPU tensors
+    ``auction_lap_reference``; any other device raises."""
+    device = _device_of(cost, 'auction_lap')
+    if device.type == 'cpu':
+        return auction_lap_reference(cost, row_valid, col_valid, eps_final,
+                                     max_iters, forbid)
+    if cost.dim() == 2:
+        r4c, c4r = auction_lap(
+            cost[None], None if row_valid is None else row_valid[None],
+            None if col_valid is None else col_valid[None], eps_final,
+            max_iters, forbid)
+        return r4c[0], c4r[0]
+    outputs, args, keep = cascade_launch_args(
+        (cost.to(torch.float32),), (row_valid,), (0,), (False,), col_valid,
+        None, eps_final, max_iters, forbid, row4col=True)
+    _launch_cascade(args)
+    return outputs[2], outputs[1]
+
+
+def greedy_launch_args(problems):
+    """One kernel call as ``greedy_match_forward`` takes it: ``(outputs,
+    args, keep)``. ``problems`` holds up to four ``(cost [S, r, c]
+    float32, row_valid [S, r] bool, col_valid [S, c] bool, max_cost)``
+    with one S; the outputs are each problem's ``(row4col [S, c], col4row
+    [S, r])`` int32. On the current CUDA stream for CUDA tensors. Raises
+    ValueError on a wrong dtype, shape or device or sizes the kernel does
+    not take; ``keep`` as ``cascade_launch_args``'."""
+    if not 1 <= len(problems) <= KERNEL_MAX_PROBLEMS:
+        _fault(f'{len(problems)} greedy problems: the kernel takes 1 to '
+               f'{KERNEL_MAX_PROBLEMS}')
+    device = problems[0][0].device
+    n_streams = int(problems[0][0].shape[0])
+    ptrs, ints, floats, keep, outputs = [], [n_streams, len(problems)], \
+        [], [], []
+    for k, (cost, rv, cv, max_cost) in enumerate(problems):
+        if not isinstance(cost, torch.Tensor) or cost.dim() != 3 \
+                or int(cost.shape[0]) != n_streams:
+            _fault(f'problem {k}: cost must be [{n_streams}, r, c]')
+        _, rows, cols = (int(d) for d in cost.shape)
+        if n_streams < 1 or not (1 <= rows <= KERNEL_MAX_GREEDY
+                                 and 1 <= cols <= KERNEL_MAX_GREEDY):
+            _fault(f'problem {k}: cost {tuple(cost.shape)}, the kernel '
+                   f'takes 1 to {KERNEL_MAX_GREEDY} rows and columns')
+        ins = (_check(cost, f'problem {k} cost', torch.float32,
+                      (n_streams, rows, cols), device),
+               _check(rv, f'problem {k} row_valid', torch.bool,
+                      (n_streams, rows), device),
+               _check(cv, f'problem {k} col_valid', torch.bool,
+                      (n_streams, cols), device))
+        outs = (torch.empty((n_streams, cols), dtype=torch.int32,
+                            device=device),
+                torch.empty((n_streams, rows), dtype=torch.int32,
+                            device=device))
+        keep += ins
+        outputs.append(outs)
+        ptrs += [t.data_ptr() for t in ins + outs]
+        ints += [rows, cols]
+        floats.append(max_cost)
+    args = ((ctypes.c_uint64 * len(ptrs))(*ptrs),
+            (ctypes.c_int * len(ints))(*ints),
+            (ctypes.c_float * len(floats))(*floats), _stream(device))
+    return outputs, args, keep
+
+
+def greedy_match(problems):
+    """Several greedy matchings at once: ``problems`` holds ``(cost,
+    row_valid, col_valid, max_cost)`` tuples as ``greedy_match_arrays``
+    takes them, all with a leading stream axis of one size or all without.
+    Returns each problem's ``(row4col, col4row)``. On CUDA tensors one
+    launch of ``csrc/assoc_solvers.cu``'s ``greedy_match_forward`` for all
+    of them (``greedy_launch_args``' checks apply); on CPU tensors
+    ``greedy_match_reference`` for each; any other device raises."""
+    device = _device_of(problems[0][0], 'greedy_match')
+    if device.type == 'cpu':
+        return [greedy_match_reference(*p) for p in problems]
+    if problems[0][0].dim() == 2:
+        return [(r4c[0], c4r[0]) for r4c, c4r in greedy_match(
+            [(c[None], rv[None], cv[None], m) for c, rv, cv, m in problems])]
+    outputs, args, keep = greedy_launch_args(
+        [(c.to(torch.float32), rv, cv, m) for c, rv, cv, m in problems])
+    lib = assoc_solvers_library()
+    code = lib.greedy_match_forward(*args)
+    if code:
+        raise RuntimeError('greedy_match kernel: '
+                           + lib.assoc_solvers_error_string(code).decode())
+    greedy_match.launches += 1
+    return outputs
+
+
+greedy_match.launches = 0
+
+
+def greedy_match_arrays(cost: torch.Tensor, row_valid: torch.Tensor,
+                        col_valid: torch.Tensor, max_cost: float):
+    """Greedy global-minimum matching until the cost exceeds ``max_cost``;
+    ties go to the smallest flat index. Returns ``(row4col, col4row)``.
+
+    ``cost`` is ``[r, c]`` or a batch ``[B, r, c]``: a problem whose
+    minimum is above ``max_cost`` stops taking matches while the others go
+    on. ``greedy_match`` of the one problem: the kernel on CUDA tensors,
+    ``greedy_match_reference`` on CPU tensors."""
+    return greedy_match([(cost, row_valid, col_valid, max_cost)])[0]
 
 
 def fuse_motion(cost: torch.Tensor, m_dist: torch.Tensor,

@@ -25,7 +25,8 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
 # a kernel's own flags: these round every product and sum on their own (no
 # FMA contraction), as their host builds in the tests do
 KERNEL_FLAGS = {name: ('-fmad=false',) for name in
-                ('gap_commit', 'flow_preprocess', 'gap_points')}
+                ('gap_commit', 'flow_preprocess', 'gap_points',
+                 'assoc_solvers')}
 
 
 def nvcc_flags(name: str) -> tuple[str, ...]:

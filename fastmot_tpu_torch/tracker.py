@@ -11,8 +11,8 @@ The per-frame pure functions keep the JAX package's names and arguments
 (less the leading underscore) so each can be held against its JAX twin:
 ``gap_pre_core``, ``gap_points_core``, ``lk_commit_core``,
 ``gap_commit_core``, ``assoc_costs_core``, ``extract_costs_core``,
-``stage_core``, ``stages_scan_core``, ``finals_core``, ``commit_part``
-and ``scan_finals_commit_core``. They run eagerly, one frame at a time:
+``stages_scan_core``, ``finals_core``, ``commit_part`` and
+``scan_finals_commit_core``. They run eagerly, one frame at a time:
 the JAX package's scan/chain kernels and its split-dispatch variants are
 TPU dispatch structure and are not ported. A gap frame's pre-LK half runs
 through ``ops.flow_kernels.preprocess`` and ``ops.gap_points.gap_points``
@@ -23,8 +23,11 @@ for all of a call's streams, which draws the JAX package's RANSAC uniforms
 for each flow seed bit for bit; on the CPU ``gap_commit_core`` (the plain
 version, which takes the draws of ``ops.flow_kernels.ransac_draws`` as
 ``draws``). ``*_batch`` run the loop-free cores over a leading stream axis
-(``parallel.StreamTracker``); ``stage_core``, ``stages_scan_core`` and
-``finals_core`` take that axis themselves. ``compute_flow``/``apply_kalman``
+(``parallel.StreamTracker``); ``stages_scan_core`` and ``finals_core``
+take that axis themselves, and run their solvers through
+``ops.assignment.cascade_auction`` and ``greedy_match``: on the card the
+whole cascade in one launch and both finals matchings in another, with no
+host sync; on the CPU the plain solvers. ``compute_flow``/``apply_kalman``
 are the JAX package's legacy per-track API.
 """
 from __future__ import annotations
@@ -122,15 +125,6 @@ def _set_rows(arr: torch.Tensor, idx: torch.Tensor, values: torch.Tensor):
     idx = torch.where((idx >= 0) & (idx < size), idx,
                       torch.full_like(idx, size)).long()
     return ext.index_put((idx,), values.to(arr.dtype))[:size]
-
-
-def _taken(n: int, idx: torch.Tensor) -> torch.Tensor:
-    """[..., n] mask of the entries of ``idx`` [..., m] in [0, n)."""
-    lead = idx.shape[:-1]
-    idx = torch.where((idx >= 0) & (idx < n), idx,
-                      torch.full_like(idx, n)).long()
-    out = torch.zeros(lead + (n + 1,), dtype=torch.bool, device=idx.device)
-    return out.scatter(-1, idx, True)[..., :n]
 
 
 def _first_true(mask: torch.Tensor, fill: int) -> torch.Tensor:
@@ -386,33 +380,20 @@ def extract_costs_core(module, out_hw, emb_cap: int, cfg: KalmanConfig,
     return costs, d_emb
 
 
-def stage_core(exclude_matched: bool, cost, base_mask, u_det,
-               col4row_final, eps: float = 1e-2, forbid: float = asg.FORBID):
-    """One auction stage: solve, absorb the matches, consume their
-    detections. Takes a leading stream axis (one auction loop for all)."""
-    row_valid = base_mask & (col4row_final < 0) if exclude_matched \
-        else base_mask
-    _, c4r = asg.auction_lap(cost, row_valid, u_det, eps_final=eps,
-                             forbid=forbid)
-    matched = (c4r >= 0) & row_valid
-    col4row_final = torch.where(matched, c4r, col4row_final)
-    taken = _taken(u_det.shape[-1], torch.where(matched, c4r, -1))
-    return u_det & ~taken, col4row_final
-
-
 def stages_scan_core(n_depth: int, cost, iou_cost, depth_masks,
                      base_iou_active, base_unconfirmed, u_det, col4row,
                      eps: float = 1e-2, forbid: float = asg.FORBID):
     """All cascade auction stages in order: the appearance+motion stages
     per age bucket, the IoU stage of active confirmed tracks (which skips
-    rows already matched), the IoU stage of unconfirmed tracks."""
-    for mask in depth_masks:
-        u_det, col4row = stage_core(False, cost, mask, u_det, col4row, eps,
-                                    forbid)
-    u_det, col4row = stage_core(True, iou_cost, base_iou_active, u_det,
-                                col4row, eps, forbid)
-    return stage_core(False, iou_cost, base_unconfirmed, u_det, col4row,
-                      eps, forbid)
+    rows already matched), the IoU stage of unconfirmed tracks. One
+    ``asg.cascade_auction`` call: on the card one launch for every stage
+    and stream, with no host sync."""
+    n = len(depth_masks)
+    return asg.cascade_auction(
+        (cost, iou_cost), tuple(depth_masks) + (base_iou_active,
+                                                base_unconfirmed),
+        (0,) * n + (1, 1), (False,) * n + (True, False), u_det, col4row,
+        eps, forbid=forbid)
 
 
 def finals_core(conf_thresh: float, max_reid_cost: float, dup_gate: float,
@@ -420,13 +401,13 @@ def finals_core(conf_thresh: float, max_reid_cost: float, dup_gate: float,
                 d_conf, reid_cost, h_reid_ok, occluded, u_det,
                 col4row_final):
     """Greedy reID against the history store + duplicate-rectify
-    candidates. Takes a leading stream axis on every tensor."""
+    candidates. Takes a leading stream axis on every tensor. The rectify
+    cost depends only on the cascade's matches, so both greedy problems go
+    to one ``asg.greedy_match`` call (on the card one launch)."""
     t_confirmed = hits >= confirm_hits
     t_active = ages < 2
     u_det_conf = u_det & (d_conf >= conf_thresh)
     reid_cols = u_det_conf & ~occluded
-    _, reid_c4r = asg.greedy_match_arrays(reid_cost, h_reid_ok, reid_cols,
-                                          max_reid_cost)
     matched_mask = col4row_final >= 0
     inactive_matched = matched_mask & ~t_active
     u_active = t_valid & t_confirmed & t_active & ~matched_mask
@@ -434,8 +415,9 @@ def finals_core(conf_thresh: float, max_reid_cost: float, dup_gate: float,
                            torch.zeros_like(col4row_final)).long()
     rect_cost = dist.iou_dist(
         tlbrs, torch.take_along_dim(d_tlbrs, safe_col[..., None], dim=-2))
-    _, rect_c4r = asg.greedy_match_arrays(rect_cost, u_active,
-                                          inactive_matched, dup_gate)
+    (_, reid_c4r), (_, rect_c4r) = asg.greedy_match((
+        (reid_cost, h_reid_ok, reid_cols, max_reid_cost),
+        (rect_cost, u_active, inactive_matched, dup_gate)))
     return u_det_conf, reid_c4r, rect_c4r
 
 
@@ -667,8 +649,8 @@ def scan_finals_commit_core(cfg: KalmanConfig, n_depth: int,
 
 # ---------------------------------------------------------------------------
 # Stream axis: the loop-free cores under torch.func.vmap over [S, ...]
-# state; the cores with host loops (LK, the auction and greedy solvers in
-# stage_core and finals_core) take the leading axis themselves
+# state; the cores around solvers (LK, the auction and greedy solvers in
+# stages_scan_core and finals_core) take the leading axis themselves
 # ---------------------------------------------------------------------------
 
 def gap_points_batch(spec, f_cap: int, states, prev_states):

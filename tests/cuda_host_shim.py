@@ -3,7 +3,7 @@
 ``build_host(name, ...)`` compiles ``fastmot_tpu_torch/csrc/<name>.cu`` with
 g++ through ``HOST_SHIM``, a header that stands in for ``cuda_runtime.h``
 with just enough of CUDA for the kernels of csrc/gap_commit.cu,
-csrc/flow_preprocess.cu and csrc/gap_points.cu:
+csrc/flow_preprocess.cu, csrc/gap_points.cu and csrc/assoc_solvers.cu:
 
 - a launch (``kernel<<<grid, block, smem, stream>>>(...)``, rewritten into
   ``host_launch``, or ``cudaLaunchKernelEx``) runs its blocks one after
@@ -11,7 +11,8 @@ csrc/flow_preprocess.cu and csrc/gap_points.cu:
   block's own thread count, or ``set_host_threads(n)``'s where a test sets
   one (the kernels stride their loops by ``blockDim.x`` and take whole
   warps, so any multiple of 32 computes the same);
-- ``__syncthreads`` and ``__syncthreads_count`` are a barrier of the team
+- ``__syncthreads``, ``__syncthreads_count`` and ``__syncthreads_or`` are
+  a barrier of the team
   (a mutex and condition variable; a barrier some thread never reaches
   aborts after 60 s);
 - ``__syncwarp``, the shuffles, ``__ballot_sync`` and ``__match_any_sync``
@@ -22,7 +23,8 @@ csrc/flow_preprocess.cu and csrc/gap_points.cu:
 - ``__shared__`` arrays are static storage (a block's threads share them,
   and blocks run in turn), and a dynamic ``extern __shared__`` array is a
   static one of ``HOST_DYNAMIC_SMEM`` bytes;
-- the atomics are the compiler's ``__atomic`` builtins; the
+- the atomics (32-bit, and 64-bit ``atomicMax``) are the compiler's
+  ``__atomic`` builtins; the
   programmatic-dependent-launch calls do nothing, since the launches
   already run one after another;
 - ``-ffp-contract=off`` rounds every product and sum on its own, as the
@@ -113,6 +115,14 @@ inline unsigned atomicMax(unsigned* p, unsigned v) {
   }
   return old;
 }
+inline unsigned long long atomicMax(unsigned long long* p,
+                                    unsigned long long v) {
+  unsigned long long old = __atomic_load_n(p, __ATOMIC_RELAXED);
+  while (old < v && !__atomic_compare_exchange_n(
+             p, &old, v, true, __ATOMIC_RELAXED, __ATOMIC_RELAXED)) {
+  }
+  return old;
+}
 inline unsigned atomicMin(unsigned* p, unsigned v) {
   unsigned old = __atomic_load_n(p, __ATOMIC_RELAXED);
   while (old > v && !__atomic_compare_exchange_n(
@@ -183,6 +193,7 @@ static thread_local Barrier* block_barrier;
 static thread_local Warp* this_warp;
 inline void __syncthreads() { block_barrier->meet(); }
 inline int __syncthreads_count(int pred) { return block_barrier->meet(pred); }
+inline int __syncthreads_or(int pred) { return block_barrier->meet(pred) > 0; }
 inline void __syncwarp(unsigned = 0xFFFFFFFFu) { this_warp->barrier.meet(); }
 // every lane puts v in its slot and, after the warp's barrier, reads the
 // slots of the row (read(row))
