@@ -169,30 +169,39 @@ Phases, each raising on failure (the exit code is then non-zero):
    the card, and the bound (``preprocess_bound_ms``,
    ``gap_points_bound_ms``);
 19. the association solvers' kernels (csrc/assoc_solvers.cu: the whole
-   auction cascade of a call in one launch, a block a stream; the finals'
-   greedy matchings in another, a block a stream and problem): each
-   against its plain version (``cascade_reference``,
-   ``greedy_match_reference``) run on the CPU and on the card, bit for
+   auction cascade of a call in one launch, a block a stream; the finals
+   (their masks, the rectify cost and both greedy matchings) in one launch
+   of the greedy kernel, a block a stream and problem, behind the cascade
+   by a programmatic dependent launch): each against its plain version
+   (``cascade_reference``, ``greedy_match_reference``,
+   ``tracker.finals_reference``) run on the CPU and on the card, bit for
    bit, on phase 6's real association arguments (1 stream) and phase 13's
    (8 streams), on contested problems at the kernels' full width (the
    stage-1 cascade of scripts/prof_auction.py, 64 tracks and 40
    detections padded to 128, and its one-stage auction, at 1 and 8
    streams; greedy problems of the finals' shapes and gates that take
-   tens of matches), and on the seeded cases of
-   tests/test_torch_assoc_solvers.py; the matches, rounds and bids
-   logged; two calls equal; ``stages_scan_core`` and ``finals_core`` on
-   the real arguments under ``torch.cuda.set_sync_debug_mode('error')``;
-   each kernel's registers
-   and shared memory as ptxas reported them; then each kernel's device
-   time a call (100 calls of the C entry between CUDA events, queued
-   behind a sleep kernel), the wrapper's time a call and host time a
-   call, the plain version's time on the card, and the bound of the work
-   each case's data needs (``cascade_bound_ms``, ``greedy_bound_ms``: the
-   live entries only, the bids the run made). Phases 5-14 count both
-   kernels' launches: one cascade and one greedy launch an association
-   frame, for all of a call's streams (``expect_assoc``); and calls of the
-   plain solvers (``auction_lap_reference``, ``cascade_reference``,
-   ``greedy_match_reference``) on CUDA tensors, which must stay 0.
+   tens of matches; finals of 128 tracks whose near-duplicate pairs
+   contend for the rectify matches, ``contested_finals``), and on the
+   seeded cases of tests/test_torch_assoc_solvers.py, whose every output
+   is also held to the sha256 the first design of the kernels gave
+   (``OUTPUT_SHA256``); the matches, rounds and bids logged; two calls
+   equal; ``stages_scan_core`` and ``finals_core`` on the real arguments
+   under ``torch.cuda.set_sync_debug_mode('error')``; each kernel's
+   registers, spills and shared memory as ptxas reported them and each
+   launch's plan (blocks, threads, dynamic shared memory); then each
+   launch's device time a call (100 calls of the C entry between CUDA
+   events, queued behind a sleep kernel: the cascade, the finals, and the
+   greedy entry alone on the finals' two problems), the wrapper's time a
+   call and host time a call, the plain version's time on the card, and
+   the bound of the work each case's data needs (``cascade_bound_ms``,
+   ``greedy_bound_ms``, ``finals_bound_ms``: the live entries only, the
+   bids the run made; the finals' masks, boxes and rectify cost too).
+   Phases 5-14 count both kernels' launches: one cascade and one finals
+   launch (of the greedy kernel) an association frame, for all of a
+   call's streams (``expect_assoc``); and calls of the plain solvers
+   (``auction_lap_reference``, ``cascade_reference``,
+   ``greedy_match_reference``, ``tracker.finals_reference``) on CUDA
+   tensors, which must stay 0.
 
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -565,6 +574,7 @@ def reset_lk():
     lk_pyramidal.launches = dict.fromkeys(lk_pyramidal.launches, 0)
     gap_commit.launches = preprocess.launches = gap_points.launches = 0
     asg.cascade_auction.launches = asg.greedy_match.launches = 0
+    asg.greedy_finals.launches = 0
 
 
 def flow_counts():
@@ -687,8 +697,8 @@ def phase_reference():
         raise AssertionError('reference run tracked nothing')
     log(f'reference: GPU == CPU on {len(cpu)} frames, {n_rows} track rows; '
         f'lk_pyramidal launches {lk}, gap_commit launches {gap_n}, '
-        f'preprocess and gap_points launches {flow_n}, cascade_auction and '
-        f'greedy_match launches {assoc_n}')
+        f'preprocess and gap_points launches {flow_n}, cascade_auction, '
+        f'greedy_match and greedy_finals launches {assoc_n}')
     return lk
 
 
@@ -749,7 +759,7 @@ def phase_stream_reference():
     log(f'reference: StreamTracker GPU == CPU on {n_frames - 1} frames of '
         f'{n} streams; lk_pyramidal launches {lk}, gap_commit launches '
         f'{gap_n}, preprocess and gap_points launches {flow_n}, '
-        f'cascade_auction and greedy_match launches {assoc_n}')
+        f'cascade_auction, greedy_match and greedy_finals launches {assoc_n}')
     return lk
 
 
@@ -980,7 +990,7 @@ def phase_main_path(detector_type='YOLO', tag='main path', int8=False,
         f'{n_assoc}, osblock launches {launches}, int8_conv launches '
         f'{int8_launches}, lk_pyramidal launches {lk}, gap_commit launches '
         f'{gap_n}, preprocess and gap_points launches {flow_n}, '
-        f'cascade_auction and greedy_match launches {assoc_n}')
+        f'cascade_auction, greedy_match and greedy_finals launches {assoc_n}')
     if snap_step != snap_batch:
         raise AssertionError(f'{tag}: step and step_batch snapshots differ')
     if not visible:
@@ -1296,8 +1306,8 @@ def phase_multi_stream(single_ms, frames, dets, card, n_streams=N_STREAMS):
     log(f'multi-stream: visible tracks per stream {visible}, association '
         f'frames {n_assoc}, osblock launches {launches}, lk_pyramidal '
         f'launches {lk}, gap_commit launches {gap_n}, preprocess and '
-        f'gap_points launches {flow_n}, cascade_auction and greedy_match '
-        f'launches {assoc_n}')
+        f'gap_points launches {flow_n}, cascade_auction, greedy_match and '
+        f'greedy_finals launches {assoc_n}')
     expect_assoc('multi-stream', assoc_n, n_assoc)
     expect_lk('multi-stream', lk, n_frames - 1)
     expect_gap('multi-stream', gap_n, n_frames - 1)
@@ -2676,25 +2686,29 @@ def flow_kernel_entries(cases):
 # ---------------------------------------------------------------------------
 
 def assoc_counts():
-    """The cascade and greedy kernels' launches since ``reset_lk``."""
+    """The cascade and greedy kernels' launches since ``reset_lk``, and
+    the greedy kernel's through the finals entry."""
     from fastmot_tpu_torch.ops import assignment as asg
-    return asg.cascade_auction.launches, asg.greedy_match.launches
+    return (asg.cascade_auction.launches, asg.greedy_match.launches,
+            asg.greedy_finals.launches)
 
 
-# the association kernels' launches on the main paths, by kernel (the
-# kernels line's counts)
+# the association kernels' launches on the main paths, by kernel and the
+# finals entry (the kernels line's counts)
+ASSOC_NAMES = ('cascade_auction', 'greedy_match', 'greedy_finals')
 ASSOC_LAUNCHES = Counter()
 
 
 def expect_assoc(tag, counts, frames):
     """The cascade kernel and the greedy kernel ran once an association
-    frame (``frames``) each, for all of a call's streams and stages."""
-    if tuple(counts) != (frames, frames):
-        raise AssertionError(f'{tag}: cascade_auction and greedy_match '
-                             f'launched {tuple(counts)} times, expected '
-                             f'{(frames, frames)}')
-    ASSOC_LAUNCHES['cascade_auction'] += counts[0]
-    ASSOC_LAUNCHES['greedy_match'] += counts[1]
+    frame (``frames``) each, for all of a call's streams and stages, the
+    greedy kernel through the finals entry."""
+    if tuple(counts) != (frames,) * 3:
+        raise AssertionError(f'{tag}: cascade_auction, greedy_match and '
+                             f'greedy_finals launched {tuple(counts)} '
+                             f'times, expected {(frames,) * 3}')
+    for name, n in zip(ASSOC_NAMES, counts):
+        ASSOC_LAUNCHES[name] += n
 
 
 def plain_solvers():
@@ -2702,12 +2716,28 @@ def plain_solvers():
     originals, not ``main``'s counters (to time them on the card)."""
     from contextlib import ExitStack
     from fastmot_tpu_torch.ops import assignment as asg
+    from fastmot_tpu_torch import tracker as tr
     stack = ExitStack()
     for name in ('auction_lap_reference', 'cascade_reference',
                  'greedy_match_reference'):
         if name in PLAIN:
             stack.enter_context(mock.patch.object(asg, name, PLAIN[name]))
+    if 'finals_reference' in PLAIN:
+        stack.enter_context(mock.patch.object(tr, 'finals_reference',
+                                              PLAIN['finals_reference']))
     return stack
+
+
+def plain_finals(finals_args):
+    """``tracker.finals_reference`` (the finals' plain version) with the
+    plain greedy matches, on the device of its arguments."""
+    from fastmot_tpu_torch import tracker as tr
+    from fastmot_tpu_torch.ops import assignment as asg
+    plain_greedy = PLAIN.get('greedy_match_reference',
+                             asg.greedy_match_reference)
+    with plain_solvers(), mock.patch.object(
+            asg, 'greedy_match', lambda p: [plain_greedy(*q) for q in p]):
+        return tr.finals_reference(*finals_args)
 
 
 def count_syncs(fn):
@@ -2774,8 +2804,8 @@ def greedy_call(finals_args):
         problems.extend(p)
         return [PLAIN.get('greedy_match_reference',
                           asg.greedy_match_reference)(*q) for q in p]
-    with mock.patch.object(asg, 'greedy_match', capture):
-        tr.finals_core(*finals_args)
+    with plain_solvers(), mock.patch.object(asg, 'greedy_match', capture):
+        tr.finals_reference(*finals_args)
     if problems[0][0].dim() == 2:
         problems = [(c[None], r[None], v[None], m)
                     for c, r, v, m in problems]
@@ -2802,8 +2832,6 @@ def solver_stages_ms(scan_args, eps, finals_args):
     from fastmot_tpu_torch import tracker as tr
     from fastmot_tpu_torch.ops import assignment as asg
     call = cascade_call(scan_args, eps)
-    plain_greedy = PLAIN.get('greedy_match_reference',
-                             asg.greedy_match_reference)
 
     def cascade():
         return tr.stages_scan_core(*scan_args, eps=eps)
@@ -2816,10 +2844,7 @@ def solver_stages_ms(scan_args, eps, finals_args):
         return tr.finals_core(*finals_args)
 
     def finals_plain():
-        with plain_solvers(), mock.patch.object(
-                asg, 'greedy_match',
-                lambda p: [plain_greedy(*q) for q in p]):
-            return tr.finals_core(*finals_args)
+        return plain_finals(finals_args)
     out = {'cascade': wall_ms(cascade), 'cascade, plain':
            wall_ms(cascade_plain, n=3, warmup=1),
            'finals': wall_ms(finals), 'finals, plain':
@@ -2998,6 +3023,84 @@ def contested_greedy(problems, seed):
     return out
 
 
+def contested_finals(template, n_streams, seed):
+    """Finals arguments of the main path's sizes and scalars (those of
+    ``template``, a case's ``finals_args``) in which the rectify matches
+    and the reID matches contend, ``n_streams`` streams: tracks T/2 .. T
+    inactive and matched to detections 0 .. T/2, tracks 0 .. T/2 active,
+    unmatched and confirmed, each within a few pixels of one of detections
+    0-23 (two or three tracks to a detection, near-duplicates whose IoU
+    with it passes the gate); the other detections unmatched and mostly
+    confident; reID costs uniform on [0, 2 max_reid_cost) in steps of 1/64
+    (exact ties), 30 % gated. Returns them on the card, with a stream
+    axis."""
+    conf, max_reid, dup_gate, confirm = template[:4]
+    t_cap = int(template[4].shape[-2])
+    d_cap = int(template[8].shape[-2])
+    h_cap = int(template[10].shape[-2])
+    half = t_cap // 2
+    rng = np.random.default_rng(seed)
+    per = []
+    for _ in range(n_streams):
+        xy = rng.uniform(0, 1200, (d_cap, 2))
+        d_tlbrs = np.concatenate([xy, xy + rng.uniform(30, 80, (d_cap, 2))],
+                                 1)
+        col4row = np.full(t_cap, -1, np.int32)
+        col4row[half:] = np.arange(t_cap - half)
+        tlbrs = np.empty((t_cap, 4))
+        tlbrs[half:] = d_tlbrs[:t_cap - half] + rng.normal(0, 1,
+                                                            (t_cap - half, 4))
+        tlbrs[:half] = d_tlbrs[rng.integers(0, 24, half)] + np.round(
+            rng.normal(0, 2, (half, 4)))
+        ages = np.where(np.arange(t_cap) < half, rng.integers(0, 2, t_cap),
+                        rng.integers(2, 8, t_cap)).astype(np.int32)
+        hits = np.full(t_cap, confirm + 1, np.int32)
+        u_det = np.arange(d_cap) >= t_cap - half
+        reid = rng.integers(0, max(2, int(128 * max_reid)),
+                            (h_cap, d_cap)) / 64.0
+        reid[rng.uniform(size=reid.shape) < 0.3] = 1e5
+        per.append((tlbrs.astype(np.float32), np.ones(t_cap, bool), ages, hits,
+                    d_tlbrs.astype(np.float32),
+                    rng.uniform(0.3, 1.0, d_cap).astype(np.float32),
+                    reid.astype(np.float32), rng.uniform(size=h_cap) < 0.8,
+                    rng.uniform(size=d_cap) < 0.2, u_det, col4row))
+    return (conf, max_reid, dup_gate, confirm) + tuple(
+        torch.as_tensor(np.stack([p[k] for p in per]), device='cuda')
+        for k in range(11))
+
+
+def finals_bound_ms(finals_args, outputs):
+    """The least time an H100 could take for a finals call (``finals_args``
+    with a stream axis), and what sets it. Bytes, over 3.35 TB/s: the masks'
+    inputs (h_reid_ok, u_det, d_conf, occluded, t_valid, ages, hits,
+    col4row) read once, the boxes of the rectify problem's live rows and
+    of its live columns' detections, each live reID cost, the three outputs
+    written once. Operations, over 67 TFLOP/s: 17 float32 operations a live
+    rectify entry (its IoU: two maxima, two minima, two widths, both areas,
+    the product, the union, the quotient, the complement), and
+    ``greedy_bound_ms``'s comparisons for both problems."""
+    conf, _, _, confirm = finals_args[:4]
+    (tlbrs, t_valid, ages, hits, d_tlbrs, d_conf, reid, h_ok, occ, u_det,
+     c4r) = (t.cpu() for t in finals_args[4:])
+    reid_cols = u_det & (d_conf >= conf) & ~occ
+    rect_rows = t_valid & (hits >= confirm) & (ages < 2) & (c4r < 0)
+    rect_cols = (c4r >= 0) & ~(ages < 2)
+    nbytes = (h_ok.numel() + u_det.numel() + 4 * d_conf.numel()
+              + occ.numel() + t_valid.numel() + 12 * c4r.numel()
+              + 16 * int(rect_rows.sum() + rect_cols.sum())
+              + 4 * int((h_ok.sum(1) * reid_cols.sum(1)).sum())
+              + sum(o.numel() * o.element_size() for o in outputs))
+    ops = 17 * int((rect_rows.sum(1) * rect_cols.sum(1)).sum())
+    for rows, cols, got in ((h_ok, reid_cols, outputs[1]),
+                            (rect_rows, rect_cols, outputs[2])):
+        for a, b, m in zip(rows.sum(1).tolist(), cols.sum(1).tolist(),
+                           (got.cpu() >= 0).sum(1).tolist()):
+            ops += sum((a - t) * (b - t) for t in range(m + 1))
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return max(bytes_ms, ops_ms), ('bytes' if bytes_ms >= ops_ms
+                                   else 'operations')
+
+
 def cascade_live(call, eps):
     """Each stage's live rows [S, r] and live columns [S, c] on ``call``
     (``cascade_call``'s arguments): the rows of its mask, less those an
@@ -3118,10 +3221,22 @@ def phase_assoc_solvers(main_args, multi_args, card, nvcc_out):
                 (c.cuda(), r.cuda(), v.cuda(), m)
                 for c, r, v, m in problems]), problems):
             same(f'greedy {kind}', got, asg.greedy_match_reference(*p))
+    for kind in ta.FINALS_KINDS:
+        args = ta.torch_finals(kind)
+        same(f'finals {kind}', tr.finals_core(*args[:4], *(
+            t.cuda() for t in args[4:])), plain_finals(args))
+    for key in ta.OUTPUT_SHA256:
+        if ta.output_sha256(ta.case_outputs(lib, key, None, 'cuda')) \
+                != ta.OUTPUT_SHA256[key]:
+            raise AssertionError(f'{key}: the kernels differ from the '
+                                 'outputs of their first design')
     log(f'assoc_solvers on the seeded cases of {ta.__name__} '
         f'({len(ta.AUCTION_KINDS)} auctions, {len(ta.CASCADE_KINDS)} '
-        f'cascades, {len(ta.GREEDY_KINDS)} greedy pairs): the kernels == '
-        'the plain versions on the CPU, bit for bit')
+        f'cascades, {len(ta.GREEDY_KINDS)} greedy pairs, '
+        f'{len(ta.FINALS_KINDS)} finals): the kernels == the plain versions '
+        f'on the CPU, bit for bit; all {len(ta.OUTPUT_SHA256)} cases\' '
+        'outputs (rounds and bids too) == the first design\'s '
+        '(OUTPUT_SHA256)')
 
     # the main paths' association arguments (phase 6's one stream, phase
     # 13's eight), then contested problems at the kernels' full width: the
@@ -3130,17 +3245,25 @@ def phase_assoc_solvers(main_args, multi_args, card, nvcc_out):
     # shapes and gates that take tens of matches
     eps = main_args[1]
     cases = [(case, cascade_call(scan_args, c_eps), c_eps,
-              greedy_call(finals_args), (scan_args, finals_args))
+              greedy_call(finals_args), (scan_args, finals_args),
+              finals_args)
              for case, (scan_args, c_eps, finals_args) in (
                  ('1_stream', main_args),
                  (f'{N_STREAMS}_streams', multi_args))]
     for k, n in enumerate((1, N_STREAMS)):
         auction, call = stage1_case(n)
         cases.append((f'stage1_{n}_stream{"s" if n > 1 else ""}', call, eps,
-                      contested_greedy(cases[k][3], seed=n), auction))
+                      contested_greedy(cases[k][3], seed=n), auction,
+                      contested_finals(main_args[2], n, seed=n)))
+    log('assoc_solvers launch plans: the cascade a block of 1,024 threads a '
+        f'stream, {4 * (128 * 128 + 2 * 128 * 128):,} B of dynamic shared '
+        'memory at 128 x 128 (a stage\'s benefit table, then both costs); '
+        'the finals and the greedy entry a block of 512 threads a stream and '
+        f'problem, {4 * 128 * 129:,} B of dynamic shared memory (a staged or '
+        'computed cost)')
 
-    out = {'cascade_auction': {}, 'greedy_match': {}}
-    for case, call, eps, problems, extra in cases:
+    out = {name: {} for name in ASSOC_NAMES}
+    for case, call, eps, problems, extra, fin_args in cases:
         costs, masks = call[:2]
         rounds, bids = cascade_rounds(call, eps)
         got = asg.cascade_auction(*call, eps)
@@ -3179,6 +3302,16 @@ def phase_assoc_solvers(main_args, multi_args, card, nvcc_out):
             torch.cuda.synchronize()
             note = ("stages_scan_core + finals_core ran under "
                     "set_sync_debug_mode('error')")
+        # the finals in one launch: masks, rectify cost, both matches
+        f_got = tr.finals_core(*fin_args)
+        same(f'finals {case}: two calls', f_got, tr.finals_core(*fin_args))
+        same(f'finals {case} against the plain version on the CPU', f_got,
+             plain_finals(cpu(fin_args)))
+        same(f'finals {case} against the plain version on the card', f_got,
+             plain_finals(fin_args))
+        note += (f'; finals == plain on the CPU and on the card, '
+                 f'{int((f_got[1] >= 0).sum())} reID and '
+                 f'{int((f_got[2] >= 0).sum())} rectify matches')
         matched = int((got[1] >= 0).sum())
         log(f'assoc_solvers {case}: cascade == plain on the CPU and on the '
             f'card, bit for bit ({matched} matches; rounds by stream, stage '
@@ -3189,6 +3322,9 @@ def phase_assoc_solvers(main_args, multi_args, card, nvcc_out):
 
         outputs, c_args, keep = asg.cascade_launch_args(*call, eps)
         g_out, g_args, g_keep = asg.greedy_launch_args(problems)
+        lead = fin_args[:4] + tuple(t[None] if fin_args[4].dim() == 2 else t
+                                    for t in fin_args[4:])
+        f_out, f_args, f_keep = asg.finals_launch_args(*lead)
         for name, entry, args, wrapper, plain, bound in (
                 ('cascade_auction', lib.cascade_auction_forward, c_args,
                  lambda: asg.cascade_auction(*call, eps),
@@ -3197,31 +3333,50 @@ def phase_assoc_solvers(main_args, multi_args, card, nvcc_out):
                 ('greedy_match', lib.greedy_match_forward, g_args,
                  lambda: asg.greedy_match(problems),
                  lambda: [asg.greedy_match_reference(*p) for p in problems],
-                 greedy_bound_ms(problems, g_got))):
+                 greedy_bound_ms(problems, g_got)),
+                ('greedy_finals', lib.finals_forward, f_args,
+                 lambda: tr.finals_core(*fin_args),
+                 lambda: plain_finals(fin_args),
+                 finals_bound_ms(lead, tuple(
+                     o if fin_args[4].dim() == 3 else o[None]
+                     for o in f_got)))):
             dev_ms = lk_device_ms(entry, args, tag=name)
             call_ms = launches_ms(wrapper)
             host = host_ms(wrapper)
             plain_ms = wall_ms(plain, n=3, warmup=1)
-            out[name][case] = {'ms': dev_ms, 'call_ms': call_ms,
-                               'host_ms': host, 'plain_ms': plain_ms,
-                               'bound_ms': bound[0], 'bound_by': bound[1],
-                               'max_abs_err': 0.0}
-            log(f'{name} {case}: device {dev_ms * 1e3:.2f} us a call (100 '
-                f'calls, one launch each); the wrapper {call_ms * 1e3:.2f} '
+            out[name][case] = {
+                'ms': dev_ms, 'call_ms': call_ms, 'host_ms': host,
+                'plain_ms': plain_ms, 'bound_ms': bound[0],
+                'bound_by': bound[1]}
+            log(f'{ASSOC_WHAT[name]} {case}: device {dev_ms * 1e3:.2f} us '
+                f'a call (100 calls, one launch each); the wrapper '
+                f'{call_ms * 1e3:.2f} '
                 f'us a call, host {host * 1e3:.2f} us; plain on the card '
                 f'{plain_ms:.3f} ms; bound {bound[0] * 1e3:.6f} us '
                 f'({bound[1]}), roofline share {bound[0] / dev_ms:.6f}; '
                 f'{card}')
-        del keep, g_keep
+        del keep, g_keep, f_keep
     log(f'assoc solvers phase: {time.perf_counter() - t_phase:.1f} s')
     return out
 
 
+# what each of the kernels line's association entries times
+ASSOC_WHAT = {
+    'cascade_auction': 'cascade_auction',
+    'greedy_match': "greedy_match (the greedy entry alone on the finals' "
+                    'two problems)',
+    'greedy_finals': 'greedy_finals (the greedy kernel\'s finals launch: '
+                     'masks, rectify cost, both matches)'}
+
+
 def assoc_kernel_entries(cases):
-    """The kernels line's entries of the cascade and greedy kernels: the
-    main path's case unsuffixed, the 8-stream case's numbers suffixed."""
+    """The kernels line's entries of the cascade kernel, the greedy kernel
+    and its finals launch (the greedy kernel again, through the finals
+    entry): the main path's case unsuffixed, the other cases' numbers
+    suffixed."""
     replaces = {'cascade_auction': 'fastmot_tpu/ops/assignment.py:36',
-                'greedy_match': 'fastmot_tpu/ops/assignment.py:237'}
+                'greedy_match': 'fastmot_tpu/ops/assignment.py:237',
+                'greedy_finals': 'fastmot_tpu/ops/assignment.py:237'}
     entries = []
     for name, where in replaces.items():
         entry = {'name': name, 'route': 'cuda',
@@ -3230,13 +3385,8 @@ def assoc_kernel_entries(cases):
                  'max_abs_err': 0.0, 'library_ms': None, 'case': '1_stream'}
         for case, r in cases[name].items():
             key = '' if case == '1_stream' else f'_{case}'
-            entry.update({f'ms{key}': r['ms'],
-                          f'plain_ms{key}': r['plain_ms'],
-                          f'bound_ms{key}': r['bound_ms'],
-                          f'bound_by{key}': r['bound_by'],
-                          f'call_ms{key}': r['call_ms'],
-                          f'host_ms{key}': r['host_ms'],
-                          f'roofline_share{key}': r['bound_ms'] / r['ms']})
+            entry.update({f'{k}{key}': v for k, v in r.items()})
+            entry[f'roofline_share{key}'] = r['bound_ms'] / r['ms']
         entries.append(entry)
     return entries
 
@@ -3265,7 +3415,8 @@ def main():
                  gap_points_batch=tr.gap_points_batch,
                  auction_lap_reference=asg.auction_lap_reference,
                  cascade_reference=asg.cascade_reference,
-                 greedy_match_reference=asg.greedy_match_reference)
+                 greedy_match_reference=asg.greedy_match_reference,
+                 finals_reference=tr.finals_reference)
     host_draws = [False]
 
     def counted_plain_lk(prev, cur, pts, *args, **kwargs):
@@ -3310,7 +3461,9 @@ def main():
             mock.patch.object(asg, 'cascade_reference', counted(
                 'cascade_reference', lambda costs, *a: costs[0].is_cuda)), \
             mock.patch.object(asg, 'greedy_match_reference', counted(
-                'greedy_match_reference', lambda cost, *a: cost.is_cuda)):
+                'greedy_match_reference', lambda cost, *a: cost.is_cuda)), \
+            mock.patch.object(tr, 'finals_reference', counted(
+                'finals_reference', lambda *a: a[4].is_cuda)):
         for counts in (phase_reference(), phase_stream_reference(),
                        drawing_on_the_host(phase_legacy_api)):
             lk_launches.update(counts)

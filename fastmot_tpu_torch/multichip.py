@@ -155,8 +155,8 @@ def dryrun_multichip(n_devices: int, device: str = 'cuda') -> list[dict]:
 def _dryrun_rank(n_devices: int, model_name: str, device: str) -> dict:
     """The multi-stream step on this rank: real cores, tiny shapes.
     Returns the ``dryrun ok`` line, this rank's feature slice, its LK,
-    gap-commit, preprocess and gap-points kernel launches, its cascade and
-    greedy kernel launches (``assoc_launches``) and, as
+    gap-commit, preprocess and gap-points kernel launches, its cascade,
+    greedy kernel and finals launches (``assoc_launches``) and, as
     numpy, the association's costs, its matches (``col4row``), the tracks'
     validity and the new history store."""
     from .detector import _resize_bilinear
@@ -320,7 +320,8 @@ def _dryrun_rank(n_devices: int, model_name: str, device: str) -> dict:
             'preprocess_launches': fk.preprocess.launches,
             'gap_points_launches': gap_points.launches,
             'assoc_launches': (asg.cascade_auction.launches,
-                               asg.greedy_match.launches),
+                               asg.greedy_match.launches,
+                               asg.greedy_finals.launches),
             'cost': host(cost),
             'reid_cost': host(reid_cost),
             'col4row': host(col4row), 'valid': host(new_state[3]),
@@ -431,6 +432,7 @@ def multi_stream_rank(inputs, n_streams, model_parallel, mot_kwargs,
     lk_pyramidal.launches = dict.fromkeys(lk_pyramidal.launches, 0)
     gap_commit.launches = preprocess.launches = gap_points.launches = 0
     asg.cascade_auction.launches = asg.greedy_match.launches = 0
+    asg.greedy_finals.launches = 0
     rows, step_ms = run_multi_stream(mot, frames, dets, sync_every_frame)
     return {'local_streams': list(mot.local_streams), 'rows': rows,
             'step_ms': step_ms, 'osblock_launches': osblock.launches,
@@ -439,7 +441,8 @@ def multi_stream_rank(inputs, n_streams, model_parallel, mot_kwargs,
             'preprocess_launches': preprocess.launches,
             'gap_points_launches': gap_points.launches,
             'assoc_launches': (asg.cascade_auction.launches,
-                               asg.greedy_match.launches),
+                               asg.greedy_match.launches,
+                               asg.greedy_finals.launches),
             'network_dets': mot.network_dets}
 
 

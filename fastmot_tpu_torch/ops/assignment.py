@@ -18,8 +18,12 @@ they run the plain versions, ``auction_lap_reference``,
 ``cascade_reference`` and ``greedy_match_reference``, whose data-dependent
 loops run in Python over tensor ops (one host sync per 8 bidding rounds,
 and per greedy match); any other device raises. The two agree bit for bit
-(tests/test_torch_assoc_solvers.py). ``cascade_auction.launches`` and
-``greedy_match.launches`` count the kernels' launches.
+(tests/test_torch_assoc_solvers.py). ``greedy_finals`` is the tracker's
+finals on the card (``tracker.finals_core``): their masks, the rectify
+cost and both greedy matches in one launch of the greedy kernel.
+``cascade_auction.launches`` and ``greedy_match.launches`` count the two
+kernels' launches (the greedy kernel's through either entry);
+``greedy_finals.launches`` counts those of the finals entry alone.
 """
 from __future__ import annotations
 
@@ -48,7 +52,8 @@ def assoc_solvers_library() -> ctypes.CDLL:
     """The built kernel library, its C signatures declared once."""
     from .cuda_build import load
     lib = load('assoc_solvers')
-    for entry in (lib.cascade_auction_forward, lib.greedy_match_forward):
+    for entry in (lib.cascade_auction_forward, lib.greedy_match_forward,
+                  lib.finals_forward):
         entry.argtypes = FORWARD_ARGTYPES
         entry.restype = ctypes.c_int
     lib.assoc_solvers_error_string.argtypes = [ctypes.c_int]
@@ -517,6 +522,94 @@ def greedy_match_arrays(cost: torch.Tensor, row_valid: torch.Tensor,
     on. ``greedy_match`` of the one problem: the kernel on CUDA tensors,
     ``greedy_match_reference`` on CPU tensors."""
     return greedy_match([(cost, row_valid, col_valid, max_cost)])[0]
+
+
+def finals_launch_args(conf_thresh: float, max_reid_cost: float,
+                       dup_gate: float, confirm_hits: int, tlbrs, t_valid,
+                       ages, hits, d_tlbrs, d_conf, reid_cost, h_reid_ok,
+                       occluded, u_det, col4row_final):
+    """One call of the finals as ``finals_forward`` takes it: ``(outputs,
+    args, keep)``. The arguments are ``tracker.finals_reference``'s with a
+    leading stream axis S: boxes [S, T, 4] and [S, D, 4] float32, t_valid
+    [S, T] bool, ages and hits [S, T] int32, d_conf [S, D] float32,
+    reid_cost [S, H, D] float32, h_reid_ok [S, H] bool, occluded and u_det
+    [S, D] bool, col4row_final [S, T] int32. The outputs are (u_det_conf [S,
+    D] bool, reid_c4r [S, H] int32, rect_c4r [S, T] int32). On the current
+    CUDA stream for CUDA tensors. Raises ValueError on a wrong dtype, shape
+    or device or sizes the kernel does not take (T <= ``KERNEL_MAX_N``,
+    D and H <= ``KERNEL_MAX_GREEDY``); ``keep`` as
+    ``cascade_launch_args``'."""
+    if not isinstance(tlbrs, torch.Tensor) or tlbrs.dim() != 3:
+        _fault('finals: tlbrs must be [S, T, 4]')
+    if not isinstance(reid_cost, torch.Tensor) or reid_cost.dim() != 3:
+        _fault('finals: reid_cost must be [S, H, D]')
+    device = tlbrs.device
+    n_streams, t_cap = (int(d) for d in tlbrs.shape[:2])
+    h_cap, d_cap = (int(d) for d in reid_cost.shape[1:])
+    if n_streams < 1 or not 1 <= t_cap <= KERNEL_MAX_N or \
+            not 1 <= d_cap <= KERNEL_MAX_GREEDY or \
+            not 1 <= h_cap <= KERNEL_MAX_GREEDY:
+        _fault(f'finals: {t_cap} tracks, {d_cap} detections and {h_cap} '
+               f'history rows: the kernel takes 1 to {KERNEL_MAX_N} tracks '
+               f'and 1 to {KERNEL_MAX_GREEDY} of the others')
+    st, sd = (n_streams, t_cap), (n_streams, d_cap)
+    keep = [_check(t, name, dtype, shape, device) for t, name, dtype, shape in (
+        (tlbrs, 'tlbrs', torch.float32, st + (4,)),
+        (t_valid, 't_valid', torch.bool, st),
+        (ages, 'ages', torch.int32, st), (hits, 'hits', torch.int32, st),
+        (d_tlbrs, 'd_tlbrs', torch.float32, sd + (4,)),
+        (d_conf, 'd_conf', torch.float32, sd),
+        (reid_cost, 'reid_cost', torch.float32, (n_streams, h_cap, d_cap)),
+        (h_reid_ok, 'h_reid_ok', torch.bool, (n_streams, h_cap)),
+        (occluded, 'occluded', torch.bool, sd),
+        (u_det, 'u_det', torch.bool, sd),
+        (col4row_final, 'col4row_final', torch.int32, st))]
+    outputs = (torch.empty(sd, dtype=torch.bool, device=device),
+               torch.empty((n_streams, h_cap), dtype=torch.int32,
+                           device=device),
+               torch.empty(st, dtype=torch.int32, device=device))
+    ptrs = [t.data_ptr() for t in keep + list(outputs)]
+    ints = [n_streams, t_cap, d_cap, h_cap, int(confirm_hits)]
+    args = ((ctypes.c_uint64 * len(ptrs))(*ptrs),
+            (ctypes.c_int * len(ints))(*ints),
+            (ctypes.c_float * 3)(conf_thresh, max_reid_cost, dup_gate),
+            _stream(device))
+    return outputs, args, keep
+
+
+def greedy_finals(conf_thresh: float, max_reid_cost: float, dup_gate: float,
+                  confirm_hits: int, tlbrs, t_valid, ages, hits, d_tlbrs,
+                  d_conf, reid_cost, h_reid_ok, occluded, u_det,
+                  col4row_final):
+    """``tracker.finals_reference`` on CUDA tensors, with or without a
+    leading stream axis: the masks, the rectify cost (1 - IoU of each track's
+    box and each matched track's detection) and both greedy matches in one
+    launch of ``csrc/assoc_solvers.cu``'s greedy kernel (``finals_forward``,
+    a block a stream and problem, behind the launch before it by a
+    programmatic dependent launch). Returns (u_det_conf, reid_c4r,
+    rect_c4r). Raises on CPU tensors (the caller takes the plain version
+    there) and on anything ``finals_launch_args`` refuses."""
+    if tlbrs.device.type != 'cuda':
+        raise ValueError(f'greedy_finals: the kernel takes CUDA tensors, '
+                         f'not {tlbrs.device}')
+    tensors = (tlbrs, t_valid, ages, hits, d_tlbrs, d_conf, reid_cost,
+               h_reid_ok, occluded, u_det, col4row_final)
+    one = tlbrs.dim() == 2
+    if one:
+        tensors = tuple(t[None] for t in tensors)
+    outputs, args, keep = finals_launch_args(
+        conf_thresh, max_reid_cost, dup_gate, confirm_hits, *tensors)
+    lib = assoc_solvers_library()
+    code = lib.finals_forward(*args)
+    if code:
+        raise RuntimeError('greedy finals kernel: '
+                           + lib.assoc_solvers_error_string(code).decode())
+    greedy_match.launches += 1
+    greedy_finals.launches += 1
+    return tuple(o[0] for o in outputs) if one else outputs
+
+
+greedy_finals.launches = 0
 
 
 def fuse_motion(cost: torch.Tensor, m_dist: torch.Tensor,

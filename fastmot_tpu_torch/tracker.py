@@ -25,9 +25,10 @@ version, which takes the draws of ``ops.flow_kernels.ransac_draws`` as
 ``draws``). ``*_batch`` run the loop-free cores over a leading stream axis
 (``parallel.StreamTracker``); ``stages_scan_core`` and ``finals_core``
 take that axis themselves, and run their solvers through
-``ops.assignment.cascade_auction`` and ``greedy_match``: on the card the
-whole cascade in one launch and both finals matchings in another, with no
-host sync; on the CPU the plain solvers. ``compute_flow``/``apply_kalman``
+``ops.assignment.cascade_auction`` and ``greedy_finals``: on the card the
+whole cascade in one launch and the finals (their masks, the rectify cost
+and both greedy matchings) in another, with no host sync; on the CPU the
+plain solvers (``finals_reference``). ``compute_flow``/``apply_kalman``
 are the JAX package's legacy per-track API.
 """
 from __future__ import annotations
@@ -401,9 +402,32 @@ def finals_core(conf_thresh: float, max_reid_cost: float, dup_gate: float,
                 d_conf, reid_cost, h_reid_ok, occluded, u_det,
                 col4row_final):
     """Greedy reID against the history store + duplicate-rectify
-    candidates. Takes a leading stream axis on every tensor. The rectify
-    cost depends only on the cascade's matches, so both greedy problems go
-    to one ``asg.greedy_match`` call (on the card one launch)."""
+    candidates: (u_det_conf, reid_c4r, rect_c4r). Takes a leading stream
+    axis on every tensor. On the card one launch of the greedy kernel
+    computes the masks, the rectify cost and both matches
+    (``asg.greedy_finals``); on the CPU ``finals_reference``; any other
+    device raises."""
+    device = tlbrs.device
+    if device.type == 'cuda':
+        return asg.greedy_finals(
+            conf_thresh, max_reid_cost, dup_gate, confirm_hits, tlbrs,
+            t_valid, ages, hits, d_tlbrs, d_conf, reid_cost, h_reid_ok,
+            occluded, u_det, col4row_final)
+    if device.type != 'cpu':
+        raise ValueError(f'finals_core: unsupported device {device}')
+    return finals_reference(
+        conf_thresh, max_reid_cost, dup_gate, confirm_hits, tlbrs, t_valid,
+        ages, hits, d_tlbrs, d_conf, reid_cost, h_reid_ok, occluded, u_det,
+        col4row_final)
+
+
+def finals_reference(conf_thresh: float, max_reid_cost: float,
+                     dup_gate: float, confirm_hits: int, tlbrs, t_valid, ages,
+                     hits, d_tlbrs, d_conf, reid_cost, h_reid_ok, occluded,
+                     u_det, col4row_final):
+    """The plain version of ``finals_core``: the masks and the rectify cost
+    as torch ops, then both greedy problems in one ``asg.greedy_match``
+    call (the rectify cost depends only on the cascade's matches)."""
     t_confirmed = hits >= confirm_hits
     t_active = ages < 2
     u_det_conf = u_det & (d_conf >= conf_thresh)

@@ -11,12 +11,13 @@ csrc/flow_preprocess.cu, csrc/gap_points.cu and csrc/assoc_solvers.cu:
   block's own thread count, or ``set_host_threads(n)``'s where a test sets
   one (the kernels stride their loops by ``blockDim.x`` and take whole
   warps, so any multiple of 32 computes the same);
-- ``__syncthreads``, ``__syncthreads_count`` and ``__syncthreads_or`` are
-  a barrier of the team
+- ``__syncthreads``, ``__syncthreads_count``, ``__syncthreads_or`` and
+  ``__syncthreads_and`` are a barrier of the team
   (a mutex and condition variable; a barrier some thread never reaches
   aborts after 60 s);
-- ``__syncwarp``, the shuffles, ``__ballot_sync`` and ``__match_any_sync``
-  are meetings of a warp's 32 threads: each lane puts its value in its
+- ``__syncwarp``, the shuffles, ``__ballot_sync``, ``__match_any_sync``
+  and the unsigned warp reductions ``__reduce_max_sync`` and
+  ``__reduce_min_sync`` are meetings of a warp's 32 threads: each lane puts its value in its
   slot and, after the warp's spinning barrier, reads the slots of the row
   (two slot rows in turn, so a lane writes a row only after every lane
   has read it);
@@ -24,7 +25,10 @@ csrc/flow_preprocess.cu, csrc/gap_points.cu and csrc/assoc_solvers.cu:
   and blocks run in turn), and a dynamic ``extern __shared__`` array is a
   static one of ``HOST_DYNAMIC_SMEM`` bytes;
 - the atomics (32-bit, and 64-bit ``atomicMax``) are the compiler's
-  ``__atomic`` builtins; the
+  ``__atomic`` builtins; the asynchronous copies into shared memory
+  (``cp.async``, ``cp.async.bulk`` and their mbarrier) sit in the kernels
+  under ``__CUDA_ARCH__`` beside plain copies, which the host build takes;
+  the
   programmatic-dependent-launch calls do nothing, since the launches
   already run one after another;
 - ``-ffp-contract=off`` rounds every product and sum on its own, as the
@@ -123,6 +127,12 @@ inline unsigned long long atomicMax(unsigned long long* p,
   }
   return old;
 }
+inline unsigned atomicOr(unsigned* p, unsigned v) {
+  return __atomic_fetch_or(p, v, __ATOMIC_RELAXED);
+}
+inline unsigned atomicAnd(unsigned* p, unsigned v) {
+  return __atomic_fetch_and(p, v, __ATOMIC_RELAXED);
+}
 inline unsigned atomicMin(unsigned* p, unsigned v) {
   unsigned old = __atomic_load_n(p, __ATOMIC_RELAXED);
   while (old > v && !__atomic_compare_exchange_n(
@@ -194,6 +204,9 @@ static thread_local Warp* this_warp;
 inline void __syncthreads() { block_barrier->meet(); }
 inline int __syncthreads_count(int pred) { return block_barrier->meet(pred); }
 inline int __syncthreads_or(int pred) { return block_barrier->meet(pred) > 0; }
+inline int __syncthreads_and(int pred) {
+  return block_barrier->meet(pred) == block_barrier->n;
+}
 inline void __syncwarp(unsigned = 0xFFFFFFFFu) { this_warp->barrier.meet(); }
 // every lane puts v in its slot and, after the warp's barrier, reads the
 // slots of the row (read(row))
@@ -247,6 +260,21 @@ inline unsigned __ballot_sync(unsigned, int pred) {
     for (int l = 0; l < 32; ++l) out |= static_cast<unsigned>(r[l] != 0) << l;
     return out;
   });
+}
+// the warp reductions over the 32 lanes (every lane of the warp takes part)
+template <class F>
+unsigned warp_reduce(unsigned v, F op) {
+  return warp_exchange(v, [&](const uint64_t* r) {
+    unsigned out = static_cast<unsigned>(r[0]);
+    for (int l = 1; l < 32; ++l) out = op(out, static_cast<unsigned>(r[l]));
+    return out;
+  });
+}
+inline unsigned __reduce_max_sync(unsigned, unsigned v) {
+  return warp_reduce(v, [](unsigned a, unsigned b) { return a > b ? a : b; });
+}
+inline unsigned __reduce_min_sync(unsigned, unsigned v) {
+  return warp_reduce(v, [](unsigned a, unsigned b) { return a < b ? a : b; });
 }
 template <class T>
 unsigned __match_any_sync(unsigned, T v) {
