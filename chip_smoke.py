@@ -11,10 +11,11 @@ Phases, each raising on failure (the exit code is then non-zero):
    pyramidal-LK kernels (csrc/lk_pyramidal.cu: a tile of lanes a point,
    and one thread a point), the gap-commit kernel (csrc/gap_commit.cu),
    the preprocess kernel (csrc/flow_preprocess.cu), the gap-points
-   kernel (csrc/gap_points.cu) and the association solvers' kernels
-   (csrc/assoc_solvers.cu) from the sources in this checkout, one
-   ``nvcc`` each, all at once, and prints ptxas's registers, shared memory
-   and spills;
+   kernel (csrc/gap_points.cu), the association solvers' kernels
+   (csrc/assoc_solvers.cu), the NMS and SSD-merge kernels
+   (csrc/nms_waves.cu) and the commit kernel (csrc/assoc_commit.cu) from
+   the sources in this checkout, one ``nvcc`` each, all at once, and prints
+   ptxas's registers, shared memory and spills;
 3. kernel vs its plain version at the six OSNet-x0.25 block shapes (64
    crops, bf16; two calls bitwise equal), with each shape's time (20
    back-to-back launches between two CUDA events), bound, roofline share
@@ -40,10 +41,12 @@ Phases, each raising on failure (the exit code is then non-zero):
    assembly through their kernels with their plain versions beside them
    (phase 16 prints them), and an association frame's stages alone
    (``assoc_stages_ms``: the detector's net, its NMS, crops + OSNet, the
-   costs, the cascade and the finals through the kernels and through the
-   plain versions, the commit, the whole ``update_device_fused`` call),
-   the host syncs a call of the cascade and the finals, and the cascade
-   kernel's bidding rounds by stage and phase;
+   costs, the cascade, the finals and the commit through the kernels and
+   through the plain versions, the whole ``update_device_fused`` call),
+   the host syncs a call of the NMS, crops + OSNet, the costs, the
+   cascade, the finals, the commit, ``update_device_fused`` and a whole
+   association frame (net, NMS and ``update_device_fused``), and the
+   cascade kernel's bidding rounds by stage and phase;
 7. detector zoo: every registered YOLO and SSD with random weights at its
    full input size on a 1280x720 frame: raw head shapes, finite values,
    the median time of the whole detector; SSDMobileNetV1 and YOLOv4-tiny
@@ -202,6 +205,35 @@ Phases, each raising on failure (the exit code is then non-zero):
    (``auction_lap_reference``, ``cascade_reference``,
    ``greedy_match_reference``, ``tracker.finals_reference``) on CUDA
    tensors, which must stay 0.
+20. the NMS kernel (csrc/nms_waves.cu: the overlap packed into bits by
+   many blocks, then a block a problem runs the waves to the end), the SSD
+   merge kernel (the same file: a block a problem runs the label rounds to
+   the fixpoint) and the commit kernel (csrc/assoc_commit.cu: the
+   decisions a block a stream, then the wide rows a warp a row): each
+   against its plain version (``geometry.greedy_suppress_reference``,
+   ``nms_waves.merge_labels_reference``, ``tracker.commit_part``) run on
+   the CPU and on the card, the NMS and the merge bit for bit, the
+   commit's integers, booleans and feature sums bit for bit and its means
+   and covariances at tests/test_torch_assoc_commit.py's tolerances, on
+   phase 6's and phase 13's real NMS and commit arguments,
+   the SSD postprocess's merge of phase 8's rows, contested cases (1,024
+   same-label candidates in chains eight waves deep at 1 and 8 streams;
+   800 SSD rows whose components span the 8 tiles; the full-width
+   contested commit, with merges, duplicates, reinstates, dropped
+   creations, out-of-frame exits, steals and evictions, at 1 and 8
+   streams), and the seeded cases of tests/test_torch_nms_kernel.py and
+   tests/test_torch_assoc_commit.py with their ``OUTPUT_SHA256``; two calls
+   equal; ``nms_and_gate``, the SSD postprocess, ``commit_core`` and
+   ``commit_batch`` under ``torch.cuda.set_sync_debug_mode('error')``;
+   ptxas's registers, spills and shared memory; each kernel's device time
+   a call (100 calls of the C entry between CUDA events, queued behind a
+   sleep kernel), the wrapper's time and host time a call, the plain
+   version's time on the card and the bound (``suppress_bound_ms``,
+   ``merge_bound_ms``, ``commit_bound_ms``). Phases 5-14 count the NMS
+   kernel's launches (one a detector run, for all of a call's streams),
+   the merge kernel's (one an SSD run) and the commit kernel's (one an
+   association frame, for all of a call's streams) (``expect_tail``), and
+   calls of the plain versions on CUDA tensors, which must stay 0.
 
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -253,6 +285,9 @@ GAP_H_PX, GAP_MEAN_PX, GAP_COV_REL, GAP_RATIO = 0.01, 1e-3, 1e-4, 1e-6
 GAP_KERNELS = ('gap_fit_kernel', 'gap_kalman_kernel')
 # the association solvers' two kernels (csrc/assoc_solvers.cu)
 ASSOC_KERNELS = ('cascade_auction_kernel', 'greedy_match_kernel')
+TAIL_KERNELS = ('suppress_pack_kernel', 'suppress_waves_kernel',
+                'merge_labels_kernel', 'assoc_commit_rows_kernel',
+                'assoc_commit_kernel')
 FLOW_KERNELS = ('preprocess_kernel', 'points_owner_kernel',
                 'points_select_kernel')
 # the H100 SXM's 32-bit integer rate (64 INT32 lanes an SM a clock, 132
@@ -389,7 +424,7 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
     from fastmot_tpu_torch.ops import cuda_build
     names = ('osnet_block', 'lk_pyramidal', 'gap_commit', 'flow_preprocess',
-             'gap_points', 'assoc_solvers')
+             'gap_points', 'assoc_solvers', 'nms_waves', 'assoc_commit')
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(cuda_build.build, names))
@@ -565,9 +600,12 @@ def synth_tlbrs(frame_id, size, n=N_OBJECTS):
 
 def reset_lk():
     """Zeroes the LK kernels', the gap-commit kernel's, the preprocess
-    kernel's, the gap-points kernel's and the association solvers' launch
-    counts."""
+    kernel's, the gap-points kernel's, the association solvers', the NMS
+    and merge kernels' and the commit kernel's launch counts."""
     from fastmot_tpu_torch.ops import assignment as asg
+    from fastmot_tpu_torch.ops import assoc_commit as ac
+    from fastmot_tpu_torch.ops import geometry as geom
+    from fastmot_tpu_torch.ops import nms_waves as nw
     from fastmot_tpu_torch.ops.flow_kernels import lk_pyramidal, preprocess
     from fastmot_tpu_torch.ops.gap_commit import gap_commit
     from fastmot_tpu_torch.ops.gap_points import gap_points
@@ -575,6 +613,8 @@ def reset_lk():
     gap_commit.launches = preprocess.launches = gap_points.launches = 0
     asg.cascade_auction.launches = asg.greedy_match.launches = 0
     asg.greedy_finals.launches = 0
+    geom.greedy_suppress.launches = nw.merge_labels.launches = 0
+    ac.assoc_commit.launches = 0
 
 
 def flow_counts():
@@ -676,12 +716,14 @@ def phase_reference():
                 mot.step(frame)
             runs.append(snapshots(mot))
     lk, gap_n, flow_n = lk_counts(), gap_launches(), flow_counts()
-    assoc_n = assoc_counts()
+    assoc_n, tail_n = assoc_counts(), tail_counts()
     expect_lk('reference', lk, n_frames - 1)
     expect_gap('reference', gap_n, n_frames - 1)
     expect_flow('reference', flow_n, n_frames, n_frames - 1)
     # an association frame every third frame after the first (3, 6, 9)
     expect_assoc('reference', assoc_n, (n_frames - 1) // 3)
+    # the public detections go through no NMS
+    expect_tail('reference', tail_n, 0, 0, (n_frames - 1) // 3)
     cpu, gpu = runs
     for fid in cpu:
         ids_c = [t for t, _ in cpu[fid]]
@@ -698,7 +740,8 @@ def phase_reference():
     log(f'reference: GPU == CPU on {len(cpu)} frames, {n_rows} track rows; '
         f'lk_pyramidal launches {lk}, gap_commit launches {gap_n}, '
         f'preprocess and gap_points launches {flow_n}, cascade_auction, '
-        f'greedy_match and greedy_finals launches {assoc_n}')
+        f'greedy_match and greedy_finals launches {assoc_n}, '
+        f'greedy_suppress, merge_labels and assoc_commit launches {tail_n}')
     return lk
 
 
@@ -749,17 +792,20 @@ def phase_stream_reference():
                           for trk in st.trackers])
         runs.append(snaps)
     lk, gap_n, flow_n = lk_counts(), gap_launches(), flow_counts()
-    assoc_n = assoc_counts()
+    assoc_n, tail_n = assoc_counts(), tail_counts()
     expect_lk('stream tracker', lk, n_frames - 1)
     expect_gap('stream tracker', gap_n, n_frames - 1)
     expect_flow('stream tracker', flow_n, n_frames, n_frames - 1)
     expect_assoc('stream tracker', assoc_n,
                  sum(1 for f in range(1, n_frames) if f % skip == 0))
+    expect_tail('stream tracker', tail_n, 0, 0,
+                sum(1 for f in range(1, n_frames) if f % skip == 0))
     _same_rows('stream tracker', *runs)
     log(f'reference: StreamTracker GPU == CPU on {n_frames - 1} frames of '
         f'{n} streams; lk_pyramidal launches {lk}, gap_commit launches '
         f'{gap_n}, preprocess and gap_points launches {flow_n}, '
-        f'cascade_auction, greedy_match and greedy_finals launches {assoc_n}')
+        f'cascade_auction, greedy_match and greedy_finals launches {assoc_n}'
+        f', greedy_suppress, merge_labels and assoc_commit launches {tail_n}')
     return lk
 
 
@@ -811,6 +857,7 @@ def phase_legacy_api():
     expect_gap('legacy compute_flow', gap_launches(), 0)
     expect_flow('legacy compute_flow', flow_counts(), len(frames), 0)
     expect_assoc('legacy compute_flow', assoc_counts(), 0)
+    expect_tail('legacy compute_flow', tail_counts(), 0, 0, 0)
     _same_rows('legacy compute_flow + apply_kalman', *runs)
     log('reference: compute_flow + apply_kalman GPU == CPU on 4 frames, '
         f'{len(runs[0][-1][0])} tracks; lk_pyramidal launches {lk}')
@@ -824,6 +871,9 @@ def unpatched(module, name):
 
 # the plain versions main() counts on the card, before their counters
 PLAIN = {}
+# arguments a stage timer captured for a later phase (``assoc_stages_ms``:
+# the main path's NMS and commit arguments, phase 20's)
+STAGE_ARGS = {}
 
 
 def gap_stages_ms(mot, frames):
@@ -968,7 +1018,7 @@ def phase_main_path(detector_type='YOLO', tag='main path', int8=False,
                              and torch.isfinite(state[1]).all())
     launches, int8_launches = osblock.launches, int8_conv.launches
     lk, gap_n, flow_n = lk_counts(), gap_launches(), flow_counts()
-    assoc_n = assoc_counts()
+    assoc_n, tail_n = assoc_counts(), tail_counts()
 
     n_assoc = 2 * sum(1 for i in range(1, len(frames)) if i % skip == 0)
     n_detect = n_assoc + 2                   # frame 0 of each run detects
@@ -990,7 +1040,8 @@ def phase_main_path(detector_type='YOLO', tag='main path', int8=False,
         f'{n_assoc}, osblock launches {launches}, int8_conv launches '
         f'{int8_launches}, lk_pyramidal launches {lk}, gap_commit launches '
         f'{gap_n}, preprocess and gap_points launches {flow_n}, '
-        f'cascade_auction, greedy_match and greedy_finals launches {assoc_n}')
+        f'cascade_auction, greedy_match and greedy_finals launches {assoc_n}'
+        f', greedy_suppress, merge_labels and assoc_commit launches {tail_n}')
     if snap_step != snap_batch:
         raise AssertionError(f'{tag}: step and step_batch snapshots differ')
     if not visible:
@@ -1007,6 +1058,8 @@ def phase_main_path(detector_type='YOLO', tag='main path', int8=False,
     expect_gap(tag, gap_n, 2 * (len(frames) - 1))
     expect_flow(tag, flow_n, 2 * len(frames), 2 * (len(frames) - 1))
     expect_assoc(tag, assoc_n, n_assoc)
+    expect_tail(tag, tail_n, n_detect,
+                n_detect if detector_type == 'SSD' else 0, n_assoc)
     if int8:
         log(f'{tag}: int8_conv launches per association frame '
             f'{det_convs + reid_convs} ({det_convs} detector convs, '
@@ -1019,6 +1072,7 @@ def phase_main_path(detector_type='YOLO', tag='main path', int8=False,
             gap_stages_ms(mot, frames)
         out['assoc stages'], out['assoc syncs'], out['assoc args'] = \
             assoc_stages_ms(mot, frames, staged)
+        out['tail args'] = STAGE_ARGS.pop('tail')
         # the cascade and the finals through the plain versions beside
         solver_ms, syncs, out['assoc rounds'] = solver_stages_ms(
             *out['assoc args'])
@@ -1265,12 +1319,14 @@ def phase_multi_stream(single_ms, frames, dets, card, n_streams=N_STREAMS):
     detector, extractor, skip and tracker (bench.py config 5). Returns the
     OSBlock and LK launches, every stream's final rows, the step median,
     the gap frame alone, and phase 17's 8-stream gap-commit arguments,
-    phase 18's preprocess and point-assembly arguments and phase 19's
+    phase 18's preprocess and point-assembly arguments, phase 19's
     association arguments (after the cascade and the finals alone at 8
-    streams, through the kernels and the plain versions)."""
+    streams, through the kernels and the plain versions) and phase 20's
+    NMS and commit arguments."""
     from fastmot_tpu_torch.detector import MAX_DETS
-    from fastmot_tpu_torch.tracker import assoc_costs_batch
+    from fastmot_tpu_torch.tracker import assoc_costs_batch, finals_core
     from fastmot_tpu_torch.multichip import run_multi_stream
+    from fastmot_tpu_torch.ops import geometry as geom
     from fastmot_tpu_torch.ops import flow_kernels as fk
     from fastmot_tpu_torch.ops.osnet_block import osblock
     from fastmot_tpu_torch.parallel import MultiStreamMOT
@@ -1286,7 +1342,7 @@ def phase_multi_stream(single_ms, frames, dets, card, n_streams=N_STREAMS):
     reset_lk()
     (rows,), step_ms = run_multi_stream(mot, frames, dets)
     launches, lk, gap_n = osblock.launches, lk_counts(), gap_launches()
-    flow_n, assoc_n = flow_counts(), assoc_counts()
+    flow_n, assoc_n, tail_n = flow_counts(), assoc_counts(), tail_counts()
     n_assoc = sum(1 for i in range(1, n_frames) if i % skip == 0)
     visible = [len(list(mot.visible_tracks(s))) for s in range(n_streams)]
     state = mot.stream_tracker._dev_state
@@ -1307,8 +1363,11 @@ def phase_multi_stream(single_ms, frames, dets, card, n_streams=N_STREAMS):
         f'frames {n_assoc}, osblock launches {launches}, lk_pyramidal '
         f'launches {lk}, gap_commit launches {gap_n}, preprocess and '
         f'gap_points launches {flow_n}, cascade_auction, greedy_match and '
-        f'greedy_finals launches {assoc_n}')
+        f'greedy_finals launches {assoc_n}, greedy_suppress, merge_labels '
+        f'and assoc_commit launches {tail_n}')
     expect_assoc('multi-stream', assoc_n, n_assoc)
+    # frame 0's detector run, then one an association frame
+    expect_tail('multi-stream', tail_n, n_assoc + 1, 0, n_assoc)
     expect_lk('multi-stream', lk, n_frames - 1)
     expect_gap('multi-stream', gap_n, n_frames - 1)
     expect_flow('multi-stream', flow_n, n_frames, n_frames - 1)
@@ -1371,9 +1430,22 @@ def phase_multi_stream(single_ms, frames, dets, card, n_streams=N_STREAMS):
     solver_ms, syncs, rounds = solver_stages_ms(*assoc8_args)
     log_assoc_stages(f'multi-stream ({n_streams} streams)', solver_ms,
                      syncs, rounds, card)
+    # phase 20's 8-stream arguments: the batched detector's NMS call, and
+    # the commit of the association above
+    suppress8, real_suppress = [], geom.greedy_suppress
+    with mock.patch.object(geom, 'greedy_suppress', lambda *a: (
+            suppress8.append(a), real_suppress(*a))[1]):
+        det.detect_async(last)
+        real_dev()
+    finals_args = assoc8_args[2]
+    cascade_out = (costs[3], finals_args[-1]) + finals_core(*finals_args)
+    tail8_args = {'suppress': suppress8[0], 'commit': (
+        st.kf_cfg, t0.confirm_hits, t0.max_age, t0.history_size,
+        st._dev_state, st._hist_store, det_b, emb[0], n_frames,
+        t0._frame_rect_dev, cascade_out)}
     return launches, lk, rows, statistics.median(step_ms), \
         stage_ms['gap frame (preprocess, points, LK, RANSAC, Kalman)'], \
-        gap8_args, flow8_args, assoc8_args
+        gap8_args, flow8_args, assoc8_args, tail8_args
 
 
 def gap_commit_args_at(st, frames, f_cap):
@@ -1442,7 +1514,7 @@ def phase_mesh(frames, dets, want_rows, single_multi_ms, n_streams=N_STREAMS):
             (rows,), step_ms = multichip.run_multi_stream(mot, frames, dets)
             launches, lk = osblock.launches, lk_counts()
             gap_n, flow_n = gap_launches(), flow_counts()
-            assoc_n = assoc_counts()
+            assoc_n, tail_n = assoc_counts(), tail_counts()
         finally:
             dist.destroy_process_group()
     del mot
@@ -1461,6 +1533,7 @@ def phase_mesh(frames, dets, want_rows, single_multi_ms, n_streams=N_STREAMS):
     expect_gap('mesh (a)', gap_n, len(frames) - 1)
     expect_flow('mesh (a)', flow_n, len(frames), len(frames) - 1)
     expect_assoc('mesh (a)', assoc_n, n_assoc)
+    expect_tail('mesh (a)', tail_n, n_assoc + 1, 0, n_assoc)
 
     t_b = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1482,6 +1555,8 @@ def phase_mesh(frames, dets, want_rows, single_multi_ms, n_streams=N_STREAMS):
                                            out['gap_points_launches']),
                     len(frames), len(frames) - 1)
         expect_assoc(f'mesh (b) rank {r}', out['assoc_launches'], n_assoc)
+        expect_tail(f'mesh (b) rank {r}', out['tail_launches'], n_assoc + 1,
+                    0, n_assoc)
     worst = _same_streams('mesh (b) 2 gloo ranks', rows_b, want_rows)
     log(f'mesh (b) 2 gloo ranks on one card, streams '
         f'{[o["local_streams"] for o in ranks]}: rows == phase 13 on every '
@@ -1500,6 +1575,8 @@ def phase_mesh(frames, dets, want_rows, single_multi_ms, n_streams=N_STREAMS):
     expect_flow('mesh (c)', (dry[0]['preprocess_launches'],
                              dry[0]['gap_points_launches']), 2, 1)
     expect_assoc('mesh (c)', dry[0]['assoc_launches'], 1)
+    # the dryrun's association commits; its detector runs no NMS
+    expect_tail('mesh (c)', dry[0]['tail_launches'], 0, 0, 1)
     log(f'mesh (c) dryrun_multichip(1) over NCCL: '
         f'{time.perf_counter() - t0:.1f} s, spawn and build included, '
         f'lk_pyramidal launches {dry[0]["lk_launches"]}, gap_commit '
@@ -2291,7 +2368,8 @@ def ptxas_kernels(nvcc_out):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = next((k for k in GAP_KERNELS + FLOW_KERNELS
-                         + ASSOC_KERNELS if k in m.group(1)), m.group(1))
+                         + ASSOC_KERNELS + TAIL_KERNELS if k in m.group(1)),
+                        m.group(1))
         m = re.search(r'(\d+) bytes spill stores', line)
         if m and name:
             out[name] = f'{m.group(1)} bytes spilled'
@@ -2711,6 +2789,36 @@ def expect_assoc(tag, counts, frames):
         ASSOC_LAUNCHES[name] += n
 
 
+def tail_counts():
+    """The NMS kernel's, the SSD merge kernel's and the commit kernel's
+    launches since ``reset_lk``."""
+    from fastmot_tpu_torch.ops import assoc_commit as ac
+    from fastmot_tpu_torch.ops import geometry as geom
+    from fastmot_tpu_torch.ops import nms_waves as nw
+    return (geom.greedy_suppress.launches, nw.merge_labels.launches,
+            ac.assoc_commit.launches)
+
+
+# the NMS, merge and commit kernels' launches on the main paths (the
+# kernels line's counts)
+TAIL_NAMES = ('greedy_suppress', 'merge_labels', 'assoc_commit')
+TAIL_LAUNCHES = Counter()
+
+
+def expect_tail(tag, counts, detections, merges, commits):
+    """The NMS kernel ran once a detector run (``detections``, for all of a
+    call's streams; the SSD's per-tile NMS one call too), the SSD merge
+    kernel once an SSD run (``merges``) and the commit kernel once an
+    association frame (``commits``), for all of a call's streams."""
+    want = (detections, merges, commits)
+    if tuple(counts) != want:
+        raise AssertionError(f'{tag}: greedy_suppress, merge_labels and '
+                             f'assoc_commit launched {tuple(counts)} times, '
+                             f'expected {want}')
+    for name, n in zip(TAIL_NAMES, counts):
+        TAIL_LAUNCHES[name] += n
+
+
 def plain_solvers():
     """A context in which ``ops.assignment``'s plain solvers are the
     originals, not ``main``'s counters (to time them on the card)."""
@@ -2861,11 +2969,17 @@ def assoc_stages_ms(mot, frames, staged):
     stage alone and the whole ``update_device_fused`` call, synchronised
     (ms): the detector's net (letterbox, YOLOv4, decode), its NMS
     (``nms_and_gate``, and ``geom.greedy_suppress`` alone on the arguments
-    it got), crops + OSNet, the costs (``assoc_costs_core``), the cascade
+    it got, with its plain version beside it where the checkout has one),
+    crops + OSNet, the costs (``assoc_costs_core``), the cascade
     (``stages_scan_core``), the finals (``finals_core``) and the commit
-    (``commit_part``). Returns the times, the host syncs a call of the
-    cascade and of the finals, and the solvers' arguments (phase 19's).
-    It calls only what every checkout of the port has, so that
+    (``tracker.commit_core``, the kernel on the card, with the plain
+    ``commit_part`` beside it; ``commit_part`` where the checkout has no
+    ``commit_core``). Returns the times, the host syncs a call of the NMS,
+    crops + OSNet, the costs, the cascade, the finals, the commit,
+    ``update_device_fused`` and a whole association frame (the net, the NMS
+    and ``update_device_fused``) make, and the solvers' arguments (phase
+    19's); the NMS's and the commit's go to ``STAGE_ARGS['tail']`` (phase
+    20's). It calls only what every checkout of the port has, so that
     scripts/assoc_stages_turns.py runs it on an earlier one too."""
     from fastmot_tpu_torch import tracker as tr
     from fastmot_tpu_torch.detector import nms_and_gate
@@ -2916,6 +3030,23 @@ def assoc_stages_ms(mot, frames, staged):
     def finals():
         return tr.finals_core(*finals_args)
 
+    # the commit through its dispatch, the kernel on the card (earlier
+    # checkouts commit through commit_part alone)
+    commit_fn = getattr(tr, 'commit_core', tr.commit_part)
+    commit_args = (trk.kf_cfg, trk.confirm_hits, trk.max_age,
+                   trk.history_size, state, hist, *det_dev, emb, frame_id,
+                   trk._frame_rect_dev, cascade_out)
+
+    def commit():
+        return commit_fn(*commit_args)
+
+    def whole():
+        return trk.update_device_fused(frame_id, frame, det_dev, ext)
+
+    def whole_with_detector():
+        net()
+        nms()
+        whole()
     stages = {
         'detector net (letterbox, YOLOv4, decode)': net,
         'NMS and gates (nms_and_gate)': nms,
@@ -2928,14 +3059,32 @@ def assoc_stages_ms(mot, frames, staged):
             *params, state, hist, *det_dev, emb, emb_cap=emb_cap),
         'cascade (stages_scan_core)': cascade,
         'finals (finals_core)': finals,
-        'commit (commit_part)': lambda: tr.commit_part(
-            trk.kf_cfg, trk.confirm_hits, trk.max_age, trk.history_size,
-            state, hist, *det_dev, emb, frame_id, trk._frame_rect_dev,
-            cascade_out)}
+        'commit': commit}
+    if hasattr(geom, 'greedy_suppress_reference'):
+        plain_suppress = unpatched(geom, 'greedy_suppress_reference')
+        stages['greedy_suppress alone, plain'] = lambda: plain_suppress(
+            *suppress_args[0])
+    if hasattr(tr, 'commit_core'):
+        plain_commit = unpatched(tr, 'commit_part')
+        stages['commit, plain (commit_part)'] = lambda: plain_commit(
+            *commit_args)
     out = {name: wall_ms(fn) for name, fn in stages.items()}
-    syncs = {'cascade': count_syncs(cascade), 'finals': count_syncs(finals)}
-    out['whole association frame (update_device_fused)'] = wall_ms(
-        lambda: trk.update_device_fused(frame_id, frame, det_dev, ext))
+    syncs = {'NMS and gates': count_syncs(nms),
+             'crops + OSNet': count_syncs(
+                 stages[f'crops + OSNet ({emb_cap} crops)']),
+             'costs': count_syncs(stages['costs (assoc_costs_core)']),
+             'cascade': count_syncs(cascade), 'finals': count_syncs(finals),
+             'commit': count_syncs(commit),
+             'update_device_fused': count_syncs(whole),
+             'whole association frame (net, NMS, update_device_fused)':
+                 count_syncs(whole_with_detector)}
+    out['whole association frame (update_device_fused)'] = wall_ms(whole)
+    # phase 20's real arguments of the main path's frame
+    STAGE_ARGS['tail'] = {
+        'nms': (det_out, det.label_mask, det.conf_thresh, det.nms_thresh,
+                det.max_area, det.min_aspect_ratio, det._scale_wh,
+                det._offset),
+        'suppress': suppress_args[0], 'commit': commit_args}
     trk.sync()
     return out, syncs, (scan_args, eps, finals_args)
 
@@ -3391,10 +3540,374 @@ def assoc_kernel_entries(cases):
     return entries
 
 
+
+# ---------------------------------------------------------------------------
+# The NMS, the SSD merge and the commit (phase 20)
+# ---------------------------------------------------------------------------
+
+# a matched track's Kalman update in float32 operations (csrc/assoc_commit.cu
+# kalman_update: the noise 8, the projected covariance 20, the Cholesky 30,
+# eight columns' substitutions 256, the innovation 4, the mean 64, gain x S
+# 224, its product with the gain and the subtraction 512)
+KALMAN_UPDATE_OPS = 1118
+KALMAN_CREATE_OPS = 40       # a created track's state
+SLOT_OPS = 40                # a slot's box, IoS and bookkeeping
+
+
+def suppress_bound_ms(args, keep):
+    """The least time an H100 could take for an NMS call (``greedy_
+    suppress``'s arguments), and what sets it: the overlap, the scores and
+    the valid mask read once and the keep mask written once, over 3.35 TB/s,
+    against one comparison an overlap entry (its test against the
+    threshold) over 67 TFLOP/s."""
+    overlap, scores, valid = args[:3]
+    nbytes = 4 * (overlap.numel() + scores.numel()) + valid.numel() \
+        + keep.numel()
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    ops_ms = overlap.numel() / PEAK_F32 * 1e3
+    return max(bytes_ms, ops_ms), ('bytes' if bytes_ms >= ops_ms
+                                   else 'operations')
+
+
+def merge_rounds(edge, valid):
+    """The plain propagation's rounds (the last one changes nothing)."""
+    from fastmot_tpu_torch.ops import nms_waves as nw
+    lbl, rounds = None, 0
+    n = edge.shape[-1]
+    cur = torch.where(valid.cpu(), torch.arange(n), n)
+    e = edge.cpu()
+    while lbl is None or not torch.equal(lbl, cur):
+        lbl, rounds = cur, rounds + 1
+        cur = torch.minimum(lbl, torch.where(e, lbl[..., None, :], n)
+                            .amin(dim=-1))
+    assert torch.equal(cur, nw.merge_labels_reference(e, valid.cpu()))
+    return rounds
+
+
+def merge_bound_ms(edge, valid, labels, rounds):
+    """The same for a merge call: the edges (one byte each) and the valid
+    mask read once and the int64 labels written once, against one minimum
+    an edge a round of the run's ``rounds``."""
+    nbytes = edge.numel() + valid.numel() + 8 * labels.numel()
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    ops_ms = rounds * int(edge.sum()) / PEAK_F32 * 1e3
+    return max(bytes_ms, ops_ms), ('bytes' if bytes_ms >= ops_ms
+                                   else 'operations')
+
+
+def commit_bound_ms(args, outputs):
+    """The same for a commit call (``assoc_commit``'s arguments): the
+    state, the history, the detections' boxes, labels and valid mask and
+    the cascade's outputs read once, the embeddings of the detections a
+    track absorbs (from the info) read once, every output written once,
+    over 3.35 TB/s; against ``KALMAN_UPDATE_OPS`` a matched track,
+    ``KALMAN_CREATE_OPS`` a created one, ``SLOT_OPS`` a slot and a feature
+    width of adds a merged or absorbing track, over 67 TFLOP/s."""
+    import tests.test_torch_assoc_commit as tc
+    states, hists, dets, embs = args[4:8]
+    cascade = args[10]
+    infos = outputs[2].cpu().numpy()
+    s, t = states[0].shape[:2]
+    h, f = hists[0].shape[1], embs.shape[2]
+    nbytes = sum(x.numel() * x.element_size() for x in (
+        *states, *hists, dets[0], dets[1], dets[3], *cascade, args[9]))
+    nbytes += sum(x.numel() * x.element_size()
+                  for x in (*outputs[0], *outputs[1], outputs[2]))
+    ops = SLOT_OPS * s * t
+    for k in range(s):
+        i = tc.split_info(infos[k], t, h)
+        m = i['match_det'] >= 0
+        absorbed = (m & (i['feat_ok'] > 0) & (i['out_of_frame'] == 0)) | \
+            ((i['create_det'] >= 0) & (i['reinstate_hist'] >= 0))
+        nbytes += 4 * f * int(absorbed.sum())
+        ops += KALMAN_UPDATE_OPS * int(m.sum()) \
+            + KALMAN_CREATE_OPS * int((i['create_det'] >= 0).sum()) \
+            + f * int(absorbed.sum() + (i['merge_src'] >= 0).sum())
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return max(bytes_ms, ops_ms), ('bytes' if bytes_ms >= ops_ms
+                                   else 'operations')
+
+
+def batched_commit_args(args):
+    """``commit_core``'s one-stream arguments as ``assoc_commit`` takes
+    them, with a stream axis of one."""
+    (cfg, confirm, max_age, history_size, state, hist, d_tlbrs, d_labels,
+     d_conf, d_valid, d_emb, frame_id, frame_tlbr, cascade_out) = args
+    return (cfg, confirm, max_age, history_size,
+            tuple(a[None] for a in state), tuple(a[None] for a in hist),
+            (d_tlbrs[None], d_labels[None], d_conf[None], d_valid[None]),
+            d_emb[None], frame_id, frame_tlbr,
+            tuple(a[None] for a in cascade_out))
+
+
+def contested_commit_args(n_streams, device='cuda'):
+    """tests/test_torch_assoc_commit.py's full-width contested case
+    (``contested_full``: 128 slots, 128 detections, 64 history slots, 512
+    features; merges, duplicates, reinstates, dropped creations,
+    out-of-frame exits, steals and evictions) at ``n_streams`` streams, as
+    ``assoc_commit`` takes it."""
+    import tests.test_torch_assoc_commit as tc
+    from fastmot_tpu_torch.kalman import KalmanConfig
+    states, hists, dets, embs, casc, history_size = tc.torch_case(
+        tc.commit_case('contested_full', tc.CASE_SEEDS['contested_full'],
+                       streams=n_streams))
+    return (KalmanConfig(), tc.CONFIRM, tc.MAX_AGE, history_size,
+            tuple(a.to(device) for a in states),
+            tuple(a.to(device) for a in hists),
+            tuple(a.to(device) for a in dets), embs.to(device), tc.FRAME_ID,
+            tc.T(tc.FRAME).to(device), tuple(a.to(device) for a in casc))
+
+
+def _host(x):
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, (list, tuple)):
+        return type(x)(_host(y) for y in x)
+    return x
+
+
+def phase_assoc_tail(main_args, multi_args, card, nvcc_out):
+    """Phase 20: the NMS kernel, the SSD merge kernel and the commit kernel
+    against their plain versions (on the CPU and on the card): the NMS and
+    the merge bit for bit, the commit at tests/test_torch_assoc_commit.py's
+    rules, on the seeded cases of the CPU tests (and their ``OUTPUT_SHA256``),
+    on phase 6's and phase 13's real NMS and commit arguments, on the SSD
+    postprocess's merge of phase 8's rows, and on contested cases (1,024
+    same-label candidates in chains eight waves deep at 1 and 8 streams;
+    800 SSD rows in components of one row a tile; the full-width contested
+    commit at 1 and 8 streams); two calls equal; ``nms_and_gate``, the SSD
+    postprocess and the commit under ``set_sync_debug_mode('error')``;
+    ptxas's registers, spills and shared memory; then each kernel's device
+    time (100 calls of the C entry between CUDA events, queued behind a
+    sleep kernel), the wrapper's time and host time a call, the plain
+    version's time on the card, beside the bound. Returns each kernel's
+    cases for the kernels line."""
+    import tests.test_torch_assoc_commit as tc
+    import tests.test_torch_nms_kernel as tn
+    from fastmot_tpu_torch import tracker as tr
+    from fastmot_tpu_torch.detector import SSDDetector, nms_and_gate
+    from fastmot_tpu_torch.ops import assoc_commit as ac
+    from fastmot_tpu_torch.ops import geometry as geom
+    from fastmot_tpu_torch.ops import nms_waves as nw
+    t_phase = time.perf_counter()
+    for name in ('nms_waves', 'assoc_commit'):
+        for kernel, line in ptxas_kernels(nvcc_out[name]).items():
+            log(f'{name} ptxas {kernel}: {line}')
+    lib_n, lib_c = nw.nms_waves_library(), ac.assoc_commit_library()
+
+    def same(tag, got, want):
+        if not torch.equal(got.cpu(), want.cpu()):
+            raise AssertionError(f'{tag}: the kernel differs from the plain '
+                                 'version')
+
+    def commit_close(tag, got, want):
+        flips = tc.assert_commit_close(_host(got), _host(want), tag)
+        if flips:
+            raise AssertionError(f'{tag}: {flips} boxes differ')
+        return float((got[0][0].cpu() - want[0][0].cpu()).abs().max())
+
+    # (a) the CPU tests' seeded cases: each kernel on the card against its
+    # plain version on the CPU, and the first design's outputs
+    for kind in tn.SUPPRESS_KINDS:
+        ov, sc, va, th = tn.torch_case(tn.suppress_case(kind, seed=1))
+        same(f'greedy_suppress {kind}', geom.greedy_suppress(
+            ov.cuda(), sc.cuda(), va.cuda(), th),
+            geom.greedy_suppress_reference(ov, sc, va, th))
+    for kind in tn.MERGE_KINDS:
+        e, va = tn.torch_case(tn.merge_case(kind, seed=2))
+        same(f'merge_labels {kind}', nw.merge_labels(e.cuda(), va.cuda()),
+             nw.merge_labels_reference(e, va))
+    for key, want in tn.OUTPUT_SHA256.items():
+        if tn.output_sha256(tn.case_outputs(lib_n, key, None, 'cuda')) \
+                != want:
+            raise AssertionError(f'{key}: the NMS kernels differ from the '
+                                 'outputs of their first design')
+    for kind in tc.CASES:
+        case = tc.commit_case(kind, tc.CASE_SEEDS[kind])
+        got = tc.host_commit(lib_c, case, None, 'cuda')
+        commit_close(f'assoc_commit {kind}', got, tc.plain(case))
+        if tc.output_sha256(got) != tc.OUTPUT_SHA256[kind]:
+            raise AssertionError(f'assoc_commit {kind}: differs from the '
+                                 'outputs of its first design')
+    log(f'nms_waves on the seeded cases of {tn.__name__} '
+        f'({len(tn.SUPPRESS_KINDS)} NMS, {len(tn.MERGE_KINDS)} merges) and '
+        f'assoc_commit on those of {tc.__name__} ({len(tc.CASES)} calls): '
+        'the kernels == the plain versions on the CPU (the NMS and the '
+        'merge bit for bit, the commit at the CPU tests\' rules); every '
+        'output == the first design\'s (OUTPUT_SHA256)')
+
+    # (b) no host sync: the YOLO NMS of phase 6's frame, the SSD
+    # postprocess of phase 8's rows, the commit of phase 6's and phase
+    # 13's association frames
+    ssd_rows = tuple(torch.as_tensor(a, device='cuda') for a in
+                     synthetic_ssd_rows(np.random.default_rng(42)))
+    ssd_scalars = (0.5, 120000, 0.6, 0.5)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        nms_and_gate(*main_args['nms'])
+        SSDDetector._postprocess_device(*ssd_rows, *ssd_scalars)
+        tr.commit_core(*main_args['commit'])
+        tr.commit_batch(*multi_args['commit'])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("nms_and_gate, SSDDetector._postprocess_device, commit_core and "
+        "commit_batch ran under set_sync_debug_mode('error')")
+
+    # (c) the cases timed: the main paths' and contested
+    merges = []
+    real_merge = nw.merge_labels
+    with mock.patch.object(nw, 'merge_labels', lambda e, v: (
+            merges.append((e, v)), real_merge(e, v))[1]):
+        SSDDetector._postprocess_device(*ssd_rows, *ssd_scalars)
+    contested = [tuple(torch.as_tensor(a, device='cuda')
+                       for a in tn.contested_nms(seed=s)) for s in range(8)]
+
+    def contested_suppress(n):
+        rows = contested[:n]
+        over = torch.stack([geom.diou_matrix(b, 0.6) for b, _, _ in rows])
+        return (over, torch.stack([r[1] for r in rows]),
+                torch.stack([r[2] for r in rows]), 0.5)
+    suppress_cases = {'1_stream': main_args['suppress'],
+                      f'{N_STREAMS}_streams': multi_args['suppress'],
+                      'contested_1_stream': contested_suppress(1),
+                      f'contested_{N_STREAMS}_streams':
+                          contested_suppress(N_STREAMS)}
+    merge_cases = {'ssd_rows': merges[0], 'contested': tuple(
+        torch.as_tensor(a, device='cuda') for a in tn.contested_merge(0))}
+    commit_cases = {'1_stream': batched_commit_args(main_args['commit']),
+                    f'{N_STREAMS}_streams': multi_args['commit'],
+                    'contested_1_stream': contested_commit_args(1),
+                    f'contested_{N_STREAMS}_streams':
+                        contested_commit_args(N_STREAMS)}
+    log('nms_waves launch plans: the NMS a pack launch of ceil(N / 32) x '
+        'problems blocks of min(1,024, N rounded up to 32) threads, then '
+        'the waves launch, a block a problem, with ceil(N / 32) x N x 4 + '
+        f'N x 4 B of dynamic shared memory ({4 * (32 * 1024 + 1024):,} B at '
+        'N = 1,024); the merge a block a problem, ceil(N / 32) x N x 4 + '
+        f'N x 8 B ({4 * (25 * 800 + 1600):,} B at N = 800); assoc_commit '
+        'the decisions a block of 256 threads a stream, static shared '
+        'memory only, then the rows launch of ceil((T + H) / 8) blocks of '
+        '256 threads a stream, a warp a row')
+
+    out = {name: {} for name in TAIL_NAMES}
+    for case, a in suppress_cases.items():
+        keep = geom.greedy_suppress(*a)
+        same(f'greedy_suppress {case}: two calls', keep,
+             geom.greedy_suppress(*a))
+        host_a = _host(a)
+        same(f'greedy_suppress {case} against the plain version on the CPU',
+             keep, geom.greedy_suppress_reference(*host_a))
+        same(f'greedy_suppress {case} against the plain version on the '
+             'card', keep, geom.greedy_suppress_reference(*a))
+        waves = tn.plain_waves(*host_a)
+        log(f'greedy_suppress {case}: {tuple(a[0].shape)} overlap, '
+            f'{int(a[2].sum())} valid, {int(keep.sum())} kept in {waves} '
+            'waves; == plain on the CPU and on the card, bit for bit; two '
+            'calls equal')
+        k_out, s_args, s_keep = nw.suppress_launch_args(*a)
+        out['greedy_suppress'][case] = time_kernel(
+            'greedy_suppress', case, lib_n.greedy_suppress_forward, s_args,
+            lambda: geom.greedy_suppress(*a),
+            lambda: geom.greedy_suppress_reference(*a),
+            suppress_bound_ms(a, keep), card)
+        out['greedy_suppress'][case]['max_abs_err'] = 0.0
+        del s_keep
+    for case, (e, va) in merge_cases.items():
+        lbl = nw.merge_labels(e, va)
+        same(f'merge_labels {case}: two calls', lbl, nw.merge_labels(e, va))
+        same(f'merge_labels {case} against the plain version on the CPU',
+             lbl, nw.merge_labels_reference(e.cpu(), va.cpu()))
+        same(f'merge_labels {case} against the plain version on the card',
+             lbl, nw.merge_labels_reference(e, va))
+        rounds = merge_rounds(e, va)
+        log(f'merge_labels {case}: {tuple(e.shape)} edges, '
+            f'{int(e.sum())} set, {int(va.sum())} valid rows in '
+            f'{len(torch.unique(lbl[va]))} components after {rounds} '
+            'rounds; == plain on the CPU and on the card, bit for bit; two '
+            'calls equal')
+        m_out, m_args, m_keep = nw.merge_launch_args(e, va)
+        out['merge_labels'][case] = time_kernel(
+            'merge_labels', case, lib_n.merge_labels_forward, m_args,
+            lambda: nw.merge_labels(e, va),
+            lambda: nw.merge_labels_reference(e, va),
+            merge_bound_ms(e, va, lbl, rounds), card)
+        out['merge_labels'][case]['max_abs_err'] = 0.0
+        del m_keep
+    for case, a in commit_cases.items():
+        got = ac.assoc_commit(*a)
+        again = ac.assoc_commit(*a)
+        for x, y in zip(got[0] + got[1] + (got[2],),
+                        again[0] + again[1] + (again[2],)):
+            same(f'assoc_commit {case}: two calls', x, y)
+        err = commit_close(f'assoc_commit {case} against the plain version '
+                           'on the CPU', got, ac.commit_reference(*_host(a)))
+        commit_close(f'assoc_commit {case} against the plain version on '
+                     'the card', got, ac.commit_reference(*a))
+        t, h = got[0][0].shape[1], got[1][0].shape[1]
+        log(f'assoc_commit {case}: {got[0][0].shape[0]} streams x {t} '
+            f'slots; {tc.branches(_host(got))}; == plain on the '
+            'CPU and on the card (integers, booleans and feature sums '
+            f'equal; means within {err:.2e} px); two calls equal')
+        outputs, c_args = ac.commit_launch_args(*a)
+        out['assoc_commit'][case] = time_kernel(
+            'assoc_commit', case, lib_c.assoc_commit_forward, c_args,
+            lambda: ac.assoc_commit(*a), lambda: ac.commit_reference(*a),
+            commit_bound_ms(a, got), card)
+        out['assoc_commit'][case]['max_abs_err'] = err
+        del outputs
+    log(f'nms and commit phase: {time.perf_counter() - t_phase:.1f} s')
+    return out
+
+
+def time_kernel(name, case, entry, args, wrapper, plain, bound, card):
+    """A kernel's device time a call (100 calls of its C entry between CUDA
+    events behind a sleep kernel), its wrapper's time and host time a call,
+    the plain version's time on the card, logged beside ``bound``."""
+    dev_ms = lk_device_ms(entry, args, tag=name)
+    call_ms = launches_ms(wrapper)
+    host = host_ms(wrapper)
+    plain_ms = wall_ms(plain, n=3, warmup=1)
+    log(f'{name} {case}: device {dev_ms * 1e3:.2f} us a call (100 calls); '
+        f'the wrapper {call_ms * 1e3:.2f} us a call, host {host * 1e3:.2f} '
+        f'us; plain on the card {plain_ms:.3f} ms; bound '
+        f'{bound[0] * 1e3:.6f} us ({bound[1]}), roofline share '
+        f'{bound[0] / dev_ms:.6f}; {card}')
+    return {'ms': dev_ms, 'call_ms': call_ms, 'host_ms': host,
+            'plain_ms': plain_ms, 'bound_ms': bound[0], 'bound_by': bound[1]}
+
+
+def tail_kernel_entries(cases):
+    """The kernels line's entries of the NMS, merge and commit kernels: the
+    main path's case unsuffixed (the NMS's and the commit's one stream of
+    phase 6, the merge's SSD rows of phase 8), the other cases' numbers
+    suffixed."""
+    where = {'greedy_suppress': ('fastmot_tpu_torch/csrc/nms_waves.cu',
+                                 'fastmot_tpu/ops/geometry.py:186',
+                                 '1_stream'),
+             'merge_labels': ('fastmot_tpu_torch/csrc/nms_waves.cu',
+                              'fastmot_tpu/detector.py:511', 'ssd_rows'),
+             'assoc_commit': ('fastmot_tpu_torch/csrc/assoc_commit.cu',
+                              'fastmot_tpu/tracker.py:779', '1_stream')}
+    entries = []
+    for name, (source, replaces, main_case) in where.items():
+        entry = {'name': name, 'route': 'cuda', 'source': source,
+                 'replaces': replaces, 'launches': TAIL_LAUNCHES[name],
+                 'library_ms': None, 'case': main_case}
+        for case, r in cases[name].items():
+            key = '' if case == main_case else f'_{case}'
+            entry.update({f'{k}{key}': v for k, v in r.items()})
+            entry[f'roofline_share{key}'] = r['bound_ms'] / r['ms']
+        entries.append(entry)
+    return entries
+
 def main():
     from fastmot_tpu_torch import tracker as tr
     from fastmot_tpu_torch.ops import assignment as asg
     from fastmot_tpu_torch.ops import flow_kernels as fk
+    from fastmot_tpu_torch.ops import geometry as geom
+    from fastmot_tpu_torch.ops import nms_waves as nw
     t0 = time.perf_counter()
     name, card = phase_device()
     nvcc_out = phase_build()
@@ -3416,7 +3929,10 @@ def main():
                  auction_lap_reference=asg.auction_lap_reference,
                  cascade_reference=asg.cascade_reference,
                  greedy_match_reference=asg.greedy_match_reference,
-                 finals_reference=tr.finals_reference)
+                 finals_reference=tr.finals_reference,
+                 greedy_suppress_reference=geom.greedy_suppress_reference,
+                 merge_labels_reference=nw.merge_labels_reference,
+                 commit_part=tr.commit_part)
     host_draws = [False]
 
     def counted_plain_lk(prev, cur, pts, *args, **kwargs):
@@ -3463,7 +3979,13 @@ def main():
             mock.patch.object(asg, 'greedy_match_reference', counted(
                 'greedy_match_reference', lambda cost, *a: cost.is_cuda)), \
             mock.patch.object(tr, 'finals_reference', counted(
-                'finals_reference', lambda *a: a[4].is_cuda)):
+                'finals_reference', lambda *a: a[4].is_cuda)), \
+            mock.patch.object(geom, 'greedy_suppress_reference', counted(
+                'greedy_suppress_reference', lambda ov, *a: ov.is_cuda)), \
+            mock.patch.object(nw, 'merge_labels_reference', counted(
+                'merge_labels_reference', lambda edge, v: edge.is_cuda)), \
+            mock.patch.object(tr, 'commit_part', counted(
+                'commit_part', lambda *a: a[4][0].is_cuda)):
         for counts in (phase_reference(), phase_stream_reference(),
                        drawing_on_the_host(phase_legacy_api)):
             lk_launches.update(counts)
@@ -3485,8 +4007,8 @@ def main():
             f'{int8["median"]:.3f} ms')
         frames, dets = multi_stream_inputs()
         (multi_launches, multi_lk, rows, multi_ms, gap_ms, gap8_args,
-         flow8_args, assoc8_args) = phase_multi_stream(float_ms, frames,
-                                                       dets, card)
+         flow8_args, assoc8_args, tail8_args) = phase_multi_stream(
+             float_ms, frames, dets, card)
         launches += multi_launches
         mesh_launches, mesh_lk = phase_mesh(frames, dets, rows, multi_ms)
         launches += mesh_launches
@@ -3506,7 +4028,13 @@ def main():
         f'preprocess and gap-points kernels {dict(FLOW_LAUNCHES)} times, '
         'their plain versions 0 times on the card; the cascade and greedy '
         f'kernels {dict(ASSOC_LAUNCHES)} times, the plain solvers 0 times '
-        'on the card')
+        f'on the card; the NMS, merge and commit kernels '
+        f'{dict(TAIL_LAUNCHES)} times, the plain NMS, merge and commit 0 '
+        'times on the card')
+    if not all(TAIL_LAUNCHES[n] for n in TAIL_NAMES):
+        raise AssertionError(f'phases 5-14: the NMS, merge and commit '
+                             f'kernels launched {dict(TAIL_LAUNCHES)} times; '
+                             'each must launch')
     cases, lanes = phase_lk(main_run['gap stages'], gap_ms, card)
     gap_cases = phase_gap_commit(main_run['gap args'], gap8_args, card,
                                  nvcc_out['gap_commit'])
@@ -3514,6 +4042,8 @@ def main():
                                     nvcc_out)
     assoc_cases = phase_assoc_solvers(main_run['assoc args'], assoc8_args,
                                       card, nvcc_out['assoc_solvers'])
+    tail_cases = phase_assoc_tail(main_run['tail args'], tail8_args, card,
+                                  nvcc_out)
     log(f'every phase passed in {time.perf_counter() - t0:.1f} s')
     print(json.dumps({'kernels': [{
         'name': 'osblock', 'route': 'cuda',
@@ -3527,7 +4057,8 @@ def main():
         + lk_kernel_entries(cases, lk_launches, lanes)
         + [gap_kernel_entry(gap_cases)]
         + flow_kernel_entries(flow_cases)
-        + assoc_kernel_entries(assoc_cases)}))
+        + assoc_kernel_entries(assoc_cases)
+        + tail_kernel_entries(tail_cases)}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,
         'count': torch.cuda.device_count()}}))

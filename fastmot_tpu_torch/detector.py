@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from .device import torch_device
 from .models.quantize import quantize_module
 from .ops import geometry as geom
+from .ops import nms_waves
 
 MAX_DETS = 128      # padded capacity of the final detection set
 MAX_RAW = 1024      # candidates entering NMS after confidence filtering
@@ -119,7 +120,8 @@ def nms_and_gate(det_out, label_mask, conf_thresh, nms_thresh, max_area,
     scaling, class-aware DIoU-NMS over the top MAX_RAW candidates,
     area/aspect gates. Returns padded (tlbr, label, conf, valid) sorted by
     class ascending, then score descending. ``det_out`` [N, 7], or [S, N,
-    7] for S streams in one NMS loop (padded outputs [S, MAX_DETS])."""
+    7] for S streams in one NMS call (padded outputs [S, MAX_DETS]); on the
+    card the NMS waves run in ``csrc/nms_waves.cu`` with no host sync."""
     def take(x, i):
         return torch.take_along_dim(x, i[..., None] if x.dim() > i.dim()
                                     else i, dim=i.dim() - 1)
@@ -337,14 +339,16 @@ class SSDDetector(_NetworkDetector):
         on overlapping pairs, so this is the JAX package's per-tile vmap.
         The merge takes connected components of the symmetric relation
         "other tile, same label, IoM >= merge_thresh" by min-label
-        propagation to a fixpoint (one host sync per round); each component
-        collapses onto its lowest-index member with the enclosing box and
-        the highest confidence."""
+        propagation to a fixpoint (``ops.nms_waves.merge_labels``); each
+        component collapses onto its lowest-index member with the enclosing
+        box and the highest confidence. On the card the NMS waves and the
+        propagation rounds run to their ends in ``csrc/nms_waves.cu``, so
+        the call makes no host sync."""
         n_tiles, topk = det_out.shape[0], det_out.shape[1]
         n = n_tiles * topk
         dev = det_out.device
         rows = det_out.reshape(n, 7)
-        tile_id = torch.arange(n_tiles, device=dev).repeat_interleave(topk)
+        tile_id = torch.arange(n, device=dev) // topk
         label = rows[:, 1].to(torch.int32)
         conf = rows[:, 2]
         t = tiles_f[tile_id]
@@ -370,13 +374,7 @@ class SSDDetector(_NetworkDetector):
         edge = (geom.iom_matrix(tlbr) >= merge_thresh) & ~same_tile & \
             same_label & valid[:, None] & valid[None, :]
         idx = torch.arange(n, device=dev)
-        lbl = torch.where(valid, idx, n)
-        while True:
-            nbr_min = torch.where(edge, lbl[None, :], n).amin(dim=1)
-            new = torch.minimum(lbl, nbr_min)
-            if not bool((new != lbl).any()):
-                break
-            lbl = new
+        lbl = nms_waves.merge_labels(edge, valid)
 
         # collapse each component onto its representative; row n takes
         # the invalid rows and is dropped (scatter mode='drop')

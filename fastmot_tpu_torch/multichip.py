@@ -152,12 +152,27 @@ def dryrun_multichip(n_devices: int, device: str = 'cuda') -> list[dict]:
     return ranks
 
 
+def tail_launches(reset: bool = False) -> tuple:
+    """This process's NMS, SSD-merge and commit kernel launches
+    (``greedy_suppress``, ``merge_labels``, ``assoc_commit``); with
+    ``reset``, zeroed first."""
+    from .ops import assoc_commit as ac
+    from .ops import geometry as geom
+    from .ops import nms_waves as nw
+    if reset:
+        geom.greedy_suppress.launches = nw.merge_labels.launches = 0
+        ac.assoc_commit.launches = 0
+    return (geom.greedy_suppress.launches, nw.merge_labels.launches,
+            ac.assoc_commit.launches)
+
+
 def _dryrun_rank(n_devices: int, model_name: str, device: str) -> dict:
     """The multi-stream step on this rank: real cores, tiny shapes.
     Returns the ``dryrun ok`` line, this rank's feature slice, its LK,
     gap-commit, preprocess and gap-points kernel launches, its cascade,
-    greedy kernel and finals launches (``assoc_launches``) and, as
-    numpy, the association's costs, its matches (``col4row``), the tracks'
+    greedy kernel and finals launches (``assoc_launches``), its NMS, merge
+    and commit launches (``tail_launches``) and, as numpy, the
+    association's costs, its matches (``col4row``), the tracks'
     validity and the new history store."""
     from .detector import _resize_bilinear
     from .kalman import KalmanConfig, init_mats
@@ -322,6 +337,7 @@ def _dryrun_rank(n_devices: int, model_name: str, device: str) -> dict:
             'assoc_launches': (asg.cascade_auction.launches,
                                asg.greedy_match.launches,
                                asg.greedy_finals.launches),
+            'tail_launches': tail_launches(),
             'cost': host(cost),
             'reid_cost': host(reid_cost),
             'col4row': host(col4row), 'valid': host(new_state[3]),
@@ -414,8 +430,9 @@ def multi_stream_rank(inputs, n_streams, model_parallel, mot_kwargs,
     ``inputs/frames.npy`` (``[F, S, H, W, 3]``, read for this rank's streams
     only) and the detections of ``inputs/dets.npz`` (``splice_detections``);
     returns this rank's ``local_streams``, rows, step times, OSBlock, LK,
-    gap-commit, preprocess, gap-points, cascade and greedy kernel launches
-    and what its detector's network found (``network_dets``)."""
+    gap-commit, preprocess, gap-points, cascade and greedy kernel launches,
+    its NMS, merge and commit launches (``tail_launches``) and what its
+    detector's network found (``network_dets``)."""
     from .ops import assignment as asg
     from .ops.flow_kernels import lk_pyramidal, preprocess
     from .ops.gap_commit import gap_commit
@@ -433,6 +450,7 @@ def multi_stream_rank(inputs, n_streams, model_parallel, mot_kwargs,
     gap_commit.launches = preprocess.launches = gap_points.launches = 0
     asg.cascade_auction.launches = asg.greedy_match.launches = 0
     asg.greedy_finals.launches = 0
+    tail_launches(reset=True)
     rows, step_ms = run_multi_stream(mot, frames, dets, sync_every_frame)
     return {'local_streams': list(mot.local_streams), 'rows': rows,
             'step_ms': step_ms, 'osblock_launches': osblock.launches,
@@ -443,6 +461,7 @@ def multi_stream_rank(inputs, n_streams, model_parallel, mot_kwargs,
             'assoc_launches': (asg.cascade_auction.launches,
                                asg.greedy_match.launches,
                                asg.greedy_finals.launches),
+            'tail_launches': tail_launches(),
             'network_dets': mot.network_dets}
 
 

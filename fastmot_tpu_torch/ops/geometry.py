@@ -3,11 +3,14 @@
 Port of ``fastmot_tpu/ops/geometry.py`` with the same conventions: boxes
 are ``tlbr = [x1, y1, x2, y2]`` with inclusive corners (``w = x2 - x1 +
 1``), rounding is half-to-even, degenerate boxes have area 0, and every
-function broadcasts over leading batch dimensions.
+function broadcasts over leading batch dimensions. ``greedy_suppress``
+runs its waves in ``csrc/nms_waves.cu`` on the card.
 """
 from __future__ import annotations
 
 import torch
+
+from . import nms_waves
 
 
 def as_tlbr(tlbr: torch.Tensor) -> torch.Tensor:
@@ -146,14 +149,38 @@ def greedy_suppress(overlap: torch.Tensor, scores: torch.Tensor,
                     valid: torch.Tensor, thresh: float) -> torch.Tensor:
     """Greedy NMS keep mask: keep the highest-scoring remaining box (lower
     index on ties), suppress the others whose ``overlap`` with it exceeds
-    ``thresh``, repeat.
+    ``thresh``, repeat. Leading batch axes (``overlap [..., N, N]``,
+    ``scores``/``valid [..., N]``) are independent problems.
 
-    Wave-parallel like the JAX version (each wave keeps every remaining box
-    with no remaining dominating neighbour, then suppresses the kept boxes'
-    neighbours), which equals the sequential greedy scan. The loop runs on
-    the host, one sync per wave. Leading batch axes (``overlap [..., N,
-    N]``, ``scores``/``valid [..., N]``) are independent problems in one
-    loop: a problem with nothing remaining has empty waves."""
+    On CUDA tensors the waves run to their end in ``csrc/nms_waves.cu``
+    (``ops.nms_waves.suppress_kernel``: the overlap packed into bits, then a
+    block a problem), with no host sync; on CPU tensors
+    ``greedy_suppress_reference``; any other device raises. Both give the
+    JAX package's ``_greedy_suppress`` bit for bit.
+    ``greedy_suppress.launches`` counts the kernel's calls."""
+    device = overlap.device
+    if device.type == 'cpu':
+        return greedy_suppress_reference(overlap, scores, valid, thresh)
+    if device.type != 'cuda':
+        raise ValueError(f'greedy_suppress: unsupported device {device}')
+    keep = nms_waves.suppress_kernel(overlap, scores, valid, thresh)
+    _GREEDY_SUPPRESS.launches += 1
+    return keep
+
+
+greedy_suppress.launches = 0
+# the count's owner, whatever a caller binds the module's name to
+_GREEDY_SUPPRESS = greedy_suppress
+
+
+def greedy_suppress_reference(overlap: torch.Tensor, scores: torch.Tensor,
+                              valid: torch.Tensor,
+                              thresh: float) -> torch.Tensor:
+    """The plain version of ``greedy_suppress``, wave-parallel like the JAX
+    version (each wave keeps every remaining box with no remaining
+    dominating neighbour, then suppresses the kept boxes' neighbours),
+    which equals the sequential greedy scan. The loop runs on the host, one
+    sync per wave; a problem with nothing remaining has empty waves."""
     n = scores.shape[-1]
     idx = torch.arange(n, device=scores.device)
     over = (overlap > thresh) & (idx[:, None] != idx[None, :])

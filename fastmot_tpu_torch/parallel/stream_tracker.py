@@ -8,7 +8,8 @@ each, ``ops.flow_kernels.preprocess``, ``ops.gap_points.gap_points``,
 ``ops.flow_kernels.lk_pyramidal`` and ``ops.gap_commit.gap_commit``); the
 costs, the cascade stages, the greedy finals and the commit of an
 association frame (``tracker.*_batch``, ``tracker.stages_scan_core``,
-``tracker.finals_core``).
+``tracker.finals_core``; on the card ``commit_batch`` is one launch of
+the commit kernel, ``ops.assoc_commit.assoc_commit``).
 The per-stream ``MultiTracker`` host shells are presentation mirrors:
 ``sync`` fetches every stream's info vectors in one transfer and replays
 them, stream by stream, through ``MultiTracker.sync(infos=...)``.

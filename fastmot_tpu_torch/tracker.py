@@ -11,11 +11,12 @@ The per-frame pure functions keep the JAX package's names and arguments
 (less the leading underscore) so each can be held against its JAX twin:
 ``gap_pre_core``, ``gap_points_core``, ``lk_commit_core``,
 ``gap_commit_core``, ``assoc_costs_core``, ``extract_costs_core``,
-``stages_scan_core``, ``finals_core``, ``commit_part`` and
-``scan_finals_commit_core``. They run eagerly, one frame at a time:
-the JAX package's scan/chain kernels and its split-dispatch variants are
-TPU dispatch structure and are not ported. A gap frame's pre-LK half runs
-through ``ops.flow_kernels.preprocess`` and ``ops.gap_points.gap_points``
+``stages_scan_core``, ``finals_core``, ``commit_part`` (with
+``commit_core`` its dispatch) and ``scan_finals_commit_core``. They run
+eagerly, one frame at a time: the JAX package's scan/chain kernels and its
+split-dispatch variants are TPU dispatch structure and are not ported. A
+gap frame's pre-LK half runs through ``ops.flow_kernels.preprocess`` and
+``ops.gap_points.gap_points``
 (on the card a kernel each; on the CPU their plain versions,
 ``preprocess_reference`` and ``gap_points_core``), its post-LK half
 through ``ops.gap_commit.gap_commit``: on the card one launch of its kernel
@@ -28,8 +29,11 @@ take that axis themselves, and run their solvers through
 ``ops.assignment.cascade_auction`` and ``greedy_finals``: on the card the
 whole cascade in one launch and the finals (their masks, the rectify cost
 and both greedy matchings) in another, with no host sync; on the CPU the
-plain solvers (``finals_reference``). ``compute_flow``/``apply_kalman``
-are the JAX package's legacy per-track API.
+plain solvers (``finals_reference``). The commit (``commit_core``, and
+``commit_batch`` over streams) runs ``ops.assoc_commit.assoc_commit``: on
+the card one call of its kernel for all of a call's streams, on the CPU
+``commit_part``. ``compute_flow``/``apply_kalman`` are the JAX package's
+legacy per-track API.
 """
 from __future__ import annotations
 
@@ -47,6 +51,7 @@ from .feature_extractor import extract_core
 from .flow import Flow
 from .kalman import KalmanConfig
 from .ops import assignment as asg
+from .ops import assoc_commit as ac
 from .ops import distance as dist
 from .ops import flow_kernels as fk
 from .ops import gap_commit as gc
@@ -445,11 +450,24 @@ def finals_reference(conf_thresh: float, max_reid_cost: float,
     return u_det_conf, reid_c4r, rect_c4r
 
 
+def commit_core(cfg: KalmanConfig, confirm_hits: int, max_age: int,
+                history_size: int, state, hist, d_tlbrs, d_labels, d_conf,
+                d_valid, d_emb, frame_id: int, frame_tlbr, cascade_out):
+    """``commit_part``'s arguments and results, one stream, through
+    ``ops.assoc_commit.assoc_commit``: on the card one call of the commit
+    kernel, on the CPU ``commit_part``; any other device raises."""
+    return ac.assoc_commit(cfg, confirm_hits, max_age, history_size, state,
+                           hist, (d_tlbrs, d_labels, d_conf, d_valid),
+                           d_emb, frame_id, frame_tlbr, cascade_out)
+
+
 def commit_part(cfg: KalmanConfig, confirm_hits: int, max_age: int,
                 history_size: int, state, hist, d_tlbrs, d_labels, d_conf,
                 d_valid, d_emb, frame_id: int, frame_tlbr, cascade_out):
     """Lifecycle decisions + state commit of an association frame, with
-    slot and history allocation. Returns (new_state, new_hist, info)."""
+    slot and history allocation. Returns (new_state, new_hist, info). The
+    plain version of ``ops.assoc_commit.assoc_commit`` (its
+    ``commit_reference``), which the card runs in one call of its kernel."""
     (means, covs, tlbrs, valid, ages, hits, labels, start_f, end_f,
      lost_pending, inl, kps, kpv, feat_sum, feat_count) = state
     hist_sum, hist_count, h_labels, h_valid, h_lru, h_hits = hist
@@ -636,7 +654,8 @@ def commit_part(cfg: KalmanConfig, confirm_hits: int, max_age: int,
                  feat_count)
     new_hist = (hist_sum2, hist_count2, h_labels2, h_valid_final, h_lru2,
                 h_hits2)
-    head = torch.stack([torch.tensor(float(frame_id), device=dev),
+    head = torch.stack([torch.full((), frame_id, dtype=torch.float32,
+                                   device=dev),
                         n_dropped.to(torch.float32),
                         stolen.to(torch.float32),
                         d_valid.sum().to(torch.float32)])
@@ -657,7 +676,8 @@ def scan_finals_commit_core(cfg: KalmanConfig, n_depth: int,
                             state, hist, d_tlbrs, d_labels, d_conf,
                             d_valid, d_emb, frame_id, frame_tlbr,
                             reid_cost, h_reid_ok, occluded):
-    """Cascade stages + greedy finals + lifecycle commit."""
+    """Cascade stages + greedy finals + lifecycle commit
+    (``commit_core``: on the card a kernel call each, no host sync)."""
     u_det, col4row = stages_scan_core(
         n_depth, cost, iou_cost, depth_masks, base_iou_active,
         base_unconfirmed, u_det, col4row, eps=eps, forbid=forbid)
@@ -665,7 +685,7 @@ def scan_finals_commit_core(cfg: KalmanConfig, n_depth: int,
         conf_thresh, max_reid_cost, dup_gate, confirm_hits,
         state[2], state[3], state[4], state[5], d_tlbrs, d_conf,
         reid_cost, h_reid_ok, occluded, u_det, col4row)
-    return commit_part(
+    return commit_core(
         cfg, confirm_hits, max_age, history_size, state, hist,
         d_tlbrs, d_labels, d_conf, d_valid, d_emb, frame_id, frame_tlbr,
         (occluded, col4row, u_det_conf, reid_c4r, rect_c4r))
@@ -718,11 +738,12 @@ def assoc_costs_batch(params, states, hists, dets, embs, feature_psum=None):
 def commit_batch(cfg: KalmanConfig, confirm_hits: int, max_age: int,
                  history_size: int, states, hists, dets, embs,
                  frame_id: int, frame_tlbr, cascade_out):
-    """``commit_part`` for every stream."""
-    def one(state, hist, det, emb, casc):
-        return commit_part(cfg, confirm_hits, max_age, history_size, state,
-                           hist, *det, emb, frame_id, frame_tlbr, casc)
-    return vmap(one)(states, hists, dets, embs, cascade_out)
+    """``commit_part`` for every stream (``ops.assoc_commit.assoc_commit``):
+    on the card one call of the commit kernel for all of them, on the CPU
+    ``commit_part`` under ``vmap``; any other device raises."""
+    return ac.assoc_commit(cfg, confirm_hits, max_age, history_size, states,
+                           hists, dets, embs, frame_id, frame_tlbr,
+                           cascade_out)
 
 
 def apply_kalman_core(cfg: KalmanConfig, means, covs, h_mat, trans, acc_cov,
