@@ -12,10 +12,12 @@ Phases, each raising on failure (the exit code is then non-zero):
    and one thread a point), the gap-commit kernel (csrc/gap_commit.cu),
    the preprocess kernel (csrc/flow_preprocess.cu), the gap-points
    kernel (csrc/gap_points.cu), the association solvers' kernels
-   (csrc/assoc_solvers.cu), the NMS and SSD-merge kernels
-   (csrc/nms_waves.cu) and the commit kernel (csrc/assoc_commit.cu) from
-   the sources in this checkout, one ``nvcc`` each, all at once, and prints
-   ptxas's registers, shared memory and spills;
+   (csrc/assoc_solvers.cu), the NMS, SSD-merge and YOLO postprocess
+   kernels (csrc/nms_waves.cu), the commit kernel (csrc/assoc_commit.cu),
+   the costs kernel (csrc/assoc_costs.cu) and the ReID-input kernel
+   (csrc/reid_crops.cu) from the sources in this checkout, one ``nvcc``
+   each, all at once, and prints ptxas's registers, shared memory and
+   spills;
 3. kernel vs its plain version at the six OSNet-x0.25 block shapes (64
    crops, bf16; two calls bitwise equal), with each shape's time (20
    back-to-back launches between two CUDA events), bound, roofline share
@@ -40,13 +42,14 @@ Phases, each raising on failure (the exit code is then non-zero):
    run also times a gap frame's stages alone, the preprocess and the point
    assembly through their kernels with their plain versions beside them
    (phase 16 prints them), and an association frame's stages alone
-   (``assoc_stages_ms``: the detector's net, its NMS, crops + OSNet, the
-   costs, the cascade, the finals and the commit through the kernels and
-   through the plain versions, the whole ``update_device_fused`` call),
-   the host syncs a call of the NMS, crops + OSNet, the costs, the
-   cascade, the finals, the commit, ``update_device_fused`` and a whole
-   association frame (net, NMS and ``update_device_fused``), and the
-   cascade kernel's bidding rounds by stage and phase;
+   (``assoc_stages_ms``: the detector's net, its NMS, the crops alone,
+   crops + OSNet, the costs, the cascade, the finals and the commit
+   through the kernels and through the plain versions, the whole
+   ``update_device_fused`` call and the whole association frame), the
+   host syncs a call of the NMS, the crops alone, crops + OSNet, the
+   costs, the cascade, the finals, the commit, ``update_device_fused`` and
+   a whole association frame (net, NMS and ``update_device_fused``), and
+   the cascade kernel's bidding rounds by stage and phase;
 7. detector zoo: every registered YOLO and SSD with random weights at its
    full input size on a 1280x720 frame: raw head shapes, finite values,
    the median time of the whole detector; SSDMobileNetV1 and YOLOv4-tiny
@@ -234,6 +237,35 @@ Phases, each raising on failure (the exit code is then non-zero):
    the merge kernel's (one an SSD run) and the commit kernel's (one an
    association frame, for all of a call's streams) (``expect_tail``), and
    calls of the plain versions on CUDA tensors, which must stay 0.
+21. the YOLO postprocess kernels (csrc/nms_waves.cu ``nms_select_forward``:
+   a block a stream selects and orders the top MAX_RAW candidates by a
+   radix select, many blocks compute the DIoU bits from their boxes, a
+   block a stream runs the waves, the gates and the order), the costs
+   kernel (csrc/assoc_costs.cu: a block a tile of 16 track or history
+   rows and a stream) and the ReID-input kernel (csrc/reid_crops.cu: a
+   block an output row of a crop): each against its plain version
+   (``detector.nms_and_gate_reference``, ``tracker.assoc_costs_reference``,
+   ``ops.reid_crops.reid_crops_reference``) on the CPU and on the card,
+   the postprocess and the crops bit for bit, the costs' masks,
+   occlusion, IoU cost and gates bit for bit and the fused and reID costs
+   at tests/test_torch_assoc_costs.py's tolerances, at 1 and 8 streams on
+   phase 6's and phase 13's real arguments and on contested cases, and on
+   the seeded cases of tests/test_torch_nms_select.py,
+   tests/test_torch_assoc_costs.py and tests/test_torch_reid_crops.py
+   with their ``OUTPUT_SHA256``; no DIoU matrix on the card; the
+   cascade, the finals and the commit fed the kernel's costs give the
+   plain costs' integers (phase 6's and 13's frames, the stage-1 regime);
+   glibc's and the CPU's ``pow`` against the card's; a whole association
+   frame at 1 and 8 streams under ``set_sync_debug_mode('error')``; each
+   kernel's device time, wrapper and host time a call, plain time and
+   bound (``nms_select_bound_ms``, ``assoc_costs_bound_ms``,
+   ``reid_crops_bound_ms``). Phases 5-14 count the three kernels'
+   launches (``expect_frame``: the postprocess once a YOLO detector run,
+   the costs once an association frame, the crops once an extraction,
+   each for all of a call's streams), and calls of their plain versions
+   on CUDA tensors, which must stay 0; the YOLO detectors' NMS waves now
+   run inside the postprocess kernels, so ``greedy_suppress`` counts the
+   SSD's per-tile NMS alone.
 
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -290,6 +322,9 @@ TAIL_KERNELS = ('suppress_pack_kernel', 'suppress_waves_kernel',
                 'assoc_commit_kernel')
 FLOW_KERNELS = ('preprocess_kernel', 'points_owner_kernel',
                 'points_select_kernel')
+FRAME_KERNELS = ('nms_select_kernel', 'nms_pack_boxes_kernel',
+                 'nms_order_kernel', 'assoc_costs_kernel',
+                 'reid_crops_kernel')
 # the H100 SXM's 32-bit integer rate (64 INT32 lanes an SM a clock, 132
 # SMs, 1.98 GHz; the draws' threefry rounds are integer work)
 PEAK_I32 = 132 * 64 * 1.98e9
@@ -424,7 +459,8 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
     from fastmot_tpu_torch.ops import cuda_build
     names = ('osnet_block', 'lk_pyramidal', 'gap_commit', 'flow_preprocess',
-             'gap_points', 'assoc_solvers', 'nms_waves', 'assoc_commit')
+             'gap_points', 'assoc_solvers', 'nms_waves', 'assoc_commit',
+             'assoc_costs', 'reid_crops')
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(cuda_build.build, names))
@@ -601,7 +637,8 @@ def synth_tlbrs(frame_id, size, n=N_OBJECTS):
 def reset_lk():
     """Zeroes the LK kernels', the gap-commit kernel's, the preprocess
     kernel's, the gap-points kernel's, the association solvers', the NMS
-    and merge kernels' and the commit kernel's launch counts."""
+    and merge kernels', the commit kernel's and the YOLO postprocess,
+    costs and ReID-input kernels' launch counts."""
     from fastmot_tpu_torch.ops import assignment as asg
     from fastmot_tpu_torch.ops import assoc_commit as ac
     from fastmot_tpu_torch.ops import geometry as geom
@@ -615,6 +652,7 @@ def reset_lk():
     asg.greedy_finals.launches = 0
     geom.greedy_suppress.launches = nw.merge_labels.launches = 0
     ac.assoc_commit.launches = 0
+    frame_counts(reset=True)
 
 
 def flow_counts():
@@ -722,8 +760,11 @@ def phase_reference():
     expect_flow('reference', flow_n, n_frames, n_frames - 1)
     # an association frame every third frame after the first (3, 6, 9)
     expect_assoc('reference', assoc_n, (n_frames - 1) // 3)
-    # the public detections go through no NMS
+    # the public detections go through no NMS; the tracker embeds them on
+    # the device (update_device_fused)
     expect_tail('reference', tail_n, 0, 0, (n_frames - 1) // 3)
+    expect_frame('reference', frame_counts(), 0, (n_frames - 1) // 3,
+                 (n_frames - 1) // 3)
     cpu, gpu = runs
     for fid in cpu:
         ids_c = [t for t, _ in cpu[fid]]
@@ -800,6 +841,9 @@ def phase_stream_reference():
                  sum(1 for f in range(1, n_frames) if f % skip == 0))
     expect_tail('stream tracker', tail_n, 0, 0,
                 sum(1 for f in range(1, n_frames) if f % skip == 0))
+    # the embeddings are given: no crops
+    expect_frame('stream tracker', frame_counts(), 0,
+                 sum(1 for f in range(1, n_frames) if f % skip == 0), 0)
     _same_rows('stream tracker', *runs)
     log(f'reference: StreamTracker GPU == CPU on {n_frames - 1} frames of '
         f'{n} streams; lk_pyramidal launches {lk}, gap_commit launches '
@@ -858,6 +902,7 @@ def phase_legacy_api():
     expect_flow('legacy compute_flow', flow_counts(), len(frames), 0)
     expect_assoc('legacy compute_flow', assoc_counts(), 0)
     expect_tail('legacy compute_flow', tail_counts(), 0, 0, 0)
+    expect_frame('legacy compute_flow', frame_counts(), 0, 0, 0)
     _same_rows('legacy compute_flow + apply_kalman', *runs)
     log('reference: compute_flow + apply_kalman GPU == CPU on 4 frames, '
         f'{len(runs[0][-1][0])} tracks; lk_pyramidal launches {lk}')
@@ -872,7 +917,8 @@ def unpatched(module, name):
 # the plain versions main() counts on the card, before their counters
 PLAIN = {}
 # arguments a stage timer captured for a later phase (``assoc_stages_ms``:
-# the main path's NMS and commit arguments, phase 20's)
+# the main path's NMS and commit arguments, phase 20's; its postprocess,
+# costs, crops and whole frame, phase 21's, and phase 13's as 'frame8')
 STAGE_ARGS = {}
 
 
@@ -1018,7 +1064,7 @@ def phase_main_path(detector_type='YOLO', tag='main path', int8=False,
                              and torch.isfinite(state[1]).all())
     launches, int8_launches = osblock.launches, int8_conv.launches
     lk, gap_n, flow_n = lk_counts(), gap_launches(), flow_counts()
-    assoc_n, tail_n = assoc_counts(), tail_counts()
+    assoc_n, tail_n, frame_n = assoc_counts(), tail_counts(), frame_counts()
 
     n_assoc = 2 * sum(1 for i in range(1, len(frames)) if i % skip == 0)
     n_detect = n_assoc + 2                   # frame 0 of each run detects
@@ -1041,7 +1087,8 @@ def phase_main_path(detector_type='YOLO', tag='main path', int8=False,
         f'{int8_launches}, lk_pyramidal launches {lk}, gap_commit launches '
         f'{gap_n}, preprocess and gap_points launches {flow_n}, '
         f'cascade_auction, greedy_match and greedy_finals launches {assoc_n}'
-        f', greedy_suppress, merge_labels and assoc_commit launches {tail_n}')
+        f', greedy_suppress, merge_labels and assoc_commit launches {tail_n}'
+        f', nms_select, assoc_costs and reid_crops launches {frame_n}')
     if snap_step != snap_batch:
         raise AssertionError(f'{tag}: step and step_batch snapshots differ')
     if not visible:
@@ -1058,8 +1105,12 @@ def phase_main_path(detector_type='YOLO', tag='main path', int8=False,
     expect_gap(tag, gap_n, 2 * (len(frames) - 1))
     expect_flow(tag, flow_n, 2 * len(frames), 2 * (len(frames) - 1))
     expect_assoc(tag, assoc_n, n_assoc)
-    expect_tail(tag, tail_n, n_detect,
-                n_detect if detector_type == 'SSD' else 0, n_assoc)
+    # the SSD's per-tile NMS and merge; YOLO's whole postprocess in the
+    # nms_select kernels
+    ssd = detector_type == 'SSD'
+    expect_tail(tag, tail_n, n_detect if ssd else 0, n_detect if ssd else 0,
+                n_assoc)
+    expect_frame(tag, frame_n, 0 if ssd else n_detect, n_assoc, n_assoc)
     if int8:
         log(f'{tag}: int8_conv launches per association frame '
             f'{det_convs + reid_convs} ({det_convs} detector convs, '
@@ -1073,6 +1124,7 @@ def phase_main_path(detector_type='YOLO', tag='main path', int8=False,
         out['assoc stages'], out['assoc syncs'], out['assoc args'] = \
             assoc_stages_ms(mot, frames, staged)
         out['tail args'] = STAGE_ARGS.pop('tail')
+        out['frame args'] = STAGE_ARGS.pop('frame')
         # the cascade and the finals through the plain versions beside
         solver_ms, syncs, out['assoc rounds'] = solver_stages_ms(
             *out['assoc args'])
@@ -1343,6 +1395,7 @@ def phase_multi_stream(single_ms, frames, dets, card, n_streams=N_STREAMS):
     (rows,), step_ms = run_multi_stream(mot, frames, dets)
     launches, lk, gap_n = osblock.launches, lk_counts(), gap_launches()
     flow_n, assoc_n, tail_n = flow_counts(), assoc_counts(), tail_counts()
+    frame_n = frame_counts()
     n_assoc = sum(1 for i in range(1, n_frames) if i % skip == 0)
     visible = [len(list(mot.visible_tracks(s))) for s in range(n_streams)]
     state = mot.stream_tracker._dev_state
@@ -1364,10 +1417,12 @@ def phase_multi_stream(single_ms, frames, dets, card, n_streams=N_STREAMS):
         f'launches {lk}, gap_commit launches {gap_n}, preprocess and '
         f'gap_points launches {flow_n}, cascade_auction, greedy_match and '
         f'greedy_finals launches {assoc_n}, greedy_suppress, merge_labels '
-        f'and assoc_commit launches {tail_n}')
+        f'and assoc_commit launches {tail_n}, nms_select, assoc_costs and '
+        f'reid_crops launches {frame_n}')
     expect_assoc('multi-stream', assoc_n, n_assoc)
     # frame 0's detector run, then one an association frame
-    expect_tail('multi-stream', tail_n, n_assoc + 1, 0, n_assoc)
+    expect_tail('multi-stream', tail_n, 0, 0, n_assoc)
+    expect_frame('multi-stream', frame_n, n_assoc + 1, n_assoc, n_assoc)
     expect_lk('multi-stream', lk, n_frames - 1)
     expect_gap('multi-stream', gap_n, n_frames - 1)
     expect_flow('multi-stream', flow_n, n_frames, n_frames - 1)
@@ -1430,13 +1485,32 @@ def phase_multi_stream(single_ms, frames, dets, card, n_streams=N_STREAMS):
     solver_ms, syncs, rounds = solver_stages_ms(*assoc8_args)
     log_assoc_stages(f'multi-stream ({n_streams} streams)', solver_ms,
                      syncs, rounds, card)
-    # phase 20's 8-stream arguments: the batched detector's NMS call, and
-    # the commit of the association above
+    # phase 20's 8-stream arguments: the batched detector's waves (from its
+    # plain postprocess, where the card runs the whole of it in the
+    # nms_select kernels), and the commit of the association above;
+    # phase 21's: the postprocess, the costs, the crops and a whole
+    # association frame
+    from fastmot_tpu_torch import detector as detmod
+    nms8, real_nms = [], detmod.nms_and_gate
+    with mock.patch.object(detmod, 'nms_and_gate', lambda *a: (
+            nms8.append(a), real_nms(*a))[1]):
+        det.detect_async(last)
+        real_dev()
     suppress8, real_suppress = [], geom.greedy_suppress
     with mock.patch.object(geom, 'greedy_suppress', lambda *a: (
             suppress8.append(a), real_suppress(*a))[1]):
+        unpatched(detmod, 'nms_and_gate_reference')(*nms8[0])
+
+    def whole8():
         det.detect_async(last)
         real_dev()
+        embed()
+        mot.stream_tracker.update_device(n_frames, det_b, emb[0])
+    STAGE_ARGS['frame8'] = {
+        'nms': nms8[0], 'crops': (last, det_b[0], ext.out_hw),
+        'costs': (t0._assoc_params(), st._dev_state, st._hist_store, det_b,
+                  emb[0], None),
+        'whole': whole8}
     finals_args = assoc8_args[2]
     cascade_out = (costs[3], finals_args[-1]) + finals_core(*finals_args)
     tail8_args = {'suppress': suppress8[0], 'commit': (
@@ -1515,6 +1589,7 @@ def phase_mesh(frames, dets, want_rows, single_multi_ms, n_streams=N_STREAMS):
             launches, lk = osblock.launches, lk_counts()
             gap_n, flow_n = gap_launches(), flow_counts()
             assoc_n, tail_n = assoc_counts(), tail_counts()
+            frame_n = frame_counts()
         finally:
             dist.destroy_process_group()
     del mot
@@ -1533,7 +1608,8 @@ def phase_mesh(frames, dets, want_rows, single_multi_ms, n_streams=N_STREAMS):
     expect_gap('mesh (a)', gap_n, len(frames) - 1)
     expect_flow('mesh (a)', flow_n, len(frames), len(frames) - 1)
     expect_assoc('mesh (a)', assoc_n, n_assoc)
-    expect_tail('mesh (a)', tail_n, n_assoc + 1, 0, n_assoc)
+    expect_tail('mesh (a)', tail_n, 0, 0, n_assoc)
+    expect_frame('mesh (a)', frame_n, n_assoc + 1, n_assoc, n_assoc)
 
     t_b = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1555,8 +1631,10 @@ def phase_mesh(frames, dets, want_rows, single_multi_ms, n_streams=N_STREAMS):
                                            out['gap_points_launches']),
                     len(frames), len(frames) - 1)
         expect_assoc(f'mesh (b) rank {r}', out['assoc_launches'], n_assoc)
-        expect_tail(f'mesh (b) rank {r}', out['tail_launches'], n_assoc + 1,
-                    0, n_assoc)
+        expect_tail(f'mesh (b) rank {r}', out['tail_launches'], 0, 0,
+                    n_assoc)
+        expect_frame(f'mesh (b) rank {r}', out['frame_launches'],
+                     n_assoc + 1, n_assoc, n_assoc)
     worst = _same_streams('mesh (b) 2 gloo ranks', rows_b, want_rows)
     log(f'mesh (b) 2 gloo ranks on one card, streams '
         f'{[o["local_streams"] for o in ranks]}: rows == phase 13 on every '
@@ -1577,6 +1655,8 @@ def phase_mesh(frames, dets, want_rows, single_multi_ms, n_streams=N_STREAMS):
     expect_assoc('mesh (c)', dry[0]['assoc_launches'], 1)
     # the dryrun's association commits; its detector runs no NMS
     expect_tail('mesh (c)', dry[0]['tail_launches'], 0, 0, 1)
+    # its costs; its embeddings are made up, its detector runs no NMS
+    expect_frame('mesh (c)', dry[0]['frame_launches'], 0, 1, 0)
     log(f'mesh (c) dryrun_multichip(1) over NCCL: '
         f'{time.perf_counter() - t0:.1f} s, spawn and build included, '
         f'lk_pyramidal launches {dry[0]["lk_launches"]}, gap_commit '
@@ -2368,8 +2448,8 @@ def ptxas_kernels(nvcc_out):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = next((k for k in GAP_KERNELS + FLOW_KERNELS
-                         + ASSOC_KERNELS + TAIL_KERNELS if k in m.group(1)),
-                        m.group(1))
+                         + ASSOC_KERNELS + TAIL_KERNELS + FRAME_KERNELS
+                         if k in m.group(1)), m.group(1))
         m = re.search(r'(\d+) bytes spill stores', line)
         if m and name:
             out[name] = f'{m.group(1)} bytes spilled'
@@ -2819,6 +2899,34 @@ def expect_tail(tag, counts, detections, merges, commits):
         TAIL_LAUNCHES[name] += n
 
 
+def frame_counts(reset=False):
+    """The YOLO postprocess kernels' (``nms_waves.nms_select``), the costs
+    kernel's and the ReID-input kernel's calls since ``reset_lk`` (with
+    ``reset``, zeroed first)."""
+    from fastmot_tpu_torch.multichip import frame_launches
+    return frame_launches(reset)
+
+
+# the YOLO postprocess, costs and ReID-input kernels' calls on the main
+# paths (the kernels line's counts)
+FRAME_NAMES = ('nms_select', 'assoc_costs', 'reid_crops')
+FRAME_LAUNCHES = Counter()
+
+
+def expect_frame(tag, counts, detections, costs, crops):
+    """The YOLO postprocess kernels ran once a YOLO detector run
+    (``detections``, for all of a call's streams), the costs kernel once
+    an association frame (``costs``) and the ReID-input kernel once an
+    extraction (``crops``), each for all of a call's streams."""
+    want = (detections, costs, crops)
+    if tuple(counts) != want:
+        raise AssertionError(f'{tag}: nms_select, assoc_costs and '
+                             f'reid_crops launched {tuple(counts)} times, '
+                             f'expected {want}')
+    for name, n in zip(FRAME_NAMES, counts):
+        FRAME_LAUNCHES[name] += n
+
+
 def plain_solvers():
     """A context in which ``ops.assignment``'s plain solvers are the
     originals, not ``main``'s counters (to time them on the card)."""
@@ -2974,13 +3082,21 @@ def assoc_stages_ms(mot, frames, staged):
     (``stages_scan_core``), the finals (``finals_core``) and the commit
     (``tracker.commit_core``, the kernel on the card, with the plain
     ``commit_part`` beside it; ``commit_part`` where the checkout has no
-    ``commit_core``). Returns the times, the host syncs a call of the NMS,
-    crops + OSNet, the costs, the cascade, the finals, the commit,
-    ``update_device_fused`` and a whole association frame (the net, the NMS
-    and ``update_device_fused``) make, and the solvers' arguments (phase
-    19's); the NMS's and the commit's go to ``STAGE_ARGS['tail']`` (phase
-    20's). It calls only what every checkout of the port has, so that
-    scripts/assoc_stages_turns.py runs it on an earlier one too."""
+    ``commit_core``), and the crops alone (the ReID input before OSNet:
+    ``ops.reid_crops.reid_crops``, or an earlier checkout's
+    ``crop_resize_batch`` and normalisation); where the checkout has them,
+    the plain NMS, costs and crops beside the kernels. Returns the times,
+    the host syncs a call of the NMS, the crops alone, crops + OSNet, the
+    costs, the cascade, the finals, the commit, ``update_device_fused`` and
+    a whole association frame (the net, the NMS and
+    ``update_device_fused``) make, and the solvers' arguments (phase 19's);
+    the NMS's and the commit's go to ``STAGE_ARGS['tail']`` (phase 20's),
+    the NMS's, the costs', the crops' and the whole frame's to
+    ``STAGE_ARGS['frame']`` (phase 21's). It calls only what every
+    checkout of the port has, so that scripts/assoc_stages_turns.py runs it
+    on an earlier one too."""
+    from fastmot_tpu_torch import detector as detmod
+    from fastmot_tpu_torch import feature_extractor as fe
     from fastmot_tpu_torch import tracker as tr
     from fastmot_tpu_torch.detector import nms_and_gate
     from fastmot_tpu_torch.feature_extractor import extract_core
@@ -2998,21 +3114,28 @@ def assoc_stages_ms(mot, frames, staged):
     emb_cap = 64 if (est <= 56 and d_cap > 64) else d_cap
     _, ih, iw = det.model.INPUT_SHAPE
 
+    # the anchors on the device where the checkout builds them once
+    anchors = getattr(det, '_anchors', det.model.ANCHORS)
+
     def net():
         heads = det.module(det.preprocess(frame))
-        return decode_heads(heads, det.model.ANCHORS, det.model.SCALES,
+        return decode_heads(heads, anchors, det.model.SCALES,
                             (ih, iw), det.model.NEW_COORDS)[0]
     det_out = net()
+    nms_args = (det_out, det.label_mask, det.conf_thresh, det.nms_thresh,
+                det.max_area, det.min_aspect_ratio, det._scale_wh,
+                det._offset)
 
     def nms():
-        return nms_and_gate(det_out, det.label_mask, det.conf_thresh,
-                            det.nms_thresh, det.max_area,
-                            det.min_aspect_ratio, det._scale_wh,
-                            det._offset)
+        return nms_and_gate(*nms_args)
+    # the waves' arguments, from the plain NMS where the card runs the
+    # whole postprocess in its kernels
+    plain_nms = unpatched(detmod, 'nms_and_gate_reference') \
+        if hasattr(detmod, 'nms_and_gate_reference') else None
     suppress_args, real_suppress = [], geom.greedy_suppress
     with mock.patch.object(geom, 'greedy_suppress', lambda *a: (
             suppress_args.append(a), real_suppress(*a))[1]):
-        nms()
+        (plain_nms or nms_and_gate)(*nms_args)
     state, hist = trk._dev_state, trk._hist_store
     params = trk._assoc_params()
     costs, emb = tr.extract_costs_core(
@@ -3047,11 +3170,24 @@ def assoc_stages_ms(mot, frames, staged):
         net()
         nms()
         whole()
+    crop_args = (frame, det_dev[0][:emb_cap], ext.out_hw)
+    if not hasattr(fe, 'rc'):
+        # an earlier checkout: the crop, then extract_core's lines before
+        # the network
+        def crops():
+            x = fe.crop_resize_batch(*crop_args).flip(-1)
+            mean = torch.tensor(fe._IMAGENET_MEAN, device=frame.device)
+            std = torch.tensor(fe._IMAGENET_STD, device=frame.device)
+            return (x / 255.0 - mean) / std
+    else:
+        def crops():
+            return fe.rc.reid_crops(*crop_args)
     stages = {
         'detector net (letterbox, YOLOv4, decode)': net,
         'NMS and gates (nms_and_gate)': nms,
         f'greedy_suppress alone ({suppress_args[0][0].shape[-1]} '
         'candidates)': lambda: real_suppress(*suppress_args[0]),
+        f'crops alone ({emb_cap} crops, before OSNet)': crops,
         f'crops + OSNet ({emb_cap} crops)': lambda: extract_core(
             ext.module, ext.out_hw, frame, det_dev[0][:emb_cap],
             det_dev[3][:emb_cap]),
@@ -3068,8 +3204,20 @@ def assoc_stages_ms(mot, frames, staged):
         plain_commit = unpatched(tr, 'commit_part')
         stages['commit, plain (commit_part)'] = lambda: plain_commit(
             *commit_args)
+    if plain_nms is not None:
+        stages['NMS and gates, plain (nms_and_gate_reference)'] = \
+            lambda: plain_nms(*nms_args)
+    if hasattr(tr, 'assoc_costs_reference'):
+        plain_costs = unpatched(tr, 'assoc_costs_reference')
+        stages['costs, plain (assoc_costs_reference)'] = lambda: plain_costs(
+            *params, state, hist, *det_dev, emb, emb_cap=emb_cap)
+    if hasattr(fe, 'rc'):
+        plain_crops = unpatched(fe.rc, 'reid_crops_reference')
+        stages['crops alone, plain (reid_crops_reference)'] = \
+            lambda: plain_crops(*crop_args)
     out = {name: wall_ms(fn) for name, fn in stages.items()}
     syncs = {'NMS and gates': count_syncs(nms),
+             'crops alone': count_syncs(crops),
              'crops + OSNet': count_syncs(
                  stages[f'crops + OSNet ({emb_cap} crops)']),
              'costs': count_syncs(stages['costs (assoc_costs_core)']),
@@ -3079,12 +3227,20 @@ def assoc_stages_ms(mot, frames, staged):
              'whole association frame (net, NMS, update_device_fused)':
                  count_syncs(whole_with_detector)}
     out['whole association frame (update_device_fused)'] = wall_ms(whole)
+    out['whole association frame (net, NMS, update_device_fused)'] = \
+        wall_ms(whole_with_detector)
     # phase 20's real arguments of the main path's frame
-    STAGE_ARGS['tail'] = {
-        'nms': (det_out, det.label_mask, det.conf_thresh, det.nms_thresh,
-                det.max_area, det.min_aspect_ratio, det._scale_wh,
-                det._offset),
-        'suppress': suppress_args[0], 'commit': commit_args}
+    STAGE_ARGS['tail'] = {'nms': nms_args, 'suppress': suppress_args[0],
+                          'commit': commit_args}
+    # phase 21's: the NMS, the costs (with a stream axis of one), the
+    # crops, and the whole association frame for its sync-free check
+    STAGE_ARGS['frame'] = {
+        'nms': nms_args, 'crops': crop_args,
+        'costs': (params, tuple(a[None] for a in state),
+                  tuple(a[None] for a in hist),
+                  tuple(a[None] for a in det_dev), emb[None], emb_cap),
+        'frame_id': frame_id, 'commit': commit_args,
+        'whole': whole_with_detector}
     trk.sync()
     return out, syncs, (scan_args, eps, finals_args)
 
@@ -3902,12 +4058,466 @@ def tail_kernel_entries(cases):
         entries.append(entry)
     return entries
 
+
+# ---------------------------------------------------------------------------
+# The YOLO postprocess, the costs and the ReID input (phase 21)
+# ---------------------------------------------------------------------------
+
+# float32 operations of one same-label pair's IoU test in csrc/nms_waves.cu
+# diou_exceeds (the two overlaps 8, the intersection 1, the union 2, the
+# quotient 1, the test 1), and of its whole DIoU test (diou_entry, the
+# power counted as one), which only a pair whose IoU passes goes on to
+IOU_OPS, DIOU_OPS = 13, 45
+# of one track-detection entry of csrc/assoc_costs.cu past the product:
+# the distance 5, the Mahalanobis substitutions and sum 27, the fusion and
+# the gates 7, the IoU cost and its gate 16
+COST_ENTRY_OPS = 55
+# of one detection pair's IoS test, and of one output value of
+# csrc/reid_crops.cu (two column passes, the row pass, the normalisation)
+IOS_OPS, CROP_OPS = 12, 12
+
+
+def nms_select_bound_ms(args, outputs):
+    """The least time an H100 could take for ``nms_and_gate`` on the card
+    (``args`` its arguments), and what sets it: the decoded rows, the label
+    mask, the scale and the offset read once and the outputs written once,
+    over 3.35 TB/s, against what this run's data needs over 67 TFLOP/s: 2
+    operations a row (the score and its gate); ``IOU_OPS`` a same-label
+    pair of the valid selected candidates, each pair once (the DIoU is
+    symmetric), and the rest of ``DIOU_OPS`` for a pair whose IoU exceeds
+    the threshold (recomputed from the plain version's candidates); one
+    comparison an overlap entry a wave the run took (from the plain
+    version's overlap)."""
+    import tests.test_torch_nms_kernel as tn
+    from fastmot_tpu_torch import detector as detmod
+    from fastmot_tpu_torch.ops import geometry as geom
+    det_out = args[0]
+    nbytes = det_out.numel() * 4 + args[1].numel() + 24 + sum(
+        x.numel() * x.element_size() for x in outputs)
+    captured, real_diou, real_suppress = {}, geom.diou_matrix, \
+        geom.greedy_suppress
+    with mock.patch.object(geom, 'diou_matrix', lambda t, beta: (
+            captured.setdefault('tlbr', t), real_diou(t, beta))[1]), \
+            mock.patch.object(geom, 'greedy_suppress', lambda *a: (
+                captured.setdefault('suppress', a), real_suppress(*a))[1]):
+        unpatched(detmod, 'nms_and_gate_reference')(*args)
+    overlap, scores, valid, thresh = (
+        x.cpu() if isinstance(x, torch.Tensor) else x
+        for x in captured['suppress'])
+    tlbr, k = captured['tlbr'].cpu(), overlap.shape[-1]
+    # the overlap is -inf where the labels differ
+    pairs = (overlap != -float('inf')) & valid[..., :, None] \
+        & valid[..., None, :] & torch.ones(k, k, dtype=torch.bool).triu(1)
+    passing = pairs & ~(geom.bbox_ious(tlbr, tlbr) <= thresh)
+    waves = tn.plain_waves(overlap, scores, valid, thresh)
+    ops = 2 * det_out.numel() // 7 + IOU_OPS * int(pairs.sum()) \
+        + (DIOU_OPS - IOU_OPS) * int(passing.sum()) \
+        + waves * overlap.numel()
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return max(bytes_ms, ops_ms), ('bytes' if bytes_ms >= ops_ms
+                                   else 'operations')
+
+
+def assoc_costs_bound_ms(args, outputs):
+    """The least time an H100 could take for a costs call (``args`` as
+    phase 21 holds them: params, states, hists, dets, embeddings), and
+    what sets it: of the inputs what the costs read (a track's 4 mean
+    entries, the 10 of its projected covariance's lower triangle, box,
+    validity, age, hits, label, feature sum and count; a history row's
+    features, count, label and validity; a detection's box, label,
+    validity and embedding) once and every output once, over 3.35 TB/s,
+    against the appearance products (2 F a track or history row and a
+    detection), the rows' normalisation (3 F a row), ``COST_ENTRY_OPS`` a
+    track entry and ``IOS_OPS`` a detection pair, over 67 TFLOP/s."""
+    _, states, hists, dets, emb = args[:5]
+    s, t = states[0].shape[:2]
+    h, f = hists[0].shape[1:]
+    d = dets[0].shape[1]
+    nbytes = s * (t * (4 + 10 + 4 + 1 + 1 + 1 + 1 + f + 1)
+                  + h * (f + 3) + d * (4 + 2 + f)) * 4 + sum(
+        x.numel() * x.element_size() for x in outputs)
+    ops = s * (2 * (t + h) * d * f + 3 * (t + h) * f + COST_ENTRY_OPS * t * d
+               + IOS_OPS * d * d)
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return max(bytes_ms, ops_ms), ('bytes' if bytes_ms >= ops_ms
+                                   else 'operations')
+
+
+def reid_crops_bound_ms(args, out):
+    """The least time an H100 could take for a ReID-input call (``args``
+    ``reid_crops``'), and what sets it: the frame pixels the taps read (a
+    crop's distinct source rows by its distinct source columns, at most
+    the frames) once and the output written once, over 3.35 TB/s, against
+    ``CROP_OPS`` an output value over 67 TFLOP/s."""
+    frame, tlbrs, (oh, ow) = args
+    frames = frame if frame.dim() == 4 else frame[None]
+    boxes = (tlbrs if frame.dim() == 4 else tlbrs[None]).reshape(-1, 4)
+    fh, fw = frames.shape[1:3]
+    b = torch.clamp(torch.floor(boxes.float().cpu()), min=0.0)
+
+    def taps(start, size, n_out, n_in):
+        pos = torch.clamp(start[:, None] + ((torch.arange(n_out) + 0.5)
+                                            * (1.0 / n_out))[None]
+                          * size[:, None] - 0.5, 0.0, n_in - 1.0)
+        i0 = torch.floor(pos).long()
+        return [len(torch.unique(torch.cat([r, torch.clamp(r + 1,
+                                                           max=n_in - 1)])))
+                for r in i0]
+    cols = taps(b[:, 0], b[:, 2] - b[:, 0] + 1.0, ow, fw)
+    rows = taps(b[:, 1], b[:, 3] - b[:, 1] + 1.0, oh, fh)
+    read = min(sum(r * c for r, c in zip(rows, cols)),
+               frames.shape[0] * fh * fw) * 3 * frames.element_size()
+    nbytes = read + out.numel() * 4
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    ops_ms = CROP_OPS * out.numel() / PEAK_F32 * 1e3
+    return max(bytes_ms, ops_ms), ('bytes' if bytes_ms >= ops_ms
+                                   else 'operations')
+
+
+def plain_costs(params, states, hists, dets, emb, emb_cap=None, app=None):
+    """``tracker.assoc_costs_reference`` under ``vmap`` over the streams,
+    on the device of the arguments."""
+    from fastmot_tpu_torch import tracker as tr
+    ref = unpatched(tr, 'assoc_costs_reference')
+
+    def one(state, hist, det, e, *a):
+        return ref(*params, state, hist, *det, e, emb_cap=emb_cap,
+                   appearance=a or None)
+    return torch.func.vmap(one)(states, hists, dets, emb,
+                                *(app if app is not None else ()))
+
+
+def downstream_integers(params, states, hists, dets, emb, costs, eps,
+                        finals_scalars, commit_scalars, frame_rect):
+    """The cascade (``stages_scan_core``), the finals (``finals_core``)
+    and the commit (``commit_batch``) of every stream fed ``costs``: their
+    integer outputs (col4row, u_det_conf, reid_c4r, rect_c4r, and the
+    commit's integer state, history and info)."""
+    from fastmot_tpu_torch import tracker as tr
+    (cost, iou_cost, reid_cost, occluded, h_reid_ok, depth_masks, base_ia,
+     base_u, u_det, col4row) = costs
+    n_depth = len(depth_masks)
+    u2, c2 = tr.stages_scan_core(n_depth, cost, iou_cost, depth_masks,
+                                 base_ia, base_u, u_det, col4row, eps=eps)
+    finals = tr.finals_core(*finals_scalars, params[-1], states[2],
+                            states[3], states[4], states[5], dets[0],
+                            dets[2], reid_cost, h_reid_ok, occluded, u2, c2)
+    new_state, new_hist, info = tr.commit_batch(
+        params[0], params[-1], *commit_scalars, states, hists, dets, emb,
+        37, frame_rect, (occluded, c2) + tuple(finals))
+    return [c2, *finals] + [a for a in (*new_state, *new_hist, info)
+                            if not a.is_floating_point()]
+
+
+def phase_frame_kernels(main_args, multi_args, card, nvcc_out):
+    """Phase 21: the YOLO postprocess kernels (``nms_select``), the costs
+    kernel and the ReID-input kernel against their plain versions (on the
+    CPU and on the card), at 1 and 8 streams: on phase 6's and phase 13's
+    real arguments, on contested cases (the NMS: 16,128 rows of which more
+    than 1,024 pass the gates, tied scores, three labels through an
+    all-true mask, rows failing each gate; the costs: 128 tracks and 128
+    detections with a full history, occluded detections, tracks without
+    features, and the stage-1 regime; the crops: boxes past every frame
+    edge, 1-pixel boxes and boxes larger than the frame) and on the CPU
+    tests' seeded cases and their ``OUTPUT_SHA256``; the NMS and the crops
+    bit for bit, the costs at tests/test_torch_assoc_costs.py's rules; the
+    cascade, the finals and the commit fed the kernel's costs give the
+    plain costs' integers on phase 6's and phase 13's frames and the
+    stage-1 cases; glibc's and the CPU's ``pow`` against the card's; a
+    whole association frame (net, NMS, update) at 1 and 8 streams under
+    ``set_sync_debug_mode('error')``; then each kernel's device time, the
+    wrapper's time and host time a call and the plain version's time
+    beside its bound. Returns each kernel's cases for the kernels line."""
+    import ctypes.util
+    import tests.test_torch_assoc_costs as tcost
+    import tests.test_torch_nms_select as tsel
+    import tests.test_torch_reid_crops as tcrop
+    from fastmot_tpu_torch import detector as detmod
+    from fastmot_tpu_torch.ops import assoc_costs as acost
+    from fastmot_tpu_torch.ops import nms_waves as nw
+    from fastmot_tpu_torch.ops import reid_crops as rc
+    t_phase = time.perf_counter()
+    for name in ('nms_waves', 'assoc_costs', 'reid_crops'):
+        for kernel, line in ptxas_kernels(nvcc_out[name]).items():
+            if kernel in FRAME_KERNELS:
+                log(f'{name} ptxas {kernel}: {line}')
+    lib_n, lib_c = nw.nms_waves_library(), acost.assoc_costs_library()
+    lib_r = rc.reid_crops_library()
+    plain_nms = unpatched(detmod, 'nms_and_gate_reference')
+    plain_crops = unpatched(rc, 'reid_crops_reference')
+
+    def same(tag, got, want):
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            if g.dtype != w.dtype or not torch.equal(g.cpu(), w.cpu()):
+                raise AssertionError(f'{tag}: the kernel differs from the '
+                                     'plain version')
+
+    # (a) the CPU tests' seeded cases: each kernel on the card against its
+    # plain version on the CPU, and the first design's outputs
+    for kind in tsel.KINDS:
+        case = tsel.torch_case(tsel.select_case(kind, seed=1))
+        got = tsel.host_select(lib_n, case, None, 'cuda')
+        same(f'nms_select {kind}', got, tsel.plain(case))
+        if tsel.output_sha256(got) != tsel.OUTPUT_SHA256[kind]:
+            raise AssertionError(f'nms_select {kind}: differs from the '
+                                 'outputs of its first design')
+    for kind in tcrop.KINDS:
+        frame, tlbrs, hw = (tcrop.T(a) if isinstance(a, np.ndarray) else a
+                            for a in tcrop.crop_case(kind, seed=1))
+        got = tcrop.host_crops(lib_r, frame.cuda(), tlbrs.cuda(), hw, None)
+        same(f'reid_crops {kind}', got, plain_crops(frame, tlbrs, hw))
+        if tcrop.output_sha256(got) != tcrop.OUTPUT_SHA256[kind]:
+            raise AssertionError(f'reid_crops {kind}: differs from the '
+                                 'outputs of its first design')
+    cost_err = {'cost': 0.0, 'reid_cost': 0.0}
+    for kind in tcost.CASES:
+        cpu = tcost.torch_case(tcost.costs_case(kind, tcost.CASE_SEEDS[kind]))
+        on_card = tuple(tuple(a.cuda() for a in x) if isinstance(x, tuple)
+                        else x.cuda() for x in cpu)
+        # the split path's distances as the CPU computes them, which the
+        # recorded sha256 read
+        app = tcost.given_appearance(kind, cpu)
+        got = tcost.host_costs(lib_c, kind, on_card, 'cuda',
+                               None if app is None
+                               else tuple(x.cuda() for x in app))
+        err = tcost.assert_costs_close(
+            got, tcost.plain(kind, cpu), f'assoc_costs {kind}',
+            tcost.plain_appearance(kind, cpu),
+            euclidean=tcost.CASES[kind].metric == 'euclidean')
+        for k, v in err.items():
+            cost_err[k] = max(cost_err.get(k, 0.0), v)
+        if tcost.output_sha256(got) != tcost.OUTPUT_SHA256[kind]:
+            raise AssertionError(f'assoc_costs {kind}: differs from the '
+                                 'outputs of its first design')
+    log(f'nms_select on the seeded cases of {tsel.__name__} '
+        f'({len(tsel.KINDS)}), reid_crops on those of {tcrop.__name__} '
+        f'({len(tcrop.KINDS)}): == the plain versions on the CPU, bit for '
+        f'bit; assoc_costs on those of {tcost.__name__} '
+        f'({len(tcost.CASES)}): masks, occlusion, IoU cost and gates == '
+        f'the plain version on the CPU, the fused and reID costs within '
+        f'{cost_err["cost"]:.3g} / {cost_err["reid_cost"]:.3g}; every output '
+        "== the first design's (OUTPUT_SHA256)")
+
+    # (b) the card's pow against glibc's powf (the host build's) and the
+    # CPU's: the DIoU's (d / c) ** 0.6 on the main frame's ratios and on a
+    # uniform sweep of [0, 1]
+    libm = ctypes.CDLL(ctypes.util.find_library('m'))
+    libm.powf.argtypes = [ctypes.c_float, ctypes.c_float]
+    libm.powf.restype = ctypes.c_float
+    gen = torch.Generator().manual_seed(0)
+    ratio = torch.cat([torch.rand(200_000, generator=gen),
+                       torch.linspace(0, 1, 50_001)])
+    card_pow = (ratio.cuda() ** 0.6).cpu()
+    cpu_pow = ratio ** 0.6
+    glibc = torch.tensor([libm.powf(float(x), 0.6) for x in ratio.tolist()],
+                         dtype=torch.float32)
+
+    def ulps(a, b):
+        d = (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+        return int((d > 0).sum()), int(d.max())
+    (n_glibc, u_glibc), (n_cpu, u_cpu) = ulps(glibc, card_pow), \
+        ulps(cpu_pow, card_pow)
+    log(f'pow(x, 0.6) on {ratio.numel():,} ratios in [0, 1]: glibc powf '
+        f'(the host build) differs from the card\'s on {n_glibc:,} (at most '
+        f'{u_glibc} ulp), torch\'s CPU pow (the plain version on the CPU) '
+        f'on {n_cpu:,} (at most {u_cpu} ulp)')
+
+    # (c) the real frames' and the contested cases, at 1 and 8 streams
+    rng = np.random.default_rng(21)
+    scale = torch.tensor([1280.0, 720.0, 1280.0, 720.0], device='cuda')
+    mask3 = torch.ones(3, dtype=torch.bool, device='cuda')
+
+    def contested_nms(n_streams):
+        rows = np.stack([tsel.clustered_rows(rng, 16128, 3, 120)
+                         for _ in range(n_streams)])
+        det = torch.as_tensor(rows, device='cuda')
+        return (det if n_streams > 1 else det[0], mask3, 0.25, 0.5, 800000,
+                1.2, scale, torch.zeros(2, device='cuda'))
+    nms_cases = {'1_stream': main_args['nms'],
+                 f'{N_STREAMS}_streams': multi_args['nms'],
+                 'contested_1_stream': contested_nms(1),
+                 f'contested_{N_STREAMS}_streams': contested_nms(N_STREAMS)}
+
+    def contested_costs(kind, n_streams):
+        case = tcost.torch_case(tcost.costs_case(
+            kind, tcost.CASE_SEEDS[kind], streams=n_streams), 'cuda')
+        return (tcost.params(kind),) + case + (tcost.CASES[kind].emb_cap,)
+    costs_cases = {'1_stream': main_args['costs'],
+                   f'{N_STREAMS}_streams': multi_args['costs'],
+                   'contested_1_stream': contested_costs('full_width', 1),
+                   f'contested_{N_STREAMS}_streams':
+                       contested_costs('full_width', N_STREAMS),
+                   'stage1_1_stream': contested_costs('stage1', 1),
+                   f'stage1_{N_STREAMS}_streams':
+                       contested_costs('stage1', N_STREAMS)}
+
+    def contested_crops(n_streams, n_boxes):
+        frames = torch.as_tensor(np.stack(textured_frames(SIZE, n_streams,
+                                                          seed=21)),
+                                 device='cuda')
+        boxes = np.stack([tcrop.edge_boxes(rng, n_boxes, SIZE[1], SIZE[0])
+                          for _ in range(n_streams)])
+        boxes = torch.as_tensor(boxes, device='cuda')
+        return (frames[0], boxes[0], main_args['crops'][2]) \
+            if n_streams == 1 else (frames, boxes, main_args['crops'][2])
+    crops_cases = {'1_stream': main_args['crops'],
+                   f'{N_STREAMS}_streams': multi_args['crops'],
+                   'contested_1_stream': contested_crops(1, 64),
+                   f'contested_{N_STREAMS}_streams':
+                       contested_crops(N_STREAMS, 128)}
+    log('phase 21 launch plans: nms_select a select block of 1,024 '
+        'threads a stream, then by programmatic dependent launch the DIoU '
+        'bits in ceil(K / 32) x streams blocks of K threads, then a waves '
+        'and order block a stream with ceil(K / 32) x K x 4 + K x 4 B of '
+        'dynamic shared memory; assoc_costs a block of 256 threads a tile '
+        'of 16 track or history rows and a stream, (16 F + 65 D) x 4 B of '
+        'dynamic shared memory (48,896 B at F = 512, D = 128); reid_crops '
+        'a block of 128 threads an output row of a crop')
+
+    out = {name: {} for name in FRAME_NAMES}
+    for case, a in nms_cases.items():
+        got = detmod.nms_and_gate(*a)
+        with mock.patch.object(detmod.geom, 'diou_matrix',
+                               side_effect=AssertionError(
+                                   'nms_select built a DIoU matrix')):
+            same(f'nms_select {case}: two calls', got,
+                 detmod.nms_and_gate(*a))
+        same(f'nms_select {case} against the plain version on the card',
+             got, plain_nms(*a))
+        if case.startswith('contested') or case == '1_stream':
+            same(f'nms_select {case} against the plain version on the CPU',
+                 got, plain_nms(*_host(a)))
+        passed = int((a[0][..., 4] * a[0][..., 6] >= a[2]).sum())
+        log(f'nms_select {case}: {tuple(a[0].shape)} rows, {passed} past '
+            f'the confidence gate, {int(got[3].sum())} kept; == plain on '
+            'the card (and on the CPU), bit for bit, all four outputs in '
+            'order; two calls equal; no DIoU matrix')
+        k = min(detmod.MAX_RAW, a[0].shape[-2])
+        outputs, s_args, keep = nw.nms_select_launch_args(
+            *a, k, min(k, detmod.MAX_DETS))
+        out['nms_select'][case] = time_kernel(
+            'nms_select', case, lib_n.nms_select_forward, s_args,
+            lambda: detmod.nms_and_gate(*a), lambda: plain_nms(*a),
+            nms_select_bound_ms(a, outputs), card)
+        out['nms_select'][case]['max_abs_err'] = 0.0
+        del keep
+    flips = 0
+    for case, a in costs_cases.items():
+        got = acost.assoc_costs(*a[0], *a[1:])
+        same(f'assoc_costs {case}: two calls', tuple(tcost.flat(got)),
+             tuple(tcost.flat(acost.assoc_costs(*a[0], *a[1:]))))
+        kind = 'stage1' if case.startswith('stage1') else 'full_width'
+        app = tcost.plain_appearance(kind, a[1:5], a[6] if len(a) > 6
+                                     else None)
+        err = tcost.assert_costs_close(
+            got, plain_costs(*a), f'assoc_costs {case} against the plain '
+            'version on the card', app,
+            euclidean=a[0][1].name == 'EUCLIDEAN')
+        # the cascade, the finals and the commit on each side's costs
+        if case.startswith('stage1') or case in ('1_stream',
+                                                 f'{N_STREAMS}_streams'):
+            params = a[0]
+            frame_rect = main_args['commit'][12]
+            ints_k = downstream_integers(*a[:5], got, 1e-2, (0.5, 0.45, 0.2),
+                                         (6, 50), frame_rect)
+            ints_p = downstream_integers(*a[:5], plain_costs(*a), 1e-2,
+                                         (0.5, 0.45, 0.2), (6, 50),
+                                         frame_rect)
+            n_flip = sum(int((x != y).sum()) for x, y in zip(ints_k, ints_p))
+            matches = int((ints_k[0] >= 0).sum())
+            log(f'assoc_costs {case}: the cascade, the finals and the commit '
+                f'from the kernel\'s costs and from the plain costs: '
+                f'{matches} cascade matches, {n_flip} integer outputs '
+                'differ')
+            flips += n_flip
+            del params
+        live = int((got[0] < 1e5).sum())
+        log(f'assoc_costs {case}: {tuple(got[0].shape)} costs, {live} live; '
+            'masks, occlusion, IoU cost and gates == plain on the card, bit '
+            f'for bit; fused and reID costs within {err["cost"]:.3g} / '
+            f'{err["reid_cost"]:.3g}, squared appearance distances within '
+            f'{err.get("sq", 0.0):.3g}; two calls equal')
+        outputs, c_args, keep = acost.assoc_costs_launch_args(
+            *a[0], *a[1:5], *a[5:])
+        out['assoc_costs'][case] = time_kernel(
+            'assoc_costs', case, lib_c.assoc_costs_forward, c_args,
+            lambda: acost.assoc_costs(*a[0], *a[1:]), lambda: plain_costs(*a),
+            assoc_costs_bound_ms(a, outputs), card)
+        out['assoc_costs'][case]['max_abs_err'] = max(err['cost'],
+                                                      err['reid_cost'])
+        del keep
+    if flips:
+        raise AssertionError(f'assoc_costs: {flips} integer outputs of the '
+                             'cascade, the finals and the commit differ '
+                             'between the kernel\'s and the plain costs')
+    for case, a in crops_cases.items():
+        got = rc.reid_crops(*a)
+        same(f'reid_crops {case}: two calls', got, rc.reid_crops(*a))
+        same(f'reid_crops {case} against the plain version on the card',
+             got, plain_crops(*a))
+        if case in ('1_stream', 'contested_1_stream'):
+            same(f'reid_crops {case} against the plain version on the CPU',
+                 got, plain_crops(*_host(a)))
+        log(f'reid_crops {case}: {tuple(got.shape)} == plain on the card '
+            '(and on the CPU), bit for bit; two calls equal')
+        outputs, r_args, keep = rc.reid_crops_launch_args(*a)
+        out['reid_crops'][case] = time_kernel(
+            'reid_crops', case, lib_r.reid_crops_forward, r_args,
+            lambda: rc.reid_crops(*a), lambda: plain_crops(*a),
+            reid_crops_bound_ms(a, outputs), card)
+        out['reid_crops'][case]['max_abs_err'] = 0.0
+        del keep
+
+    # (d) a whole association frame, at 1 and 8 streams, with no host sync
+    for tag, whole in (('1 stream', main_args['whole']),
+                       (f'{N_STREAMS} streams', multi_args['whole'])):
+        whole()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            whole()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        log(f'a whole association frame ({tag}: the net, the NMS, the '
+            "crops, OSNet, the costs, the cascade, the finals, the commit) "
+            "ran under set_sync_debug_mode('error')")
+    log(f'phase 21: {time.perf_counter() - t_phase:.1f} s')
+    return out
+
+
+def frame_kernel_entries(cases):
+    """The kernels line's entries of the YOLO postprocess, costs and
+    ReID-input kernels: the main path's case (phase 6's one stream)
+    unsuffixed, the other cases' numbers suffixed."""
+    where = {'nms_select': ('fastmot_tpu_torch/csrc/nms_waves.cu',
+                            'fastmot_tpu/detector.py:128'),
+             'assoc_costs': ('fastmot_tpu_torch/csrc/assoc_costs.cu',
+                             'fastmot_tpu/tracker.py:560'),
+             'reid_crops': ('fastmot_tpu_torch/csrc/reid_crops.cu',
+                            'fastmot_tpu/feature_extractor.py:34')}
+    entries = []
+    for name, (source, replaces) in where.items():
+        entry = {'name': name, 'route': 'cuda', 'source': source,
+                 'replaces': replaces, 'launches': FRAME_LAUNCHES[name],
+                 'library_ms': None, 'case': '1_stream'}
+        for case, r in cases[name].items():
+            key = '' if case == '1_stream' else f'_{case}'
+            entry.update({f'{k}{key}': v for k, v in r.items()})
+            entry[f'roofline_share{key}'] = r['bound_ms'] / r['ms']
+        entries.append(entry)
+    return entries
+
+
 def main():
+    from fastmot_tpu_torch import detector as detmod
     from fastmot_tpu_torch import tracker as tr
     from fastmot_tpu_torch.ops import assignment as asg
     from fastmot_tpu_torch.ops import flow_kernels as fk
     from fastmot_tpu_torch.ops import geometry as geom
     from fastmot_tpu_torch.ops import nms_waves as nw
+    from fastmot_tpu_torch.ops import reid_crops as rc
     t0 = time.perf_counter()
     name, card = phase_device()
     nvcc_out = phase_build()
@@ -3932,7 +4542,10 @@ def main():
                  finals_reference=tr.finals_reference,
                  greedy_suppress_reference=geom.greedy_suppress_reference,
                  merge_labels_reference=nw.merge_labels_reference,
-                 commit_part=tr.commit_part)
+                 commit_part=tr.commit_part,
+                 nms_and_gate_reference=detmod.nms_and_gate_reference,
+                 assoc_costs_reference=tr.assoc_costs_reference,
+                 reid_crops_reference=rc.reid_crops_reference)
     host_draws = [False]
 
     def counted_plain_lk(prev, cur, pts, *args, **kwargs):
@@ -3985,7 +4598,13 @@ def main():
             mock.patch.object(nw, 'merge_labels_reference', counted(
                 'merge_labels_reference', lambda edge, v: edge.is_cuda)), \
             mock.patch.object(tr, 'commit_part', counted(
-                'commit_part', lambda *a: a[4][0].is_cuda)):
+                'commit_part', lambda *a: a[4][0].is_cuda)), \
+            mock.patch.object(detmod, 'nms_and_gate_reference', counted(
+                'nms_and_gate_reference', lambda det, *a: det.is_cuda)), \
+            mock.patch.object(tr, 'assoc_costs_reference', counted(
+                'assoc_costs_reference', lambda *a: a[11].is_cuda)), \
+            mock.patch.object(rc, 'reid_crops_reference', counted(
+                'reid_crops_reference', lambda frame, *a: frame.is_cuda)):
         for counts in (phase_reference(), phase_stream_reference(),
                        drawing_on_the_host(phase_legacy_api)):
             lk_launches.update(counts)
@@ -4030,7 +4649,14 @@ def main():
         f'kernels {dict(ASSOC_LAUNCHES)} times, the plain solvers 0 times '
         f'on the card; the NMS, merge and commit kernels '
         f'{dict(TAIL_LAUNCHES)} times, the plain NMS, merge and commit 0 '
-        'times on the card')
+        'times on the card; the YOLO postprocess, costs and ReID-input '
+        f'kernels {dict(FRAME_LAUNCHES)} times, their plain versions 0 times '
+        'on the card')
+    if not all(FRAME_LAUNCHES[n] for n in FRAME_NAMES):
+        raise AssertionError(f'phases 5-14: the YOLO postprocess, costs and '
+                             f'ReID-input kernels launched '
+                             f'{dict(FRAME_LAUNCHES)} times; each must '
+                             'launch')
     if not all(TAIL_LAUNCHES[n] for n in TAIL_NAMES):
         raise AssertionError(f'phases 5-14: the NMS, merge and commit '
                              f'kernels launched {dict(TAIL_LAUNCHES)} times; '
@@ -4044,6 +4670,9 @@ def main():
                                       card, nvcc_out['assoc_solvers'])
     tail_cases = phase_assoc_tail(main_run['tail args'], tail8_args, card,
                                   nvcc_out)
+    frame_cases = phase_frame_kernels(main_run['frame args'],
+                                      STAGE_ARGS.pop('frame8'), card,
+                                      nvcc_out)
     log(f'every phase passed in {time.perf_counter() - t0:.1f} s')
     print(json.dumps({'kernels': [{
         'name': 'osblock', 'route': 'cuda',
@@ -4058,7 +4687,8 @@ def main():
         + [gap_kernel_entry(gap_cases)]
         + flow_kernel_entries(flow_cases)
         + assoc_kernel_entries(assoc_cases)
-        + tail_kernel_entries(tail_cases)}))
+        + tail_kernel_entries(tail_cases)
+        + frame_kernel_entries(frame_cases)}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,
         'count': torch.cuda.device_count()}}))

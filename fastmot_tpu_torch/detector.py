@@ -120,8 +120,30 @@ def nms_and_gate(det_out, label_mask, conf_thresh, nms_thresh, max_area,
     scaling, class-aware DIoU-NMS over the top MAX_RAW candidates,
     area/aspect gates. Returns padded (tlbr, label, conf, valid) sorted by
     class ascending, then score descending. ``det_out`` [N, 7], or [S, N,
-    7] for S streams in one NMS call (padded outputs [S, MAX_DETS]); on the
-    card the NMS waves run in ``csrc/nms_waves.cu`` with no host sync."""
+    7] for S streams in one NMS call (padded outputs [S, MAX_DETS]). On
+    CUDA tensors the whole of it runs in ``csrc/nms_waves.cu``
+    (``nms_waves.nms_select``: three launches, no host sync, no [S,
+    MAX_RAW, MAX_RAW] matrix); on CPU tensors ``nms_and_gate_reference``;
+    any other device raises. The two agree bit for bit."""
+    device = det_out.device
+    if device.type == 'cpu':
+        return nms_and_gate_reference(det_out, label_mask, conf_thresh,
+                                      nms_thresh, max_area, min_ar,
+                                      scale_wh, offset)
+    if device.type != 'cuda':
+        raise ValueError(f'nms_and_gate: unsupported device {device}')
+    k = min(MAX_RAW, det_out.shape[-2])
+    return nms_waves.nms_select(det_out, label_mask, conf_thresh, nms_thresh,
+                                max_area, min_ar, scale_wh, offset, k,
+                                min(k, MAX_DETS))
+
+
+def nms_and_gate_reference(det_out, label_mask, conf_thresh, nms_thresh,
+                           max_area, min_ar, scale_wh, offset):
+    """The plain version of ``nms_and_gate``: torch ops around
+    ``geometry.greedy_suppress`` (the waves kernel on the card, whose
+    [.., MAX_RAW, MAX_RAW] overlap this builds with
+    ``geometry.diou_matrix``)."""
     def take(x, i):
         return torch.take_along_dim(x, i[..., None] if x.dim() > i.dim()
                                     else i, dim=i.dim() - 1)
@@ -211,6 +233,8 @@ class YOLODetector(_NetworkDetector):
             device=self.device)
         self._offset = torch.tensor(bbox_offset, dtype=torch.float32,
                                     device=self.device)
+        from .models.yolo import anchor_tensors
+        self._anchors = anchor_tensors(self.model.ANCHORS, self.device)
 
     def preprocess(self, frame: torch.Tensor) -> torch.Tensor:
         """``[H, W, 3]`` BGR frame (or a stack ``[S, H, W, 3]``) -> the
@@ -234,7 +258,7 @@ class YOLODetector(_NetworkDetector):
         from .models.yolo import decode_heads
         c, ih, iw = self.model.INPUT_SHAPE
         heads = self.module(self.preprocess(frame))
-        det_out = decode_heads(heads, self.model.ANCHORS, self.model.SCALES,
+        det_out = decode_heads(heads, self._anchors, self.model.SCALES,
                                (ih, iw), self.model.NEW_COORDS)
         if frame.dim() == 3:
             det_out = det_out[0]

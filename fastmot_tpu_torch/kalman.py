@@ -102,19 +102,29 @@ def predict(cfg: KalmanConfig, mean, cov, trans_mat, acc_cov):
 
 
 def _meas_std(cfg: KalmanConfig, mean4, meas_type_flow, multiplier):
+    """The measurement noise's std [..., 4]. ``meas_type_flow`` and
+    ``multiplier`` are tensors (per track) or Python values; a Python
+    value picks its constants on the host, so that no host value is
+    copied to the device (a sync on the card) and the products round
+    alike."""
     w = mean4[..., 2] - mean4[..., 0] + 1.0
     h = mean4[..., 3] - mean4[..., 1] + 1.0
-    flow = torch.as_tensor(meas_type_flow, device=mean4.device)
-    sf_w = torch.where(flow, cfg.std_factor_klt[0], cfg.std_factor_det[0])
-    sf_h = torch.where(flow, cfg.std_factor_klt[1], cfg.std_factor_det[1])
-    mn_w = torch.where(flow, cfg.min_std_klt[0], cfg.min_std_det[0])
-    mn_h = torch.where(flow, cfg.min_std_klt[1], cfg.min_std_det[1])
-    sw = torch.maximum(sf_w * w, mn_w)
-    sh = torch.maximum(sf_h * h, mn_h)
+    if isinstance(meas_type_flow, torch.Tensor):
+        flow = meas_type_flow.to(mean4.device)
+        sf_w = torch.where(flow, cfg.std_factor_klt[0], cfg.std_factor_det[0])
+        sf_h = torch.where(flow, cfg.std_factor_klt[1], cfg.std_factor_det[1])
+        mn_w = torch.where(flow, cfg.min_std_klt[0], cfg.min_std_det[0])
+        mn_h = torch.where(flow, cfg.min_std_klt[1], cfg.min_std_det[1])
+    else:
+        klt = bool(meas_type_flow)
+        sf_w, sf_h = cfg.std_factor_klt if klt else cfg.std_factor_det
+        mn_w, mn_h = cfg.min_std_klt if klt else cfg.min_std_det
+    sw = torch.clamp(sf_w * w, min=mn_w)
+    sh = torch.clamp(sf_h * h, min=mn_h)
     std = torch.stack([sw, sh, sw, sh], dim=-1)
-    mult = torch.as_tensor(multiplier, dtype=torch.float32,
-                           device=mean4.device)
-    return std * mult[..., None]
+    if isinstance(multiplier, torch.Tensor):
+        return std * multiplier.to(mean4.device, torch.float32)[..., None]
+    return std * float(multiplier)
 
 
 def project(cfg: KalmanConfig, mean, cov, meas_type_flow, multiplier=1.0):

@@ -25,16 +25,24 @@ def _darknet_build(cfg_text: str):
     return DarknetModule(parse_cfg(cfg_text), dtype=torch.bfloat16)
 
 
+def anchor_tensors(anchors, device):
+    """Each head's flat (w, h) anchor pairs as a float32 [A, 2] tensor on
+    ``device``: built once, where a detector is made, and handed to
+    ``decode_heads``."""
+    return tuple(torch.tensor(a, dtype=torch.float32,
+                              device=device).reshape(-1, 2) for a in anchors)
+
+
 def decode_heads(heads, anchors, scales, input_hw, new_coords):
     """Raw head maps -> [B, N, 7] rows ``[x, y, w, h, obj, class_id,
-    class_prob]`` with (x, y) the top-left corner normalised to [0, 1]."""
+    class_prob]`` with (x, y) the top-left corner normalised to [0, 1].
+    ``anchors``: ``anchor_tensors``' [A, 2] tensors, one a head, already on
+    the heads' device (no host copy a call)."""
     in_h, in_w = input_hw
     outs = []
-    for head, head_anchors, s in zip(heads, anchors, scales):
+    for head, anc, s in zip(heads, anchors, scales):
         b, gh, gw, _ = head.shape
-        a = len(head_anchors) // 2
-        anc = torch.tensor(head_anchors, dtype=torch.float32,
-                           device=head.device).reshape(a, 2)
+        a = anc.shape[0]
         x = head.reshape(b, gh, gw, a, -1)
         col = torch.arange(gw, dtype=torch.float32,
                            device=head.device)[None, :, None]

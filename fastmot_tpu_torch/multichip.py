@@ -52,12 +52,13 @@ def entry(device='cuda'):
     """``(fn, example_args)``: ``fn(module, frame)`` is YOLOv4's forward plus
     the fused head decode; the example is the module and a zero frame on
     ``device``."""
-    from .models.yolo import YOLOv4, decode_heads
+    from .models.yolo import YOLOv4, anchor_tensors, decode_heads
     dev = torch_device(device)
     c, h, w = YOLOv4.INPUT_SHAPE
+    anchors = anchor_tensors(YOLOv4.ANCHORS, dev)
 
     def fn(module, frame):
-        return decode_heads(module(frame), YOLOv4.ANCHORS, YOLOv4.SCALES,
+        return decode_heads(module(frame), anchors, YOLOv4.SCALES,
                             (h, w), YOLOv4.NEW_COORDS)
 
     return fn, (YOLOv4.init_params(dev),
@@ -166,19 +167,34 @@ def tail_launches(reset: bool = False) -> tuple:
             ac.assoc_commit.launches)
 
 
+def frame_launches(reset: bool = False) -> tuple:
+    """This process's YOLO postprocess, costs and ReID-input kernel calls
+    (``nms_select``, ``assoc_costs``, ``reid_crops``); with ``reset``,
+    zeroed first."""
+    from .ops import assoc_costs as acost
+    from .ops import nms_waves as nw
+    from .ops import reid_crops as rc
+    if reset:
+        nw.nms_select.launches = acost.assoc_costs.launches = 0
+        rc.reid_crops.launches = 0
+    return (nw.nms_select.launches, acost.assoc_costs.launches,
+            rc.reid_crops.launches)
+
+
 def _dryrun_rank(n_devices: int, model_name: str, device: str) -> dict:
     """The multi-stream step on this rank: real cores, tiny shapes.
     Returns the ``dryrun ok`` line, this rank's feature slice, its LK,
     gap-commit, preprocess and gap-points kernel launches, its cascade,
     greedy kernel and finals launches (``assoc_launches``), its NMS, merge
-    and commit launches (``tail_launches``) and, as numpy, the
+    and commit launches (``tail_launches``), its postprocess, costs and
+    ReID-input calls (``frame_launches``) and, as numpy, the
     association's costs, its matches (``col4row``), the tracks'
     validity and the new history store."""
     from .detector import _resize_bilinear
     from .kalman import KalmanConfig, init_mats
     from .models import registry
     from .models.layers import random_init_
-    from .models.yolo import decode_heads
+    from .models.yolo import anchor_tensors, decode_heads
     from .ops import assignment as asg
     from .ops import distance as dist_ops
     from .ops import flow_kernels as fk
@@ -266,13 +282,14 @@ def _dryrun_rank(n_devices: int, model_name: str, device: str) -> dict:
                 torch.bool))
     emb = put(d_emb)
     f0, f1 = put(frames0, torch.uint8), put(frames1, torch.uint8)
+    anchors = anchor_tensors(model_cls.ANCHORS, f1.device)
 
     with torch.no_grad():
         # 1. detector: the zoo graph + fused decode on this rank's frames
         rgb = f1.float().flip(-1) / 255.0
         heads = yolo(_resize_bilinear(rgb, net_hw))
-        det7 = decode_heads(heads, model_cls.ANCHORS, model_cls.SCALES,
-                            net_hw, model_cls.NEW_COORDS)
+        det7 = decode_heads(heads, anchors, model_cls.SCALES, net_hw,
+                            model_cls.NEW_COORDS)
 
         # 2. gap frame: points, LK, RANSAC, Kalman over this rank's streams
         f_cap = fk.MAX_FLOW_TRACKS
@@ -338,6 +355,7 @@ def _dryrun_rank(n_devices: int, model_name: str, device: str) -> dict:
                                asg.greedy_match.launches,
                                asg.greedy_finals.launches),
             'tail_launches': tail_launches(),
+            'frame_launches': frame_launches(),
             'cost': host(cost),
             'reid_cost': host(reid_cost),
             'col4row': host(col4row), 'valid': host(new_state[3]),
@@ -431,8 +449,9 @@ def multi_stream_rank(inputs, n_streams, model_parallel, mot_kwargs,
     only) and the detections of ``inputs/dets.npz`` (``splice_detections``);
     returns this rank's ``local_streams``, rows, step times, OSBlock, LK,
     gap-commit, preprocess, gap-points, cascade and greedy kernel launches,
-    its NMS, merge and commit launches (``tail_launches``) and what its
-    detector's network found (``network_dets``)."""
+    its NMS, merge and commit launches (``tail_launches``), its YOLO
+    postprocess, costs and ReID-input calls (``frame_launches``) and what
+    its detector's network found (``network_dets``)."""
     from .ops import assignment as asg
     from .ops.flow_kernels import lk_pyramidal, preprocess
     from .ops.gap_commit import gap_commit
@@ -451,6 +470,7 @@ def multi_stream_rank(inputs, n_streams, model_parallel, mot_kwargs,
     asg.cascade_auction.launches = asg.greedy_match.launches = 0
     asg.greedy_finals.launches = 0
     tail_launches(reset=True)
+    frame_launches(reset=True)
     rows, step_ms = run_multi_stream(mot, frames, dets, sync_every_frame)
     return {'local_streams': list(mot.local_streams), 'rows': rows,
             'step_ms': step_ms, 'osblock_launches': osblock.launches,
@@ -462,6 +482,7 @@ def multi_stream_rank(inputs, n_streams, model_parallel, mot_kwargs,
                                asg.greedy_match.launches,
                                asg.greedy_finals.launches),
             'tail_launches': tail_launches(),
+            'frame_launches': frame_launches(),
             'network_dets': mot.network_dets}
 
 

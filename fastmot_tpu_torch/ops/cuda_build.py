@@ -26,7 +26,8 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
 # FMA contraction), as their host builds in the tests do
 KERNEL_FLAGS = {name: ('-fmad=false',) for name in
                 ('gap_commit', 'flow_preprocess', 'gap_points',
-                 'assoc_solvers', 'nms_waves', 'assoc_commit')}
+                 'assoc_solvers', 'nms_waves', 'assoc_commit',
+                 'assoc_costs', 'reid_crops')}
 
 
 def nvcc_flags(name: str) -> tuple[str, ...]:

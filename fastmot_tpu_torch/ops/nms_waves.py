@@ -1,6 +1,7 @@
 """The detectors' data-dependent loops in hand-written kernels: the greedy
-NMS waves (``geometry.greedy_suppress``) and the SSD merge's min-label
-propagation (``merge_labels``).
+NMS waves (``geometry.greedy_suppress``), the YOLO postprocess around them
+(``nms_select``: the candidates' select, the DIoU and the order) and the
+SSD merge's min-label propagation (``merge_labels``).
 
 On CUDA tensors both run ``csrc/nms_waves.cu`` (built at first use): the
 NMS in two launches (the overlap packed into bits by many blocks, then a
@@ -12,6 +13,16 @@ in Python over tensor ops and read a flag back once a wave or a round; any
 other device raises. The two agree bit for bit
 (tests/test_torch_nms_kernel.py). ``geometry.greedy_suppress.launches`` and
 ``merge_labels.launches`` count the kernels' calls.
+
+``nms_select`` is ``detector.nms_and_gate`` on the card: three launches (a
+block a stream selects the stable top K candidates by a radix select over
+their scores' order bits and orders them; many blocks compute the DIoU
+and same-label bits from the selected boxes; a block a stream runs the
+waves, the area and aspect-ratio gates and the stable order by label and
+score), no host sync and no [S, K, K] matrix. Its plain version is
+``detector.nms_and_gate_reference``; the two agree bit for bit
+(tests/test_torch_nms_select.py). ``nms_select.launches`` counts its
+calls.
 """
 from __future__ import annotations
 
@@ -36,6 +47,10 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.greedy_suppress_forward.restype = ctypes.c_int
     lib.merge_labels_forward.argtypes = MERGE_ARGTYPES
     lib.merge_labels_forward.restype = ctypes.c_int
+    lib.nms_select_forward.argtypes = SELECT_ARGTYPES
+    lib.nms_select_forward.restype = ctypes.c_int
+    lib.nms_select_scratch_words.argtypes = [ctypes.c_int] * 3
+    lib.nms_select_scratch_words.restype = ctypes.c_size_t
     lib.nms_waves_error_string.argtypes = [ctypes.c_int]
     lib.nms_waves_error_string.restype = ctypes.c_char_p
     return lib
@@ -172,3 +187,95 @@ def merge_labels(edge, valid):
 merge_labels.launches = 0
 # the count's owner, whatever a caller binds the module's name to
 _MERGE_LABELS = merge_labels
+
+
+SELECT_ARGTYPES = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_float), ctypes.c_void_p]
+
+
+def select_scratch_words(streams: int, n: int, k: int) -> int:
+    """4-byte words of ``nms_select_forward``'s scratch (``select_layout``
+    in csrc/nms_waves.cu): the keys [S, N] (to an even count), the
+    selected candidates' int64 labels, boxes, two scores, overlap bits and
+    validity bytes, [S, K] each (the boxes 4, the bits ceil(K / 32))."""
+    bk = streams * k
+    return ((streams * n + 1) // 2 * 2 + 2 * bk + 4 * bk + 2 * bk
+            + (k + 31) // 32 * bk + (bk + 3) // 4)
+
+
+def nms_select_launch_args(det_out, label_mask, conf_thresh: float,
+                           nms_thresh: float, max_area: float, min_ar: float,
+                           scale_wh, offset, keep: int, out: int):
+    """One call of the YOLO postprocess as ``nms_select_forward`` takes it:
+    ``(outputs, args, inputs)``. ``det_out`` [N, 7] or [S, N, 7] float32
+    decoded rows, ``label_mask`` [L] bool, ``scale_wh`` [4] and ``offset``
+    [2] float32, all on one device; ``keep`` (the candidates entering the
+    NMS, at most ``KERNEL_MAX_N`` and N) and ``out`` (the outputs a
+    stream, at most ``keep``). ``outputs`` = (tlbr [.., out, 4] float32,
+    label [.., out] int32, conf [.., out] float32, valid [.., out] bool)
+    are written by the call (on the current CUDA stream for CUDA tensors);
+    ``inputs`` are the (contiguous) tensors and the scratch the arguments
+    point at, to keep alive with them. Raises ValueError on a wrong dtype,
+    shape or device, or sizes out of range."""
+    if not isinstance(det_out, torch.Tensor) or det_out.dim() not in (2, 3) \
+            or det_out.shape[-1] != 7:
+        _fault('det_out must be [N, 7] or [S, N, 7]')
+    device = det_out.device
+    lead = tuple(det_out.shape[:-2])
+    n = int(det_out.shape[-2])
+    s = math.prod(lead)
+    if not 1 <= keep <= min(n, KERNEL_MAX_N) or not 1 <= out <= keep \
+            or not 1 <= s <= 65535:
+        _fault(f'{s} streams of {n} rows keeping {keep}, {out} out: the '
+               f'kernel takes 1 to 65,535 streams, 1 <= out <= keep <= '
+               f'min(N, {KERNEL_MAX_N})')
+    if not isinstance(label_mask, torch.Tensor) or label_mask.dim() != 1 \
+            or label_mask.numel() < 1:
+        _fault('label_mask must be [L], L >= 1')
+    inputs = [_check(det_out, 'det_out', torch.float32, det_out.shape,
+                     device),
+              _check(label_mask, 'label_mask', torch.bool,
+                     label_mask.shape, device),
+              _check(scale_wh, 'scale_wh', torch.float32, (4,), device),
+              _check(offset, 'offset', torch.float32, (2,), device)]
+    scratch = torch.empty(select_scratch_words(s, n, keep),
+                          dtype=torch.int32, device=device)
+    outputs = (torch.empty(lead + (out, 4), dtype=torch.float32,
+                           device=device),
+               torch.empty(lead + (out,), dtype=torch.int32, device=device),
+               torch.empty(lead + (out,), dtype=torch.float32,
+                           device=device),
+               torch.empty(lead + (out,), dtype=torch.bool, device=device))
+    inputs.append(scratch)
+    ptrs = [t.data_ptr() for t in inputs] + [t.data_ptr() for t in outputs]
+    args = ((ctypes.c_uint64 * 9)(*ptrs),
+            (ctypes.c_int * 5)(s, n, keep, int(label_mask.numel()), out),
+            (ctypes.c_float * 4)(conf_thresh, nms_thresh, max_area, min_ar),
+            _stream(device))
+    return outputs, args, inputs
+
+
+def nms_select(det_out, label_mask, conf_thresh: float, nms_thresh: float,
+               max_area: float, min_ar: float, scale_wh, offset, keep: int,
+               out: int):
+    """``detector.nms_and_gate`` on CUDA tensors: three launches of
+    ``csrc/nms_waves.cu``'s ``nms_select_forward`` (the select, the DIoU
+    bits from the selected boxes, the waves with the gates and the order),
+    with no host sync and no [S, K, K] matrix (``nms_select_launch_args``'
+    checks apply). Returns (tlbr, label, conf, valid); raises if the
+    kernels cannot be built or launched."""
+    outputs, args, _ = nms_select_launch_args(
+        det_out, label_mask, conf_thresh, nms_thresh, max_area, min_ar,
+        scale_wh, offset, keep, out)
+    lib = nms_waves_library()
+    code = lib.nms_select_forward(*args)
+    if code:
+        raise RuntimeError('nms_select kernel: '
+                           + lib.nms_waves_error_string(code).decode())
+    _NMS_SELECT.launches += 1
+    return outputs
+
+
+nms_select.launches = 0
+# the count's owner, whatever a caller binds the module's name to
+_NMS_SELECT = nms_select

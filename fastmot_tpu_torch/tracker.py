@@ -51,6 +51,7 @@ from .feature_extractor import extract_core
 from .flow import Flow
 from .kalman import KalmanConfig
 from .ops import assignment as asg
+from .ops import assoc_costs as acost
 from .ops import assoc_commit as ac
 from .ops import distance as dist
 from .ops import flow_kernels as fk
@@ -318,10 +319,41 @@ def assoc_costs_core(cfg: KalmanConfig, metric: dist.Metric, n_depth: int,
                      state, hist, d_tlbrs, d_labels, d_conf, d_valid,
                      d_embeddings, emb_cap: int | None = None,
                      appearance=None):
-    """Cost matrices + row masks of every cascade stage. Detections at
-    index >= ``emb_cap`` carry no embedding and are treated like occluded
-    ones (appearance-free association, no reID, no feature absorption).
-    ``appearance``: the two unmasked appearance distances, computed apart
+    """Cost matrices + row masks of every cascade stage, one stream
+    (``assoc_costs_reference``'s arguments and results): on the card one
+    launch of the costs kernel (``ops.assoc_costs.assoc_costs``), on the
+    CPU ``assoc_costs_reference``; any other device raises."""
+    device = d_tlbrs.device
+    if device.type == 'cpu':
+        return assoc_costs_reference(
+            cfg, metric, n_depth, motion_weight, max_assoc_cost, iou_gate,
+            fill_val, occlusion_thresh, confirm_hits, state, hist, d_tlbrs,
+            d_labels, d_conf, d_valid, d_embeddings, emb_cap, appearance)
+    if device.type != 'cuda':
+        raise ValueError(f'assoc_costs_core: unsupported device {device}')
+    out = acost.assoc_costs(
+        cfg, metric, n_depth, motion_weight, max_assoc_cost, iou_gate,
+        fill_val, occlusion_thresh, confirm_hits,
+        tuple(a[None] for a in state), tuple(a[None] for a in hist),
+        (d_tlbrs[None], d_labels[None], d_conf[None], d_valid[None]),
+        d_embeddings[None], emb_cap,
+        None if appearance is None else tuple(a[None] for a in appearance))
+    return tuple(tuple(m[0] for m in x) if isinstance(x, tuple) else x[0]
+                 for x in out)
+
+
+def assoc_costs_reference(cfg: KalmanConfig, metric: dist.Metric,
+                          n_depth: int, motion_weight: float,
+                          max_assoc_cost: float, iou_gate: float,
+                          fill_val: float, occlusion_thresh: float,
+                          confirm_hits: int, state, hist, d_tlbrs, d_labels,
+                          d_conf, d_valid, d_embeddings,
+                          emb_cap: int | None = None, appearance=None):
+    """Cost matrices + row masks of every cascade stage: the plain version
+    of ``ops.assoc_costs.assoc_costs``. Detections at index >= ``emb_cap``
+    carry no embedding and are treated like occluded ones (appearance-free
+    association, no reID, no feature absorption). ``appearance``: the two
+    unmasked appearance distances, computed apart
     (``split_feature_dists``); None computes them here."""
     (means, covs, tlbrs, t_valid, ages, hits, t_labels, start_f, end_f,
      lost_pending, inl, kps, kpv, feat_sum, feat_count) = state
@@ -719,19 +751,29 @@ def gap_commit_batch(cfg: KalmanConfig, spec, age_penalty: float,
 
 def assoc_costs_batch(params, states, hists, dets, embs, feature_psum=None):
     """``assoc_costs_core(*params, ...)`` for every stream; ``dets`` is
-    ``(tlbr [S, D, 4], label, conf, valid)``, ``embs`` [S, D, F].
+    ``(tlbr [S, D, 4], label, conf, valid)``, ``embs`` [S, D, F]. On the
+    card one launch of the costs kernel for all of them, on the CPU
+    ``assoc_costs_reference`` under ``vmap``; any other device raises.
     ``feature_psum``: the features are a slice of the feature axis, whose
-    partial sums this all-reduces (``split_feature_dists``)."""
-    if feature_psum is None:
+    partial sums this all-reduces (``split_feature_dists``), and the
+    kernel takes the two distances."""
+    device = dets[0].device
+    if device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'assoc_costs_batch: unsupported device {device}')
+    app = None if feature_psum is None else split_feature_dists(
+        params[1], states[13], states[14], hists[0], hists[1], embs,
+        feature_psum)
+    if device.type == 'cuda':
+        return acost.assoc_costs(*params, states, hists, dets, embs,
+                                 appearance=app)
+    if app is None:
         def one(state, hist, det, emb):
-            return assoc_costs_core(*params, state, hist, *det, emb)
+            return assoc_costs_reference(*params, state, hist, *det, emb)
         return vmap(one)(states, hists, dets, embs)
-    app = split_feature_dists(params[1], states[13], states[14], hists[0],
-                              hists[1], embs, feature_psum)
 
     def one_split(state, hist, det, emb, app):
-        return assoc_costs_core(*params, state, hist, *det, emb,
-                                appearance=app)
+        return assoc_costs_reference(*params, state, hist, *det, emb,
+                                     appearance=app)
     return vmap(one_split)(states, hists, dets, embs, app)
 
 

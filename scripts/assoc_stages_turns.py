@@ -13,10 +13,12 @@ detections spliced in after the real detector graph ran, 20 frames through
 ``step``), prints the step medians (gap and association frames apart),
 then times one association frame's stages alone with this checkout's
 ``chip_smoke.assoc_stages_ms`` (the detector's net, its NMS,
-``greedy_suppress`` alone, crops + OSNet, the costs, the cascade, the
-finals, the commit, the whole ``update_device_fused`` call; each
-synchronised, the median of 5) and the host syncs a call of the cascade
-and the finals, with the card's name and power limit.
+``greedy_suppress`` alone, the crops alone (the ReID input before OSNet),
+crops + OSNet, the costs, the cascade, the finals, the commit, the whole
+``update_device_fused`` call and the whole association frame with the net
+and the NMS; where ROOT has them, the plain NMS, costs and crops beside the
+kernels; each synchronised, the median of 5) and the host syncs a call of
+each stage and of the whole frame, with the card's name and power limit.
 """
 import argparse
 import importlib.util

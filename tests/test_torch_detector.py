@@ -15,7 +15,7 @@ from fastmot_tpu.models.yolo import decode_heads as jax_decode
 from fastmot_tpu_torch import detector as tdet
 from fastmot_tpu_torch.models import darknet as tdn
 from fastmot_tpu_torch.models import registry as treg
-from fastmot_tpu_torch.models.yolo import decode_heads
+from fastmot_tpu_torch.models.yolo import anchor_tensors, decode_heads
 from fastmot_tpu_torch.weights import flax_to_state_dict
 
 from .test_torch_osnet_block import flax_flat
@@ -178,8 +178,9 @@ def test_decode_heads_matches_jax(rng, new_coords):
              rng.normal(0, 1, (1, 16, 16, 21)).astype(np.float32)]
     anchors = [[81, 82, 135, 169, 344, 319], [10, 14, 23, 27, 37, 58]]
     scales = [1.05, 1.1]
-    got = decode_heads([torch.from_numpy(h) for h in heads], anchors, scales,
-                       (64, 64), new_coords)
+    got = decode_heads([torch.from_numpy(h) for h in heads],
+                       anchor_tensors(anchors, 'cpu'), scales, (64, 64),
+                       new_coords)
     want = jax_decode([jnp.asarray(h) for h in heads], anchors, scales,
                       (64, 64), new_coords)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
