@@ -323,8 +323,8 @@ TAIL_KERNELS = ('suppress_pack_kernel', 'suppress_waves_kernel',
 FLOW_KERNELS = ('preprocess_kernel', 'points_owner_kernel',
                 'points_select_kernel')
 FRAME_KERNELS = ('nms_select_kernel', 'nms_pack_boxes_kernel',
-                 'nms_order_kernel', 'assoc_costs_kernel',
-                 'reid_crops_kernel')
+                 'nms_order_kernel', 'assoc_prep_kernel',
+                 'assoc_tile_kernel', 'reid_crops_kernel')
 # the H100 SXM's 32-bit integer rate (64 INT32 lanes an SM a clock, 132
 # SMs, 1.98 GHz; the draws' threefry rounds are integer work)
 PEAK_I32 = 132 * 64 * 1.98e9
@@ -4019,19 +4019,23 @@ def phase_assoc_tail(main_args, multi_args, card, nvcc_out):
 
 def time_kernel(name, case, entry, args, wrapper, plain, bound, card):
     """A kernel's device time a call (100 calls of its C entry between CUDA
-    events behind a sleep kernel), its wrapper's time and host time a call,
-    the plain version's time on the card, logged beside ``bound``."""
+    events behind a sleep kernel), its wrapper's time and host time a call
+    (and of that the C entry's host time), the plain version's time on the
+    card, logged beside ``bound``."""
     dev_ms = lk_device_ms(entry, args, tag=name)
     call_ms = launches_ms(wrapper)
     host = host_ms(wrapper)
+    entry_host = host_ms(lambda: entry(*args))
     plain_ms = wall_ms(plain, n=3, warmup=1)
     log(f'{name} {case}: device {dev_ms * 1e3:.2f} us a call (100 calls); '
         f'the wrapper {call_ms * 1e3:.2f} us a call, host {host * 1e3:.2f} '
-        f'us; plain on the card {plain_ms:.3f} ms; bound '
+        f'us (of it the C entry {entry_host * 1e3:.2f} us); plain on the '
+        f'card {plain_ms:.3f} ms; bound '
         f'{bound[0] * 1e3:.6f} us ({bound[1]}), roofline share '
         f'{bound[0] / dev_ms:.6f}; {card}')
     return {'ms': dev_ms, 'call_ms': call_ms, 'host_ms': host,
-            'plain_ms': plain_ms, 'bound_ms': bound[0], 'bound_by': bound[1]}
+            'entry_host_ms': entry_host, 'plain_ms': plain_ms,
+            'bound_ms': bound[0], 'bound_by': bound[1]}
 
 
 def tail_kernel_entries(cases):
@@ -4290,14 +4294,42 @@ def phase_frame_kernels(main_args, multi_args, card, nvcc_out):
         if tcost.output_sha256(got) != tcost.OUTPUT_SHA256[kind]:
             raise AssertionError(f'assoc_costs {kind}: differs from the '
                                  'outputs of its first design')
+    # the select's and the costs' edge cases, against the plain versions
+    # on the CPU and a host build of the first design's source
+    for kind in tsel.EDGE_KINDS:
+        det, mask, scale, offset, keep, n_out = tsel.edge_case(kind)
+        case = tsel.torch_case((det, mask, scale, offset))
+        got = tsel.host_select(lib_n, case, None, 'cuda', keep, n_out)
+        same(f'nms_select {kind}', got, tsel.plain(case, keep, n_out))
+        if tsel.output_sha256(got) != tsel.EDGE_SHA256[kind]:
+            raise AssertionError(f'nms_select {kind}: differs from the '
+                                 'outputs of its first design')
+    for kind in tcost.EDGE_CASES:
+        cpu = tcost.torch_case(tcost.costs_case(kind, tcost.CASE_SEEDS[kind]))
+        app = tcost.given_appearance(kind, cpu)
+        got = tcost.host_costs(lib_c, kind, tuple(
+            tuple(a.cuda() for a in x) if isinstance(x, tuple) else x.cuda()
+            for x in cpu), 'cuda',
+            None if app is None else tuple(x.cuda() for x in app))
+        err = tcost.assert_costs_close(
+            got, tcost.plain(kind, cpu), f'assoc_costs {kind}',
+            tcost.plain_appearance(kind, cpu),
+            euclidean=tcost.ALL_CASES[kind].metric == 'euclidean')
+        for k, v in err.items():
+            cost_err[k] = max(cost_err.get(k, 0.0), v)
+        if tcost.output_sha256(got) != tcost.EDGE_SHA256[kind]:
+            raise AssertionError(f'assoc_costs {kind}: differs from the '
+                                 'outputs of its first design')
     log(f'nms_select on the seeded cases of {tsel.__name__} '
-        f'({len(tsel.KINDS)}), reid_crops on those of {tcrop.__name__} '
+        f'({len(tsel.KINDS)} + {len(tsel.EDGE_KINDS)} at the select\'s '
+        f'edges), reid_crops on those of {tcrop.__name__} '
         f'({len(tcrop.KINDS)}): == the plain versions on the CPU, bit for '
         f'bit; assoc_costs on those of {tcost.__name__} '
-        f'({len(tcost.CASES)}): masks, occlusion, IoU cost and gates == '
-        f'the plain version on the CPU, the fused and reID costs within '
-        f'{cost_err["cost"]:.3g} / {cost_err["reid_cost"]:.3g}; every output '
-        "== the first design's (OUTPUT_SHA256)")
+        f'({len(tcost.CASES)} + {len(tcost.EDGE_CASES)} at the edges): '
+        f'masks, occlusion, IoU cost and gates == the plain version on the '
+        f'CPU, the fused and reID costs within {cost_err["cost"]:.3g} / '
+        f'{cost_err["reid_cost"]:.3g}; every output == the first design\'s '
+        '(OUTPUT_SHA256, EDGE_SHA256)')
 
     # (b) the card's pow against glibc's powf (the host build's) and the
     # CPU's: the DIoU's (d / c) ** 0.6 on the main frame's ratios and on a
@@ -4366,14 +4398,19 @@ def phase_frame_kernels(main_args, multi_args, card, nvcc_out):
                    'contested_1_stream': contested_crops(1, 64),
                    f'contested_{N_STREAMS}_streams':
                        contested_crops(N_STREAMS, 128)}
-    log('phase 21 launch plans: nms_select a select block of 1,024 '
-        'threads a stream, then by programmatic dependent launch the DIoU '
-        'bits in ceil(K / 32) x streams blocks of K threads, then a waves '
-        'and order block a stream with ceil(K / 32) x K x 4 + K x 4 B of '
-        'dynamic shared memory; assoc_costs a block of 256 threads a tile '
-        'of 16 track or history rows and a stream, (16 F + 65 D) x 4 B of '
-        'dynamic shared memory (48,896 B at F = 512, D = 128); reid_crops '
-        'a block of 128 threads an output row of a crop')
+    log('phase 21 launch plans: nms_select a cluster of min(8, ceil(N / '
+        '256)) select blocks of 1,024 threads a stream (8 at N = 16,128), '
+        'then by programmatic dependent launch the dominance bits in '
+        'ceil(K / 32) x ceil(K / 32) x streams blocks of 256 threads, then '
+        'a waves and order block of min(K, 1,024) threads a '
+        'stream with ceil(K / 32) x K x 4 B of dynamic shared memory; '
+        'assoc_costs a prep launch of 1 + ceil((T + H) / 4) + ceil(D / 8) '
+        'blocks of 256 threads a stream (the factors, 48 row blocks and 16 '
+        'detection blocks at T = D = 128, H = 64), then by programmatic '
+        'dependent launch (ceil(T / 16) + ceil(H / 16)) x ceil(D / 16) '
+        'tile blocks of 128 threads a stream (96) with 67,584 B of dynamic '
+        'shared memory (four chunk stages); reid_crops a block of 128 '
+        'threads an output row of a crop')
 
     out = {name: {} for name in FRAME_NAMES}
     for case, a in nms_cases.items():

@@ -45,11 +45,27 @@
 //     changed". The fixpoint does not depend on the order of the rounds,
 //     so the result is the plain version's whatever the block size.
 //
+// The YOLO postprocess around the waves (nms_select_forward) replaces the
+// rest of fastmot_tpu/detector.py:128 _nms_and_gate: the gates, the
+// stable top K of 16,128 decoded rows, their DIoU within labels and the
+// final order. Its plain twin is detector.nms_and_gate_reference. What
+// bounds it is latency: chains of barriers over a few thousand keys on
+// one SM. So the select runs on a cluster of up to 8 blocks a stream (a
+// radix select of 11-, 11- and 10-bit digits whose counts are summed
+// through distributed shared memory, one cluster barrier a pass); the K
+// candidates are placed by rank counting (a key's place is the number of
+// keys above it), not sorted; the DIoU and the greedy order are packed
+// into dominance bits by many blocks, so that a wave tests a box with a
+// few word operations; and the final order ranks by comparison only the
+// boxes kept.
+//
 // Every loop strides by blockDim.x and takes whole warps, so a block of 32
 // or 64 threads computes what 1,024 compute (the tests' host build runs
-// such blocks). Nothing here rounds: the outputs are the plain versions'
-// bit for bit by construction.
+// such blocks, and a cluster's blocks together: tests/cuda_host_shim.py).
+// Nothing here rounds: the outputs are the plain versions' bit for bit by
+// construction.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -60,10 +76,20 @@ constexpr int kMaxN = 1024;          // a problem's boxes (MAX_RAW)
 constexpr int kMaxWords = kMaxN / 32;
 constexpr int kMaxThreads = 1024;
 constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int kRadixBins = 256;
-constexpr int kPackCols = 256;       // a pack block's columns
-// the shared memory a select block may stage its keys in
-constexpr int kSelectSmemMax = 160 * 1024;
+// a pack block's columns, 8 threads each
+constexpr int kPackCols = 32;
+constexpr int kPackThreads = 8 * kPackCols;
+// the select launch's blocks a stream (a cluster) at most, and the rows a
+// block takes before the cluster grows
+constexpr int kSelectCluster = 8;
+constexpr int kSelectRows = 256;
+// the shared memory a select block may use with its keys in it (else they
+// go to scratch, which the card does past 155,104 rows at K = 1,024 and 80
+// labels): the file's one build option, which the host build of
+// tests/test_torch_nms_select.py sets to 1 to reach the scratch path
+#ifndef NMS_SELECT_SMEM_MAX
+#define NMS_SELECT_SMEM_MAX (160 * 1024)
+#endif
 
 // greedy_suppress_forward's pointers and ints
 enum SuppressPtr { kOverlap, kScores, kValid, kBits, kKeep };
@@ -130,9 +156,13 @@ __device__ __forceinline__ bool dominates(const float* score, int i, int j) {
 }
 
 // the waves of one problem to their end, the whole block: `bits` [W][N]
-// (bit b of bits[w][j]: box 32 w + b overlaps box j past the threshold),
-// `score` [N], and the words of the remaining (the valid boxes on entry),
-// wave and kept boxes, the last two zero on entry; `kept` on return
+// (bit b of bits[w][j]: box 32 w + b overlaps box j past the threshold;
+// with kDominance, and comes before it in greedy order, so that a box
+// joins a wave where no remaining box's bit is set in its column, and
+// `score` is not read), `score` [N], and the words of the remaining (the
+// valid boxes on entry), wave and kept boxes, the last two zero on entry;
+// `kept` on return
+template <bool kDominance>
 __device__ void run_waves(const unsigned* smem_bits, const float* score,
                           unsigned* remaining, unsigned* wave,
                           unsigned* kept, int n, int nw) {
@@ -149,14 +179,21 @@ __device__ void run_waves(const unsigned* smem_bits, const float* score,
       bool in_wave = false;
       if (j < n && ((remaining[j >> 5] >> (j & 31)) & 1u)) {
         in_wave = true;
-        for (int w = 0; w < nw && in_wave; ++w) {
-          unsigned m = smem_bits[w * n + j] & remaining[w];
-          while (m) {
-            const int i = 32 * w + __ffs(static_cast<int>(m)) - 1;
-            m &= m - 1;
-            if (dominates(score, i, j)) {
-              in_wave = false;
-              break;
+        if (kDominance) {
+          unsigned any = 0;
+          for (int w = 0; w < nw && !any; ++w)
+            any |= smem_bits[w * n + j] & remaining[w];
+          in_wave = any == 0;
+        } else {
+          for (int w = 0; w < nw && in_wave; ++w) {
+            unsigned m = smem_bits[w * n + j] & remaining[w];
+            while (m) {
+              const int i = 32 * w + __ffs(static_cast<int>(m)) - 1;
+              m &= m - 1;
+              if (dominates(score, i, j)) {
+                in_wave = false;
+                break;
+              }
             }
           }
         }
@@ -234,14 +271,16 @@ suppress_waves_kernel(const SuppressParams p) {
   for (int x = tid; x < nw * n; x += nt) smem_bits[x] = bits[x];
   __syncthreads();
 
-  run_waves(smem_bits, score, remaining, wave, kept, n, nw);
+  run_waves<false>(smem_bits, score, remaining, wave, kept, n, nw);
   for (int j = tid; j < n; j += nt)
     p.keep[row + j] = (kept[j >> 5] >> (j & 31)) & 1u;
 }
 
 // ---------------------------------------------------------------------------
 // The YOLO postprocess around the waves (nms_select_forward), three
-// launches a call, each behind the last by a programmatic dependent launch
+// launches a call: the select on a cluster of blocks a stream, then the
+// dominance bits on many blocks, then the waves and the order on a block a
+// stream, each behind the last by a programmatic dependent launch
 // ---------------------------------------------------------------------------
 
 // the order of float x among floats as an unsigned (larger is later), -0
@@ -286,178 +325,345 @@ __device__ float diou_entry(const float* a, float area_a, const float* c,
   return iou - powf(d / cc, 0.6f);
 }
 
-// sorts v[0 .. n) (n a power of two) by a bitonic network, the whole
-// block: ascending, or descending. A step's pairs 32 or more apart swap in
-// shared memory between barriers; the steps below 32 of a stage run in a
-// warp's registers by shuffles (the block's thread count a multiple of 32,
-// so a pair lies in one warp)
-__device__ void bitonic_sort(unsigned long long* v, int n, bool descending) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int size = 2; size <= n; size <<= 1) {
-    int stride = size >> 1;
-    for (; stride >= 32; stride >>= 1) {
-      __syncthreads();
-      for (int i = tid; i < n; i += nt) {
-        const int partner = i ^ stride;
-        if (partner <= i) continue;
-        const bool up = ((i & size) == 0) != descending;
-        const unsigned long long a = v[i], b = v[partner];
-        if ((a > b) == up) {
-          v[i] = b;
-          v[partner] = a;
-        }
-      }
+// the block's threads' exclusive count of `pred` in thread order, and its
+// total (every thread gets it); `scan` [33] scratch: the warps' counts,
+// then their exclusive sums and the total (by warp 0's shuffles)
+__device__ int block_exclusive_count(bool pred, int* scan, int& total) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int warps = (static_cast<int>(blockDim.x) + 31) >> 5;
+  const unsigned b = __ballot_sync(kFull, pred);
+  __syncthreads();   // the last call's readers are done
+  if (lane == 0) scan[warp] = __popc(b);
+  __syncthreads();
+  if (warp == 0) {
+    const int c = lane < warps ? scan[lane] : 0;
+    int inc = c;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(kFull, inc, o);
+      if (lane >= o) inc += v;
     }
-    __syncthreads();
-    for (int base = 0; base < n; base += nt) {   // every lane the same count
-      const int i = base + tid;
-      unsigned long long x = i < n ? v[i] : 0ull;
-      const bool up = ((i & size) == 0) != descending;
-      for (int st = stride; st > 0; st >>= 1) {
-        const unsigned long long y = __shfl_xor_sync(kFull, x, st);
-        // the pair's lower index keeps the smaller key going up
-        const bool smaller = ((i & st) == 0) == up;
-        x = smaller ? (x < y ? x : y) : (x < y ? y : x);
-      }
-      if (i < n) v[i] = x;
-    }
+    if (lane < warps) scan[lane] = inc - c;
+    if (lane == 31) scan[32] = inc;
   }
   __syncthreads();
+  total = scan[32];
+  return scan[warp] + __popc(b & ((1u << lane) - 1u));
 }
 
-inline __host__ __device__ int next_pow2(int n) {
-  int p = 1;
-  while (p < n) p <<= 1;
-  return p;
+// for each key x of xs[0, nx): the keys y of v[0, n) above it (y > x) or
+// below it (y < x), added into out[0, nx) (zero on entry). A warp takes
+// 128 of the keys (4 a lane) and a slice of v, its lanes reading one key
+// of v at a time (a broadcast, which serves 128 comparisons); the whole
+// block, whole warps
+template <bool kAbove>
+__device__ void count_keys(const unsigned long long* v, int n,
+                           const unsigned long long* xs, int nx, int* out) {
+  constexpr int kX = 4;   // keys a lane
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = static_cast<int>(blockDim.x) >> 5;
+  const int groups = (nx + 32 * kX - 1) / (32 * kX);
+  const int parts = groups > 0 && warps / groups > 0 ? warps / groups : 1;
+  for (int task = warp; task < groups * parts; task += warps) {
+    const int g = task % groups, part = task / groups;
+    unsigned long long x[kX];
+    int c[kX];
+#pragma unroll
+    for (int i = 0; i < kX; ++i) {
+      const int at = (g * kX + i) * 32 + lane;
+      x[i] = at < nx ? xs[at] : 0ull;
+      c[i] = 0;
+    }
+    const int y0 = static_cast<int>(static_cast<long long>(n) * part / parts);
+    const int y1 = static_cast<int>(static_cast<long long>(n) * (part + 1)
+                                    / parts);
+#pragma unroll 4
+    for (int y = y0; y < y1; ++y) {
+      const unsigned long long w = v[y];
+#pragma unroll
+      for (int i = 0; i < kX; ++i) c[i] += kAbove ? w > x[i] : w < x[i];
+    }
+#pragma unroll
+    for (int i = 0; i < kX; ++i) {
+      const int at = (g * kX + i) * 32 + lane;
+      if (at < nx && c[i]) atomicAdd(&out[at], c[i]);
+    }
+  }
 }
 
-// launch 1: a block a stream. Every candidate's key: a 64-bit word of the
-// order bits of its gated score (-1 where the confidence or label gate
-// fails) over its complemented index, so that larger keys come first in
-// torch's stable descending sort; in shared memory where they fit (the
-// label mask always), else in scratch. The radix select of the K-th
-// largest key, 8 bits a pass from the top (the score's bytes, then the
-// index's), a warp's equal digits counted at once; it stops where the
-// digit's bin holds just the keys still wanted. The K keys at or above it
-// in a bitonic sort, descending; then each selected candidate's box in
-// pixels, label, scores and validity at its place.
+// the select's digits of the 32-bit score keys: 11, 11 and 10 bits from
+// the top (the scores' sign, exponent and first mantissa bits in the
+// first: few of its bins hold keys, and three passes always suffice)
+constexpr int kPasses = 3;
+constexpr int kBins = 2048;
+constexpr int kLastBins = 1024;   // the last digit's
+__device__ __forceinline__ int digit_shift(int q) {
+  return q == 0 ? 21 : (q == 1 ? 10 : 0);
+}
+__device__ __forceinline__ int digit_width(int q) { return q == 2 ? 10 : 11; }
+// the select's ints in shared memory: the digit found, the keys above its
+// bin, its bin's keys, this block's selected keys
+enum SelectVar { kDigit, kAbove, kBin, kMine, kVars = 8 };
+
+// the digit of the K-th largest key among those counted in total[0, nb),
+// the whole block: (the digit, the keys in larger digits, the keys in its
+// bin) into vars. In descending digit order thread t holds `per`
+// consecutive digits; a block scan of the threads' sums (warp shuffles,
+// then warp 0 over the warps' sums in `scan` [32]) finds the one holding
+// the need-th key
+__device__ void find_digit(const int* total, int nb, int need, int* vars,
+                           int* scan) {
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
+  const int warp = tid >> 5, warps = (nt + 31) >> 5;
+  const int per = (nb + nt - 1) / nt;
+  int tot = 0;
+  for (int q = 0; q < per; ++q) {
+    const int at = tid * per + q;
+    if (at < nb) tot += total[nb - 1 - at];
+  }
+  int inc = tot;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(kFull, inc, o);
+    if (lane >= o) inc += v;
+  }
+  __syncthreads();   // scan is free
+  if (lane == 31) scan[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    const int c = lane < warps ? scan[lane] : 0;
+    int w_inc = c;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(kFull, w_inc, o);
+      if (lane >= o) w_inc += v;
+    }
+    if (lane < warps) scan[lane] = w_inc - c;
+  }
+  __syncthreads();
+  inc += scan[warp];
+  int c = inc - tot;
+  if (c < need && need <= inc) {
+    for (int q = 0; q < per; ++q) {
+      const int at = tid * per + q;
+      const int cnt = total[nb - 1 - at];
+      if (c + cnt >= need) {
+        vars[kDigit] = nb - 1 - at;
+        vars[kAbove] = c;
+        vars[kBin] = cnt;
+        break;
+      }
+      c += cnt;
+    }
+  }
+}
+
+// the select launch's dynamic shared memory, each block's own: the K
+// selected keys of the stream (gathered), this block's selected keys, its
+// histogram of a pass, the cluster's histogram of each pass (every block
+// adds its counts into every block's), then the ranks of the block's share
+// of the keys, the ints, a scan's scratch, the label mask, then (where
+// they fit) the block's score keys
+struct SelectSmem {
+  unsigned long long* sel;
+  unsigned long long* mine;
+  int* hist;     // [kBins]
+  int* total;    // [kPasses][kBins]
+  int* byrank;   // [kSelectCluster][kLastBins] the last pass's by block
+  int* place;    // [K]
+  int* vars;     // [kVars]
+  int* scan;     // [40]
+  unsigned char* mask;
+  unsigned* keys;
+};
+
+__host__ __device__ inline int round16(int bytes) {
+  return (bytes + 15) / 16 * 16;
+}
+
+__host__ __device__ inline int select_smem_fixed(int k, int labels) {
+  return 16 * k + 4 * ((1 + kPasses) * kBins + kSelectCluster * kLastBins
+                       + k + kVars + 40)
+      + round16(labels);
+}
+
+__device__ SelectSmem carve_select(void* base, int k, int labels) {
+  SelectSmem m;
+  m.sel = static_cast<unsigned long long*>(base);
+  m.mine = m.sel + k;
+  m.hist = reinterpret_cast<int*>(m.mine + k);
+  m.total = m.hist + kBins;
+  m.byrank = m.total + kPasses * kBins;
+  m.place = m.byrank + kSelectCluster * kLastBins;
+  m.vars = m.place + k;
+  m.scan = m.vars + kVars;
+  m.mask = reinterpret_cast<unsigned char*>(m.scan + 40);
+  m.keys = reinterpret_cast<unsigned*>(m.mask + round16(labels));
+  return m;
+}
+
+// launch 1: a cluster of C blocks a stream, block r the rows [r S, r S +
+// S), S = ceil(N / C). Every candidate's score key: the order bits of its
+// gated score (-1 where the confidence or label gate fails), so that a
+// larger key comes first in torch's stable descending sort, the lower
+// index first among equal keys. The K-th largest key by a radix select
+// over the cluster: each pass the blocks count their keys' digits, the
+// counts are summed through distributed shared memory (one cluster
+// barrier a pass) and every block finds the same digit; the select stops
+// where the digit's bin holds just the keys still wanted, or after the
+// last digit, when the K-th key's equals are cut by index (an ordered
+// count over the blocks). Each block's selected keys, with the
+// complemented index below, are gathered into every block; each block
+// ranks its share of them by counting the keys above each (count_keys),
+// which is each key's place in the descending order, and writes those
+// candidates' boxes in pixels, labels, scores and validity there
 __global__ void __launch_bounds__(kMaxThreads)
 nms_select_kernel(const SelectParams p) {
   // the pack launch may start now; it waits for this grid's end
   cudaTriggerProgrammaticLaunchCompletion();
-  extern __shared__ unsigned smem_select[];   // the label mask, the keys
-  __shared__ int hist[kRadixBins];
-  __shared__ unsigned long long sel[kMaxN];
-  __shared__ unsigned s_digit;
-  __shared__ int s_above, s_bin, s_count;
-  const int b = blockIdx.x, n = p.n, k = p.k;
+  extern __shared__ unsigned long long smem_select[];
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int s = blockIdx.y, n = p.n, k = p.k;
   const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
-  const int warp = tid >> 5;
-  const float* det = p.det + static_cast<size_t>(b) * n * 7;
-  unsigned char* mask = reinterpret_cast<unsigned char*>(smem_select);
-  unsigned* ord = p.keys_in_smem ? smem_select + (p.labels + 3) / 4
-                                 : p.ord + static_cast<size_t>(b) * n;
-  const int rounds = (n + nt - 1) / nt;   // every lane the same count
-  for (int x = tid; x < p.labels; x += nt) mask[x] = p.label_mask[x];
-  if (tid == 0) s_count = 0;
+  SelectSmem m = carve_select(smem_select, k, p.labels);
+  const int slice = (n + C - 1) / C;
+  const int r0 = rank * slice < n ? rank * slice : n;
+  const int r1 = r0 + slice < n ? r0 + slice : n;
+  if (!p.keys_in_smem) m.keys = p.ord + static_cast<size_t>(s) * n + r0;
+  const float* det = p.det + static_cast<size_t>(s) * n * 7;
+  const int rounds = (r1 - r0 + nt - 1) / nt;   // every lane the same count
+  for (int x = tid; x < p.labels; x += nt) m.mask[x] = p.label_mask[x];
+  for (int x = tid; x < (1 + kPasses) * kBins + kSelectCluster * kLastBins;
+       x += nt)
+    m.hist[x] = 0;
+  if (tid < kVars) m.vars[tid] = 0;
   __syncthreads();
-  for (int j = tid; j < n; j += nt) {
+  for (int j = r0 + tid; j < r1; j += nt) {
     const float* d = det + static_cast<size_t>(j) * 7;
     const float score = d[4] * d[6];
     const long long label = static_cast<long long>(d[5]);
     const long long at = label < 0 ? 0
         : (label > p.labels - 1 ? p.labels - 1 : label);
-    const bool keep = mask[at] && score >= p.conf_thresh;
-    ord[j] = order_bits(keep ? score : -1.0f);
+    const bool keep = m.mask[at] && score >= p.conf_thresh;
+    m.keys[j - r0] = order_bits(keep ? score : -1.0f);
   }
   __syncthreads();   // the keys are whole
 
-  auto key_of = [&](int j) {
-    return (static_cast<unsigned long long>(ord[j]) << 32)
-        | static_cast<unsigned>(~j);
-  };
-  // the index's bits above its highest are the complement's ones in
-  // every key: the select starts its index passes below them
-  int index_bytes = 1;
-  while (index_bytes < 4 && (n - 1) >> (8 * index_bytes)) ++index_bytes;
-  unsigned long long prefix = 0, high = 0;
-  int stop = 0;
+  // the radix select of the K-th largest key
+  unsigned prefix = 0, high = 0;
+  int need = k, stop = 0, q = kPasses;
   if (n > k) {
-    int need = k;
-    for (int shift = 56; shift >= 0; shift -= 8) {
-      if (shift < 32 && shift >= 8 * index_bytes) {   // all ones here
-        prefix |= 0xFFull << shift;
-        high |= 0xFFull << shift;
-        continue;
-      }
-      for (int x = tid; x < kRadixBins; x += nt) hist[x] = 0;
-      __syncthreads();
+    // every block's histograms are zero before any block adds to them
+    cluster.sync();
+    for (q = 0; q < kPasses; ++q) {
+      const int shift = digit_shift(q), nb = 1 << digit_width(q);
       for (int r = 0; r < rounds; ++r) {
-        const int j = r * nt + tid;
-        const unsigned long long key = j < n ? key_of(j) : 0ull;
-        const bool in = j < n && (key & high) == prefix;
-        const int digit = in ? static_cast<int>((key >> shift) & 0xFFu) : -1;
+        const int j = r0 + r * nt + tid;
+        const unsigned key = j < r1 ? m.keys[j - r0] : 0u;
+        const bool in = j < r1 && (key & high) == prefix;
+        const int digit = in ? static_cast<int>((key >> shift) & (nb - 1))
+                             : -1;
         const unsigned same = __match_any_sync(kFull, digit);
         if (in && lane == __ffs(static_cast<int>(same)) - 1)
-          atomicAdd(&hist[digit], __popc(same));
+          atomicAdd(&m.hist[digit], __popc(same));
       }
       __syncthreads();
-      if (warp == 0) {
-        // lane l holds bins 255 - 8 l down to 248 - 8 l
-        int cnt[8], tot = 0;
-        for (int q = 0; q < 8; ++q) {
-          cnt[q] = hist[255 - (8 * lane + q)];
-          tot += cnt[q];
-        }
-        int inc = tot;
-        for (int o = 1; o < 32; o <<= 1) {
-          const int v = __shfl_up_sync(kFull, inc, o);
-          if (lane >= o) inc += v;
-        }
-        int c = inc - tot;
-        if (c < need && need <= inc) {
-          for (int q = 0; q < 8; ++q) {
-            if (c + cnt[q] >= need) {
-              s_digit = static_cast<unsigned>(255 - (8 * lane + q));
-              s_above = c;
-              s_bin = cnt[q];
-              break;
-            }
-            c += cnt[q];
+      // this block's counts into every block's histogram of the pass (the
+      // last pass's by block, for the cut below)
+      const bool last = q == kPasses - 1;
+      int* total = m.total + q * kBins;
+      for (int x = tid; x < nb; x += nt) {
+        const int c = m.hist[x];
+        if (c == 0) continue;
+        m.hist[x] = 0;
+        for (int b = 0; b < C; ++b) {
+          if (last) {
+            *cluster.map_shared_rank(m.byrank + rank * kLastBins + x, b) = c;
+          } else {
+            atomicAdd(cluster.map_shared_rank(total + x, b), c);
           }
         }
       }
+      cluster.sync();   // every block's counts are in
+      if (last) {
+        for (int x = tid; x < nb; x += nt) {
+          int c = 0;
+          for (int b = 0; b < C; ++b) c += m.byrank[b * kLastBins + x];
+          total[x] = c;
+        }
+        __syncthreads();
+      }
+      find_digit(total, nb, need, m.vars, m.scan);
       __syncthreads();
-      prefix |= static_cast<unsigned long long>(s_digit) << shift;
-      high |= 0xFFull << shift;
-      need -= s_above;
+      prefix |= static_cast<unsigned>(m.vars[kDigit]) << shift;
+      high |= static_cast<unsigned>(nb - 1) << shift;
+      need -= m.vars[kAbove];
       stop = shift;
-      const bool done = s_bin == need;   // the bin is wanted whole
-      __syncthreads();   // s_digit, s_above and s_bin are read
-      if (done) break;
+      if (m.vars[kBin] == need) break;   // the bin is wanted whole
     }
   }
-  // the keys at or above the K-th, in no order, then sorted
-  for (int j = tid; j < n; j += nt) {
-    const unsigned long long key = key_of(j);
-    if (n <= k || (key >> stop) >= (prefix >> stop))
-      sel[atomicAdd(&s_count, 1)] = key;
+  // past the last digit, the K-th key's equals are wanted up to `need`,
+  // the lowest indices first: those in earlier blocks are counted first
+  const bool cut = q == kPasses && n > k;
+  int carry = 0;
+  if (cut)
+    for (int b = 0; b < rank; ++b)
+      carry += m.byrank[b * kLastBins + (prefix & (kLastBins - 1))];
+  // this block's selected keys, in no order
+  for (int r = 0; r < rounds; ++r) {
+    const int j = r0 + r * nt + tid;
+    const unsigned key = j < r1 ? m.keys[j - r0] : 0u;
+    bool take = j < r1;
+    if (cut) {
+      const bool eq = take && key == prefix;
+      int all;
+      const int before = block_exclusive_count(eq, m.scan, all);
+      take = take && (key > prefix || (eq && carry + before < need));
+      carry += all;
+    } else if (n > k) {
+      take = take && (key >> stop) >= (prefix >> stop);
+    }
+    const unsigned takers = __ballot_sync(kFull, take);
+    int at = 0;
+    if (lane == 0 && takers) at = atomicAdd(&m.vars[kMine], __popc(takers));
+    at = __shfl_sync(kFull, at, 0);
+    if (take)
+      m.mine[at + __popc(takers & ((1u << lane) - 1u))] =
+          (static_cast<unsigned long long>(key) << 32)
+          | static_cast<unsigned>(~j);
   }
-  const int p2 = next_pow2(k);
   __syncthreads();
-  for (int t = k + tid; t < p2; t += nt) sel[t] = 0ull;   // sorted last
-  bitonic_sort(sel, p2, true);
-
-  const size_t out0 = static_cast<size_t>(b) * k;
-  for (int t = tid; t < k; t += nt) {
-    const int j = static_cast<int>(~static_cast<unsigned>(sel[t]));
+  cluster.sync();   // every block's selected keys are compacted
+  // every block gathers the stream's K keys, block by block
+  int count[kSelectCluster];
+#pragma unroll
+  for (int b = 0; b < kSelectCluster; ++b)
+    count[b] = b < C ? cluster.map_shared_rank(m.vars, b)[kMine] : 0;
+  for (int x = tid; x < k; x += nt) {
+    int b = 0, at = x;
+    while (at >= count[b]) at -= count[b++];
+    m.sel[x] = cluster.map_shared_rank(m.mine, b)[at];
+  }
+  __syncthreads();
+  // each key of this block's share of sel: its place, the number of keys
+  // above it (all are unique)
+  const int q0 = static_cast<int>(static_cast<long long>(k) * rank / C);
+  const int q1 = static_cast<int>(static_cast<long long>(k) * (rank + 1) / C);
+  for (int x = tid; x < q1 - q0; x += nt) m.place[x] = 0;
+  __syncthreads();
+  count_keys<true>(m.sel, k, m.sel + q0, q1 - q0, m.place);
+  __syncthreads();
+  const size_t out0 = static_cast<size_t>(s) * k;
+  for (int at = q0 + tid; at < q1; at += nt) {
+    const int t = m.place[at - q0];
+    const int j = static_cast<int>(~static_cast<unsigned>(m.sel[at]));
     const float* d = det + static_cast<size_t>(j) * 7;
     const float obj = d[4], cls = d[6];
     const float score = obj * cls;
     const long long label = static_cast<long long>(d[5]);
-    const long long at = label < 0 ? 0
+    const long long lab = label < 0 ? 0
         : (label > p.labels - 1 ? p.labels - 1 : label);
-    const bool keep = mask[at] && score >= p.conf_thresh;
+    const bool keep = m.mask[lab] && score >= p.conf_thresh;
     // pixels: xy = box * scale - offset, wh = box * scale; tlbr =
     // round(xy, xy + wh - 1)
     const float x = d[0] * p.scale_wh[0] - p.offset[0];
@@ -474,6 +680,7 @@ nms_select_kernel(const SelectParams p) {
     p.c_cls[out0 + t] = cls;
     p.c_valid[out0 + t] = (keep ? score : -1.0f) > 0.0f;
   }
+  cluster.sync();   // no block leaves while another reads its memory
 }
 
 // diou_entry(a, c) > thresh, the quotients and the power only where the
@@ -490,68 +697,118 @@ __device__ bool diou_exceeds(const float* a, float area_a, const float* c,
   return diou_entry(a, area_a, c, area_c) > thresh;
 }
 
-// launch 2: the overlap bits from the selected boxes (as
-// suppress_pack_kernel, with the DIoU and the same-label test in place of
-// a read of the overlap matrix), a block a word of 32 rows, a stretch of
-// kPackCols columns and a stream
-__global__ void __launch_bounds__(kPackCols)
+// launch 2: the dominance bits from the selected boxes, a block a word of
+// 32 rows, kPackCols columns and a stream, a thread 4 rows of a column
+// (the column's 8 threads' bits OR-ed in shared memory): bit r of word w
+// of column j is set where box i = 32 w + r comes before box j in greedy
+// order (a higher objectness, the lower place on ties) and overlaps it
+// (the same label, DIoU past the threshold). Among the valid boxes, whose
+// objectness is not NaN, the order is total, so a pair's overlap is the
+// bit of whichever comes first, and the waves need no other
+__global__ void __launch_bounds__(kMaxThreads)
 nms_pack_boxes_kernel(const SelectParams p) {
   cudaTriggerProgrammaticLaunchCompletion();
   __shared__ float rows[32][4];
-  __shared__ float row_area[32];
+  __shared__ float row_area[32], row_obj[32];
   __shared__ long long row_label[32];
+  __shared__ unsigned col_bits[kPackCols];
   const int k = p.k, col_blocks = (k + kPackCols - 1) / kPackCols;
   const int word = blockIdx.x / col_blocks, s = blockIdx.y;
   const int j0 = (blockIdx.x % col_blocks) * kPackCols;
-  const int j1 = j0 + kPackCols < k ? j0 + kPackCols : k;
+  const int n_cols = k - j0 < kPackCols ? k - j0 : kPackCols;
+  const int tid = threadIdx.x, nt = blockDim.x;
   const size_t base = static_cast<size_t>(s) * k;
+  for (int c = tid; c < kPackCols; c += nt) col_bits[c] = 0;
   // the select launch's candidates
   cudaGridDependencySynchronize();
-  if (threadIdx.x < 32) {
-    const int i = 32 * word + threadIdx.x;
+  if (tid < 32) {
+    const int i = 32 * word + tid;
     if (i < k) {
       for (int q = 0; q < 4; ++q)
-        rows[threadIdx.x][q] = p.c_tlbr[(base + i) * 4 + q];
-      row_area[threadIdx.x] = box_area(rows[threadIdx.x]);
-      row_label[threadIdx.x] = p.c_label[base + i];
+        rows[tid][q] = p.c_tlbr[(base + i) * 4 + q];
+      row_area[tid] = box_area(rows[tid]);
+      row_label[tid] = p.c_label[base + i];
+      row_obj[tid] = p.c_obj[base + i];
     }
   }
   __syncthreads();
-  unsigned* out = p.bits + (static_cast<size_t>(s) * p.words + word) * k;
-  for (int j = j0 + threadIdx.x; j < j1; j += blockDim.x) {
+  for (int item = tid; item < 8 * n_cols; item += nt) {
+    const int c = item / 8, r0 = 4 * (item % 8), j = j0 + c;
     float col[4];
     for (int q = 0; q < 4; ++q) col[q] = p.c_tlbr[(base + j) * 4 + q];
     const float col_area = box_area(col);
     const long long col_label = p.c_label[base + j];
-    unsigned bits_j = 0;
-    for (int r = 0; r < 32; ++r) {
+    const float col_obj = p.c_obj[base + j];
+    unsigned bits = 0;
+    for (int r = r0; r < r0 + 4; ++r) {
       const int i = 32 * word + r;
       if (i < k && i != j && row_label[r] == col_label
+          && (row_obj[r] > col_obj || (row_obj[r] == col_obj && i < j))
           && diou_exceeds(rows[r], row_area[r], col, col_area, p.nms_thresh))
-        bits_j |= 1u << r;
+        bits |= 1u << r;
     }
-    out[j] = bits_j;
+    if (bits) atomicOr(&col_bits[c], bits);
   }
+  __syncthreads();
+  unsigned* out = p.bits + (static_cast<size_t>(s) * p.words + word) * k;
+  for (int c = tid; c < n_cols; c += nt) out[j0 + c] = col_bits[c];
 }
 
-// launch 3: a block a stream. The waves from the bits, then the area and
-// aspect-ratio gates, then the stable ascending order of label * 1e4 -
-// score (infinity where a box is not kept): a bitonic sort of 64-bit keys,
-// the order bits over the index; the first M candidates in that order
-// written out
+#if defined(__CUDA_ARCH__)
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+#endif
+
+// launch 3: a block a stream. The dominance bits staged by one bulk copy
+// (cp.async.bulk on an mbarrier, issued before the validity is read) where
+// the address and size allow, else by plain loads; the waves; the area and
+// aspect-ratio gates; then the stable ascending order of label * 1e4 -
+// score (infinity where a box is not kept) by ranks: a key's place is the
+// number of keys before it, the order bits over the place. The keys of
+// infinity (every box not kept) keep their places' order, so their ranks
+// are a count; only the other keys are compared, with each other. The
+// first M places written out
 __global__ void __launch_bounds__(kMaxThreads)
 nms_order_kernel(const SelectParams p) {
-  extern __shared__ unsigned smem_bits[];   // [W][K], then the scores
+  extern __shared__ unsigned smem_bits[];   // [W][K] the dominance bits
   __shared__ unsigned remaining[kMaxWords], wave[kMaxWords], kept[kMaxWords];
-  __shared__ unsigned long long order[kMaxN];
+  __shared__ unsigned hi[kMaxN];            // each place's order bits
+  __shared__ unsigned long long fin[kMaxN]; // the keys not infinity
+  __shared__ int below[kMaxN];               // the keys below each of them
   __shared__ unsigned char final_box[kMaxN];
-  const int s = blockIdx.x, k = p.k, nw = p.words;
+  __shared__ int scan[33];
+  __shared__ int n_fin, n_below;
+  __shared__ unsigned long long bar;
+  const int s = blockIdx.x, k = p.k, nw = p.words, m = p.m;
   const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
-  float* score = reinterpret_cast<float*>(smem_bits + nw * k);
   const size_t base = static_cast<size_t>(s) * k;
+  const unsigned kInfBits = 0xFF800000u;    // order_bits(+inf)
   // the select and pack launches are done
   cudaGridDependencySynchronize();
-  for (int j = tid; j < k; j += nt) score[j] = p.c_obj[base + j];
+  const unsigned* stream_bits = p.bits + static_cast<size_t>(s) * nw * k;
+  const unsigned bytes = static_cast<unsigned>(nw) * k * 4u;
+#if defined(__CUDA_ARCH__)
+  const bool bulk = bytes % 16 == 0
+      && (reinterpret_cast<uintptr_t>(stream_bits) & 15u) == 0;
+  if (bulk && tid == 0) {
+    const unsigned b = smem_addr(&bar);
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(b)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(b), "r"(bytes) : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];\n"
+        :: "r"(smem_addr(smem_bits)), "l"(stream_bits), "r"(bytes), "r"(b)
+        : "memory");
+  }
+  if (!bulk)
+    for (int x = tid; x < nw * k; x += nt) smem_bits[x] = stream_bits[x];
+#else
+  for (int x = tid; x < nw * k; x += nt) smem_bits[x] = stream_bits[x];
+#endif
   const int rounds = (k + nt - 1) / nt;   // every lane the same count
   for (int r = 0; r < rounds; ++r) {
     const int j = r * nt + tid;
@@ -562,17 +819,24 @@ nms_order_kernel(const SelectParams p) {
       kept[j >> 5] = 0;
     }
   }
-  const unsigned* stream_bits = p.bits + static_cast<size_t>(s) * nw * k;
-  for (int x = tid; x < nw * k; x += nt) smem_bits[x] = stream_bits[x];
-  __syncthreads();
-  run_waves(smem_bits, score, remaining, wave, kept, k, nw);
+  if (tid == 0) n_fin = n_below = 0;
+  __syncthreads();   // (the mbarrier's init too)
+#if defined(__CUDA_ARCH__)
+  if (bulk) {
+    const unsigned b = smem_addr(&bar);
+    unsigned done = 0;
+    while (!done)
+      asm volatile(
+          "{\n .reg .pred p;\n"
+          " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          " selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done) : "r"(b), "r"(0u) : "memory");
+  }
+#endif
+  run_waves<true>(smem_bits, nullptr, remaining, wave, kept, k, nw);
 
-  const int p2 = next_pow2(k);
-  for (int t = tid; t < p2; t += nt) {
-    if (t >= k) {
-      order[t] = ~0ull;                 // sorted last
-      continue;
-    }
+  // each place's key: its order bits, infinity where the box is not final
+  for (int t = tid; t < k; t += nt) {
     const float* box = p.c_tlbr + (base + t) * 4;
     const float w = (box[2] - box[0]) + 1.0f, h = (box[3] - box[1]) + 1.0f;
     const float area = (w > 0.0f && h > 0.0f) ? w * h : 0.0f;
@@ -581,20 +845,48 @@ nms_order_kernel(const SelectParams p) {
         && area <= p.max_area && ar >= p.min_ar;
     const float label_key = static_cast<float>(p.c_label[base + t]) * 1e4f;
     const float conf = p.c_obj[base + t] * p.c_cls[base + t];
-    const float key = final ? label_key - conf : __uint_as_float(0x7F800000u);
+    const unsigned bits = order_bits(
+        final ? label_key - conf : __uint_as_float(0x7F800000u));
     final_box[t] = final;
-    order[t] = (static_cast<unsigned long long>(order_bits(key)) << 32)
-        | static_cast<unsigned>(t);
+    hi[t] = bits;
+    if (bits != kInfBits) {
+      fin[atomicAdd(&n_fin, 1)] =
+          (static_cast<unsigned long long>(bits) << 32)
+          | static_cast<unsigned>(t);
+      if (bits < kInfBits) atomicAdd(&n_below, 1);
+    }
   }
-  bitonic_sort(order, p2, false);
-  const size_t out0 = static_cast<size_t>(s) * p.m;
-  for (int r = tid; r < p.m; r += nt) {
-    const int t = static_cast<int>(static_cast<unsigned>(order[r]));
+  __syncthreads();
+  const size_t out0 = static_cast<size_t>(s) * m;
+  auto write_out = [&](int r, int t) {
     for (int q = 0; q < 4; ++q)
       p.out_tlbr[(out0 + r) * 4 + q] = p.c_tlbr[(base + t) * 4 + q];
     p.out_label[out0 + r] = static_cast<int>(p.c_label[base + t]);
     p.out_conf[out0 + r] = p.c_obj[base + t] * p.c_cls[base + t];
     p.out_valid[out0 + r] = final_box[t];
+  };
+  // the keys of infinity: after every smaller key, in their places' order
+  int carry = n_below;
+  for (int r = 0; r < rounds; ++r) {
+    const int t = r * nt + tid;
+    const bool inf = t < k && hi[t] == kInfBits;
+    int all;
+    const int place = carry + block_exclusive_count(inf, scan, all);
+    if (inf && place < m) write_out(place, t);
+    carry += all;
+  }
+  const int n_inf = carry - n_below;
+  // the others: the keys below them, and every key of infinity before a
+  // key above infinity (a NaN's bits)
+  const int n_f = n_fin;
+  for (int x = tid; x < n_f; x += nt) below[x] = 0;
+  __syncthreads();
+  count_keys<false>(fin, n_f, fin, n_f, below);
+  __syncthreads();
+  for (int x = tid; x < n_f; x += nt) {
+    const unsigned long long key = fin[x];
+    const int place = below[x] + ((key >> 32) > kInfBits ? n_inf : 0);
+    if (place < m) write_out(place, static_cast<int>(key & 0xFFFFFFFFu));
   }
 }
 
@@ -813,38 +1105,48 @@ int nms_select_forward(const void* const* ptrs, const int* ints,
   p.out_label = static_cast<int*>(const_cast<void*>(ptrs[kOutLabel]));
   p.out_conf = static_cast<float*>(const_cast<void*>(ptrs[kOutConf]));
   p.out_valid = static_cast<unsigned char*>(const_cast<void*>(ptrs[kOutValid]));
-  // the label mask in shared memory, and the keys where they fit
-  const int mask_bytes = (p.labels + 3) / 4 * 4;
-  p.keys_in_smem = mask_bytes + 4 * p.n <= kSelectSmemMax;
-  const int select_smem = mask_bytes + (p.keys_in_smem ? 4 * p.n : 0);
+  // the select's cluster: a block a kSelectRows rows, at most
+  // kSelectCluster; its keys in shared memory where they fit
+  const int blocks = (p.n + kSelectRows - 1) / kSelectRows;
+  const int cluster = blocks < kSelectCluster ? blocks : kSelectCluster;
+  const int slice = (p.n + cluster - 1) / cluster;
+  const int fixed = select_smem_fixed(p.k, p.labels);
+  p.keys_in_smem = fixed + 4 * slice <= NMS_SELECT_SMEM_MAX;
+  const int select_smem = fixed + (p.keys_in_smem ? 4 * slice : 0);
   cudaError_t e = cudaFuncSetAttribute(
       nms_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       select_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchAttribute cluster_attr[1];
+  cluster_attr[0].id = cudaLaunchAttributeClusterDimension;
+  cluster_attr[0].val.clusterDim.x = cluster;
+  cluster_attr[0].val.clusterDim.y = 1;
+  cluster_attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_streams);
+  cfg.gridDim = dim3(cluster, n_streams);
   cfg.blockDim = dim3(kMaxThreads);
   cfg.dynamicSmemBytes = select_smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
-  cfg.attrs = attr;
-  cfg.numAttrs = 0;   // the first launch waits for the stream's work
+  cfg.attrs = cluster_attr;   // the first launch waits for the stream's work
+  cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, nms_select_kernel, p);
   if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
   cfg.gridDim = dim3(p.words * ((p.k + kPackCols - 1) / kPackCols),
                      n_streams);
-  cfg.blockDim = dim3(threads_for(p.k < kPackCols ? p.k : kPackCols));
+  cfg.blockDim = dim3(kPackThreads);
   cfg.dynamicSmemBytes = 0;
-  cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, nms_pack_boxes_kernel, p);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int smem = suppress_smem_bytes(p.k);
+  const int smem = p.words * p.k * static_cast<int>(sizeof(unsigned));
   e = cudaFuncSetAttribute(nms_order_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   cfg.gridDim = dim3(n_streams);
+  cfg.blockDim = dim3(threads_for(p.k));
   cfg.dynamicSmemBytes = smem;
   e = cudaLaunchKernelEx(&cfg, nms_order_kernel, p);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -15,11 +15,13 @@ other device raises. The two agree bit for bit
 ``merge_labels.launches`` count the kernels' calls.
 
 ``nms_select`` is ``detector.nms_and_gate`` on the card: three launches (a
-block a stream selects the stable top K candidates by a radix select over
-their scores' order bits and orders them; many blocks compute the DIoU
-and same-label bits from the selected boxes; a block a stream runs the
-waves, the area and aspect-ratio gates and the stable order by label and
-score), no host sync and no [S, K, K] matrix. Its plain version is
+cluster of up to 8 blocks a stream selects the stable top K candidates by
+a radix select over their scores' order bits, summed through distributed
+shared memory, and places them by counting the keys above each; many
+blocks compute the DIoU, same-label and greedy-order dominance bits from
+the selected boxes; a block a stream runs the waves, the area and
+aspect-ratio gates and the stable order by label and score), no host
+sync and no [S, K, K] matrix. Its plain version is
 ``detector.nms_and_gate_reference``; the two agree bit for bit
 (tests/test_torch_nms_select.py). ``nms_select.launches`` counts its
 calls.
@@ -31,6 +33,8 @@ import functools
 import math
 
 import torch
+
+from .launch_args import c_floats, c_ints, carve
 
 KERNEL_MAX_N = 1024        # kMaxN in csrc/nms_waves.cu: a problem's boxes
 
@@ -73,15 +77,17 @@ def _stream(device: torch.device):
 
 
 def _check(t, name, dtype, shape, device):
-    if not isinstance(t, torch.Tensor):
-        _fault(f'{name} is not a tensor')
-    if t.dtype != dtype:
-        _fault(f'{name} is {t.dtype}, expected {dtype}')
-    if tuple(t.shape) != tuple(shape):
-        _fault(f'{name} is {tuple(t.shape)}, expected {tuple(shape)}')
-    if t.device != device:
-        _fault(f'{name} is on {t.device}, expected {device}')
-    return t.contiguous()
+    if not isinstance(t, torch.Tensor) or t.dtype != dtype \
+            or t.shape != shape or t.device != device:
+        if not isinstance(t, torch.Tensor):
+            _fault(f'{name} is not a tensor')
+        if t.dtype != dtype:
+            _fault(f'{name} is {t.dtype}, expected {dtype}')
+        if tuple(t.shape) != tuple(shape):
+            _fault(f'{name} is {tuple(t.shape)}, expected {tuple(shape)}')
+        if t.device != device:
+            _fault(f'{name} is on {t.device}, expected {device}')
+    return t if t.is_contiguous() else t.contiguous()
 
 
 def suppress_launch_args(overlap, scores, valid, thresh: float):
@@ -213,10 +219,11 @@ def nms_select_launch_args(det_out, label_mask, conf_thresh: float,
     NMS, at most ``KERNEL_MAX_N`` and N) and ``out`` (the outputs a
     stream, at most ``keep``). ``outputs`` = (tlbr [.., out, 4] float32,
     label [.., out] int32, conf [.., out] float32, valid [.., out] bool)
-    are written by the call (on the current CUDA stream for CUDA tensors);
-    ``inputs`` are the (contiguous) tensors and the scratch the arguments
-    point at, to keep alive with them. Raises ValueError on a wrong dtype,
-    shape or device, or sizes out of range."""
+    are written by the call (on the current CUDA stream for CUDA tensors),
+    views of one allocation that also holds the scratch; ``inputs`` are the
+    (contiguous) tensors and that allocation the arguments point at, to
+    keep alive with them. Raises ValueError on a wrong dtype, shape or
+    device, or sizes out of range."""
     if not isinstance(det_out, torch.Tensor) or det_out.dim() not in (2, 3) \
             or det_out.shape[-1] != 7:
         _fault('det_out must be [N, 7] or [S, N, 7]')
@@ -238,19 +245,17 @@ def nms_select_launch_args(det_out, label_mask, conf_thresh: float,
                      label_mask.shape, device),
               _check(scale_wh, 'scale_wh', torch.float32, (4,), device),
               _check(offset, 'offset', torch.float32, (2,), device)]
-    scratch = torch.empty(select_scratch_words(s, n, keep),
-                          dtype=torch.int32, device=device)
-    outputs = (torch.empty(lead + (out, 4), dtype=torch.float32,
-                           device=device),
-               torch.empty(lead + (out,), dtype=torch.int32, device=device),
-               torch.empty(lead + (out,), dtype=torch.float32,
-                           device=device),
-               torch.empty(lead + (out,), dtype=torch.bool, device=device))
-    inputs.append(scratch)
-    ptrs = [t.data_ptr() for t in inputs] + [t.data_ptr() for t in outputs]
-    args = ((ctypes.c_uint64 * 9)(*ptrs),
-            (ctypes.c_int * 5)(s, n, keep, int(label_mask.numel()), out),
-            (ctypes.c_float * 4)(conf_thresh, nms_thresh, max_area, min_ar),
+    # one allocation: the outputs, then the scratch
+    outputs, at, buf = carve(device, (
+        (torch.float32, lead + (out, 4)), (torch.int32, lead + (out,)),
+        (torch.float32, lead + (out,)), (torch.bool, lead + (out,)),
+        4 * select_scratch_words(s, n, keep)))
+    outputs = tuple(outputs[:4])
+    inputs.append(buf)
+    args = ((ctypes.c_uint64 * 9)(*(t.data_ptr() for t in inputs[:4]),
+                                  at[4], *at[:4]),
+            c_ints(s, n, keep, int(label_mask.numel()), out),
+            c_floats(conf_thresh, nms_thresh, max_area, min_ar),
             _stream(device))
     return outputs, args, inputs
 
@@ -259,10 +264,11 @@ def nms_select(det_out, label_mask, conf_thresh: float, nms_thresh: float,
                max_area: float, min_ar: float, scale_wh, offset, keep: int,
                out: int):
     """``detector.nms_and_gate`` on CUDA tensors: three launches of
-    ``csrc/nms_waves.cu``'s ``nms_select_forward`` (the select, the DIoU
-    bits from the selected boxes, the waves with the gates and the order),
-    with no host sync and no [S, K, K] matrix (``nms_select_launch_args``'
-    checks apply). Returns (tlbr, label, conf, valid); raises if the
+    ``csrc/nms_waves.cu``'s ``nms_select_forward`` (the select on a
+    cluster of blocks a stream, the dominance bits from the selected boxes,
+    the waves with the gates and the order), with no host sync and no [S,
+    K, K] matrix (``nms_select_launch_args``' checks apply). Returns
+    (tlbr, label, conf, valid), views of one allocation; raises if the
     kernels cannot be built or launched."""
     outputs, args, _ = nms_select_launch_args(
         det_out, label_mask, conf_thresh, nms_thresh, max_area, min_ar,

@@ -321,8 +321,9 @@ def assoc_costs_core(cfg: KalmanConfig, metric: dist.Metric, n_depth: int,
                      appearance=None):
     """Cost matrices + row masks of every cascade stage, one stream
     (``assoc_costs_reference``'s arguments and results): on the card one
-    launch of the costs kernel (``ops.assoc_costs.assoc_costs``), on the
-    CPU ``assoc_costs_reference``; any other device raises."""
+    call of the costs kernels (``ops.assoc_costs.assoc_costs``, the
+    tensors without a stream axis), on the CPU ``assoc_costs_reference``;
+    any other device raises."""
     device = d_tlbrs.device
     if device.type == 'cpu':
         return assoc_costs_reference(
@@ -331,15 +332,11 @@ def assoc_costs_core(cfg: KalmanConfig, metric: dist.Metric, n_depth: int,
             d_labels, d_conf, d_valid, d_embeddings, emb_cap, appearance)
     if device.type != 'cuda':
         raise ValueError(f'assoc_costs_core: unsupported device {device}')
-    out = acost.assoc_costs(
+    return acost.assoc_costs(
         cfg, metric, n_depth, motion_weight, max_assoc_cost, iou_gate,
-        fill_val, occlusion_thresh, confirm_hits,
-        tuple(a[None] for a in state), tuple(a[None] for a in hist),
-        (d_tlbrs[None], d_labels[None], d_conf[None], d_valid[None]),
-        d_embeddings[None], emb_cap,
-        None if appearance is None else tuple(a[None] for a in appearance))
-    return tuple(tuple(m[0] for m in x) if isinstance(x, tuple) else x[0]
-                 for x in out)
+        fill_val, occlusion_thresh, confirm_hits, state, hist,
+        (d_tlbrs, d_labels, d_conf, d_valid), d_embeddings, emb_cap,
+        appearance)
 
 
 def assoc_costs_reference(cfg: KalmanConfig, metric: dist.Metric,

@@ -18,7 +18,10 @@ crops + OSNet, the costs, the cascade, the finals, the commit, the whole
 ``update_device_fused`` call and the whole association frame with the net
 and the NMS; where ROOT has them, the plain NMS, costs and crops beside the
 kernels; each synchronised, the median of 5) and the host syncs a call of
-each stage and of the whole frame, with the card's name and power limit.
+each stage and of the whole frame, and the host's time a call of the NMS's
+and the costs' wrappers (``nms_and_gate``, ``assoc_costs_core``; no sync
+inside a window of 50 calls, the median of 21 windows), with the card's
+name and power limit.
 """
 import argparse
 import importlib.util
@@ -31,33 +34,15 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[1]
 
 
-def main():
-    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    parser.add_argument('root', nargs='?', default=str(HERE))
-    opts = parser.parse_args()
-    root = Path(opts.root).resolve()
-    sys.path.insert(0, str(root))
-    import json
-
+def run_main_path(smoke, mot_cfg):
+    """``mot_cfg``'s main path as chip_smoke.py phase 6 runs it (``MOT`` at
+    1280x720 on the card, random weights, 40 synthetic detections spliced
+    in after the real detector graph ran), 20 frames through ``step``:
+    (mot, frames, staged detections, step ms by frame)."""
     import numpy as np
     import torch
-    spec = importlib.util.spec_from_file_location('smoke_here',
-                                                  HERE / 'chip_smoke.py')
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
     from fastmot_tpu_torch import MOT
     from fastmot_tpu_torch.detector import MAX_DETS, make_detections
-    from fastmot_tpu_torch.utils import ConfigDecoder
-    if not torch.cuda.is_available():
-        raise SystemExit('assoc_stages_turns: CUDA is not available')
-    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                           '--format=csv,noheader'], capture_output=True,
-                          text=True, check=True).stdout.strip()
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    tag = f'[{root.name}]'
-    with open(root / 'cfg' / 'mot.json') as f:
-        mot_cfg = json.load(f, cls=ConfigDecoder)['mot_cfg']
     mot = MOT(smoke.SIZE, device='cuda', **mot_cfg)
     skip = mot.detector_frame_skip
     frames = smoke.textured_frames(smoke.SIZE, 20)
@@ -93,6 +78,35 @@ def main():
         mot.step(frame)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
+    return mot, frames, staged, step_ms
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument('root', nargs='?', default=str(HERE))
+    opts = parser.parse_args()
+    root = Path(opts.root).resolve()
+    sys.path.insert(0, str(root))
+    import json
+
+    import torch
+    spec = importlib.util.spec_from_file_location('smoke_here',
+                                                  HERE / 'chip_smoke.py')
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    from fastmot_tpu_torch.utils import ConfigDecoder
+    if not torch.cuda.is_available():
+        raise SystemExit('assoc_stages_turns: CUDA is not available')
+    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                           '--format=csv,noheader'], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tag = f'[{root.name}]'
+    with open(root / 'cfg' / 'mot.json') as f:
+        mot_cfg = json.load(f, cls=ConfigDecoder)['mot_cfg']
+    mot, frames, staged, step_ms = run_main_path(smoke, mot_cfg)
+    skip = mot.detector_frame_skip
     gap = [t for i, t in enumerate(step_ms) if i % skip]
     assoc = [t for i, t in enumerate(step_ms) if i and i % skip == 0]
     print(f'{tag} step ms median {statistics.median(step_ms):.3f} (gap '
@@ -105,6 +119,24 @@ def main():
         flush=True)
     print(f'{tag} host syncs a call: ' + ', '.join(
         f'{name} {n}' for name, n in syncs.items()), flush=True)
+    # the NMS's and the costs' wrappers on the frame's arguments: the host's
+    # time a call, no sync inside a window
+    from fastmot_tpu_torch import detector as detmod
+    from fastmot_tpu_torch import tracker as tr
+    frame = smoke.STAGE_ARGS['frame']
+    params, states, hists, dets, emb, emb_cap = frame['costs']
+
+    def one(xs):
+        return tuple(a[0] for a in xs)
+    wrappers = {
+        'nms_and_gate': lambda: detmod.nms_and_gate(*frame['nms']),
+        'assoc_costs_core': lambda: tr.assoc_costs_core(
+            *params, one(states), one(hists), *one(dets), emb[0],
+            emb_cap=emb_cap)}
+    print(f'{tag} host us a call (median of 21 windows of 50 calls): '
+          + '; '.join(f'{name} {smoke.host_ms(fn, n=50, reps=21) * 1e3:.2f}'
+                      for name, fn in wrappers.items()) + f'; {card}',
+          flush=True)
 
 
 if __name__ == '__main__':

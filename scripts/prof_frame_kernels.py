@@ -1,72 +1,131 @@
 #!/usr/bin/env python3
 """Where the YOLO postprocess, costs and ReID-input kernels spend their
-cycles, on the card: stamped builds of csrc/nms_waves.cu (its
+cycles, and how two checkouts' postprocess and costs kernels compare, on
+the card.
+
+    python3 scripts/prof_frame_kernels.py [--other ROOT] [--iters N]
+        [--no-stamps] [--json PATH]
+
+The cases are chip_smoke.py phase 21's: the main path's association frame
+(cfg/mot.json's YOLOv4-512 + OSNet-x0.25 at random weights, 40 synthetic
+detections, run as scripts/assoc_stages_turns.py runs it; at 8 streams the
+detector's rows of 8 drifting frames and the one stream's costs arguments
+repeated), the contested NMS (16,128 decoded rows of which more than 1,024
+pass the gates), the contested costs (tests/test_torch_assoc_costs.py's
+full width) and the stage-1 costs, at 1 and 8 streams.
+
+Stamps (unless ``--no-stamps``): stamped builds of csrc/nms_waves.cu (its
 ``nms_select_forward`` launches), csrc/assoc_costs.cu and
-csrc/reid_crops.cu (scripts/kernel_stamps.py) on chip_smoke.py phase 21's
-contested cases at one stream (16,128 decoded rows of which more than
-1,024 pass the gates; tests/test_torch_assoc_costs.py's full-width case;
-64 crops of a 1280 x 720 frame with boxes past its edges), then each
-kernel's device time (100 calls between CUDA events behind a sleep
-kernel), the costs kernel with and without its appearance products.
+csrc/reid_crops.cu (scripts/kernel_stamps.py) on the main and contested
+cases at one stream and on 64 crops with boxes past the frame's edges;
+for each launch and each of its listed blocks, every pair of that
+launch's stamps in a row (the mark before, the mark after), how often it
+occurred and its cycles in all and on average. Each stamp takes an atomic
+on one counter in device memory, which the cycles include (about 800
+cycles a stamp on an H100, more where many blocks stamp at once).
 
-    python3 scripts/prof_frame_kernels.py
-
-For each launch's first blocks it prints, for every pair of stamps in a
-row (the mark before, the mark after), how often it occurred and its
-cycles in all and on average. Each stamp takes an atomic on one counter
-in device memory, which the cycles include (about 800 cycles a stamp on an
-H100); with the card's name and power limit.
+Times: each case's device time a call of this checkout's C entry (100
+calls between CUDA events behind a sleep kernel, chip_smoke.lk_device_ms)
+and the wrapper's time and host time a call, and of that the C entry's
+host time. ``--other ROOT`` builds ROOT's
+``fastmot_tpu_torch/csrc/nms_waves.cu`` and ``assoc_costs.cu`` with this
+checkout's nvcc flags (their C entries take the same arguments), holds
+their outputs equal to this checkout's bit for bit on every case, and
+times both libraries in turns (this, other, other, this). Every line
+carries the card's name and power limit.
 """
-import os
+import argparse
+import ctypes
+import json
 import subprocess
 import sys
+import tempfile
+from pathlib import Path
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / 'scripts'))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as smoke  # noqa: E402
 import kernel_stamps  # noqa: E402
-from prof_assoc_tail import breakdown  # noqa: E402
 
-# (name, the kernel's text with '@' where the stamp goes)
+# (name, the kernel's text with '@' where the stamp goes), and the blocks
+# whose stamps are printed
 SELECT_MARKS = [
-    ('select start', '  if (tid == 0) s_count = 0;\n@'),
+    ('select start', '  if (tid < kVars) m.vars[tid] = 0;\n'
+                     '  __syncthreads();\n@'),
     ('keys', '  __syncthreads();   // the keys are whole\n@'),
-    ('radix pass', '      __syncthreads();   // s_digit, s_above and s_bin '
-                   'are read\n@'),
-    ('compacted', '  const int p2 = next_pow2(k);\n  __syncthreads();\n@'),
-    ('sorted', '  bitonic_sort(sel, p2, true);\n@'),
-    ('select end', '    p.c_valid[out0 + t] = (keep ? score : -1.0f) '
-                   '> 0.0f;\n  }\n@}'),
-    ('pack start', '  const size_t base = static_cast<size_t>(s) * k;\n'
-                   '  // the select launch\'s candidates\n@'),
-    ('pack rows', '      row_label[threadIdx.x] = p.c_label[base + i];\n'
+    ('pass counted', "@      cluster.sync();   // every block's counts are "
+                     'in'),
+    ('pass summed', "      cluster.sync();   // every block's counts are in"
+                    '\n@'),
+    ('pass found', '      find_digit(total, nb, need, m.vars, m.scan);\n'
+                   '      __syncthreads();\n@'),
+    ('selected', "  cluster.sync();   // every block's selected keys are "
+                 'compacted\n@'),
+    ('gathered', '    m.sel[x] = cluster.map_shared_rank(m.mine, b)[at];\n'
+                 '  }\n  __syncthreads();\n@'),
+    ('ranked', '  count_keys<true>(m.sel, k, m.sel + q0, q1 - q0, m.place);\n'
+               '  __syncthreads();\n@'),
+    ('select end', '@  cluster.sync();   // no block leaves while another '
+                   'reads its memory'),
+    ('pack start', '  for (int c = tid; c < kPackCols; c += nt) col_bits[c] = '
+                   '0;\n  // the select launch\'s candidates\n@'),
+    ('pack rows', '      row_obj[tid] = p.c_obj[base + i];\n'
                   '    }\n  }\n  __syncthreads();\n@'),
-    ('pack end', '    out[j] = bits_j;\n  }\n@}'),
+    ('pack end', '  for (int c = tid; c < n_cols; c += nt) out[j0 + c] = '
+                 'col_bits[c];\n@}'),
     ('order start', '  // the select and pack launches are done\n@'),
-    ('order staged', 'smem_bits[x] = stream_bits[x];\n  __syncthreads();\n@'),
-    ('waves done', '  run_waves(smem_bits, score, remaining, wave, kept, k, '
-                   'nw);\n@'),
-    ('keys ordered', '  bitonic_sort(order, p2, false);\n@'),
-    ('order end', '    p.out_valid[out0 + r] = final_box[t];\n  }\n@}'),
+    ('bits staged', '@  run_waves<true>(smem_bits, nullptr, remaining, wave, '
+                    'kept, k, nw);'),
+    ('waves done', '  run_waves<true>(smem_bits, nullptr, remaining, wave, '
+                   'kept, k, nw);\n@'),
+    ('keys made', '      if (bits < kInfBits) atomicAdd(&n_below, 1);\n    }'
+                  '\n  }\n  __syncthreads();\n@'),
+    ('infinities placed', '  const int n_inf = carry - n_below;\n@'),
+    ('order end', '    if (place < m) write_out(place, static_cast<int>(key & '
+                  '0xFFFFFFFFu));\n  }\n@}'),
 ]
+# each launch's marks (index ranges), and the blocks whose stamps are
+# printed: the select's first and last blocks of stream 0, pack blocks 0
+# and 127, the order's block 0
+SELECT_LAUNCHES = {'select': range(0, 9), 'pack': range(9, 12),
+                   'order': range(12, 18)}
+SELECT_BLOCKS = {'select': (0, 7), 'pack': (0, 127), 'order': (0,)}
 COSTS_MARKS = [
-    ('start', '  const bool live = row < n_rows;\n@'),
-    ('detections', '    valid_d[j] = p.d_valid[static_cast<size_t>(s) * D '
-                   '+ j];\n  }\n  __syncthreads();\n@'),
-    ('occlusion', '@  if (tile == 0 && c0 == 0) {'),
-    ('masks', '@  // the tile\'s rows: (tracks) the projected mean'),
-    ('cholesky', '@  // the products: the tile\'s normalised features'),
-    ('features', '@    float b2_mine = 0.0f;'),
-    ('chunk staged', '      __syncthreads();\n@      if (k0 + kChunk < fp)'),
-    ('products', '@  __syncthreads();   // occ, chol, b2 and row_a2 are '
-                 'whole'),
-    ('end', '        (!label_ok || iou_cost > p.iou_gate) ? kInfCost '
-            ': iou_cost;\n  }\n@}'),
+    ('factors start', '  const int T = p.t, H = p.h;\n@  for (int row = '
+                      'threadIdx.x; row < T + H; row += blockDim.x) {'),
+    ('factors end', 'p.hist_count[at] >= 2.0f;\n    }\n  }\n@}'),
+    ('rows start', '  const int n_rows = T + H - row0 < kPrepRows ? T + H - '
+                   'row0 : kPrepRows;\n@'),
+    ('masks, factors', '@  if (!products) return;   // (the whole block '
+                       'alike)\n  // the averaged features'),
+    ('first pass', '@  if (summer) {\n    const float norm'),
+    ('rows normalised', '+ row0 + r_sum] = sq2;\n  }\n@}'),
+    ('dets start', '  const int j1 = j0 + kDetBlock < D ? j0 + kDetBlock : D;'
+                   '\n@'),
+    ('occlusion', '@  if (!products) return;   // (the whole block alike)\n'
+                  '  // |b|^2'),
+    ('dets b2', '    p.b2[static_cast<size_t>(s) * D + j0 + tid] = b2;\n@'),
+    ('tile start', '  const int stage = 2 * kRows * kChunkStride;\n@'),
+    ('tile waited', '  cudaGridDependencySynchronize();\n@  // the prep '
+                    "launch's: the rows' features first"),
+    ('chunk summed', '      __syncthreads();   // the stage is read before it '
+                     'is copied into again\n@'),
+    ('products', '@  copies_wait<0>();\n  __syncthreads();   // occ, b2, a2 '
+                 'and the factors are whole'),
+    ('tile end', 'box_r, empty_r);\n  }\n@}'),
 ]
+# the prep's factor block 0, row block 1 (rows 0-3) and detection block
+# 49 (detections 0-7 at T + H = 192), the tile's blocks 0 and 95 (the last
+# at T = D = 128, H = 64)
+COSTS_LAUNCHES = {'prep factors': range(0, 2), 'prep rows': range(2, 6),
+                  'prep detections': range(6, 9), 'tile': range(9, 14)}
+COSTS_BLOCKS = {'prep factors': (0,), 'prep rows': (1,),
+                'prep detections': (49,), 'tile': (0, 95)}
 CROPS_MARKS = [
     ('start', '  const int s = n / p.boxes_a_stream;\n@'),
     ('row taps', '  float* out = p.out + ((static_cast<size_t>(n) * p.out_h '
@@ -76,12 +135,165 @@ CROPS_MARKS = [
 ]
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise SystemExit('prof_frame_kernels: needs a CUDA device')
+def breakdown(lib, marks, launches, blocks, launch):
+    """Runs ``launch()`` twice (the second counted) and prints, for each
+    launch of ``launches`` ({name: the indices of its marks}) and each of
+    its ``blocks``, the cycles between consecutive stamps of that launch
+    (a block's stamps of other launches, which ran on other SMs, apart),
+    by pair of marks."""
+    import collections
+    for _ in range(2):
+        kernel_stamps.read_stamps(lib)
+        launch()
+        torch.cuda.synchronize()
+        mark, block, clock, _ = kernel_stamps.read_stamps(lib)
+    for name, idx in launches.items():
+        for b in blocks[name]:
+            keep = (block == b) & np.isin(mark, list(idx))
+            m, c = mark[keep], clock[keep]
+            if len(m) < 2:
+                continue
+            pairs = collections.defaultdict(lambda: [0, 0])
+            for a, z, c0, c1 in zip(m[:-1], m[1:], c[:-1], c[1:]):
+                key = f'{marks[a][0]} -> {marks[z][0]}'
+                pairs[key][0] += 1
+                pairs[key][1] += int(c1 - c0)
+            print(f'  {name} block {b}: {len(m)} stamps, '
+                  f'{int(c[-1] - c[0])} cycles')
+            for key, (n, cyc) in sorted(pairs.items(),
+                                        key=lambda kv: -kv[1][1]):
+                print(f'    {key:34s} {n:5d} x {cyc / n:9.1f} = {cyc:9d} '
+                      'cycles')
+
+
+def source_library(name, src, tag):
+    """``src`` (a version of csrc/<name>.cu) built with this checkout's
+    nvcc flags for ``name``, its forward entry declared as this
+    checkout's."""
+    from fastmot_tpu_torch.ops import assoc_costs as acost
+    from fastmot_tpu_torch.ops import cuda_build
+    from fastmot_tpu_torch.ops import nms_waves as nw
+    tmp = Path(tempfile.mkdtemp())
+    cu, so = tmp / f'{name}_{tag}.cu', tmp / f'{name}_{tag}.so'
+    cu.write_text(src)
+    subprocess.run([cuda_build.find_nvcc(), *cuda_build.nvcc_flags(name),
+                    '-o', str(so), str(cu)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    entry, argtypes = {
+        'nms_waves': ('nms_select_forward', nw.SELECT_ARGTYPES),
+        'assoc_costs': ('assoc_costs_forward', acost.FORWARD_ARGTYPES)}[name]
+    getattr(lib, entry).argtypes = argtypes
+    getattr(lib, entry).restype = ctypes.c_int
+    return lib
+
+
+def other_libraries(root):
+    """ROOT's postprocess and costs libraries, built with this checkout's
+    flags."""
+    csrc = Path(root) / 'fastmot_tpu_torch' / 'csrc'
+    return {name: source_library(name, (csrc / f'{name}.cu').read_text(),
+                                 'other')
+            for name in ('nms_waves', 'assoc_costs')}
+
+
+def main_frame(streams):
+    """The main path's association frame: (the NMS's arguments at 1 and
+    ``streams`` streams, the costs' arguments at 1 and ``streams``)."""
+    from assoc_stages_turns import run_main_path
+    from fastmot_tpu_torch.models.yolo import decode_heads
+    from fastmot_tpu_torch.utils import ConfigDecoder
+    with open(ROOT / 'cfg' / 'mot.json') as f:
+        mot_cfg = json.load(f, cls=ConfigDecoder)['mot_cfg']
+    mot, frames, staged, _ = run_main_path(smoke, mot_cfg)
+    smoke.assoc_stages_ms(mot, frames, staged)
+    frame_args = smoke.STAGE_ARGS.pop('frame')
+    smoke.STAGE_ARGS.pop('tail', None)
+    det = mot.detector
+    _, ih, iw = det.model.INPUT_SHAPE
+    anchors = getattr(det, '_anchors', det.model.ANCHORS)
+    rows = []
+    for frame in smoke.textured_frames(smoke.SIZE, streams, seed=13):
+        heads = det.module(det.preprocess(torch.as_tensor(frame,
+                                                          device='cuda')))
+        rows.append(decode_heads(heads, anchors, det.model.SCALES, (ih, iw),
+                                 det.model.NEW_COORDS)[0])
+    nms1 = frame_args['nms']
+    nms_s = (torch.stack(rows),) + tuple(nms1[1:])
+    costs1 = frame_args['costs']
+
+    def tiled(x):
+        if isinstance(x, tuple):
+            return tuple(tiled(a) for a in x)
+        return x.expand(streams, *x.shape[1:]).contiguous()
+    costs_s = (costs1[0],) + tuple(tiled(a) for a in costs1[1:5]) \
+        + tuple(costs1[5:])
+    return (nms1, nms_s), (costs1, costs_s)
+
+
+def cases(streams):
+    """Phase 21's kinds of case at 1 and ``streams`` streams: {case: args}
+    for the NMS (``nms_and_gate``'s arguments) and the costs ((params,
+    states, hists, dets, embeddings, emb_cap))."""
     import tests.test_torch_assoc_costs as tcost
     import tests.test_torch_nms_select as tsel
+    (nms1, nms_s), (costs1, costs_s) = main_frame(streams)
+    rng = np.random.default_rng(21)
+    scale = torch.tensor([1280.0, 720.0, 1280.0, 720.0], device='cuda')
+    mask3 = torch.ones(3, dtype=torch.bool, device='cuda')
+
+    def contested_nms(n):
+        rows = np.stack([tsel.clustered_rows(rng, 16128, 3, 120)
+                         for _ in range(n)])
+        det = torch.as_tensor(rows, device='cuda')
+        return (det if n > 1 else det[0], mask3, 0.25, 0.5, 800000, 1.2,
+                scale, torch.zeros(2, device='cuda'))
+
+    def costs(kind, n):
+        case = tcost.torch_case(tcost.costs_case(
+            kind, tcost.CASE_SEEDS[kind], streams=n), 'cuda')
+        return (tcost.params(kind),) + case + (tcost.CASES[kind].emb_cap,)
+    nms = {'main_1_stream': nms1, f'main_{streams}_streams': nms_s,
+           'contested_1_stream': contested_nms(1),
+           f'contested_{streams}_streams': contested_nms(streams)}
+    cost = {'main_1_stream': costs1, f'main_{streams}_streams': costs_s,
+            'contested_1_stream': costs('full_width', 1),
+            f'contested_{streams}_streams': costs('full_width', streams),
+            'stage1_1_stream': costs('stage1', 1),
+            f'stage1_{streams}_streams': costs('stage1', streams)}
+    return nms, cost
+
+
+def nms_launch(a):
+    from fastmot_tpu_torch import detector as detmod
+    from fastmot_tpu_torch.ops import nms_waves as nw
+    k = min(detmod.MAX_RAW, a[0].shape[-2])
+    return nw.nms_select_launch_args(*a, k, min(k, detmod.MAX_DETS))
+
+
+def costs_launch(a):
+    from fastmot_tpu_torch.ops import assoc_costs as acost
+    return acost.assoc_costs_launch_args(*a[0], *a[1:])
+
+
+def run(entry, args, outputs):
+    """One call of a C entry; its outputs' bytes on the host."""
+    if entry(*args):
+        raise RuntimeError('launch failed')
+    torch.cuda.synchronize()
+    return [o.cpu().contiguous().view(torch.uint8) for o in outputs]
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('--other', help='the root of a checkout to compare')
+    ap.add_argument('--iters', type=int, default=100)
+    ap.add_argument('--no-stamps', action='store_true')
+    ap.add_argument('--json', help='write the times here as JSON')
+    opts = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit('prof_frame_kernels: needs a CUDA device')
     import tests.test_torch_reid_crops as tcrop
+    from fastmot_tpu_torch import detector as detmod
     from fastmot_tpu_torch.ops import assoc_costs as acost
     from fastmot_tpu_torch.ops import nms_waves as nw
     from fastmot_tpu_torch.ops import reid_crops as rc
@@ -89,68 +301,89 @@ def main():
                            '--format=csv,noheader'], capture_output=True,
                           text=True, check=True).stdout.strip()
     torch.backends.cuda.matmul.allow_tf32 = False
-    rng = np.random.default_rng(21)
+    torch.backends.cudnn.allow_tf32 = False
+    print(f'card: {card}; torch {torch.__version__}', flush=True)
+    smoke.phase_build()
+    # the stamped builds first: a mark that is not in the source fails fast
+    stamped = {} if opts.no_stamps else {
+        name: declare(kernel_stamps.stamped_library(
+            name, [m for _, m in marks]))
+        for name, declare, marks in (
+            ('nms_waves', nw.declare, SELECT_MARKS),
+            ('assoc_costs', acost.declare, COSTS_MARKS),
+            ('reid_crops', rc.declare, CROPS_MARKS))}
+    nms_cases, costs_cases = cases(smoke.N_STREAMS)
+    kernels = {
+        'nms_select': (nms_cases, nms_launch, 'nms_waves',
+                       'nms_select_forward', SELECT_MARKS,
+                       (SELECT_LAUNCHES, SELECT_BLOCKS),
+                       lambda a: detmod.nms_and_gate(*a)),
+        'assoc_costs': (costs_cases, costs_launch, 'assoc_costs',
+                        'assoc_costs_forward', COSTS_MARKS,
+                        (COSTS_LAUNCHES, COSTS_BLOCKS),
+                        lambda a: acost.assoc_costs(*a[0], *a[1:]))}
+    mine = {'nms_waves': nw.nms_waves_library(),
+            'assoc_costs': acost.assoc_costs_library()}
+    other = other_libraries(opts.other) if opts.other else None
 
-    lib = nw.declare(kernel_stamps.stamped_library(
-        'nms_waves', [m for _, m in SELECT_MARKS]))
-    det = torch.as_tensor(tsel.clustered_rows(rng, 16128, 3, 120),
-                          device='cuda')
-    args = (det, torch.ones(3, dtype=torch.bool, device='cuda'), 0.25, 0.5,
-            800000, 1.2, torch.tensor([1280.0, 720, 1280, 720],
-                                      device='cuda'),
-            torch.zeros(2, device='cuda'))
-    outputs, s_args, keep = nw.nms_select_launch_args(*args, 1024, 128)
-    print(f'nms_select, contested 16,128 rows (1 stream): block 0 of each '
-          f'launch (the select, a pack block, the order) and pack block '
-          f'127; {card}', flush=True)
-    breakdown(lib, SELECT_MARKS, lambda: lib.nms_select_forward(*s_args),
-              blocks=(0, 127))
-    del keep
-    plain = nw.declare(nw.nms_waves_library())
-    dev = smoke.lk_device_ms(plain.nms_select_forward, s_args)
-    print(f'nms_select: device {dev * 1e3:.2f} us a call; {card}',
-          flush=True)
+    if stamped:
+        for name, (cs, launch, lib_name, entry, marks, blocks, _) in \
+                kernels.items():
+            lib = stamped[lib_name]
+            for case in ('main_1_stream', 'contested_1_stream'):
+                _, args, keep = launch(cs[case])
+                print(f'{name} {case}: {card}', flush=True)
+                breakdown(lib, marks, *blocks,
+                          lambda: getattr(lib, entry)(*args))
+                del keep
+        lib = stamped['reid_crops']
+        frame = torch.as_tensor(smoke.textured_frames(smoke.SIZE, 1)[0],
+                                device='cuda')
+        boxes = torch.as_tensor(tcrop.edge_boxes(np.random.default_rng(21),
+                                                 64, 720, 1280),
+                                device='cuda')
+        out, r_args, keep = rc.reid_crops_launch_args(frame, boxes,
+                                                      (256, 128))
+        print(f'reid_crops, 64 crops: {card}', flush=True)
+        breakdown(lib, CROPS_MARKS, {'crops': range(3)}, {'crops': (0, 1)},
+                  lambda: lib.reid_crops_forward(*r_args))
+        del keep
 
-    lib = acost.declare(kernel_stamps.stamped_library(
-        'assoc_costs', [m for _, m in COSTS_MARKS]))
-    kind = 'full_width'
-    states, hists, dets, embs = tcost.torch_case(
-        tcost.costs_case(kind, tcost.CASE_SEEDS[kind]), 'cuda')
-    outputs, c_args, keep = acost.assoc_costs_launch_args(
-        *tcost.params(kind), states, hists, dets, embs,
-        tcost.CASES[kind].emb_cap)
-    print(f'assoc_costs, full width (1 stream): blocks 0 and 31 (track '
-          f'rows 0-15 and 112-127 by detections 0-31 and 96-127) and 32 '
-          f'(history rows 0-15); {card}', flush=True)
-    breakdown(lib, COSTS_MARKS, lambda: lib.assoc_costs_forward(*c_args),
-              blocks=(0, 31, 32))
-    plain = acost.assoc_costs_library()
-    app = tcost.plain_appearance(kind, (states, hists, dets, embs))
-    _, g_args, g_keep = acost.assoc_costs_launch_args(
-        *tcost.params(kind), states, hists, dets, embs,
-        tcost.CASES[kind].emb_cap, app)
-    dev = smoke.lk_device_ms(plain.assoc_costs_forward, c_args)
-    given = smoke.lk_device_ms(plain.assoc_costs_forward, g_args)
-    print(f'assoc_costs: device {dev * 1e3:.2f} us a call with the '
-          f'products, {given * 1e3:.2f} with the distances given (the split '
-          f'path); {card}', flush=True)
-    del keep, g_keep
-
-    lib = rc.declare(kernel_stamps.stamped_library(
-        'reid_crops', [m for _, m in CROPS_MARKS]))
-    frame = torch.as_tensor(smoke.textured_frames(smoke.SIZE, 1)[0],
-                            device='cuda')
-    boxes = torch.as_tensor(tcrop.edge_boxes(rng, 64, 720, 1280),
-                            device='cuda')
-    out, r_args, keep = rc.reid_crops_launch_args(frame, boxes, (256, 128))
-    print(f'reid_crops, 64 crops: blocks 0 and 1; {card}', flush=True)
-    breakdown(lib, CROPS_MARKS, lambda: lib.reid_crops_forward(*r_args),
-              blocks=(0, 1))
-    plain = rc.reid_crops_library()
-    dev = smoke.lk_device_ms(plain.reid_crops_forward, r_args)
-    print(f'reid_crops: device {dev * 1e3:.2f} us a call; {card}',
-          flush=True)
-    del keep
+    results = {'card': card, 'cases': {}}
+    for name, (cs, launch, lib_name, entry, _, _, wrapper) in \
+            kernels.items():
+        for case, a in cs.items():
+            outputs, args, keep = launch(a)
+            named = [('this', getattr(mine[lib_name], entry))]
+            got = run(named[0][1], args, outputs)
+            if other is not None:
+                theirs = run(getattr(other[lib_name], entry), args, outputs)
+                if not all(torch.equal(x, y) for x, y in zip(got, theirs)):
+                    raise AssertionError(f'{name} {case}: the other '
+                                         "checkout's outputs differ")
+                named.append(('other', getattr(other[lib_name], entry)))
+            times = {tag: [] for tag, _ in named}
+            for tag, fn in named + named[::-1]:
+                times[tag].append(smoke.lk_device_ms(
+                    fn, args, n=opts.iters, tag=f'{name} {case}'))
+            call = smoke.launches_ms(lambda: wrapper(a))
+            host = smoke.host_ms(lambda: wrapper(a))
+            entry_host = smoke.host_ms(lambda: named[0][1](*args))
+            del keep
+            results['cases'][f'{name} {case}'] = {
+                'device_ms': times, 'wrapper_ms': call, 'host_ms': host,
+                'entry_host_ms': entry_host}
+            print(f'{name} {case}: device us a call ' + '; '.join(
+                f'{tag} ' + ' / '.join(f'{t * 1e3:.2f}' for t in v)
+                for tag, v in times.items())
+                + ' (in turns'
+                + (', outputs equal bit for bit' if other else '')
+                + f'); this wrapper {call * 1e3:.2f} us a call, host '
+                f'{host * 1e3:.2f} us (of it the C entry '
+                f'{entry_host * 1e3:.2f} us); {card}', flush=True)
+    if opts.json:
+        with open(opts.json, 'w') as f:
+            json.dump(results, f, indent=1)
 
 
 if __name__ == '__main__':

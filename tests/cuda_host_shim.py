@@ -24,6 +24,21 @@ csrc/flow_preprocess.cu, csrc/gap_points.cu and csrc/assoc_solvers.cu:
 - ``__shared__`` arrays are static storage (a block's threads share them,
   and blocks run in turn), and a dynamic ``extern __shared__`` array is a
   static one of ``HOST_DYNAMIC_SMEM`` bytes;
+- with ``clusters=True``, a launch whose ``cudaLaunchKernelEx`` attributes
+  give a cluster dimension runs each cluster's blocks together, on one
+  team of host threads (the block's thread count times the cluster's
+  blocks), and the clusters in turn; a dynamic ``extern __shared__`` array
+  is then each block's own (``HOST_DYNAMIC_SMEM`` bytes a block, zeroed at
+  the launch); ``cooperative_groups::this_cluster()`` gives the block's
+  rank, the cluster's size, ``sync()`` (a barrier of every thread of the
+  cluster) and ``map_shared_rank`` (a pointer into the block's dynamic
+  shared memory moved to the same place in another block's). A kernel
+  launched so keeps all its shared state in dynamic shared memory: its
+  static ``__shared__`` arrays would be one storage for the whole
+  cluster. Launches without a cluster dimension, or with clusters of one
+  block, run as above (one team, the blocks in turn, one dynamic shared
+  memory that they take in turn), and ``this_cluster()`` in them is a
+  cluster of one block;
 - the atomics (32-bit, and 64-bit ``atomicMax``) are the compiler's
   ``__atomic`` builtins; the asynchronous copies into shared memory
   (``cp.async``, ``cp.async.bulk`` and their mbarrier) sit in the kernels
@@ -75,6 +90,7 @@ inline float4 make_float4(float x, float y, float z, float w) {
   return {x, y, z, w};
 }
 struct alignas(16) uint4 { unsigned x, y, z, w; };
+struct alignas(16) ulonglong2 { unsigned long long x, y; };
 struct uint3 { unsigned x, y, z; };
 struct dim3 {
   unsigned x, y, z;
@@ -85,14 +101,18 @@ static thread_local dim3 blockDim, gridDim;
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaFuncAttribute {
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaFuncAttributeNonPortableClusterSizeAllowed = 16
+};
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t e) {
   return e ? "invalid value" : "no error";
 }
 template <class F>
-cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int bytes) {
-  return bytes <= HOST_DYNAMIC_SMEM ? cudaSuccess : cudaErrorInvalidValue;
+cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute a, int value) {
+  return a != cudaFuncAttributeMaxDynamicSharedMemorySize
+      || value <= HOST_DYNAMIC_SMEM ? cudaSuccess : cudaErrorInvalidValue;
 }
 inline unsigned __float_as_uint(float f) {
   unsigned u;
@@ -201,6 +221,17 @@ struct Warp {
 };
 static thread_local Barrier* block_barrier;
 static thread_local Warp* this_warp;
+// a cluster launch's shared state (clusters=True)
+struct HostCluster {
+  int size = 1;
+  Barrier barrier;
+  std::vector<char> arena;   // the blocks' dynamic shared memory in turn
+};
+static thread_local HostCluster* host_cluster;
+static thread_local int host_cluster_rank;
+static thread_local char* host_smem_base;
+// this block's dynamic shared memory (clusters=True)
+inline char* host_block_smem() { return host_smem_base; }
 inline void __syncthreads() { block_barrier->meet(); }
 inline int __syncthreads_count(int pred) { return block_barrier->meet(pred); }
 inline int __syncthreads_or(int pred) { return block_barrier->meet(pred) > 0; }
@@ -302,6 +333,9 @@ void host_launch(dim3 grid, int threads, F f, A... args) {
   const int n_warps = (n + 31) / 32;
   std::unique_ptr<Warp[]> warps(new Warp[n_warps]);
   for (int w = 0; w < n_warps; ++w) warps[w].barrier.n = min(32, n - 32 * w);
+#ifdef HOST_CLUSTERS
+  std::vector<char> arena(HOST_DYNAMIC_SMEM, 0);   // the blocks' in turn
+#endif
   std::vector<std::thread> team;
   for (int t = 0; t < n; ++t)
     team.emplace_back([&, t] {
@@ -310,6 +344,9 @@ void host_launch(dim3 grid, int threads, F f, A... args) {
       gridDim = grid;
       block_barrier = &barrier;
       this_warp = &warps[t / 32];
+#ifdef HOST_CLUSTERS
+      host_smem_base = arena.data();
+#endif
       for (unsigned y = 0; y < grid.y; ++y)
         for (unsigned b = 0; b < grid.x; ++b) {
           blockIdx = {b, y, 0};
@@ -321,11 +358,15 @@ void host_launch(dim3 grid, int threads, F f, A... args) {
 }
 
 enum cudaLaunchAttributeID {
-  cudaLaunchAttributeProgrammaticStreamSerialization = 1
+  cudaLaunchAttributeProgrammaticStreamSerialization = 1,
+  cudaLaunchAttributeClusterDimension = 4
 };
 struct cudaLaunchAttribute {
   cudaLaunchAttributeID id;
-  union { int programmaticStreamSerializationAllowed; } val;
+  union {
+    int programmaticStreamSerializationAllowed;
+    struct { unsigned x, y, z; } clusterDim;
+  } val;
 };
 struct cudaLaunchConfig_t {
   dim3 gridDim, blockDim;
@@ -334,35 +375,132 @@ struct cudaLaunchConfig_t {
   cudaLaunchAttribute* attrs;
   unsigned numAttrs;
 };
+#ifdef HOST_CLUSTERS
+// a cluster's blocks together on one team (the block's threads times the
+// cluster's blocks), each block with its own barrier, warps and dynamic
+// shared memory; the clusters in turn
+template <class F, class... A>
+void host_launch_cluster(dim3 grid, int threads, int size, F f, A... args) {
+  const int n = host_threads > 0 ? host_threads : threads;
+  const int n_warps = (n + 31) / 32;
+  for (unsigned y = 0; y < grid.y; ++y)
+    for (unsigned c = 0; c < grid.x / size; ++c) {
+      HostCluster cluster;
+      cluster.size = size;
+      cluster.barrier.n = n * size;
+      cluster.arena.assign(static_cast<size_t>(size) * HOST_DYNAMIC_SMEM, 0);
+      std::vector<Barrier> barriers(size);
+      std::vector<std::unique_ptr<Warp[]>> warps(size);
+      for (int r = 0; r < size; ++r) {
+        barriers[r].n = n;
+        warps[r].reset(new Warp[n_warps]);
+        for (int w = 0; w < n_warps; ++w)
+          warps[r][w].barrier.n = min(32, n - 32 * w);
+      }
+      std::vector<std::thread> team;
+      for (int t = 0; t < n * size; ++t)
+        team.emplace_back([&, t] {
+          const int r = t / n, local = t % n;
+          threadIdx = {static_cast<unsigned>(local), 0, 0};
+          blockDim = dim3(n);
+          gridDim = grid;
+          blockIdx = {c * size + r, y, 0};
+          block_barrier = &barriers[r];
+          this_warp = &warps[r][local / 32];
+          host_cluster = &cluster;
+          host_cluster_rank = r;
+          host_smem_base = cluster.arena.data()
+              + static_cast<size_t>(r) * HOST_DYNAMIC_SMEM;
+          f(args...);
+        });
+      for (auto& th : team) th.join();
+    }
+}
+#endif
+
 template <class... E, class... A>
 cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
                                void (*f)(E...), A&&... args) {
+  int size = 1;
+  for (unsigned a = 0; a < cfg->numAttrs; ++a)
+    if (cfg->attrs[a].id == cudaLaunchAttributeClusterDimension)
+      size = static_cast<int>(cfg->attrs[a].val.clusterDim.x);
+#ifdef HOST_CLUSTERS
+  if (size < 1 || cfg->gridDim.x % size) return cudaErrorInvalidValue;
+  if (size > 1) {
+    host_launch_cluster(cfg->gridDim, cfg->blockDim.x, size, f, args...);
+    return cudaSuccess;
+  }
+#else
+  if (size != 1) return cudaErrorInvalidValue;   // build with clusters=True
+#endif
   host_launch(cfg->gridDim, cfg->blockDim.x, f, args...);
   return cudaSuccess;
 }
+
+namespace cooperative_groups {
+// this block's cluster (of one block outside a cluster launch)
+struct cluster_group {
+  void sync() const {
+    if (host_cluster) host_cluster->barrier.meet();
+    else block_barrier->meet();
+  }
+  unsigned block_rank() const { return host_cluster_rank; }
+  unsigned num_blocks() const {
+    return host_cluster ? host_cluster->size : 1;
+  }
+  // addr (in this block's dynamic shared memory) in block `rank`'s
+  template <class T>
+  T* map_shared_rank(T* addr, int rank) const {
+    char* p = reinterpret_cast<char*>(addr);
+    if (!host_cluster) return addr;
+    if (p < host_smem_base || p >= host_smem_base + HOST_DYNAMIC_SMEM)
+      std::abort();   // not this block's dynamic shared memory
+    return reinterpret_cast<T*>(
+        p + (static_cast<long>(rank) - host_cluster_rank) * HOST_DYNAMIC_SMEM);
+  }
+};
+inline cluster_group this_cluster() { return {}; }
+}  // namespace cooperative_groups
+"""
+
+# with clusters=True: each block's own dynamic shared memory
+COOPERATIVE_GROUPS = """#pragma once
+#include "cuda_runtime.h"
 """
 
 
 def build_host(name, tmp_path_factory, defines=(), extra='', launches=1,
-               opt='-O2'):
-    """``csrc/<name>.cu`` built for the host with g++ and ``HOST_SHIM``, as
-    a ctypes library with ``set_host_threads`` declared: each
-    ``kernel<<<grid, block, smem, stream>>>(`` becomes a ``host_launch``
-    (``launches`` of them; the rest launch by ``cudaLaunchKernelEx``), a
-    dynamic ``extern __shared__`` array static storage, ``extra`` is
-    appended to the source (the same translation unit) and ``defines`` are
-    ``-D`` flags."""
+               opt='-O2', clusters=False, source=None):
+    """``csrc/<name>.cu`` (or ``source``, the text of one) built for the
+    host with g++ and ``HOST_SHIM``, as a ctypes library with
+    ``set_host_threads`` declared: each ``kernel<<<grid, block, smem,
+    stream>>>(`` becomes a ``host_launch`` (``launches`` of them; the rest
+    launch by ``cudaLaunchKernelEx``), a dynamic ``extern __shared__``
+    array static storage (with ``clusters``, a pointer to the block's own
+    dynamic shared memory, and cluster launches run as the module's
+    docstring says), ``extra`` is appended to the source (the same
+    translation unit) and ``defines`` are ``-D`` flags."""
     from fastmot_tpu_torch.ops.cuda_build import CSRC
     if shutil.which('g++') is None:
         pytest.skip('needs g++')
     d = tmp_path_factory.mktemp(f'{name}_host')
     (d / 'cuda_runtime.h').write_text(HOST_SHIM)
+    (d / 'cooperative_groups.h').write_text(COOPERATIVE_GROUPS)
     src, n = re.subn(r'(\w+)<<<(\w+), (\w+), \w+, \w+>>>\(',
                      r'host_launch(\2, \3, \1, ',
-                     (CSRC / f'{name}.cu').read_text())
+                     source if source is not None
+                     else (CSRC / f'{name}.cu').read_text())
     assert n == launches, (name, n)
-    src = re.sub(r'extern __shared__ (.*?)(\w+) (\w+)\[\];',
-                 r'static \1\2 \3[HOST_DYNAMIC_SMEM / sizeof(\2)];', src)
+    if clusters:
+        src = re.sub(r'extern __shared__ (.*?)(\w+) (\w+)\[\];',
+                     r'\1\2* const \3 = '
+                     r'reinterpret_cast<\1\2*>(host_block_smem());', src)
+        defines = (*defines, '-DHOST_CLUSTERS=1')
+    else:
+        src = re.sub(r'extern __shared__ (.*?)(\w+) (\w+)\[\];',
+                     r'static \1\2 \3[HOST_DYNAMIC_SMEM / sizeof(\2)];',
+                     src)
     (d / f'{name}.cpp').write_text(src + extra)
     built = subprocess.run(
         ['g++', opt, '-std=c++17', '-pthread', '-ffp-contract=off',

@@ -22,9 +22,13 @@ On the CPU:
   the cosine metric, the appearance given as on the split path, and the
   main path's full width: 128 tracks, 128 detections, 64 history rows,
   512 features); every output's sha256 as the first design gave it
-  (``OUTPUT_SHA256``); and the cascade, the finals and the commit fed the
-  host build's costs give the same integer outputs as fed the plain
-  version's.
+  (``OUTPUT_SHA256``); cases at the kernels' edges (``EDGE_CASES``:
+  ragged row, detection and feature counts, the split path and the cosine
+  metric at such sizes) against the plain version and the sha256 a host
+  build of the first design's source gave (``EDGE_SHA256``); one stream
+  without the stream axis equal to a batched call's; and the cascade,
+  the finals and the commit fed the host build's costs give the same
+  integer outputs as fed the plain version's.
 
 On the card (marker ``cuda``; they skip without one):
 
@@ -64,6 +68,23 @@ CASES = {'frame': Case(1, 32, 32, 16, 64, None, 'euclidean', False, 0.9, 1),
          'stage1': Case(1, 128, 128, 64, 512, None, 'euclidean', False, 0.9,
                         3)}
 CASE_SEEDS = {kind: i + 1 for i, kind in enumerate(CASES)}
+# cases at the kernels' edges: tracks and history rows not a multiple of a
+# tile's 16, detections not a multiple of a tile's 16 or a prep block's
+# 32, features not a multiple of 64 or of a staged chunk's 128 (300: three
+# chunks, the last partial), nor of 4 (50: the copies a float at a time),
+# more than one pass of the prep's 1,024 and more chunks than the tile's 4
+# stages (1,100), the embedding budget, the split path's given distances
+# and the cosine metric at such sizes
+EDGE_CASES = {
+    'ragged': Case(2, 20, 45, 13, 300, None, 'euclidean', False, 0.9, 1),
+    'narrow': Case(1, 37, 19, 5, 50, 12, 'euclidean', False, 1.5, 1),
+    'split_ragged': Case(2, 20, 45, 13, 100, None, 'euclidean', True, 0.9,
+                         1),
+    'cosine_ragged': Case(1, 33, 70, 17, 300, None, 'cosine', False, 0.9,
+                          1),
+    'wide': Case(1, 20, 13, 5, 1100, None, 'euclidean', False, 0.9, 1)}
+CASE_SEEDS.update({kind: 20 + i for i, kind in enumerate(EDGE_CASES)})
+ALL_CASES = {**CASES, **EDGE_CASES}
 # assoc_costs_core's scalars as MultiTracker passes them (its defaults;
 # cfg/mot.json's max_age 6: 4 depth masks)
 N_DEPTH, MOTION_W, IOU_GATE = 4, 0.2, 0.6
@@ -197,7 +218,7 @@ def costs_case(kind, seed, streams=None):
     """(states, hists, dets, embs) with a leading stream axis (``streams``
     of them in place of the case's own count: chip_smoke.py phase 21's 8
     streams), numpy."""
-    c = CASES[kind]
+    c = ALL_CASES[kind]
     rng = np.random.default_rng(seed)
     make = stage1_stream if kind == 'stage1' else one_stream
     streams = [make(rng, c.tracks, c.dets, c.hist, c.features)
@@ -208,7 +229,7 @@ def costs_case(kind, seed, streams=None):
 
 
 def params(kind):
-    c = CASES[kind]
+    c = ALL_CASES[kind]
     return (KalmanConfig(), Metric[c.metric.upper()], N_DEPTH, MOTION_W,
             c.max_assoc, IOU_GATE, FILL, OCCLUSION, c.confirm)
 
@@ -223,7 +244,7 @@ def torch_case(case, device='cpu'):
 def given_appearance(kind, case):
     """The two appearance distances the split path hands the kernel
     (``split_feature_dists`` with one slice: an identity all-reduce)."""
-    if not CASES[kind].given:
+    if not ALL_CASES[kind].given:
         return None
     states, hists, _, embs = case
     return ttr.split_feature_dists(Metric.EUCLIDEAN, states[13], states[14],
@@ -234,7 +255,7 @@ def plain(kind, case, app=None):
     """``assoc_costs_reference`` under ``vmap`` over the streams (on the
     split path's case with ``app``, or the distances ``case`` gives)."""
     states, hists, dets, embs = case
-    emb_cap = CASES[kind].emb_cap
+    emb_cap = ALL_CASES[kind].emb_cap
     app = given_appearance(kind, case) if app is None else app
     p = params(kind)
 
@@ -267,6 +288,20 @@ def output_sha256(result):
     return h.hexdigest()
 
 
+# each edge case's outputs as a host build of the first design's source
+# (commit 1fcedb2's csrc/assoc_costs.cu) gave them
+EDGE_SHA256 = {
+    'ragged':
+        '6871a61b3fc6e2ce12a708c1dd97428e0d4501460548ed5a4d49829617ed25e4',
+    'narrow':
+        '46993369baae048e47287030a8b07cb61bc1c42db3ebbccc23f7ab45201db2f4',
+    'split_ragged':
+        '86fabdde4215beb97d219ba81bf0e131d98f28af16251cd5204e757eea27e1f2',
+    'cosine_ragged':
+        '9da69acf0dca479876d2231c159627182444df629eeb88ae4cc7a348d1c79358',
+    'wide':
+        'c26f094e54b806a4415fd09f3192933fc095ac97a3caea9a68c55b7910afbe61',
+}
 # every seeded case's outputs as the first design of the kernel gave them
 OUTPUT_SHA256 = {
     'frame':
@@ -309,8 +344,8 @@ def host_costs(lib, kind, case, device='cpu', app=None):
     if device == 'cpu':
         lib.set_host_threads(0)
     outputs, args, _ = acost.assoc_costs_launch_args(
-        *params(kind), states, hists, dets, embs, CASES[kind].emb_cap,
-        given_appearance(kind, case) if app is None else app)
+        *params(kind), states, hists, dets, embs, ALL_CASES[kind].emb_cap,
+        given_appearance(kind, case) if app is None else app, lib=lib)
     assert lib.assoc_costs_forward(*args) == 0
     cost, iou_cost, reid, occluded, h_reid_ok, masks, col4row = outputs
     return (cost, iou_cost, reid, occluded, h_reid_ok,
@@ -321,10 +356,10 @@ def host_costs(lib, kind, case, device='cpu', app=None):
 def plain_appearance(kind, case, app=None):
     """The plain version's unmasked appearance distances ``(t_app [S, T,
     D], h_app [S, H, D])`` (``app``, or the case's split-path ones)."""
-    if app is not None or CASES[kind].given:
+    if app is not None or ALL_CASES[kind].given:
         return app if app is not None else given_appearance(kind, case)
     states, hists, _, embs = case
-    metric = Metric[CASES[kind].metric.upper()]
+    metric = Metric[ALL_CASES[kind].metric.upper()]
 
     def one(f_sum, count, emb):
         return dist.cdist(ttr.normalized_feats(f_sum, count), emb, metric)
@@ -393,7 +428,7 @@ def test_host_build_matches_plain_version(host_kernel, kind):
     case = torch_case(costs_case(kind, CASE_SEEDS[kind]))
     assert_costs_close(host_costs(host_kernel, kind, case),
                        plain(kind, case), kind, plain_appearance(kind, case),
-                       euclidean=CASES[kind].metric == 'euclidean')
+                       euclidean=ALL_CASES[kind].metric == 'euclidean')
 
 
 @pytest.mark.parametrize('kind', list(CASES))
@@ -403,12 +438,88 @@ def test_host_outputs_equal_the_first_design(host_kernel, kind):
         == OUTPUT_SHA256[kind]
 
 
+def test_edge_cases_are_what_they_say():
+    """The edge cases' sizes are what their comment says, and they gate,
+    fill and occlude."""
+    for kind, c in EDGE_CASES.items():
+        assert c.tracks % 16 and c.hist % 16 and c.dets % 16, kind
+        assert c.features % 64, kind
+        res = plain(kind, torch_case(costs_case(kind, CASE_SEEDS[kind])))
+        cost, _, reid, occluded = res[:4]
+        assert int((cost < 1e5).sum()) > 3 and int((reid < 1e5).sum()) > 3
+        assert int((cost == 1e5).sum()) > 3 and bool(occluded.any()), kind
+    assert EDGE_CASES['narrow'].features % 4
+    assert EDGE_CASES['ragged'].features > 2 * 128
+
+
+@pytest.mark.parametrize('kind', list(EDGE_CASES))
+def test_host_build_at_the_edges(host_kernel, kind):
+    """The plain version at this file's rules, and the first design's
+    outputs bit for bit."""
+    case = torch_case(costs_case(kind, CASE_SEEDS[kind]))
+    got = host_costs(host_kernel, kind, case)
+    assert_costs_close(got, plain(kind, case), kind,
+                       plain_appearance(kind, case),
+                       euclidean=ALL_CASES[kind].metric == 'euclidean')
+    assert output_sha256(got) == EDGE_SHA256[kind]
+
+
+def test_one_stream_without_the_stream_axis(host_kernel):
+    """One stream's tensors without the stream axis (as
+    ``tracker.assoc_costs_core`` passes them): the batched call's stream
+    0, bit for bit, and outputs without the axis."""
+    kind = 'streams'
+    case = torch_case(costs_case(kind, CASE_SEEDS[kind]))
+    states, hists, dets, embs = case
+    want = host_costs(host_kernel, kind, case)
+    host_kernel.set_host_threads(0)
+    outputs, args, _ = acost.assoc_costs_launch_args(
+        *params(kind), tuple(a[0] for a in states),
+        tuple(a[0] for a in hists), tuple(a[0] for a in dets), embs[0],
+        lib=host_kernel)
+    assert host_kernel.assoc_costs_forward(*args) == 0
+    cost, iou_cost, reid, occluded, h_reid_ok, masks, col4row = outputs
+    got = (cost, iou_cost, reid, occluded, h_reid_ok,
+           tuple(masks[:N_DEPTH]), masks[N_DEPTH], masks[N_DEPTH + 1],
+           dets[3][0], col4row)
+    for g, w in zip(flat(got), flat(want)):
+        assert g.shape == w.shape[1:] and torch.equal(g, w[0])
+
+
+def test_scratch_layout_agrees(host_kernel):
+    """The kernel's scratch (``assoc_costs_scratch_words``) is the rows'
+    normalised features [S, T + H, F] (with the products), their squared
+    norms [S, T + H], the tracks' factors and means [S, T, 16] and the
+    embeddings' squared norms [S, D], each to a multiple of 4 floats; the
+    wrapper's allocation holds that much past the outputs."""
+    def r4(n):
+        return (n + 3) // 4 * 4
+    for s, t, d, h, f, products in (
+            (1, 128, 128, 64, 512, True), (2, 20, 45, 13, 300, True),
+            (3, 7, 9, 5, 50, False), (8, 128, 128, 64, 512, False)):
+        rows = s * (t + h)
+        assert host_kernel.assoc_costs_scratch_words(
+            s, t, d, h, f, products) == (r4(rows * f) if products else 0) \
+            + r4(rows) + s * t * 16 + r4(s * d)
+    kind = 'streams'
+    states, hists, dets, embs = torch_case(costs_case(kind, CASE_SEEDS[kind]))
+    s, t, h, f = *states[0].shape[:2], *hists[0].shape[1:]
+    outputs, args, inputs = acost.assoc_costs_launch_args(
+        *params(kind), states, hists, dets, embs, lib=host_kernel)
+    buf, scratch = inputs[-1], args[0][-1]
+    words = host_kernel.assoc_costs_scratch_words(s, t, dets[0].shape[1], h,
+                                                  f, True)
+    assert scratch >= max(x.data_ptr() + x.numel() * x.element_size()
+                          for x in outputs)
+    assert buf.data_ptr() + 4 * buf.numel() >= scratch + 4 * words
+
+
 def downstream(kind, costs, case):
     """The cascade, the finals and the commit of one stream fed ``costs``:
     their integer outputs (col4row, u_det_conf, reid_c4r, rect_c4r, and the
     commit's integer state, history and info)."""
     states, hists, dets, embs = case
-    confirm = CASES[kind].confirm
+    confirm = ALL_CASES[kind].confirm
     (cost, iou_cost, reid_cost, occluded, h_reid_ok, depth_masks,
      base_ia, base_u, u_det, col4row) = costs
     u2, c2 = ttr.stages_scan_core(N_DEPTH, cost, iou_cost, depth_masks,
@@ -452,7 +563,7 @@ def test_plain_version_matches_jax():
     for kind in ('frame', 'streams', 'capped', 'cosine'):
         case = costs_case(kind, CASE_SEEDS[kind] + 10)
         states, hists, dets, embs = case
-        c = CASES[kind]
+        c = ALL_CASES[kind]
 
         def one(state, hist, det, emb):
             return jtr._assoc_costs_core(
@@ -539,11 +650,11 @@ def test_kernel_matches_plain_version(cuda, kind):
     # sha256 of the host build read
     app = given_appearance(kind, torch_case(case))
     app = None if app is None else tuple(a.to(cuda) for a in app)
-    got = acost.assoc_costs(*params(kind), *on_card, CASES[kind].emb_cap,
+    got = acost.assoc_costs(*params(kind), *on_card, ALL_CASES[kind].emb_cap,
                             app)
     torch.cuda.synchronize()
     assert acost.assoc_costs.launches == before + 1
-    euclidean = CASES[kind].metric == 'euclidean'
+    euclidean = ALL_CASES[kind].metric == 'euclidean'
     assert_costs_close(got, plain(kind, on_card, app), f'{kind} on the card',
                        plain_appearance(kind, on_card, app),
                        euclidean=euclidean)
@@ -551,6 +662,23 @@ def test_kernel_matches_plain_version(cuda, kind):
     assert_costs_close(got, plain(kind, cpu), f'{kind} CPU',
                        plain_appearance(kind, cpu), euclidean=euclidean)
     assert output_sha256(got) == OUTPUT_SHA256[kind]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', list(EDGE_CASES))
+def test_kernel_at_the_edges(cuda, kind):
+    """The card's build on the edge cases, against the plain version on the
+    CPU and the first design's outputs."""
+    cpu = torch_case(costs_case(kind, CASE_SEEDS[kind]))
+    app = given_appearance(kind, cpu)
+    got = acost.assoc_costs(*params(kind), *torch_case(
+        costs_case(kind, CASE_SEEDS[kind]), cuda), EDGE_CASES[kind].emb_cap,
+        None if app is None else tuple(a.to(cuda) for a in app))
+    torch.cuda.synchronize()
+    assert_costs_close(got, plain(kind, cpu), f'{kind} CPU',
+                       plain_appearance(kind, cpu),
+                       euclidean=EDGE_CASES[kind].metric == 'euclidean')
+    assert output_sha256(got) == EDGE_SHA256[kind]
 
 
 @pytest.mark.cuda

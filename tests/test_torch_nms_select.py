@@ -22,9 +22,18 @@ On the CPU:
   through an all-true mask, labels outside the mask and outside its
   range, boxes that fail each gate, 1 to 3 streams, fewer candidates than
   MAX_RAW and than MAX_DETS), and every output's sha256 as the first
-  design gave it (``OUTPUT_SHA256``). The host build's DIoU takes glibc's
-  ``powf``, the plain version on the CPU torch's CPU ``pow``, the card
-  CUDA's ``powf``: they round apart by a few ulps on some inputs
+  design gave it (``OUTPUT_SHA256``); on cases at the select's edges
+  (``EDGE_KINDS``: a radix select that stops after each of its three
+  digits or cuts the K-th score's equals by index across the cluster's
+  blocks, row counts that are not a multiple of a block's slice, N = K
+  and N = K + 1, K not a power of two with M < K, several streams), bit
+  for bit the plain version and the sha256 a host build of the first
+  design's source gave (``EDGE_SHA256``), also with the select's keys in
+  scratch rather than shared memory. The select runs as a thread block
+  cluster in the host shim (``clusters=True``). The host build's DIoU
+  takes glibc's ``powf``, the plain version on the CPU torch's CPU
+  ``pow``, the card CUDA's ``powf``: they round apart by a few ulps on
+  some inputs
   (chip_smoke.py phase 21 counts them), which can flip a box only where
   its DIoU lies within those ulps of the threshold; none does on these
   cases.
@@ -104,6 +113,108 @@ def select_case(kind, seed=0):
     raise ValueError(kind)
 
 
+def with_scores(rows, scores):
+    """``rows`` with objectness ``scores`` and class probability 1, so that
+    each row's score is exactly its ``scores`` entry."""
+    rows = rows.copy()
+    rows[..., 4] = scores
+    rows[..., 6] = 1.0
+    return rows
+
+
+def score_groups(rng, n, groups, rest=0.3):
+    """``n`` scores in a random order: ``groups`` of (count, value) rows,
+    the value a float, or the bits of one as an int; the rest ``rest``."""
+    scores = np.full(n, rest, F32)
+    at = 0
+    for count, value in groups:
+        if isinstance(value, int):
+            value = np.array([value], np.uint32).view(F32)[0]
+        scores[at:at + count] = value
+        at += count
+    return scores[rng.permutation(n)]
+
+
+# bits of 0.55 with the last digit's 10 bits clear
+BASE_55 = int(np.array([0.55], F32).view(np.uint32)[0]) & ~0x3FF
+# cases at the select's edges: where its radix select of 11-, 11- and
+# 10-bit digits stops (after each digit, or past the last, where the K-th
+# score's equals are cut by index across the cluster's blocks), row counts
+# that are not a multiple of a block's slice, N = K and N = K + 1, K not a
+# power of two with M < K, several streams. (det, mask, scale, offset,
+# keep, out); keep and out None: the wrapper's own
+EDGE_KINDS = ('stop_first', 'stop_second', 'stop_third', 'cut',
+              'cut_streams', 'ragged', 'one_over', 'equal', 'keep_700')
+
+
+def edge_case(kind, seed=5):
+    rng = np.random.default_rng(seed)
+    scale = np.array([1280, 720, 1280, 720], F32)
+    offset = np.array([0.0, 0.0], F32)
+    keep = out = None
+    groups = {
+        'stop_first': [(1, s) for s in rng.uniform(0.5, 0.62, 1024)],
+        'stop_second': [(424, 0.6), (600, 0.55), (200, 0.52)],
+        'stop_third': [(400, BASE_55 + 700), (624, BASE_55 + 300),
+                       (300, BASE_55 + 100)],
+        'cut': [(700, 0.9), (800, 0.7)]}
+    if kind in groups:
+        rows = clustered_rows(rng, 2000, 3, 40)
+        det = with_scores(rows, score_groups(rng, 2000, groups[kind]))
+    elif kind == 'cut_streams':
+        det = np.stack([with_scores(clustered_rows(rng, 1600, 2, 30),
+                                    score_groups(rng, 1600,
+                                                 [(above, 0.9), (800, 0.7)]))
+                        for above in (300, 700, 1023)])
+    elif kind == 'ragged':
+        det = clustered_rows(rng, 1799, 3, 30)
+    elif kind == 'one_over':
+        det = clustered_rows(rng, 1025, 2, 30)
+    elif kind == 'equal':
+        det = np.stack([clustered_rows(rng, 1024, 2, 30) for _ in range(2)])
+    elif kind == 'keep_700':
+        det = clustered_rows(rng, 2000, 3, 40)
+        keep, out = 700, 50
+    else:
+        raise ValueError(kind)
+    mask = np.ones(3, bool)
+    return det, mask, scale, offset, keep, out
+
+
+def select_passes(keys, k):
+    """Where the select's radix select stops on one stream's 32-bit score
+    keys (numpy): after digit 0, 1 or 2, or 3 past the last (a cut among
+    the K-th key's equals); None where N <= K."""
+    if len(keys) <= k:
+        return None
+    prefix = high = 0
+    need = k
+    for q, (shift, width) in enumerate(((21, 11), (10, 11), (0, 10))):
+        mask = (1 << width) - 1
+        inside = keys[(keys & high) == prefix]
+        digits = (inside >> shift) & mask
+        counts = np.bincount(digits.astype(np.int64), minlength=mask + 1)
+        above = np.cumsum(counts[::-1])
+        d = mask - int(np.searchsorted(above, need))
+        c = int(above[mask - d] - counts[d])
+        prefix |= d << shift
+        high |= mask << shift
+        need -= c
+        if counts[d] == need:
+            return q
+    return 3
+
+
+def score_keys(det, mask, conf=SCALARS[0]):
+    """The select's 32-bit score keys of one stream's rows (numpy)."""
+    score = det[..., 4] * det[..., 6]
+    label = np.clip(det[..., 5].astype(np.int64), 0, len(mask) - 1)
+    gated = np.where(mask[label] & (score >= conf), score, F32(-1.0))
+    u = gated.astype(F32).view(np.uint32).copy()
+    u[u == 0x80000000] = 0
+    return np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint32)
+
+
 def output_sha256(outputs):
     h = hashlib.sha256()
     for t in outputs:
@@ -137,9 +248,34 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+# each edge case's outputs as a host build of the first design's source
+# (commit 1fcedb2's csrc/nms_waves.cu) gave them
+EDGE_SHA256 = {
+    'stop_first':
+        'eb9d33e010885d60a6c4f018ef24a3aa22a1d99d2147f06048e7e25a1a482b98',
+    'stop_second':
+        'ce91be73e137ffe931885e6c01498a1b9880ce7f3cfafa66bd43cda9f3653162',
+    'stop_third':
+        '65eecbe468fe99e418dc415a74e1015b7b3e3668749624fcbea63f36a4512dfb',
+    'cut':
+        '7e48973fbbdd35c0b723c202a0c106fd2c04a7b2b0c4821f96b60340076992d7',
+    'cut_streams':
+        '62dbd8dc346f3f09cc7c69fed4ba5e2aec83585585807fef2df46375ade7d0da',
+    'ragged':
+        'de94b9e45a46f809f917982413c33bb95b2a01bb181647c632ffb1949dba217d',
+    'one_over':
+        '193add87c4861b6865e4c0f40d058dc484316ac2c43650b526c700bfd41c4f7f',
+    'equal':
+        '59b09aa308e71a2af5e78d187fbe3eaae68552c2195e74e2b4b6a3430022c91a',
+    'keep_700':
+        '0f444175768385ef8da6cb8c02cddc57d6723985412180286f9504b59632378e',
+}
+
+
 @pytest.fixture(scope='module')
 def host_kernel(tmp_path_factory):
-    return nw.declare(build_host('nms_waves', tmp_path_factory, launches=2))
+    return nw.declare(build_host('nms_waves', tmp_path_factory, launches=2,
+                                 clusters=True))
 
 
 def torch_case(case):
@@ -151,21 +287,36 @@ def keep_out(det_out):
     return k, min(k, tdet.MAX_DETS)
 
 
-def host_select(lib, case, threads=32, device='cpu'):
+@pytest.fixture(scope='module')
+def host_kernel_keys_in_scratch(tmp_path_factory):
+    """A host build whose select keeps no key in shared memory."""
+    return nw.declare(build_host('nms_waves', tmp_path_factory, launches=2,
+                                 clusters=True,
+                                 defines=('-DNMS_SELECT_SMEM_MAX=1',)))
+
+
+def host_select(lib, case, threads=32, device='cpu', keep=None, out=None):
     """``nms_and_gate`` through the host build (or, ``threads`` None, the
-    card's library on CUDA tensors)."""
+    card's library on CUDA tensors), keeping ``keep`` candidates and
+    writing ``out`` (None: the wrapper's)."""
     det, mask, scale, offset = (t.to(device) for t in case)
     if threads is not None:
         lib.set_host_threads(threads)
+    k, m = keep_out(det)
     outputs, args, _ = nw.nms_select_launch_args(
-        det, mask, *SCALARS, scale, offset, *keep_out(det))
+        det, mask, *SCALARS, scale, offset, keep or k, out or m)
     assert lib.nms_select_forward(*args) == 0
     return outputs
 
 
-def plain(case):
+def plain(case, keep=None, out=None):
+    """The plain version, keeping ``keep`` candidates and writing ``out``
+    (None: MAX_RAW and MAX_DETS)."""
     det, mask, scale, offset = case
-    return tdet.nms_and_gate_reference(det, mask, *SCALARS, scale, offset)
+    with mock.patch.object(tdet, 'MAX_RAW', keep or tdet.MAX_RAW), \
+            mock.patch.object(tdet, 'MAX_DETS', out or tdet.MAX_DETS):
+        return tdet.nms_and_gate_reference(det, mask, *SCALARS, scale,
+                                           offset)
 
 
 def test_cases_are_what_they_say():
@@ -222,6 +373,52 @@ def test_host_build_equals_plain_version(host_kernel, kind, threads):
 def test_host_outputs_equal_the_first_design(host_kernel, kind):
     got = host_select(host_kernel, torch_case(select_case(kind, seed=1)))
     assert output_sha256(got) == OUTPUT_SHA256[kind]
+
+
+def test_edge_cases_are_what_they_say():
+    """Each edge case's select stops where its name says, at every
+    stream."""
+    want = {'stop_first': {0}, 'stop_second': {1}, 'stop_third': {2},
+            'cut': {3}, 'cut_streams': {3}, 'one_over': None,
+            'equal': {None}}
+    for kind in EDGE_KINDS:
+        det, mask, scale, offset, keep, out = edge_case(kind)
+        k = keep or min(tdet.MAX_RAW, det.shape[-2])
+        stops = {select_passes(score_keys(d, mask), k)
+                 for d in (det if det.ndim == 3 else det[None])}
+        if kind in want and want[kind] is not None:
+            assert stops == want[kind], kind
+        n = det.shape[-2]
+        if kind == 'ragged':
+            assert n % 256 and n % 8 and n > k
+        if kind == 'one_over':
+            assert n == k + 1
+        if kind == 'keep_700':
+            assert k & (k - 1) and out < k and n > k
+
+
+@pytest.mark.parametrize('kind', EDGE_KINDS)
+def test_host_build_at_the_edges(host_kernel, kind):
+    """Bit for bit the plain version, and the first design's outputs."""
+    det, mask, scale, offset, keep, out = edge_case(kind)
+    case = torch_case((det, mask, scale, offset))
+    got = host_select(host_kernel, case, 64 if kind == 'cut' else 32,
+                      keep=keep, out=out)
+    for g, w in zip(got, plain(case, keep, out)):
+        assert g.dtype == w.dtype and torch.equal(g, w), kind
+    assert output_sha256(got) == EDGE_SHA256[kind]
+
+
+@pytest.mark.parametrize('kind', ['cut_streams', 'stop_third', 'ragged',
+                                  'keep_700'])
+def test_keys_in_scratch(host_kernel_keys_in_scratch, kind):
+    """With the select's keys in scratch, not shared memory: the same
+    outputs."""
+    det, mask, scale, offset, keep, out = edge_case(kind)
+    got = host_select(host_kernel_keys_in_scratch,
+                      torch_case((det, mask, scale, offset)), keep=keep,
+                      out=out)
+    assert output_sha256(got) == EDGE_SHA256[kind]
 
 
 def test_scratch_layout_agrees(host_kernel):
@@ -296,6 +493,20 @@ def test_kernel_matches_plain_version(cuda, kind):
     for g, w in zip(got, plain(on_card)):
         assert torch.equal(g, w)
     assert output_sha256(got) == OUTPUT_SHA256[kind]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', EDGE_KINDS)
+def test_kernel_at_the_edges(cuda, kind):
+    """The card's build on the edge cases: bit for bit the plain version
+    and the first design's outputs."""
+    det, mask, scale, offset, keep, out = edge_case(kind)
+    case = torch_case((det, mask, scale, offset))
+    got = host_select(nw.nms_waves_library(), case, None, 'cuda', keep, out)
+    torch.cuda.synchronize()
+    for g, w in zip(got, plain(case, keep, out)):
+        assert torch.equal(g.cpu(), w), kind
+    assert output_sha256(got) == EDGE_SHA256[kind]
 
 
 @pytest.mark.cuda
