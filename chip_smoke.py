@@ -3885,12 +3885,20 @@ def phase_assoc_tail(main_args, multi_args, card, nvcc_out):
         if tc.output_sha256(got) != tc.OUTPUT_SHA256[kind]:
             raise AssertionError(f'assoc_commit {kind}: differs from the '
                                  'outputs of its first design')
+    for kind in tc.EDGE_KINDS:
+        case = tc.edge_case(kind)
+        got = tc.host_commit(lib_c, case, None, 'cuda')
+        commit_close(f'assoc_commit {kind}', got, tc.plain(case))
+        if tc.output_sha256(got) != tc.EDGE_SHA256[kind]:
+            raise AssertionError(f'assoc_commit {kind}: differs from the '
+                                 'outputs of its first design')
     log(f'nms_waves on the seeded cases of {tn.__name__} '
         f'({len(tn.SUPPRESS_KINDS)} NMS, {len(tn.MERGE_KINDS)} merges) and '
-        f'assoc_commit on those of {tc.__name__} ({len(tc.CASES)} calls): '
+        f'assoc_commit on those of {tc.__name__} ({len(tc.CASES)} calls and '
+        f'{len(tc.EDGE_KINDS)} at the edges: {", ".join(tc.EDGE_KINDS)}): '
         'the kernels == the plain versions on the CPU (the NMS and the '
         'merge bit for bit, the commit at the CPU tests\' rules); every '
-        'output == the first design\'s (OUTPUT_SHA256)')
+        'output == the first design\'s (OUTPUT_SHA256, EDGE_SHA256)')
 
     # (b) no host sync: the YOLO NMS of phase 6's frame, the SSD
     # postprocess of phase 8's rows, the commit of phase 6's and phase
@@ -3943,9 +3951,11 @@ def phase_assoc_tail(main_args, multi_args, card, nvcc_out):
         f'N x 4 B of dynamic shared memory ({4 * (32 * 1024 + 1024):,} B at '
         'N = 1,024); the merge a block a problem, ceil(N / 32) x N x 4 + '
         f'N x 8 B ({4 * (25 * 800 + 1600):,} B at N = 800); assoc_commit '
-        'the decisions a block of 256 threads a stream, static shared '
-        'memory only, then the rows launch of ceil((T + H) / 8) blocks of '
-        '256 threads a stream, a warp a row')
+        'the decisions a block of 512 threads a stream, the inputs staged '
+        f'in {ac.staged_bytes(128, 128, 64):,} B of dynamic shared memory '
+        'at T = D = 128, H = 64, the matched Kalman updates 8 lanes a '
+        'slot, then the rows launch of ceil((T + H) / 8) blocks of 256 '
+        'threads a stream, a warp a row')
 
     out = {name: {} for name in TAIL_NAMES}
     for case, a in suppress_cases.items():
@@ -4151,8 +4161,9 @@ def reid_crops_bound_ms(args, out):
     """The least time an H100 could take for a ReID-input call (``args``
     ``reid_crops``'), and what sets it: the frame pixels the taps read (a
     crop's distinct source rows by its distinct source columns, at most
-    the frames) once and the output written once, over 3.35 TB/s, against
-    ``CROP_OPS`` an output value over 67 TFLOP/s."""
+    the frames) once and the output written once (by its element size,
+    float32 or bf16), over 3.35 TB/s, against ``CROP_OPS`` an output value
+    over 67 TFLOP/s."""
     frame, tlbrs, (oh, ow) = args
     frames = frame if frame.dim() == 4 else frame[None]
     boxes = (tlbrs if frame.dim() == 4 else tlbrs[None]).reshape(-1, 4)
@@ -4171,11 +4182,40 @@ def reid_crops_bound_ms(args, out):
     rows = taps(b[:, 1], b[:, 3] - b[:, 1] + 1.0, oh, fh)
     read = min(sum(r * c for r, c in zip(rows, cols)),
                frames.shape[0] * fh * fw) * 3 * frames.element_size()
-    nbytes = read + out.numel() * 4
+    nbytes = read + out.numel() * out.element_size()
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     ops_ms = CROP_OPS * out.numel() / PEAK_F32 * 1e3
     return max(bytes_ms, ops_ms), ('bytes' if bytes_ms >= ops_ms
                                    else 'operations')
+
+
+def crop_bands(args):
+    """How the ReID-input kernel runs a call's bands of output rows
+    (csrc/reid_crops.cu, ``reid_crops.band_rows``): how many keep their
+    column pass in shared memory (their source rows span at most
+    ``span_cap``) of them; the others run it a pixel."""
+    from fastmot_tpu_torch.ops import reid_crops as rc
+    frame, tlbrs, (oh, ow) = args
+    frames = frame if frame.dim() == 4 else frame[None]
+    boxes = (tlbrs if frame.dim() == 4 else tlbrs[None]).reshape(-1, 4)
+    fh = frames.shape[1]
+    b = torch.clamp(torch.floor(boxes.float().cpu()), min=0.0)
+    h = b[:, 3] - b[:, 1] + 1.0
+    pos = torch.clamp(b[:, 1:2] + ((torch.arange(oh) + 0.5) * (1.0 / oh))
+                      [None] * h[:, None] - 0.5, 0.0, fh - 1.0)
+    i0 = torch.nan_to_num(torch.floor(pos)).long()
+    i1 = torch.clamp(i0 + 1, max=fh - 1)
+    band = rc.band_rows(len(b), oh)
+    cap = rc.span_cap(ow, band)
+    kept = n = 0
+    for r0 in range(0, oh, band):
+        last = min(r0 + band - 1, oh - 1)
+        lo = torch.minimum(i0[:, r0], i0[:, last])
+        hi = torch.maximum(i1[:, r0], i1[:, last])
+        kept += int((hi - lo + 1 <= cap).sum())
+        n += len(b)
+    return (f'{kept} of {n} bands of {band} rows keep their column '
+            'pass')
 
 
 def plain_costs(params, states, hists, dets, emb, emb_cap=None, app=None):
@@ -4274,6 +4314,28 @@ def phase_frame_kernels(main_args, multi_args, card, nvcc_out):
         if tcrop.output_sha256(got) != tcrop.OUTPUT_SHA256[kind]:
             raise AssertionError(f'reid_crops {kind}: differs from the '
                                  'outputs of its first design')
+        same(f'reid_crops {kind} in bf16', tcrop.host_crops(
+            lib_r, frame.cuda(), tlbrs.cuda(), hw, None, torch.bfloat16),
+            plain_crops(frame, tlbrs, hw, torch.bfloat16))
+    # the crops' edge cases: NaN where the plain version (on the boxes it
+    # can index by) is NaN, equal elsewhere, and the sha256 a host build of
+    # the first design's source gave, NaNs made canonical
+    for kind in tcrop.EDGE_KINDS:
+        frame, tlbrs, hw = (tcrop.T(a) if isinstance(a, np.ndarray) else a
+                            for a in tcrop.edge_crop_case(kind))
+        for dtype in (torch.float32, torch.bfloat16):
+            got = tcrop.host_crops(lib_r, frame.cuda(), tlbrs.cuda(), hw,
+                                   None, dtype).cpu()
+            want = tcrop.edge_plain(frame, tlbrs, hw, kind, dtype)
+            if not (torch.equal(torch.isnan(got), torch.isnan(want))
+                    and torch.equal(torch.nan_to_num(got),
+                                    torch.nan_to_num(want))):
+                raise AssertionError(f'reid_crops {kind} ({dtype}): the '
+                                     'kernel differs from the plain version')
+            if dtype == torch.float32 and \
+                    tcrop.edge_sha256(got) != tcrop.EDGE_SHA256[kind]:
+                raise AssertionError(f'reid_crops {kind}: differs from the '
+                                     'outputs of its first design')
     cost_err = {'cost': 0.0, 'reid_cost': 0.0}
     for kind in tcost.CASES:
         cpu = tcost.torch_case(tcost.costs_case(kind, tcost.CASE_SEEDS[kind]))
@@ -4323,7 +4385,8 @@ def phase_frame_kernels(main_args, multi_args, card, nvcc_out):
     log(f'nms_select on the seeded cases of {tsel.__name__} '
         f'({len(tsel.KINDS)} + {len(tsel.EDGE_KINDS)} at the select\'s '
         f'edges), reid_crops on those of {tcrop.__name__} '
-        f'({len(tcrop.KINDS)}): == the plain versions on the CPU, bit for '
+        f'({len(tcrop.KINDS)} + {len(tcrop.EDGE_KINDS)} at the edges, each '
+        'in float32 and bf16): == the plain versions on the CPU, bit for '
         f'bit; assoc_costs on those of {tcost.__name__} '
         f'({len(tcost.CASES)} + {len(tcost.EDGE_CASES)} at the edges): '
         f'masks, occlusion, IoU cost and gates == the plain version on the '
@@ -4410,7 +4473,12 @@ def phase_frame_kernels(main_args, multi_args, card, nvcc_out):
         'dependent launch (ceil(T / 16) + ceil(H / 16)) x ceil(D / 16) '
         'tile blocks of 128 threads a stream (96) with 67,584 B of dynamic '
         'shared memory (four chunk stages); reid_crops a block of 128 '
-        'threads an output row of a crop')
+        'threads a band of 8 output rows of a crop (16 above '
+        f'{rc.BAND_SWITCH_ROWS:,} output rows), 4 pixels a thread, the '
+        'column taps, the row taps and the column pass of up to 16 (32) '
+        'source rows in dynamic shared memory '
+        f'({rc.dynamic_smem(128, 8):,} / {rc.dynamic_smem(128, 16):,} B at '
+        '256 x 128)')
 
     out = {name: {} for name in FRAME_NAMES}
     for case, a in nms_cases.items():
@@ -4496,15 +4564,43 @@ def phase_frame_kernels(main_args, multi_args, card, nvcc_out):
         if case in ('1_stream', 'contested_1_stream'):
             same(f'reid_crops {case} against the plain version on the CPU',
                  got, plain_crops(*_host(a)))
+        # bf16, what the float OSNet reads: the float32 output rounded
+        got16 = rc.reid_crops(*a, torch.bfloat16)
+        same(f'reid_crops {case} in bf16 against the float32 output '
+             'rounded', got16, got.to(torch.bfloat16))
+        same(f'reid_crops {case} in bf16 against the plain version on the '
+             'card', got16, plain_crops(*a, torch.bfloat16))
         log(f'reid_crops {case}: {tuple(got.shape)} == plain on the card '
-            '(and on the CPU), bit for bit; two calls equal')
-        outputs, r_args, keep = rc.reid_crops_launch_args(*a)
-        out['reid_crops'][case] = time_kernel(
-            'reid_crops', case, lib_r.reid_crops_forward, r_args,
-            lambda: rc.reid_crops(*a), lambda: plain_crops(*a),
-            reid_crops_bound_ms(a, outputs), card)
-        out['reid_crops'][case]['max_abs_err'] = 0.0
-        del keep
+            '(and on the CPU), bit for bit, in float32 and bf16; two calls '
+            f'equal; {crop_bands(a)}')
+        for dtype, key in ((torch.float32, case),
+                           (torch.bfloat16, f'bf16_{case}')):
+            outputs, r_args, keep = rc.reid_crops_launch_args(*a, dtype)
+            out['reid_crops'][key] = time_kernel(
+                'reid_crops', key, lib_r.reid_crops_forward, r_args,
+                lambda: rc.reid_crops(*a, dtype),
+                lambda: plain_crops(*a, dtype),
+                reid_crops_bound_ms(a, outputs), card)
+            out['reid_crops'][key]['max_abs_err'] = 0.0
+            del keep
+
+    # OSNet-x0.25's embeddings of the main frame's crops from bf16 crops
+    # (what extract_core passes the float OSNet) equal those of the float32
+    # crops bit for bit; a second float32 run is the control
+    from fastmot_tpu_torch.models import registry
+    net = registry.ReIDModel.get_model('OSNet025').init_params('cuda')
+    with torch.no_grad():
+        x32 = rc.reid_crops(*main_args['crops'])
+        emb = [net(x32), net(rc.reid_crops(*main_args['crops'],
+                                           torch.bfloat16)), net(x32)]
+    torch.cuda.synchronize()
+    if not torch.equal(emb[0], emb[2]):
+        raise AssertionError('OSNet025 gives two embeddings of one input')
+    if not torch.equal(emb[0], emb[1]):
+        raise AssertionError('OSNet025: the bf16 crops\' embeddings differ '
+                             'from the float32 crops\'')
+    log(f'OSNet025 on the main frame\'s {x32.shape[0]} crops: embeddings '
+        'of the bf16 crops == of the float32 crops, bit for bit')
 
     # (d) a whole association frame, at 1 and 8 streams, with no host sync
     for tag, whole in (('1 stream', main_args['whole']),

@@ -22,10 +22,16 @@
 // history's ranks. So the decisions of a stream are one block
 // (assoc_commit_kernel), a thread a row (a track slot, a detection or a
 // history slot) in shared memory between barriers, in the plain version's
-// order (1-5 below); and the wide rows, which only copy and add, are a
-// second launch of many blocks a stream (assoc_commit_rows_kernel, 6
-// below), behind the first by a programmatic dependent launch, from a plan
-// the first writes to a scratch buffer:
+// order (1-5 below); the block first stages every input it reads but the
+// wide rows in shared memory at once (the decisions' fields by 16-byte
+// cp.async of every thread, the means and covariances by cp.async.bulk on
+// an mbarrier, landing while the decisions run; plain copies where a row
+// is not 16-byte aligned), so that no phase waits on a first touch of
+// device memory. The matched Kalman updates, a long
+// dependent chain, are spread over 8 lanes a slot. The wide rows, which
+// only copy and add, are a second launch of many blocks a stream
+// (assoc_commit_rows_kernel, 6 below), behind the first by a programmatic
+// dependent launch, from a plan the first writes to a scratch buffer:
 //
 //   1. rectify: each track with a rectify match j is merged into j (j ended
 //      before it started) or a duplicate (it takes j's detection, and j
@@ -34,21 +40,27 @@
 //      finals' greedy matching never names one twice);
 //   2. matched / unmatched / retired tracks, the reinstated history rows
 //      and the detections they take, the detections that create a track;
-//   3. the free slots, the reinstates and the creations ranked by ballots
-//      of a warp each (the plain version's cumsum), the first free slots
-//      given to the reinstates, then to the creations in detection order;
-//      what does not fit is dropped (n_dropped);
-//   4. a thread a track slot (its means' and covariances' rows by 16-byte
-//      accesses): the merge's rows, the reinstated features' count, the
-//      matched Kalman update (JAX's order: fastmot_tpu/kalman.py:184
-//      update with the unrolled Cholesky of fastmot_tpu/ops/smallmat.py
-//      chol_solve4), the creations' state, the new box, IoS against the
-//      frame, the bookkeeping fields and the info vector;
+//   3. the free slots, the reinstates, the creations and the matched slots
+//      ranked by ballots of a warp each (the plain version's cumsum), the
+//      first free slots given to the reinstates, then to the creations in
+//      detection order; what does not fit is dropped (n_dropped); beside
+//      that, the matched Kalman updates (JAX's order: fastmot_tpu/
+//      kalman.py:184 update with the unrolled Cholesky of fastmot_tpu/ops/
+//      smallmat.py chol_solve4), 8 lanes a matched slot in rank order:
+//      each lane factors the projected covariance itself, solves its row
+//      of the gain, and takes the other rows' gains by shuffles for its
+//      row of the new covariance;
+//   4. 8 lanes an unmatched slot (a lane a row of the means and
+//      covariances, by 16-byte accesses): the merge's rows, the
+//      creations' state; then a thread a slot: the reinstated features'
+//      count, the new box, IoS against the frame, the bookkeeping fields
+//      and the info vector;
 //   5. the history: its allocation order (invalid slots ascending, then
 //      the oldest insertion) and, after the save, the eviction ranks are
-//      exact stable ranks by comparison counting over its keys (the plain
-//      version's stable argsort and double argsort); the saves' targets,
-//      the slots they steal, the evictions beyond history_size;
+//      exact stable ranks by comparison counting over its keys, 8 lanes a
+//      slot (the plain version's stable argsort and double argsort); the
+//      saves' targets, the slots they steal, the evictions beyond
+//      history_size;
 //   6. the 512-wide rows, a warp a row, 8 rows a block, by 16-byte loads
 //      and stores: the tracks' feature sums (the merge's sum, the
 //      reinstate's history row, zero for a fresh track, plus the
@@ -62,9 +74,12 @@
 // version's arithmetic in its order, so bit for bit; the update solves
 // through JAX's Cholesky where the plain version takes LAPACK's LU, so
 // means and covariances agree within float32 rounding
-// (tests/test_torch_assoc_commit.py states the tolerance). Every loop
-// strides by blockDim.x and takes whole warps, so a block of 32 or 64
-// threads computes what 256 compute (the tests' host build runs such
+// (tests/test_torch_assoc_commit.py states the tolerance); each lane of an
+// update computes its row in the order one thread computed it in the
+// first design, so the bits did not move. Every loop strides by blockDim.x (or
+// its groups of 8 lanes) and takes whole warps, and every loop with a
+// shuffle runs the same count on every lane, so a block of 32 or 64
+// threads computes what 512 compute (the tests' host build runs such
 // blocks). The rows launch reads only what the first launch wrote and the
 // inputs, after cudaGridDependencySynchronize, so the host build, which
 // runs the launches one after another, computes what the card does.
@@ -78,7 +93,11 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRowsPerBlock = kThreads / 32;   // the rows launch's
+// the decisions' block: 64 groups of 8 lanes, so that a frame's matched
+// updates take one round up to 64 matches
+constexpr int kDecisionThreads = 512;
 constexpr int kMaxRows = 256;    // track slots, detections, history slots
+constexpr int kSlotLanes = 8;    // lanes a slot in phases 3 and 4
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // assoc_commit_forward's pointers, in this order (commit_launch_args in
@@ -106,11 +125,62 @@ enum Float {
   kSfDetW, kSfDetH, kMinDetW, kMinDetH, kPosWeight, kVelWeight, kNumFloats
 };
 
+// the inputs staged in dynamic shared memory, in this order: (Ptr, bytes
+// an element, rows: 0 the slots T, 1 the detections D, 2 the history H, 3
+// one row for every stream, elements a row). The decisions' fields come
+// first, the means and covariances, which only the updates and the slots
+// read, last: they land behind an mbarrier while the decisions run.
+enum Staged {
+  sTlbrs, sValid, sAges, sHits, sLabels, sStartF, sEndF, sLost, sInl, sFc,
+  sCol4Row, sRect, sHc, sHLabels, sHValid, sHLru, sHHits, sReid, sDTlbrs,
+  sDLabels, sDValid, sOccluded, sConf, sFrame, sMeans, sCovs, kNumStaged
+};
+constexpr int kFirstLate = sMeans;   // the fields behind the mbarrier
+struct StagedField {
+  int ptr, bytes, rows, width;
+};
+inline StagedField staged_field(int k) {
+  const StagedField table[kNumStaged] = {
+      {kTlbrs, 4, 0, 4},       {kValid, 1, 0, 1},     {kAges, 4, 0, 1},
+      {kHits, 4, 0, 1},        {kLabels, 4, 0, 1},    {kStartF, 4, 0, 1},
+      {kEndF, 4, 0, 1},        {kLostPending, 1, 0, 1}, {kInl, 4, 0, 1},
+      {kFeatCount, 4, 0, 1},   {kCol4Row, 4, 0, 1},   {kRectC4R, 4, 0, 1},
+      {kHistCount, 4, 2, 1},   {kHLabels, 4, 2, 1},   {kHValid, 1, 2, 1},
+      {kHLru, 4, 2, 1},        {kHHits, 4, 2, 1},     {kReidC4R, 4, 2, 1},
+      {kDTlbrs, 4, 1, 4},      {kDLabels, 4, 1, 1},   {kDValid, 1, 1, 1},
+      {kOccluded, 1, 1, 1},    {kUDetConf, 1, 1, 1},  {kFrameTlbr, 4, 3, 4},
+      {kMeans, 4, 0, 8},       {kCovs, 4, 0, 64}};
+  return table[k];
+}
+
+// a field's bytes for one stream
+inline int field_bytes(const StagedField& f, int t, int d, int h) {
+  const int n = f.rows == 0 ? t : f.rows == 1 ? d : f.rows == 2 ? h : 1;
+  return n * f.width * f.bytes;
+}
+
+// the dynamic shared memory a block stages its stream's inputs in, each
+// field at a 16-byte boundary: its bytes, and each field's offset into
+// `off` where given
+inline int staged_layout(int t, int d, int h, int* off) {
+  int at = 0;
+  for (int k = 0; k < kNumStaged; ++k) {
+    if (off) off[k] = at;
+    at += (field_bytes(staged_field(k), t, d, h) + 15) / 16 * 16;
+  }
+  return at;
+}
+
 struct Params {
   const void* p[kNumPtrs];
   int streams, t, d, h, f, k, confirm_hits, max_age, history_size,
       frame_id;
   float sf_w, sf_h, mn_w, mn_h, pos_w, vel_w;
+  // each staged field's first stream's source, bytes from one stream's to
+  // the next (0 for the frame box), bytes a stream and offset in the
+  // dynamic shared memory, worked out by the C entry
+  const unsigned char* f_src[kNumStaged];
+  int f_stride[kNumStaged], f_bytes[kNumStaged], f_off[kNumStaged];
 };
 
 template <class V>
@@ -132,13 +202,19 @@ __device__ __forceinline__ float min_nan(float a, float b) {
   return (a != a || b != b) ? (a != a ? a : b) : (a < b ? a : b);
 }
 
-// the matched Kalman correction of a detector measurement z (multiplier
-// 1), fastmot_tpu/kalman.py update's order: the projected covariance, its
-// Cholesky (the diagonal clamped at 1e-12), the gain's eight columns by
-// forward and back substitution, then mean + gain (z - mean) and
-// cov - (gain S) gain^T, each sum in ascending order
-__device__ void kalman_update(const Params& p, float (&m)[8],
-                              float (&c)[8][8], const float* z) {
+// row r of the matched Kalman correction of a detector measurement z
+// (multiplier 1), fastmot_tpu/kalman.py update's order, on lane r of the
+// slot's 8 (`base` the first of them in the warp): the projected
+// covariance S and its Cholesky (the diagonal clamped at 1e-12), factored
+// by each lane alike; the lane's gain row by forward and back
+// substitution; then mean + gain (z - mean) and cov - (gain S) gain^T,
+// each sum in ascending order, the other rows' gains by shuffles. m the
+// slot's mean and c its covariance (row-major, shared memory); returns row
+// r of the new mean in *mr and of the new covariance in crow. Every lane of
+// the warp calls it together.
+__device__ void kalman_update_row(const Params& p, const float* m,
+                                  const float* c, const float* z, int r,
+                                  int base, float* mr, float (&crow)[8]) {
   const float w = m[2] - m[0] + 1.f, h = m[3] - m[1] + 1.f;
   const float sw = max_nan(p.sf_w * w, p.mn_w) * 1.f;
   const float sh = max_nan(p.sf_h * h, p.mn_h) * 1.f;
@@ -148,7 +224,7 @@ __device__ void kalman_update(const Params& p, float (&m)[8],
   for (int a = 0; a < 4; ++a)
 #pragma unroll
     for (int b = 0; b < 4; ++b)
-      s[a][b] = c[a][b] + (a == b ? sd[a] * sd[a] : 0.f);
+      s[a][b] = c[a * 8 + b] + (a == b ? sd[a] * sd[a] : 0.f);
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -158,13 +234,15 @@ __device__ void kalman_update(const Params& p, float (&m)[8],
       for (int k = 0; k < j; ++k) v = v - l[i][k] * l[j][k];
       l[i][j] = i == j ? sqrtf(v > 1e-12f ? v : 1e-12f) : v / l[j][j];
     }
-  float g[8][4];
+  float c_r[8];
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
+  for (int q = 0; q < 8; ++q) c_r[q] = c[r * 8 + q];
+  float g[4];
+  {
     float x[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      float v = c[r][i];
+      float v = c_r[i];
 #pragma unroll
       for (int k = 0; k < i; ++k) v = v - l[i][k] * x[k];
       x[i] = v / l[i][i];
@@ -177,53 +255,48 @@ __device__ void kalman_update(const Params& p, float (&m)[8],
       x[i] = v / l[i][i];
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) g[r][i] = x[i];
+    for (int i = 0; i < 4; ++i) g[i] = x[i];
   }
-  float innov[4];
+  {
+    float v = g[0] * (z[0] - m[0]);
 #pragma unroll
-  for (int a = 0; a < 4; ++a) innov[a] = z[a] - m[a];
+    for (int a = 1; a < 4; ++a) v = v + g[a] * (z[a] - m[a]);
+    *mr = m[r] + v;
+  }
+  float gs[4];
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    float v = g[r][0] * innov[0];
+  for (int b = 0; b < 4; ++b) {
+    float v = g[0] * s[0][b];
 #pragma unroll
-    for (int a = 1; a < 4; ++a) v = v + g[r][a] * innov[a];
-    m[r] = m[r] + v;
+    for (int a = 1; a < 4; ++a) v = v + g[a] * s[a][b];
+    gs[b] = v;
   }
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    float gs[4];
+  for (int q = 0; q < 8; ++q) {
+    float gq[4];
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      float v = g[r][0] * s[0][b];
+    for (int b = 0; b < 4; ++b) gq[b] = __shfl_sync(kFull, g[b], base + q);
+    float v = gs[0] * gq[0];
 #pragma unroll
-      for (int a = 1; a < 4; ++a) v = v + g[r][a] * s[a][b];
-      gs[b] = v;
-    }
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      float v = gs[0] * g[q][0];
-#pragma unroll
-      for (int b = 1; b < 4; ++b) v = v + gs[b] * g[q][b];
-      c[r][q] = c[r][q] - v;
-    }
+    for (int b = 1; b < 4; ++b) v = v + gs[b] * gq[b];
+    crow[q] = c_r[q] - v;
   }
 }
 
-// kalman.create of a detection box, in its order
-__device__ void kalman_create(const Params& p, float (&m)[8],
-                              float (&c)[8][8], const float* z) {
+// row r of kalman.create of a detection box, in its order
+__device__ __forceinline__ void kalman_create_row(const Params& p,
+                                                  const float* z, int r,
+                                                  float* mr,
+                                                  float (&crow)[8]) {
   const float w = z[2] - z[0] + 1.f, h = z[3] - z[1] + 1.f;
+  const bool x = (r & 1) == 0;
+  const float wh = (x ? 1.f : 0.f) * w + (x ? 0.f : 1.f) * h;
+  const float std = max_nan((r < 4 ? p.pos_w : p.vel_w)
+                            * (x ? p.sf_w : p.sf_h) * wh,
+                            x ? p.mn_w : p.mn_h);
+  *mr = r < 4 ? z[r] : 0.f;
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const bool x = (r & 1) == 0;
-    const float wh = (x ? 1.f : 0.f) * w + (x ? 0.f : 1.f) * h;
-    const float std = max_nan((r < 4 ? p.pos_w : p.vel_w)
-                              * (x ? p.sf_w : p.sf_h) * wh,
-                              x ? p.mn_w : p.mn_h);
-    m[r] = r < 4 ? z[r] : 0.f;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) c[r][q] = q == r ? std * std : 0.f;
-  }
+  for (int q = 0; q < 8; ++q) crow[q] = q == r ? std * std : 0.f;
 }
 
 // geometry.ios of a box against the frame
@@ -252,13 +325,18 @@ __device__ int warp_ranks(const unsigned char* flag, int n, int* rank) {
   return base;
 }
 
-// x's place in the stable ascending order of key[0, n)
-__device__ __forceinline__ int stable_rank(const float* key, int n, int x) {
+// x's place in the stable ascending order of key[0, n), counted by the 8
+// lanes of x's group (lane r the keys y = r mod 8) and summed by shuffles;
+// every lane of the warp calls it together
+__device__ __forceinline__ int stable_rank8(const float* key, int n, int x,
+                                            int r) {
   const float kx = key[x];
-  int r = 0;
-  for (int y = 0; y < n; ++y)
-    r += key[y] < kx || (key[y] == kx && y < x);
-  return r;
+  int c = 0;
+  for (int y = r; y < n; y += kSlotLanes)
+    c += key[y] < kx || (key[y] == kx && y < x);
+  c += __shfl_xor_sync(kFull, c, 1);
+  c += __shfl_xor_sync(kFull, c, 2);
+  return c + __shfl_xor_sync(kFull, c, 4);
 }
 
 // the ints of a stream's plan of the wide rows: (the track whose new sum
@@ -364,8 +442,113 @@ __device__ __forceinline__ void copy_row(const float* src, float* dst, int F,
     reinterpret_cast<float4*>(dst)[q] = reinterpret_cast<const float4*>(src)[q];
 }
 
-__global__ void __launch_bounds__(kThreads)
+// ---------------------------------------------------------------------------
+// Staging a stream's inputs in shared memory
+// ---------------------------------------------------------------------------
+
+#if defined(__CUDA_ARCH__)
+__device__ __forceinline__ unsigned smem_addr(const void* ptr) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+}
+#endif
+
+// Stages stream s's fields into `dyn` at their offsets. The decisions'
+// fields go by 16-byte cp.async, every thread its share, all in flight at
+// once; the means and covariances (kFirstLate on), where 16-byte aligned,
+// by one cp.async.bulk each on the mbarrier `bar`, which thread 0 arms
+// (bulk says whether it did; stage_wait waits for them after a barrier). A
+// field that is not 16-byte aligned is copied by plain loads, as the host
+// build copies every field. The calling thread's cp.async copies are done
+// when it returns.
+__device__ void stage_inputs(const Params& p, int s, unsigned char* dyn,
+                             unsigned long long* bar, int* bulk) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const unsigned char* src[kNumStaged];
+  bool aligned[kNumStaged];
+#pragma unroll
+  for (int k = 0; k < kNumStaged; ++k) {
+    src[k] = p.f_src[k] + static_cast<size_t>(s) * p.f_stride[k];
+    aligned[k] = (reinterpret_cast<uintptr_t>(src[k]) & 15u) == 0
+                 && p.f_bytes[k] % 16 == 0;
+  }
+#if defined(__CUDA_ARCH__)
+  if (tid == 0) {
+    unsigned total = 0u;
+#pragma unroll
+    for (int k = kFirstLate; k < kNumStaged; ++k)
+      if (aligned[k]) total += static_cast<unsigned>(p.f_bytes[k]);
+    *bulk = total != 0u;
+    if (total) {
+      const unsigned b = smem_addr(bar);
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(b)
+                   : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                   :: "r"(b), "r"(total) : "memory");
+#pragma unroll
+      for (int k = kFirstLate; k < kNumStaged; ++k)
+        if (aligned[k])
+          asm volatile(
+              "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+              "::bytes [%0], [%1], %2, [%3];\n"
+              :: "r"(smem_addr(dyn + p.f_off[k])), "l"(src[k]),
+                 "r"(p.f_bytes[k]), "r"(b) : "memory");
+    }
+  }
+#else
+  (void)bar;
+  if (tid == 0) *bulk = 0;
+#endif
+#pragma unroll
+  for (int k = 0; k < kNumStaged; ++k) {
+    unsigned char* dst = dyn + p.f_off[k];
+    const int bytes = p.f_bytes[k];
+#if defined(__CUDA_ARCH__)
+    if (aligned[k]) {
+      if (k < kFirstLate)
+        for (int x = tid; x < bytes / 16; x += nt)
+          asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                       :: "r"(smem_addr(dst + 16 * x)),
+                          "l"(src[k] + 16 * x) : "memory");
+      continue;
+    }
+#endif
+    if ((reinterpret_cast<uintptr_t>(src[k]) & 3u) == 0 && bytes % 4 == 0) {
+      const unsigned* s4 = reinterpret_cast<const unsigned*>(src[k]);
+      unsigned* d4 = reinterpret_cast<unsigned*>(dst);
+      for (int x = tid; x < bytes / 4; x += nt) d4[x] = s4[x];
+    } else {
+      for (int x = tid; x < bytes; x += nt) dst[x] = src[k][x];
+    }
+  }
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" :::
+               "memory");
+#endif
+}
+
+// the bulk copies landed (after a barrier that follows stage_inputs)
+__device__ __forceinline__ void stage_wait(unsigned long long* bar,
+                                           int bulk) {
+#if defined(__CUDA_ARCH__)
+  if (!bulk) return;
+  const unsigned b = smem_addr(bar);
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(b), "r"(0u) : "memory");
+#else
+  (void)bar;
+  (void)bulk;
+#endif
+}
+
+__global__ void __launch_bounds__(kDecisionThreads)
 assoc_commit_kernel(const Params p) {
+  extern __shared__ float4 staged_v[];
   __shared__ int c1[kMaxRows], merge_src[kMaxRows], rect_j[kMaxRows];
   __shared__ unsigned merge_plus1[kMaxRows];
   __shared__ int match_det[kMaxRows], free_rank[kMaxRows];
@@ -378,15 +561,19 @@ assoc_commit_kernel(const Params p) {
   __shared__ unsigned char dup_target[kMaxRows], feat_ok[kMaxRows];
   __shared__ unsigned char keep_unmatched[kMaxRows], retire[kMaxRows];
   __shared__ unsigned char is_free[kMaxRows], save[kMaxRows];
-  __shared__ unsigned char fresh[kMaxRows];
+  __shared__ unsigned char fresh[kMaxRows], matched[kMaxRows];
   __shared__ unsigned char taken[kMaxRows], create[kMaxRows];
-  __shared__ int c_rank[kMaxRows];
+  __shared__ int c_rank[kMaxRows], m_rank[kMaxRows], upd_slot[kMaxRows];
   __shared__ unsigned char reinst[kMaxRows], h_valid2[kMaxRows];
   __shared__ unsigned char h_valid3[kMaxRows];
   __shared__ int reid_det[kMaxRows], r_rank[kMaxRows], alloc_order[kMaxRows];
   __shared__ int h_src[kMaxRows];
   __shared__ float hkey[kMaxRows];
-  __shared__ int n_free, n_reid, n_create, stolen, n_hvalid, n_dvalid;
+  __shared__ float new_mean4[kMaxRows][4];   // an updated slot's box part
+  __shared__ unsigned long long bar;
+  __shared__ int bulk;
+  __shared__ int n_free, n_reid, n_create, n_upd, stolen, n_hvalid,
+      n_dvalid;
 
   // the rows launch may start now; it waits for this grid's end before it
   // reads the plan
@@ -394,15 +581,10 @@ assoc_commit_kernel(const Params p) {
   const int s = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int warp = tid >> 5, n_warps = nt >> 5;
   const int T = p.t, D = p.d, H = p.h;
-  const size_t st = static_cast<size_t>(s) * T, sd = static_cast<size_t>(s) * D,
+  unsigned char* dyn = reinterpret_cast<unsigned char*>(staged_v);
+  stage_inputs(p, s, dyn, &bar, &bulk);
+  const size_t st = static_cast<size_t>(s) * T,
                sh = static_cast<size_t>(s) * H;
-  const unsigned char* valid = in<unsigned char>(p, kValid, st);
-  const int* hits = in<int>(p, kHits, st);
-  const int* start_f = in<int>(p, kStartF, st);
-  const int* end_f = in<int>(p, kEndF, st);
-  const int* col4row = in<int>(p, kCol4Row, st);
-  const int* rect = in<int>(p, kRectC4R, st);
-  const unsigned char* occluded = in<unsigned char>(p, kOccluded, sd);
   float* info = out<float>(p, kInfo, static_cast<size_t>(s)
                            * (4 + 90 * static_cast<size_t>(T) + H));
   float* i_match = info + 4;
@@ -423,6 +605,28 @@ assoc_commit_kernel(const Params p) {
   float* i_next = i_evict + H;
   float* i_means = i_next + 4 * T;
   float* i_covs = i_means + 8 * T;
+  if (tid == 0) {
+    stolen = 0;
+    n_hvalid = 0;
+  }
+  __syncthreads();     // every thread's cp.async copies are in
+  // the staged inputs of the stream
+#define STAGED(type, k) reinterpret_cast<type*>(dyn + p.f_off[k])
+  const unsigned char* valid = STAGED(const unsigned char, sValid);
+  const int* hits = STAGED(const int, sHits);
+  const int* start_f = STAGED(const int, sStartF);
+  const int* end_f = STAGED(const int, sEndF);
+  const int* col4row = STAGED(const int, sCol4Row);
+  const int* rect = STAGED(const int, sRect);
+  const unsigned char* occluded = STAGED(const unsigned char, sOccluded);
+  const int* ages = STAGED(const int, sAges);
+  const float* hc = STAGED(const float, sHc);
+  const int* h_labels = STAGED(const int, sHLabels);
+  const unsigned char* hv = STAGED(const unsigned char, sHValid);
+  const int* lru = STAGED(const int, sHLru);
+  const int* h_hits = STAGED(const int, sHHits);
+  const int* labels = STAGED(const int, sLabels);
+  const unsigned char* dv = STAGED(const unsigned char, sDValid);
 
   // ---- 1. rectify: merge or duplicate; the reinstated history rows ------
   for (int i = tid; i < T; i += nt) {
@@ -441,20 +645,13 @@ assoc_commit_kernel(const Params p) {
   }
   for (int x = tid; x < D; x += nt) taken[x] = 0;
   {
-    const int* reid = in<int>(p, kReidC4R, sh);
-    const unsigned char* hv = in<unsigned char>(p, kHValid, sh);
-    const float* hc = in<float>(p, kHistCount, sh);
+    const int* reid = STAGED(const int, sReid);
     for (int x = tid; x < H; x += nt) {
       const bool re = reid[x] >= 0 && hv[x] && hc[x] >= 2.f;
       reinst[x] = re;
       reid_det[x] = re ? reid[x] : 0;
       h_src[x] = -1;
     }
-  }
-  if (tid == 0) {
-    stolen = 0;
-    n_hvalid = 0;
-    n_dvalid = 0;
   }
   __syncthreads();
 
@@ -471,19 +668,19 @@ assoc_commit_kernel(const Params p) {
 
   // ---- 2. lifecycle decisions ------------------------------------------
   {
-    const int* ages = in<int>(p, kAges, st);
     for (int i = tid; i < T; i += nt) {
       merge_src[i] = static_cast<int>(merge_plus1[i]) - 1;
       const int c2 = dup_target[i] ? -1 : c1[i];
       const bool merged = merge_cond[i];
-      const bool matched = c2 >= 0 && c2 < D && valid[i] && !merged;
-      const int col = matched ? c2 : -1;
-      const bool unmatched = valid[i] && !merged && !matched;
+      const bool mt = c2 >= 0 && c2 < D && valid[i] && !merged;
+      const int col = mt ? c2 : -1;
+      const bool unmatched = valid[i] && !merged && !mt;
       const bool confirmed = hits[i] >= p.confirm_hits;
       const bool del = unmatched && !confirmed;
       const bool ret = unmatched && confirmed && ages[i] + 1 > p.max_age;
       match_det[i] = col;
-      feat_ok[i] = matched && !occluded[col];
+      matched[i] = mt;
+      feat_ok[i] = mt && !occluded[col];
       keep_unmatched[i] = unmatched && !del && !ret;
       retire[i] = ret;
       is_free[i] = !valid[i] || merged || del || ret;
@@ -493,14 +690,14 @@ assoc_commit_kernel(const Params p) {
       i_del[i] = del ? 1.f : 0.f;
       i_retire[i] = ret ? 1.f : 0.f;
     }
-    const unsigned char* conf = in<unsigned char>(p, kUDetConf, sd);
-    const unsigned char* dv = in<unsigned char>(p, kDValid, sd);
+    const unsigned char* conf = STAGED(const unsigned char, sConf);
     for (int x = tid; x < D; x += nt)
       create[x] = conf[x] && (occluded[x] || !taken[x]) && dv[x];
   }
   __syncthreads();
 
-  // ---- 3. ranks: the free slots, the reinstates, the creations ----------
+  // ---- 3. ranks: the free slots, the reinstates, the creations, the
+  // matched slots; the valid detections' count ----------------------------
   if (warp == 0 % n_warps) {
     const int n = warp_ranks(is_free, T, free_rank);
     if ((tid & 31) == 0) n_free = n;
@@ -516,9 +713,34 @@ assoc_commit_kernel(const Params p) {
     const int n = warp_ranks(create, D, c_rank);
     if ((tid & 31) == 0) n_create = n;
   }
+  if (warp == 3 % n_warps) {
+    const int n = warp_ranks(matched, T, m_rank);
+    if ((tid & 31) == 0) n_upd = n;
+    __syncwarp();
+    for (int i = tid & 31; i < T; i += 32)
+      if (matched[i]) upd_slot[m_rank[i]] = i;
+  }
+  if (warp == 4 % n_warps) {
+    int n = 0;
+    for (int x0 = 0; x0 < D; x0 += 32) {
+      const int x = x0 + (tid & 31);
+      n += __popc(__ballot_sync(kFull, x < D && dv[x]));
+    }
+    if ((tid & 31) == 0) n_dvalid = n;
+  }
   __syncthreads();
+  stage_wait(&bar, bulk);     // the means and covariances
+  const int lane = tid & 31, r = tid & (kSlotLanes - 1);
+  const int group = tid / kSlotLanes, n_groups = nt / kSlotLanes;
+  const float* means = STAGED(const float, sMeans);
+  const float* covs = STAGED(const float, sCovs);
+  const float* d_tlbrs = STAGED(const float, sDTlbrs);
+  float* o_means = out<float>(p, kOut + 0, st * 8);
+  float* o_covs = out<float>(p, kOut + 1, st * 64);
+  // 16-byte accesses to the new means' and covariances' rows where aligned
+  const bool vec_state = aligned16(o_means) && aligned16(o_covs);
+  const bool vec_info = aligned16(i_means) && aligned16(i_covs);
   {
-    const unsigned char* hv = in<unsigned char>(p, kHValid, sh);
     for (int x = tid; x < H; x += nt) {
       const bool ok = reinst[x] && r_rank[x] < n_free;
       if (ok) {
@@ -529,30 +751,59 @@ assoc_commit_kernel(const Params p) {
       h_valid2[x] = hv[x] && !ok;
     }
     for (int x = tid; x < D; x += nt) {
-      const int r = n_reid + c_rank[x];
-      if (create[x] && r < n_free) create_det[free_idx[r]] = x;
+      const int rk = n_reid + c_rank[x];
+      if (create[x] && rk < n_free) create_det[free_idx[rk]] = x;
+    }
+    // the matched Kalman updates, 8 lanes a slot in rank order; every lane
+    // runs every round (the shuffles take the whole warp), a group past
+    // the last slot on the last one and writing nothing
+    const int n = n_upd;
+    for (int k0 = 0; k0 < n; k0 += n_groups) {
+      const bool act = k0 + group < n;
+      const int i = upd_slot[act ? k0 + group : n - 1];
+      const int ms = merge_src[i];
+      const int src = ms >= 0 ? ms : i;
+      float mr, crow[8];
+      kalman_update_row(p, means + src * 8, covs + src * 64,
+                        d_tlbrs + match_det[i] * 4, r,
+                        lane & ~(kSlotLanes - 1), &mr, crow);
+      if (act) {
+        o_means[i * 8 + r] = mr;
+        i_means[i * 8 + r] = mr;
+        store8(o_covs + i * 64 + r * 8, crow, vec_state);
+        store8(i_covs + i * 64 + r * 8, crow, vec_info);
+        if (r < 4) new_mean4[i][r] = mr;
+      }
     }
   }
   __syncthreads();
 
-  // ---- 4. a thread a track slot: the commit ------------------------------
+  // ---- 4. the slots: 8 lanes a slot write the rows of the unmatched
+  // slots' means and covariances, then a thread a slot commits it --------
   {
-    const float* means = in<float>(p, kMeans, st * 8);
-    const float* covs = in<float>(p, kCovs, st * 64);
-    const float* tlbrs = in<float>(p, kTlbrs, st * 4);
-    const int* ages = in<int>(p, kAges, st);
-    const int* labels = in<int>(p, kLabels, st);
-    const unsigned char* lost = in<unsigned char>(p, kLostPending, st);
-    const float* inl = in<float>(p, kInl, st);
-    const float* fc = in<float>(p, kFeatCount, st);
-    const float* hc = in<float>(p, kHistCount, sh);
-    const int* h_labels = in<int>(p, kHLabels, sh);
-    const int* h_hits = in<int>(p, kHHits, sh);
-    const float* d_tlbrs = in<float>(p, kDTlbrs, sd * 4);
-    const int* d_labels = in<int>(p, kDLabels, sd);
-    const float* frame = in<float>(p, kFrameTlbr, 0);
-    float* o_means = out<float>(p, kOut + 0, st * 8);
-    float* o_covs = out<float>(p, kOut + 1, st * 64);
+    for (int i = group; i < T; i += n_groups) {
+      if (match_det[i] >= 0) continue;   // written with the update
+      const int ms = merge_src[i];
+      const int src = ms >= 0 ? ms : i;
+      const int cd = create_det[i];
+      float mr, crow[8];
+      if (cd >= 0) {
+        kalman_create_row(p, d_tlbrs + cd * 4, r, &mr, crow);
+      } else {
+        mr = means[src * 8 + r];
+        load8(covs + src * 64 + r * 8, crow, true);
+      }
+      o_means[i * 8 + r] = mr;
+      i_means[i * 8 + r] = mr;
+      store8(o_covs + i * 64 + r * 8, crow, vec_state);
+      store8(i_covs + i * 64 + r * 8, crow, vec_info);
+    }
+    const float* tlbrs = STAGED(const float, sTlbrs);
+    const unsigned char* lost = STAGED(const unsigned char, sLost);
+    const float* inl = STAGED(const float, sInl);
+    const float* fc = STAGED(const float, sFc);
+    const int* d_labels = STAGED(const int, sDLabels);
+    const float* frame = STAGED(const float, sFrame);
     float* o_tlbrs = out<float>(p, kOut + 2, st * 4);
     unsigned char* o_valid = out<unsigned char>(p, kOut + 3, st);
     int* o_ages = out<int>(p, kOut + 4, st);
@@ -563,20 +814,23 @@ assoc_commit_kernel(const Params p) {
     unsigned char* o_lost = out<unsigned char>(p, kOut + 9, st);
     float* o_inl = out<float>(p, kOut + 10, st);
     float* o_fc = out<float>(p, kOut + 14, st);
-    // 16-byte accesses to the means' and covariances' rows where aligned
-    const bool vec_state = aligned16(means) && aligned16(covs)
-                           && aligned16(o_means) && aligned16(o_covs);
-    const bool vec_info = aligned16(i_means) && aligned16(i_covs);
     for (int i = tid; i < T; i += nt) {
       const int ms = merge_src[i];
       const bool has_merge = ms >= 0;
       const int src = has_merge ? ms : i;
-      float m[8], c[8][8], box[4];
-      load8(means + src * 8, m, vec_state);
+      const int md = match_det[i];
+      const bool mm = md >= 0;
+      const int cd = create_det[i];
+      const bool cr = cd >= 0;
+      const int cdet = cr ? cd : 0;
+      float box[4], next[4];
 #pragma unroll
-      for (int r = 0; r < 8; ++r) load8(covs + src * 64 + r * 8, c[r], vec_state);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) box[r] = tlbrs[src * 4 + r];
+      for (int k = 0; k < 4; ++k) {
+        box[k] = tlbrs[src * 4 + k];
+        const float m = mm ? new_mean4[i][k]
+                           : cr ? d_tlbrs[cdet * 4 + k] : means[src * 8 + k];
+        next[k] = rintf(m);
+      }
       float inl_v = inl[src];
       float count = has_merge ? fc[i] + fc[src] : fc[i];
       const int hits_m = has_merge ? hits[i] + hits[src] : hits[i];
@@ -584,28 +838,16 @@ assoc_commit_kernel(const Params p) {
       const bool re = rh_raw >= 0;
       const int rh = re ? rh_raw : 0;
       if (re) count = hc[rh];
-      const int md = match_det[i];
-      const bool mm = md >= 0;
-      if (mm) kalman_update(p, m, c, d_tlbrs + md * 4);
-      const int cd = create_det[i];
-      const bool cr = cd >= 0;
-      const int cdet = cr ? cd : 0;
-      if (cr) {
-        kalman_create(p, m, c, d_tlbrs + cdet * 4);
-        inl_v = 1.f;
-      }
+      if (cr) inl_v = 1.f;
       const bool is_fresh = cr && !re;
       if (is_fresh) count = 0.f;
-      float next[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) next[r] = rintf(m[r]);
       const bool oof = (mm || cr) && ios_frame(next, frame) < 0.5f;
       const int det_of = mm ? md : cdet;
       const bool upd = (mm && feat_ok[i] && !oof) || (cr && re);
       if (upd) count = count + 1.f;
       if (mm || cr) {
 #pragma unroll
-        for (int r = 0; r < 4; ++r) box[r] = next[r];
+        for (int k = 0; k < 4; ++k) box[k] = next[k];
       }
       int nh = mm ? hits_m + 1 : hits_m;
       if (re) nh = h_hits[rh];
@@ -617,17 +859,10 @@ assoc_commit_kernel(const Params p) {
       const bool sv = lost[i] || retire[i]
                       || (oof && nh >= p.confirm_hits);
       // the outputs of the slot
-      store8(o_means + i * 8, m, vec_state);
-      store8(i_means + i * 8, m, vec_info);
 #pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        store8(o_covs + i * 64 + r * 8, c[r], vec_state);
-        store8(i_covs + i * 64 + r * 8, c[r], vec_info);
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        o_tlbrs[i * 4 + r] = box[r];
-        i_next[i * 4 + r] = next[r];
+      for (int k = 0; k < 4; ++k) {
+        o_tlbrs[i * 4 + k] = box[k];
+        i_next[i * 4 + k] = next[k];
       }
       o_valid[i] = nv;
       o_ages[i] = na;
@@ -655,21 +890,19 @@ assoc_commit_kernel(const Params p) {
       fresh[i] = is_fresh;
       fdet[i] = upd ? det_of : -1;
     }
-    const int* lru = in<int>(p, kHLru, sh);
     for (int x = tid; x < H; x += nt)
       hkey[x] = h_valid2[x] ? static_cast<float>(lru[x])
                             : -1e9f + static_cast<float>(x);
-    if (tid == 0) {
-      const unsigned char* dv = in<unsigned char>(p, kDValid, sd);
-      int n = 0;
-      for (int x = 0; x < D; ++x) n += dv[x] != 0;
-      n_dvalid = n;
-    }
   }
   __syncthreads();
 
   // ---- 5. the history: allocation order, saves, evictions ----------------
-  for (int x = tid; x < H; x += nt) alloc_order[stable_rank(hkey, H, x)] = x;
+  // (8 lanes a history slot; every lane runs every round)
+  for (int x0 = 0; x0 < H; x0 += n_groups) {
+    const int x = x0 + group;
+    const int rank = stable_rank8(hkey, H, x < H ? x : H - 1, r);
+    if (x < H && r == 0) alloc_order[rank] = x;
+  }
   if (warp == 0) warp_ranks(save, T, save_rank);
   __syncthreads();
   for (int i = tid; i < T; i += nt) {
@@ -683,11 +916,6 @@ assoc_commit_kernel(const Params p) {
   }
   __syncthreads();
   {
-    const int* labels = in<int>(p, kLabels, st);
-    const float* hc = in<float>(p, kHistCount, sh);
-    const int* h_labels = in<int>(p, kHLabels, sh);
-    const int* lru = in<int>(p, kHLru, sh);
-    const int* h_hits = in<int>(p, kHHits, sh);
     float* o_hc = out<float>(p, kOutHist + 1, sh);
     int* o_hl = out<int>(p, kOutHist + 2, sh);
     int* o_lru = out<int>(p, kOutHist + 4, sh);
@@ -710,8 +938,11 @@ assoc_commit_kernel(const Params p) {
     unsigned char* o_hv = out<unsigned char>(p, kOutHist + 3, sh);
     const int excess = n_hvalid - p.history_size > 0
                        ? n_hvalid - p.history_size : 0;
-    for (int x = tid; x < H; x += nt) {
-      const bool evict = h_valid3[x] && stable_rank(hkey, H, x) < excess;
+    for (int x0 = 0; x0 < H; x0 += n_groups) {
+      const int x = x0 + group;
+      const int rank = stable_rank8(hkey, H, x < H ? x : H - 1, r);
+      if (x >= H || r != 0) continue;
+      const bool evict = h_valid3[x] && rank < excess;
       o_hv[x] = h_valid3[x] && !evict;
       i_evict[x] = evict ? 1.f : 0.f;
     }
@@ -726,14 +957,15 @@ assoc_commit_kernel(const Params p) {
       info[3] = static_cast<float>(n_dvalid);
     }
   }
+#undef STAGED
 
   // ---- 6. the plan of the wide rows, for the rows launch ----------------
   {
     int* plan = out<int>(p, kScratch, static_cast<size_t>(s)
                                           * plan_ints(T, H));
-    for (int r = tid; r < T + H; r += nt) {
-      const int i = r < T ? r : h_src[r - T];
-      int* q = plan + 5 * r;
+    for (int r2 = tid; r2 < T + H; r2 += nt) {
+      const int i = r2 < T ? r2 : h_src[r2 - T];
+      int* q = plan + 5 * r2;
       q[0] = i;
       q[1] = i >= 0 ? fsrc[i] : -1;
       q[2] = i >= 0 ? frh[i] : -1;
@@ -838,8 +1070,21 @@ int assoc_commit_forward(const void* const* ptrs, const int* ints,
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(p.streams);
-  assoc_commit_kernel<<<grid, kThreads, 0, st>>>(p);
-  cudaError_t e = cudaGetLastError();
+  // the staged inputs beside the static shared memory pass 48 KB at the
+  // main path's sizes, which a launch takes only once allowed
+  for (int k = 0; k < kNumStaged; ++k) {
+    const StagedField f = staged_field(k);
+    p.f_src[k] = static_cast<const unsigned char*>(p.p[f.ptr]);
+    p.f_bytes[k] = field_bytes(f, p.t, p.d, p.h);
+    p.f_stride[k] = f.rows == 3 ? 0 : p.f_bytes[k];
+  }
+  const int smem = staged_layout(p.t, p.d, p.h, p.f_off);
+  cudaError_t e = cudaFuncSetAttribute(
+      assoc_commit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  assoc_commit_kernel<<<grid, kDecisionThreads, smem, st>>>(p);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;

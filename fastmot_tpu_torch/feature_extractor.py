@@ -4,7 +4,8 @@ One pass per association frame: per-box bilinear crop + resize of the
 frame on the device, BGR -> RGB, ImageNet normalisation (all three in
 ``ops.reid_crops.reid_crops``: one launch of ``csrc/reid_crops.cu`` on the
 card, whose plain version reproduces the JAX package's crop arithmetic
-exactly), OSNet, L2 normalisation.
+exactly; bf16 for the float OSNet, whose stem rounds its input to bf16),
+OSNet, L2 normalisation.
 Host boxes are padded to the JAX package's batch bucket with zero boxes:
 under dynamic int8 the input absmax of every conv spans the whole batch
 (one stream's batch, with a stream axis).
@@ -37,8 +38,13 @@ def extract_core(module, out_hw, frame, tlbrs, valid) -> torch.Tensor:
     4], valid [S, N]) every stream's crops go through ONE OSNet call on
     the [S * N] batch -> [S, N, D]; under dynamic int8 each stream's N
     crops take their own input ranges, as the JAX package's ``vmap`` over
-    streams gives them."""
-    x = rc.reid_crops(frame, tlbrs, out_hw)
+    streams gives them. The crops come in bf16 where the module's first
+    operation rounds its input to bf16 (``input_dtype``: the float OSNet),
+    which gives the float32 crops' embeddings bit for bit with half the
+    bytes written; a ``QuantizedModule`` takes its ranges from float32
+    crops."""
+    x = rc.reid_crops(frame, tlbrs, out_hw,
+                      getattr(module, 'input_dtype', torch.float32))
     with dynamic_ranges(frame.shape[0] if frame.dim() == 4 else 1):
         emb = module(x)
     norm = torch.linalg.norm(emb, dim=1, keepdim=True)

@@ -176,7 +176,11 @@ class OSNet(nn.Module):
     """OSNet backbone + embedding head: conv1 7x7/2, maxpool 3x3/2, three
     2-block stages with 1x1 + avgpool transitions, conv5, global average
     pool, fc (Linear -> BN -> ReLU) to ``feature_dim``. Input NHWC
-    float32, output [B, feature_dim] float32."""
+    float32 or bf16, output [B, feature_dim] float32."""
+    # the stem's conv rounds its input to bf16 before anything else reads
+    # it (layers.Conv.forward), so bf16 input gives float32 input's output
+    # bit for bit (feature_extractor.extract_core asks for it)
+    input_dtype = BF16
 
     def __init__(self, channels=(16, 64, 96, 128), feature_dim=512):
         super().__init__()

@@ -19,10 +19,12 @@ from __future__ import annotations
 import array
 import ctypes
 import functools
-import math
+import operator
 from typing import NamedTuple
 
 import torch
+
+from .launch_args import c_floats, carve
 
 N_STATE = 15                 # tracker.N_STATE
 N_HIST = 6                   # tracker.N_HIST
@@ -57,6 +59,23 @@ def assoc_commit_library() -> ctypes.CDLL:
     """The built kernel library, its C signatures declared once."""
     from .cuda_build import load
     return declare(load('assoc_commit'))
+
+
+# (bytes an element, rows: 'T' the slots, 'D' the detections, 'H' the
+# history or 1, elements a row) of each input the decisions' block stages
+# in dynamic shared memory (staged_field in csrc/assoc_commit.cu)
+STAGED_FIELDS = ((4, 'T', 4), (1, 'T', 1), *((4, 'T', 1),) * 5, (1, 'T', 1),
+                 *((4, 'T', 1),) * 4, (4, 'H', 1), (4, 'H', 1), (1, 'H', 1),
+                 *((4, 'H', 1),) * 3, (4, 'D', 4), (4, 'D', 1),
+                 *((1, 'D', 1),) * 3, (4, 1, 4), (4, 'T', 8), (4, 'T', 64))
+
+
+def staged_bytes(t: int, d: int, h: int) -> int:
+    """Bytes of dynamic shared memory the decisions' block stages its
+    stream's inputs in (``staged_layout`` in csrc/assoc_commit.cu): each
+    field at a 16-byte boundary."""
+    rows = {'T': t, 'D': d, 'H': h, 1: 1}
+    return sum(-(-rows[r] * w * b // 16) * 16 for b, r, w in STAGED_FIELDS)
 
 
 def scratch_ints(n_tracks: int, n_hist: int) -> int:
@@ -104,21 +123,21 @@ def _expected(lead, t, d, h, f, k):
 
 class _Layout(NamedTuple):
     """What one kind of call needs, made once: the inputs' expected
-    (dtype, shape, device, contiguous), the entry's int and float arrays
-    less the frame id, the sizes of the float32, int32 and bool buffers,
-    and each output (the new state's fields, the new history's, the info,
-    then the kernel's scratch) as (buffer, shape, strides, element
-    offset)."""
+    (dtype, shape, device), the entry's ints less the frame id,
+    its float array (the Kalman filter's constants), and ``carve``'s parts:
+    each output's (dtype, shape) (the new state's fields, the new
+    history's, the info), then the kernel's scratch in bytes."""
     signature: list
     ints: tuple
     floats: ctypes.Array
-    sizes: tuple
-    outputs: tuple
+    parts: tuple
 
 
-_BUFFERS = (_F32, _I32, _BOOL)
-_ITEM = (4, 4, 1)
 _PTRS = ctypes.c_uint64 * 54      # the Ptr enum's pointers
+_INTS = ctypes.c_int * 10         # the Int enum's values
+_DATA_PTR = torch.Tensor.data_ptr
+_SIGNATURE = operator.attrgetter('dtype', 'shape', 'device')
+_CONTIGUOUS = torch.Tensor.is_contiguous
 
 
 @functools.cache
@@ -131,26 +150,20 @@ def _layout(key, device):
                f'the kernel takes 1 to {KERNEL_MAX_ROWS} of each')
     if s < 1 or f < 1 or k < 1:
         _fault(f'{s} streams, feature width {f}, {k} keypoints a track')
-    sizes, outputs = [0, 0, 0], []
-    specs = [(dtype, _shape(trail, lead + (t,), {'F': f, 'K': k}))
-             for dtype, trail in STATE_SPEC] + \
-        [(dtype, _shape(trail, lead + (h,), {'F': f, 'K': k}))
-         for dtype, trail in HIST_SPEC] + [
-            (_F32, lead + (info_size(t, h),)),
-            (_I32, lead + (scratch_ints(t, h),))]
-    for dtype, shape in specs:
-        buf = _BUFFERS.index(dtype)
-        strides = tuple(math.prod(shape[j + 1:]) for j in range(len(shape)))
-        outputs.append((buf, shape, strides, sizes[buf]))
-        sizes[buf] += -(-math.prod(shape) // 16) * 16
+    sizes = {'F': f, 'K': k}
+    parts = tuple((dtype, _shape(trail, lead + (t,), sizes))
+                  for dtype, trail in STATE_SPEC) + tuple(
+        (dtype, _shape(trail, lead + (h,), sizes))
+        for dtype, trail in HIST_SPEC) + (
+        (_F32, lead + (info_size(t, h),)), 4 * s * scratch_ints(t, h))
     return _Layout(
-        [(dtype, torch.Size(shape), device, True) for _, dtype, shape in
+        [(dtype, torch.Size(shape), device) for _, dtype, shape in
          _expected(lead, t, d, h, f, k)],
         (s, t, d, h, f, k, confirm_hits, max_age, history_size),
-        (ctypes.c_float * 6)(kf.std_factor_det[0], kf.std_factor_det[1],
-                             kf.min_std_det[0], kf.min_std_det[1],
-                             kf.init_pos_weight, kf.init_vel_weight),
-        tuple(sizes), tuple(outputs))
+        c_floats(kf.std_factor_det[0], kf.std_factor_det[1],
+                 kf.min_std_det[0], kf.min_std_det[1], kf.init_pos_weight,
+                 kf.init_vel_weight),
+        parts)
 
 
 def _check_each(inputs, expected, device):
@@ -210,24 +223,19 @@ def commit_launch_args(cfg, confirm_hits: int, max_age: int,
     layout = _layout((lead, t, d, h, f, k, int(confirm_hits), int(max_age),
                       int(history_size), cfg), device)
     try:
-        ok = [(x.dtype, x.shape, x.device, x.is_contiguous())
-              for x in inputs] == layout.signature
-    except AttributeError:         # not a tensor
+        ok = list(map(_SIGNATURE, inputs)) == layout.signature \
+            and all(map(_CONTIGUOUS, inputs))
+    except (AttributeError, TypeError):         # not a tensor
         ok = False
     if not ok:
         _check_each(inputs, _expected(lead, t, d, h, f, k), device)
-    bufs = [torch.empty(n, dtype=dtype, device=device)
-            for n, dtype in zip(layout.sizes, _BUFFERS)]
-    base = [b.data_ptr() for b in bufs]
-    outs = [bufs[b].as_strided(shape, strides, off)
-            for b, shape, strides, off in layout.outputs[:-1]]
-    ptrs = [x.data_ptr() for x in inputs] + [
-        base[b] + _ITEM[b] * off for b, _, _, off in layout.outputs]
-    args = (_PTRS.from_buffer(array.array('Q', ptrs)),
-            (ctypes.c_int * 10)(*layout.ints, int(frame_id)),
-            layout.floats, _stream(device))
+    outs, addrs, _ = carve(device, layout.parts)
+    args = (_PTRS.from_buffer(array.array(
+                'Q', list(map(_DATA_PTR, inputs)) + addrs)),
+            _INTS(*layout.ints, int(frame_id)), layout.floats,
+            _stream(device))
     return (tuple(outs[:N_STATE]), tuple(outs[N_STATE:N_STATE + N_HIST]),
-            outs[-1]), args
+            outs[N_STATE + N_HIST]), args
 
 
 def commit_reference(cfg, confirm_hits: int, max_age: int,

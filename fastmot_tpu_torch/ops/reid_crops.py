@@ -4,9 +4,11 @@ normalised with ImageNet's mean and std.
 
 ``reid_crops`` is the entry ``feature_extractor.extract_core`` calls. On
 CUDA tensors it runs ``csrc/reid_crops.cu`` (built at first use; one
-launch, a block an output row of a crop, no host sync); on CPU tensors the
-plain version, ``reid_crops_reference`` (``crop_resize_batch``, then the
-normalisation); any other device raises. The two agree bit for bit
+launch, a block a band of 8 or 16 output rows of a crop, no host sync); on
+CPU
+tensors the plain version, ``reid_crops_reference`` (``crop_resize_batch``,
+then the normalisation); any other device raises. The two agree bit for
+bit, in float32 and, with ``out_dtype=torch.bfloat16``, rounded to bf16
 (tests/test_torch_reid_crops.py). ``reid_crops.launches`` counts the
 kernel's calls.
 
@@ -26,9 +28,41 @@ import functools
 
 import torch
 
+from .launch_args import c_floats, c_ints
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 INV_255 = 1.0 / 255.0
+MAX_OUT_W = 8192      # kMaxOutW: the column taps' table in shared memory
+# csrc/reid_crops.cu's bands: the bytes of a band's kept column pass at
+# most (kPassBytes, bf16 values), and the call's output rows (crops x oh)
+# from which a block takes 16 output rows, not 8: on an H100 80GB HBM3
+# (700 W) 8 were faster at 64 crops of 256 rows (16,384; 18.3 against
+# 20.4 us) and 16 at 1,024 (262,144; 187.4 against 192.8 us, in bf16 167.2
+# against 187.4), none measured between
+PASS_BYTES = 24576
+BAND_SWITCH_ROWS = 65536
+
+
+def band_rows(n_crops: int, out_h: int) -> int:
+    """Output rows a block of the kernel takes for ``n_crops`` crops of
+    ``out_h`` rows."""
+    return 16 if n_crops * out_h > BAND_SWITCH_ROWS else 8
+
+
+def span_cap(out_w: int, band: int) -> int:
+    """The source rows a band's kept column pass holds (``span_cap`` of the
+    C entry); a band spanning more runs it a pixel."""
+    return min(2 * band, PASS_BYTES // (out_w * 3 * 2))
+
+
+def dynamic_smem(out_w: int, band: int) -> int:
+    """A block's dynamic shared memory: the column and row taps (16 bytes
+    each), then the kept column pass."""
+    return (out_w + band) * 16 + span_cap(out_w, band) * out_w * 3 * 2
+
+
+OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 FORWARD_ARGTYPES = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
                     ctypes.POINTER(ctypes.c_float), ctypes.c_void_p]
@@ -116,12 +150,16 @@ def crop_resize_batch(frame: torch.Tensor, tlbrs: torch.Tensor,
 
 
 def reid_crops_reference(frame: torch.Tensor, tlbrs: torch.Tensor,
-                         out_hw: tuple[int, int]) -> torch.Tensor:
+                         out_hw: tuple[int, int],
+                         out_dtype: torch.dtype = torch.float32
+                         ) -> torch.Tensor:
     """The plain version of ``reid_crops``: ``crop_resize_batch``, BGR ->
-    RGB, x * (1 / 255), minus ImageNet's mean, over its std."""
+    RGB, x * (1 / 255), minus ImageNet's mean, over its std; in
+    ``out_dtype`` (the float32 result rounded to bf16 for bf16)."""
     crops = crop_resize_batch(frame, tlbrs, out_hw)
     mean, std = imagenet_constants(crops.device)
-    return (crops.flip(-1) * INV_255 - mean) / std
+    out = (crops.flip(-1) * INV_255 - mean) / std
+    return out if out_dtype == torch.float32 else out.to(out_dtype)
 
 
 def _fault(msg):
@@ -129,14 +167,18 @@ def _fault(msg):
 
 
 def reid_crops_launch_args(frame: torch.Tensor, tlbrs: torch.Tensor,
-                           out_hw: tuple[int, int]):
+                           out_hw: tuple[int, int],
+                           out_dtype: torch.dtype = torch.float32,
+                           band: int | None = None):
     """One call of ``reid_crops_forward``: ``(out, args, inputs)``.
     ``frame`` [H, W, 3] or [S, H, W, 3] uint8 or float32, ``tlbrs`` [N, 4]
     or [S, D, 4] float32 on the frame's device; ``out`` [N or S * D, oh, ow,
-    3] float32 is written by the call (on the current CUDA stream for CUDA
-    tensors), ``inputs`` are the (contiguous) tensors the arguments point
-    at, to keep alive with ``out``. Raises ValueError on a wrong dtype,
-    shape or device."""
+    3] of ``out_dtype`` (float32 or bf16) is written by the call (on the
+    current CUDA stream for CUDA tensors), ``inputs`` are the (contiguous)
+    tensors the arguments point at, to keep alive with ``out``. ``band``,
+    the output rows a block takes (8 or 16), is ``band_rows``' pick unless
+    given (the tests run both). Raises ValueError on a wrong dtype, shape
+    or device, or an output wider than ``MAX_OUT_W``."""
     if not isinstance(frame, torch.Tensor) or frame.dim() not in (3, 4):
         _fault('frame must be [H, W, 3] or [S, H, W, 3]')
     if not isinstance(tlbrs, torch.Tensor):
@@ -156,36 +198,41 @@ def reid_crops_launch_args(frame: torch.Tensor, tlbrs: torch.Tensor,
         _fault(f'boxes are on {boxes.device}, frames on {frames.device}')
     oh, ow = (int(x) for x in out_hw)
     d = int(boxes.shape[1])
-    if d < 1 or s * d > 65535 or oh < 1 or ow < 1:
+    if d < 1 or s * d > 65535 or oh < 1 or not 1 <= ow <= MAX_OUT_W:
         _fault(f'{s} x {d} crops of {oh} x {ow}: the kernel takes 1 to '
-               '65,535 crops of at least 1 x 1')
+               f'65,535 crops of at least 1 x 1, at most {MAX_OUT_W} wide')
+    if out_dtype not in OUT_DTYPES:
+        _fault(f'output dtype {out_dtype}: float32 or bfloat16 expected')
     inputs = [frames.contiguous(), boxes.contiguous()]
-    out = torch.empty((s * d, oh, ow, 3), dtype=torch.float32,
+    out = torch.empty((s * d, oh, ow, 3), dtype=out_dtype,
                       device=frames.device)
     stream = torch._C._cuda_getCurrentRawStream(frames.device.index) \
         if frames.device.type == 'cuda' else None
     args = ((ctypes.c_uint64 * 3)(inputs[0].data_ptr(), inputs[1].data_ptr(),
                                   out.data_ptr()),
-            (ctypes.c_int * 7)(s, d, fh, fw, oh, ow,
-                               int(frames.dtype == torch.float32)),
-            (ctypes.c_float * 2)(1.0 / ow, 1.0 / oh), stream)
+            c_ints(s, d, fh, fw, oh, ow, int(frames.dtype == torch.float32),
+                   int(out_dtype == torch.bfloat16),
+                   band or band_rows(s * d, oh)),
+            c_floats(1.0 / ow, 1.0 / oh), stream)
     return out, args, inputs
 
 
 def reid_crops(frame: torch.Tensor, tlbrs: torch.Tensor,
-               out_hw: tuple[int, int]) -> torch.Tensor:
-    """OSNet's input for every box: [N, oh, ow, 3] float32 (``frame`` [H,
-    W, 3] and ``tlbrs`` [N, 4]) or [S * D, oh, ow, 3] (frames [S, H, W, 3],
-    tlbrs [S, D, 4], each box cropped from its own stream's frame). On CUDA
-    tensors one launch of ``csrc/reid_crops.cu`` (``reid_crops_launch_args``'
-    checks apply); on CPU tensors ``reid_crops_reference``; any other device
-    raises."""
+               out_hw: tuple[int, int],
+               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """OSNet's input for every box: [N, oh, ow, 3] (``frame`` [H, W, 3] and
+    ``tlbrs`` [N, 4]) or [S * D, oh, ow, 3] (frames [S, H, W, 3], tlbrs [S,
+    D, 4], each box cropped from its own stream's frame), float32 or, with
+    ``out_dtype=torch.bfloat16``, the float32 values rounded to bf16. On
+    CUDA tensors one launch of ``csrc/reid_crops.cu``
+    (``reid_crops_launch_args``' checks apply); on CPU tensors
+    ``reid_crops_reference``; any other device raises."""
     device = frame.device
     if device.type == 'cpu':
-        return reid_crops_reference(frame, tlbrs, out_hw)
+        return reid_crops_reference(frame, tlbrs, out_hw, out_dtype)
     if device.type != 'cuda':
         raise ValueError(f'reid_crops: unsupported device {device}')
-    out, args, _ = reid_crops_launch_args(frame, tlbrs, out_hw)
+    out, args, _ = reid_crops_launch_args(frame, tlbrs, out_hw, out_dtype)
     lib = reid_crops_library()
     code = lib.reid_crops_forward(*args)
     if code:

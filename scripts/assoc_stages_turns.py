@@ -18,10 +18,11 @@ crops + OSNet, the costs, the cascade, the finals, the commit, the whole
 ``update_device_fused`` call and the whole association frame with the net
 and the NMS; where ROOT has them, the plain NMS, costs and crops beside the
 kernels; each synchronised, the median of 5) and the host syncs a call of
-each stage and of the whole frame, and the host's time a call of the NMS's
-and the costs' wrappers (``nms_and_gate``, ``assoc_costs_core``; no sync
-inside a window of 50 calls, the median of 21 windows), with the card's
-name and power limit.
+each stage and of the whole frame, and the host's time a call of the NMS's,
+the costs', the commit's and the crops' wrappers (``nms_and_gate``,
+``assoc_costs_core``, ``commit_core``, ``reid_crops``; no sync inside a
+window of 50 calls, the median of 21 windows), with the card's name and
+power limit.
 """
 import argparse
 import importlib.util
@@ -128,11 +129,14 @@ def main():
 
     def one(xs):
         return tuple(a[0] for a in xs)
+    from fastmot_tpu_torch import feature_extractor as fe
     wrappers = {
         'nms_and_gate': lambda: detmod.nms_and_gate(*frame['nms']),
         'assoc_costs_core': lambda: tr.assoc_costs_core(
             *params, one(states), one(hists), *one(dets), emb[0],
-            emb_cap=emb_cap)}
+            emb_cap=emb_cap),
+        'commit_core': lambda: tr.commit_core(*frame['commit']),
+        'reid_crops': lambda: fe.rc.reid_crops(*frame['crops'])}
     print(f'{tag} host us a call (median of 21 windows of 50 calls): '
           + '; '.join(f'{name} {smoke.host_ms(fn, n=50, reps=21) * 1e3:.2f}'
                       for name, fn in wrappers.items()) + f'; {card}',

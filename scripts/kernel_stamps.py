@@ -55,10 +55,12 @@ extern "C" int stamps_read(int* mark, int* block, long long* clock,
 '''
 
 
-def stamped_library(name: str, marks) -> ctypes.CDLL:
-    """The stamped build of csrc/<name>.cu: stamp(i) where marks[i] has
+def stamped_library(name: str, marks, source=None, tag='') -> ctypes.CDLL:
+    """The stamped build of csrc/<name>.cu (or of ``source``, another
+    version of it, built apart under ``tag``): stamp(i) where marks[i] has
     '@'. Raises RuntimeError if a mark's text is not in the source once."""
-    src = (cuda_build.CSRC / f'{name}.cu').read_text()
+    src = source if source is not None else \
+        (cuda_build.CSRC / f'{name}.cu').read_text()
     places = []
     for i, mark in enumerate(marks):
         text = mark.replace('@', '')
@@ -71,8 +73,8 @@ def stamped_library(name: str, marks) -> ctypes.CDLL:
     src = src.replace('namespace {', prelude + 'namespace {', 1)
     src += READER.replace('LOG', str(LOG))
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = cuda_build.BUILD_DIR / f'{name}_stamped.cu'
-    so = cuda_build.BUILD_DIR / f'{name}_stamped.so'
+    cu = cuda_build.BUILD_DIR / f'{name}_stamped{tag}.cu'
+    so = cuda_build.BUILD_DIR / f'{name}_stamped{tag}.so'
     cu.write_text(src)
     subprocess.run([cuda_build.find_nvcc(), *cuda_build.nvcc_flags(name),
                     '-o', str(so), str(cu)], check=True)

@@ -1,24 +1,38 @@
 #!/usr/bin/env python3
-"""Where the NMS, SSD-merge and commit kernels spend their cycles, on the
-card: stamped builds of csrc/nms_waves.cu and csrc/assoc_commit.cu
-(scripts/kernel_stamps.py) run on chip_smoke.py phase 20's contested cases
-(1,024 same-label boxes in chains eight waves deep; 800 SSD rows whose
-components span the tiles; the full-width contested commit) and on
-tests/test_torch_assoc_commit.py's full-width frame-like commit, one stream
-each.
+"""Where the NMS, SSD-merge and commit kernels spend their cycles, and how
+two checkouts' commit kernels compare, on the card: stamped builds of
+csrc/nms_waves.cu and csrc/assoc_commit.cu (scripts/kernel_stamps.py) run
+on chip_smoke.py phase 20's contested cases (1,024 same-label boxes in
+chains eight waves deep; 800 SSD rows whose components span the tiles; the
+full-width contested commit) and on tests/test_torch_assoc_commit.py's
+full-width frame-like commit, one stream each.
 
-    python3 scripts/prof_assoc_tail.py
+    python3 scripts/prof_assoc_tail.py [--other ROOT ...] [--only commit]
+        [--no-stamps] [--iters N]
 
 For each launch's blocks it prints, for every pair of stamps in a row (the
 mark before, the mark after), how often it occurred and its cycles in all
 and on average: the NMS's pack blocks, the waves launch's wait for them,
 its staging of the bits and each wave's two halves; the merge's staging of
 the edges and its rounds; the commit's phases (rectify, the scatters, the
-lifecycle, the ranks, a slot a thread, the history, the plan; the rows
-launch's wait and its rows, its first block). Each
-stamp takes an atomic on one counter in device memory, which the cycles
-include (about 800 cycles a stamp on an H100); with the card's name and
-power limit.
+lifecycle, the ranks and the matched Kalman updates, the slots, the
+history, the plan; the rows launch's wait and its rows, its first block).
+Each stamp takes an atomic on one counter in device memory, which the
+cycles include (about 800 cycles a stamp on an H100); with the card's name
+and power limit.
+
+Times: the commit's device time a call (chip_smoke.lk_device_ms: 100 calls
+of the C entry between CUDA events behind a sleep kernel) on the main
+path's association frame (cfg/mot.json's YOLOv4-512 + OSNet-x0.25 at
+random weights, 40 synthetic detections, run as scripts/assoc_stages_turns.py
+runs it; at 8 streams its one stream repeated) and on the contested
+full-width commit at 1 and 8 streams, with the wrapper's time and host
+time a call and of that the C entry's. ``--other ROOT`` (repeatable)
+builds ROOT's ``fastmot_tpu_torch/csrc/assoc_commit.cu`` with this
+checkout's nvcc flags (its C entry takes the same arguments), holds its
+outputs equal to this checkout's bit for bit on every case, and times the
+libraries in turns (this, the others, then the same backwards); its
+stamps too, where its source has the marks of ``OTHER_MARKS``.
 """
 import collections
 import os
@@ -51,6 +65,41 @@ NMS_MARKS = [
 ]
 COMMIT_MARKS = [
     ('start', '  const int T = p.t, D = p.d, H = p.h;\n@'),
+    ('armed', '@#pragma unroll\n  for (int k = 0; k < kNumStaged; ++k) '
+              '{\n    unsigned char* dst = dyn + p.f_off[k];'),
+    ('issued', '@#if defined(__CUDA_ARCH__)\n  asm volatile("cp.async.'
+               'commit_group;'),
+    ('copied', '"cp.async.commit_group;\\ncp.async.wait_group 0;\\n" :::\n'
+               '               "memory");\n#endif\n@'),
+    ('staged', "  __syncthreads();     // every thread's cp.async copies "
+               'are in\n@'),
+    ('late staged', '  stage_wait(&bar, bulk);     // the means and '
+                    'covariances\n@'),
+    ('rectify', '@  // ---- the scatters'),
+    ('scatters', '@  // ---- 2. lifecycle decisions'),
+    ('lifecycle', '@  // ---- 3. ranks'),
+    ('ranks', '  if (warp == 4 % n_warps) {\n    int n = 0;\n    for (int '
+              'x0 = 0; x0 < D; x0 += 32) {\n      const int x = x0 + (tid '
+              '& 31);\n'
+              '      n += __popc(__ballot_sync(kFull, x < D && dv[x]));\n'
+              '    }\n    if ((tid & 31) == 0) n_dvalid = n;\n  }\n'
+              '  __syncthreads();\n@'),
+    ('updates', '@  // ---- 4. the slots: 8 lanes a slot write the rows'),
+    ('slot rows', '@    const float* tlbrs = STAGED(const float, sTlbrs);'),
+    ('slots', '@  // ---- 5. the history'),
+    ('history', '@  // ---- 6. the plan of the wide rows'),
+    ('plan written', '      kp[2 * i + 1] = create_det[i] >= 0;\n    }\n'
+                     '  }\n@}'),
+    ('rows launched', '@  cudaGridDependencySynchronize();\n'
+                      '  const int first'),
+    ('rows start', '  cudaGridDependencySynchronize();\n@'
+                   '  const int first'),
+    ('rows end', '        o_kpv[r * K + x] = kpv[kp[0] * K + x] && !kp[1];\n'
+                 '    }\n  }\n@}'),
+]
+# the marks of the first design's source (a thread a slot), for --other
+OTHER_MARKS = [
+    ('start', '  const int T = p.t, D = p.d, H = p.h;\n@'),
     ('rectify', '@  // ---- the scatters'),
     ('scatters', '@  // ---- 2. lifecycle decisions'),
     ('lifecycle', '@  // ---- 3. ranks'),
@@ -78,6 +127,9 @@ def breakdown(lib, marks, launch, blocks=(0,)):
         mark, block, clock, _ = kernel_stamps.read_stamps(lib)
     for b in blocks:
         m, c = mark[block == b], clock[block == b]
+        if len(m) < 2:
+            print(f'  block {b}: {len(m)} stamps')
+            continue
         pairs = collections.defaultdict(lambda: [0, 0])
         for a, z, c0, c1 in zip(m[:-1], m[1:], c[:-1], c[1:]):
             key = f'{marks[a][0]} -> {marks[z][0]}'
@@ -88,7 +140,60 @@ def breakdown(lib, marks, launch, blocks=(0,)):
             print(f'    {key:30s} {n:5d} x {cyc / n:9.1f} = {cyc:9d} cycles')
 
 
+def commit_cases(streams):
+    """{case: ``assoc_commit``'s arguments}: the main path's association
+    frame at 1 and ``streams`` streams (its one stream repeated), and the
+    contested full-width commit at 1 and ``streams``."""
+    import json
+
+    from assoc_stages_turns import run_main_path
+    from fastmot_tpu_torch.utils import ConfigDecoder
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, 'cfg', 'mot.json')) as f:
+        mot_cfg = json.load(f, cls=ConfigDecoder)['mot_cfg']
+    mot, frames, staged, _ = run_main_path(smoke, mot_cfg)
+    smoke.assoc_stages_ms(mot, frames, staged)
+    one = smoke.batched_commit_args(smoke.STAGE_ARGS.pop('tail')['commit'])
+    smoke.STAGE_ARGS.pop('frame', None)
+
+    def tiled(x):
+        if isinstance(x, tuple):
+            return tuple(tiled(a) for a in x)
+        if isinstance(x, torch.Tensor) and x.dim() and x.shape[0] == 1:
+            return x.expand(streams, *x.shape[1:]).contiguous()
+        return x
+    many = one[:4] + tuple(tiled(a) for a in one[4:8]) + one[8:10] \
+        + (tiled(one[10]),)
+    return {'main_1_stream': one, f'main_{streams}_streams': many,
+            'contested_1_stream': smoke.contested_commit_args(1),
+            f'contested_{streams}_streams':
+                smoke.contested_commit_args(streams)}
+
+
+def commit_library(root, tag):
+    """ROOT's csrc/assoc_commit.cu built with this checkout's flags."""
+    import ctypes
+    import tempfile
+
+    from fastmot_tpu_torch.ops import assoc_commit as ac
+    from fastmot_tpu_torch.ops import cuda_build
+    src = os.path.join(root, 'fastmot_tpu_torch', 'csrc', 'assoc_commit.cu')
+    tmp = tempfile.mkdtemp()
+    so = os.path.join(tmp, f'assoc_commit_{tag}.so')
+    subprocess.run([cuda_build.find_nvcc(), *cuda_build.nvcc_flags(
+        'assoc_commit'), '-o', so, src], check=True, capture_output=True)
+    return ac.declare(ctypes.CDLL(so))
+
+
 def main():
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('--other', action='append', default=[],
+                    help='the root of a checkout to compare (repeatable)')
+    ap.add_argument('--only', choices=('commit',), help='the commit alone')
+    ap.add_argument('--no-stamps', action='store_true')
+    ap.add_argument('--iters', type=int, default=100)
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('prof_assoc_tail: needs a CUDA device')
     import tests.test_torch_assoc_commit as tc
@@ -100,42 +205,92 @@ def main():
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True,
                           text=True).stdout.strip()
-    lib_n = nw.declare(kernel_stamps.stamped_library(
-        'nms_waves', [m for _, m in NMS_MARKS]))
-    lib_c = ac.declare(kernel_stamps.stamped_library(
-        'assoc_commit', [m for _, m in COMMIT_MARKS]))
+    print(f'card: {card}; torch {torch.__version__}', flush=True)
+    smoke.phase_build()
+    stamped = [] if opts.no_stamps else [('this', ac.declare(
+        kernel_stamps.stamped_library(
+            'assoc_commit', [m for _, m in COMMIT_MARKS])), COMMIT_MARKS)]
+    for root in ([] if opts.no_stamps else opts.other):
+        src = open(os.path.join(root, 'fastmot_tpu_torch', 'csrc',
+                                'assoc_commit.cu')).read()
+        if all(src.count(m.replace('@', '')) == 1 for _, m in OTHER_MARKS):
+            stamped.append((root, ac.declare(kernel_stamps.stamped_library(
+                'assoc_commit', [m for _, m in OTHER_MARKS], source=src,
+                tag=os.path.basename(root))), OTHER_MARKS))
 
-    b, s, v = (torch.as_tensor(a, device='cuda')
-               for a in tn.contested_nms(seed=0))
-    keep, args, inputs = nw.suppress_launch_args(
-        geom.diou_matrix(b, 0.6)[None], s[None], v[None], 0.5)
-    print(f'contested NMS (1,024 boxes, 8 waves): pack blocks 0 and 31, '
-          f'then the waves block 0; {card}', flush=True)
-    breakdown(lib_n, NMS_MARKS,
-              lambda: lib_n.greedy_suppress_forward(*args), blocks=(0, 31))
-    del inputs
-    edge, valid = (torch.as_tensor(a, device='cuda')
-                   for a in tn.contested_merge(0))
-    labels, args, inputs = nw.merge_launch_args(edge, valid)
-    print(f'contested merge (800 rows); {card}', flush=True)
-    breakdown(lib_n, NMS_MARKS, lambda: lib_n.merge_labels_forward(*args))
-    del inputs
-    for kind in ('full_width', 'contested_full'):
-        if kind == 'contested_full':
-            call = smoke.contested_commit_args(1)
-        else:
-            states, hists, dets, embs, casc, history_size = tc.torch_case(
-                tc.commit_case(kind, tc.CASE_SEEDS[kind]))
-            call = (KalmanConfig(), tc.CONFIRM, tc.MAX_AGE, history_size,
-                    tuple(a.cuda() for a in states),
-                    tuple(a.cuda() for a in hists),
-                    tuple(a.cuda() for a in dets), embs.cuda(), tc.FRAME_ID,
-                    tc.T(tc.FRAME).cuda(), tuple(a.cuda() for a in casc))
-        outputs, args = ac.commit_launch_args(*call)
-        print(f'commit, {kind} (128 slots, 128 detections, 64 history '
-              f'slots, 512 features); {card}', flush=True)
-        breakdown(lib_c, COMMIT_MARKS,
-                  lambda: lib_c.assoc_commit_forward(*args))
+    if opts.only != 'commit' and not opts.no_stamps:
+        lib_n = nw.declare(kernel_stamps.stamped_library(
+            'nms_waves', [m for _, m in NMS_MARKS]))
+        b, s, v = (torch.as_tensor(a, device='cuda')
+                   for a in tn.contested_nms(seed=0))
+        keep, args, inputs = nw.suppress_launch_args(
+            geom.diou_matrix(b, 0.6)[None], s[None], v[None], 0.5)
+        print(f'contested NMS (1,024 boxes, 8 waves): pack blocks 0 and 31, '
+              f'then the waves block 0; {card}', flush=True)
+        breakdown(lib_n, NMS_MARKS,
+                  lambda: lib_n.greedy_suppress_forward(*args),
+                  blocks=(0, 31))
+        del inputs
+        edge, valid = (torch.as_tensor(a, device='cuda')
+                       for a in tn.contested_merge(0))
+        labels, args, inputs = nw.merge_launch_args(edge, valid)
+        print(f'contested merge (800 rows); {card}', flush=True)
+        breakdown(lib_n, NMS_MARKS, lambda: lib_n.merge_labels_forward(*args))
+        del inputs
+    for tag, lib_c, marks in stamped:
+        for kind in ('full_width', 'contested_full'):
+            if kind == 'contested_full':
+                call = smoke.contested_commit_args(1)
+            else:
+                states, hists, dets, embs, casc, history_size = \
+                    tc.torch_case(tc.commit_case(kind, tc.CASE_SEEDS[kind]))
+                call = (KalmanConfig(), tc.CONFIRM, tc.MAX_AGE, history_size,
+                        tuple(a.cuda() for a in states),
+                        tuple(a.cuda() for a in hists),
+                        tuple(a.cuda() for a in dets), embs.cuda(),
+                        tc.FRAME_ID, tc.T(tc.FRAME).cuda(),
+                        tuple(a.cuda() for a in casc))
+            outputs, args = ac.commit_launch_args(*call)
+            print(f'commit ({tag}), {kind} (128 slots, 128 detections, 64 '
+                  f'history slots, 512 features); {card}', flush=True)
+            breakdown(lib_c, marks,
+                      lambda: lib_c.assoc_commit_forward(*args))
+            del outputs
+
+    # the device times, in turns with the other checkout's
+    mine = ac.assoc_commit_library()
+    others = [(root, commit_library(root, os.path.basename(root)))
+              for root in opts.other]
+    for case, a in commit_cases(smoke.N_STREAMS).items():
+        outputs, args = ac.commit_launch_args(*a)
+        flat = list(outputs[0]) + list(outputs[1]) + [outputs[2]]
+        named = [('this', mine.assoc_commit_forward)] + [
+            (root, lib.assoc_commit_forward) for root, lib in others]
+        got = []
+        for _, fn in named:
+            if fn(*args):
+                raise RuntimeError(f'{case}: launch failed')
+            torch.cuda.synchronize()
+            got.append([x.clone() for x in flat])
+        for (tag, _), g in zip(named[1:], got[1:]):
+            if any(not torch.equal(x, y) for x, y in zip(got[0], g)):
+                raise AssertionError(f'commit {case}: {tag}\'s outputs '
+                                     'differ')
+        times = {tag: [] for tag, _ in named}
+        for tag, fn in named + named[::-1]:
+            times[tag].append(smoke.lk_device_ms(
+                fn, args, n=opts.iters, tag=f'commit {case}'))
+        call = smoke.launches_ms(lambda: ac.assoc_commit(*a))
+        host = smoke.host_ms(lambda: ac.assoc_commit(*a))
+        entry_host = smoke.host_ms(lambda: mine.assoc_commit_forward(*args))
+        print(f'commit {case}: device us a call ' + '; '.join(
+            f'{tag} ' + ' / '.join(f'{t * 1e3:.2f}' for t in v)
+            for tag, v in times.items())
+            + ' (in turns' + (', outputs equal bit for bit'
+                              if len(named) > 1 else '')
+            + f'); this wrapper {call * 1e3:.2f} us a call, host '
+            f'{host * 1e3:.2f} us (of it the C entry {entry_host * 1e3:.2f} '
+            f'us); {card}', flush=True)
         del outputs
 
 

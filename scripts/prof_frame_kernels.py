@@ -1,10 +1,9 @@
 #!/usr/bin/env python3
 """Where the YOLO postprocess, costs and ReID-input kernels spend their
-cycles, and how two checkouts' postprocess and costs kernels compare, on
-the card.
+cycles, and how two checkouts' kernels compare, on the card.
 
-    python3 scripts/prof_frame_kernels.py [--other ROOT] [--iters N]
-        [--no-stamps] [--json PATH]
+    python3 scripts/prof_frame_kernels.py [--other ROOT ...] [--iters N]
+        [--no-stamps] [--only NAME ...] [--json PATH]
 
 The cases are chip_smoke.py phase 21's: the main path's association frame
 (cfg/mot.json's YOLOv4-512 + OSNet-x0.25 at random weights, 40 synthetic
@@ -12,7 +11,11 @@ detections, run as scripts/assoc_stages_turns.py runs it; at 8 streams the
 detector's rows of 8 drifting frames and the one stream's costs arguments
 repeated), the contested NMS (16,128 decoded rows of which more than 1,024
 pass the gates), the contested costs (tests/test_torch_assoc_costs.py's
-full width) and the stage-1 costs, at 1 and 8 streams.
+full width) and the stage-1 costs, at 1 and 8 streams; and the ReID
+input's: the main frame's 64 crops, 8 streams of 128 boxes (the main
+path's 40 on each stream's drifting frame, the rest padding) and the
+contested 64 / 8 x 128 crops past every frame edge, each in float32 and
+in bf16 (what the float OSNet reads).
 
 Stamps (unless ``--no-stamps``): stamped builds of csrc/nms_waves.cu (its
 ``nms_select_forward`` launches), csrc/assoc_costs.cu and
@@ -27,12 +30,15 @@ cycles a stamp on an H100, more where many blocks stamp at once).
 Times: each case's device time a call of this checkout's C entry (100
 calls between CUDA events behind a sleep kernel, chip_smoke.lk_device_ms)
 and the wrapper's time and host time a call, and of that the C entry's
-host time. ``--other ROOT`` builds ROOT's
-``fastmot_tpu_torch/csrc/nms_waves.cu`` and ``assoc_costs.cu`` with this
-checkout's nvcc flags (their C entries take the same arguments), holds
-their outputs equal to this checkout's bit for bit on every case, and
-times both libraries in turns (this, other, other, this). Every line
-carries the card's name and power limit.
+host time. ``--other ROOT`` (repeatable) builds ROOT's
+``fastmot_tpu_torch/csrc/nms_waves.cu``, ``assoc_costs.cu`` and
+``reid_crops.cu`` with this checkout's nvcc flags (their C entries take the
+same arguments), holds their outputs equal to this checkout's bit for bit
+on every case, and times the libraries in turns (this, the others, then
+the same backwards); a ROOT's crops take the bf16 cases only where its
+wrapper has ``out_dtype``. ``--only`` keeps the named kernels
+(nms_select, assoc_costs, reid_crops). Every line carries the card's name
+and power limit.
 """
 import argparse
 import ctypes
@@ -128,10 +134,11 @@ COSTS_BLOCKS = {'prep factors': (0,), 'prep rows': (1,),
                 'prep detections': (49,), 'tile': (0, 95)}
 CROPS_MARKS = [
     ('start', '  const int s = n / p.boxes_a_stream;\n@'),
-    ('row taps', '  float* out = p.out + ((static_cast<size_t>(n) * p.out_h '
-                 '+ row)\n                        * p.out_w) * 3;\n@'),
-    ('end', '      out[3 * j + c] = (x - mean_of(c)) / std_of(c);\n    }\n'
-            '  }\n@}'),
+    ('taps', '  const size_t frame = static_cast<size_t>(s) * H * W * 3;\n'
+             '  const int groups = (ow + kPixels - 1) / kPixels;\n'
+             '  __syncthreads();\n@'),
+    ('column pass', '      }\n    }\n    __syncthreads();\n@  }'),
+    ('end', '                     + j0) * 3, npix, o);\n  }\n@}'),
 ]
 
 
@@ -166,39 +173,52 @@ def breakdown(lib, marks, launches, blocks, launch):
                       'cycles')
 
 
-def source_library(name, src, tag):
+def source_library(name, src, tag, defines=()):
     """``src`` (a version of csrc/<name>.cu) built with this checkout's
-    nvcc flags for ``name``, its forward entry declared as this
-    checkout's."""
+    nvcc flags for ``name`` (and ``defines``), its forward entry declared
+    as this checkout's."""
+    from fastmot_tpu_torch.ops import assoc_commit as ac
     from fastmot_tpu_torch.ops import assoc_costs as acost
     from fastmot_tpu_torch.ops import cuda_build
     from fastmot_tpu_torch.ops import nms_waves as nw
+    from fastmot_tpu_torch.ops import reid_crops as rc
     tmp = Path(tempfile.mkdtemp())
     cu, so = tmp / f'{name}_{tag}.cu', tmp / f'{name}_{tag}.so'
     cu.write_text(src)
     subprocess.run([cuda_build.find_nvcc(), *cuda_build.nvcc_flags(name),
-                    '-o', str(so), str(cu)], check=True, capture_output=True)
+                    *defines, '-o', str(so), str(cu)], check=True,
+                   capture_output=True)
     lib = ctypes.CDLL(str(so))
     entry, argtypes = {
         'nms_waves': ('nms_select_forward', nw.SELECT_ARGTYPES),
-        'assoc_costs': ('assoc_costs_forward', acost.FORWARD_ARGTYPES)}[name]
+        'assoc_costs': ('assoc_costs_forward', acost.FORWARD_ARGTYPES),
+        'reid_crops': ('reid_crops_forward', rc.FORWARD_ARGTYPES),
+        'assoc_commit': ('assoc_commit_forward', ac.FORWARD_ARGTYPES)}[name]
     getattr(lib, entry).argtypes = argtypes
     getattr(lib, entry).restype = ctypes.c_int
     return lib
 
 
-def other_libraries(root):
-    """ROOT's postprocess and costs libraries, built with this checkout's
-    flags."""
+def other_libraries(root, names):
+    """ROOT's libraries of ``names`` (its postprocess, costs and crops),
+    built with this checkout's flags."""
     csrc = Path(root) / 'fastmot_tpu_torch' / 'csrc'
     return {name: source_library(name, (csrc / f'{name}.cu').read_text(),
-                                 'other')
-            for name in ('nms_waves', 'assoc_costs')}
+                                 Path(root).name)
+            for name in names}
+
+
+def takes_bf16(root):
+    """Whether ROOT's crops kernel writes bf16 (its wrapper takes
+    ``out_dtype``)."""
+    return 'out_dtype' in (Path(root) / 'fastmot_tpu_torch' / 'ops'
+                           / 'reid_crops.py').read_text()
 
 
 def main_frame(streams):
     """The main path's association frame: (the NMS's arguments at 1 and
-    ``streams`` streams, the costs' arguments at 1 and ``streams``)."""
+    ``streams`` streams, the costs' arguments at 1 and ``streams``, the
+    crops' arguments of the one stream)."""
     from assoc_stages_turns import run_main_path
     from fastmot_tpu_torch.models.yolo import decode_heads
     from fastmot_tpu_torch.utils import ConfigDecoder
@@ -227,16 +247,39 @@ def main_frame(streams):
         return x.expand(streams, *x.shape[1:]).contiguous()
     costs_s = (costs1[0],) + tuple(tiled(a) for a in costs1[1:5]) \
         + tuple(costs1[5:])
-    return (nms1, nms_s), (costs1, costs_s)
+    return (nms1, nms_s), (costs1, costs_s), frame_args['crops']
+
+
+def crop_cases(crops1, streams, rng):
+    """{case: ``reid_crops``' arguments}: the main frame's crops, 8
+    drifting frames with the main path's 40 boxes each padded to 128 rows,
+    and phase 21's contested crops, at 1 and ``streams`` streams."""
+    import tests.test_torch_reid_crops as tcrop
+    from fastmot_tpu_torch.detector import MAX_DETS
+    frames = torch.as_tensor(np.stack(smoke.textured_frames(
+        smoke.SIZE, streams, seed=13)), device='cuda')
+    boxes = np.zeros((streams, MAX_DETS, 4), np.float32)
+    for i in range(streams):
+        boxes[i, :smoke.N_OBJECTS] = smoke.synth_tlbrs(5 * i, smoke.SIZE)
+    edge = [torch.as_tensor(np.stack([
+        tcrop.edge_boxes(rng, n, smoke.SIZE[1], smoke.SIZE[0])
+        for _ in range(k)]), device='cuda') for k, n in ((1, 64),
+                                                         (streams, 128))]
+    hw = crops1[2]
+    return {'main_1_stream': crops1,
+            f'main_{streams}_streams': (frames, torch.as_tensor(
+                boxes, device='cuda'), hw),
+            'contested_1_stream': (frames[0], edge[0][0], hw),
+            f'contested_{streams}_streams': (frames, edge[1], hw)}
 
 
 def cases(streams):
     """Phase 21's kinds of case at 1 and ``streams`` streams: {case: args}
-    for the NMS (``nms_and_gate``'s arguments) and the costs ((params,
-    states, hists, dets, embeddings, emb_cap))."""
+    for the NMS (``nms_and_gate``'s arguments), the costs ((params,
+    states, hists, dets, embeddings, emb_cap)) and the crops."""
     import tests.test_torch_assoc_costs as tcost
     import tests.test_torch_nms_select as tsel
-    (nms1, nms_s), (costs1, costs_s) = main_frame(streams)
+    (nms1, nms_s), (costs1, costs_s), crops1 = main_frame(streams)
     rng = np.random.default_rng(21)
     scale = torch.tensor([1280.0, 720.0, 1280.0, 720.0], device='cuda')
     mask3 = torch.ones(3, dtype=torch.bool, device='cuda')
@@ -260,7 +303,7 @@ def cases(streams):
             f'contested_{streams}_streams': costs('full_width', streams),
             'stage1_1_stream': costs('stage1', 1),
             f'stage1_{streams}_streams': costs('stage1', streams)}
-    return nms, cost
+    return nms, cost, crop_cases(crops1, streams, rng)
 
 
 def nms_launch(a):
@@ -283,16 +326,22 @@ def run(entry, args, outputs):
     return [o.cpu().contiguous().view(torch.uint8) for o in outputs]
 
 
+def crops_launch(dtype):
+    from fastmot_tpu_torch.ops import reid_crops as rc
+    return lambda a: rc.reid_crops_launch_args(*a, dtype)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-    ap.add_argument('--other', help='the root of a checkout to compare')
+    ap.add_argument('--other', action='append', default=[],
+                    help='the root of a checkout to compare (repeatable)')
     ap.add_argument('--iters', type=int, default=100)
     ap.add_argument('--no-stamps', action='store_true')
+    ap.add_argument('--only', nargs='+', help='the kernels to run')
     ap.add_argument('--json', help='write the times here as JSON')
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('prof_frame_kernels: needs a CUDA device')
-    import tests.test_torch_reid_crops as tcrop
     from fastmot_tpu_torch import detector as detmod
     from fastmot_tpu_torch.ops import assoc_costs as acost
     from fastmot_tpu_torch.ops import nms_waves as nw
@@ -304,31 +353,50 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     print(f'card: {card}; torch {torch.__version__}', flush=True)
     smoke.phase_build()
+    only = set(opts.only or ('nms_select', 'assoc_costs', 'reid_crops'))
     # the stamped builds first: a mark that is not in the source fails fast
     stamped = {} if opts.no_stamps else {
         name: declare(kernel_stamps.stamped_library(
             name, [m for _, m in marks]))
-        for name, declare, marks in (
-            ('nms_waves', nw.declare, SELECT_MARKS),
-            ('assoc_costs', acost.declare, COSTS_MARKS),
-            ('reid_crops', rc.declare, CROPS_MARKS))}
-    nms_cases, costs_cases = cases(smoke.N_STREAMS)
+        for name, declare, marks, kernel in (
+            ('nms_waves', nw.declare, SELECT_MARKS, 'nms_select'),
+            ('assoc_costs', acost.declare, COSTS_MARKS, 'assoc_costs'),
+            ('reid_crops', rc.declare, CROPS_MARKS, 'reid_crops'))
+        if kernel in only}
+    nms_cases, costs_cases, crops_cases = cases(smoke.N_STREAMS)
+    # name: (cases, launch, library, entry, marks, blocks, wrapper, whether
+    # every checkout's library takes the call)
     kernels = {
         'nms_select': (nms_cases, nms_launch, 'nms_waves',
                        'nms_select_forward', SELECT_MARKS,
                        (SELECT_LAUNCHES, SELECT_BLOCKS),
-                       lambda a: detmod.nms_and_gate(*a)),
+                       lambda a: detmod.nms_and_gate(*a), True),
         'assoc_costs': (costs_cases, costs_launch, 'assoc_costs',
                         'assoc_costs_forward', COSTS_MARKS,
                         (COSTS_LAUNCHES, COSTS_BLOCKS),
-                        lambda a: acost.assoc_costs(*a[0], *a[1:]))}
+                        lambda a: acost.assoc_costs(*a[0], *a[1:]), True),
+        'reid_crops': (crops_cases, crops_launch(torch.float32), 'reid_crops',
+                       'reid_crops_forward', CROPS_MARKS, None,
+                       lambda a: rc.reid_crops(*a), True),
+        'reid_crops_bf16': (crops_cases, crops_launch(torch.bfloat16),
+                            'reid_crops', 'reid_crops_forward', CROPS_MARKS,
+                            None, lambda a: rc.reid_crops(
+                                *a, torch.bfloat16), False)}
+    kernels = {k: v for k, v in kernels.items()
+               if k.replace('_bf16', '') in only}
     mine = {'nms_waves': nw.nms_waves_library(),
-            'assoc_costs': acost.assoc_costs_library()}
-    other = other_libraries(opts.other) if opts.other else None
+            'assoc_costs': acost.assoc_costs_library(),
+            'reid_crops': rc.reid_crops_library()}
+    lib_names = {kernels[k][2] for k in kernels}
+    others = {f'{Path(r).name} ({r})': (other_libraries(r, lib_names),
+                                         takes_bf16(r))
+              for r in opts.other}
 
     if stamped:
-        for name, (cs, launch, lib_name, entry, marks, blocks, _) in \
+        for name, (cs, launch, lib_name, entry, marks, blocks, _, _) in \
                 kernels.items():
+            if blocks is None:
+                continue
             lib = stamped[lib_name]
             for case in ('main_1_stream', 'contested_1_stream'):
                 _, args, keep = launch(cs[case])
@@ -336,32 +404,36 @@ def main():
                 breakdown(lib, marks, *blocks,
                           lambda: getattr(lib, entry)(*args))
                 del keep
-        lib = stamped['reid_crops']
-        frame = torch.as_tensor(smoke.textured_frames(smoke.SIZE, 1)[0],
-                                device='cuda')
-        boxes = torch.as_tensor(tcrop.edge_boxes(np.random.default_rng(21),
-                                                 64, 720, 1280),
-                                device='cuda')
-        out, r_args, keep = rc.reid_crops_launch_args(frame, boxes,
-                                                      (256, 128))
-        print(f'reid_crops, 64 crops: {card}', flush=True)
-        breakdown(lib, CROPS_MARKS, {'crops': range(3)}, {'crops': (0, 1)},
-                  lambda: lib.reid_crops_forward(*r_args))
-        del keep
+        if 'reid_crops' in stamped:
+            lib = stamped['reid_crops']
+            for case in ('main_1_stream', 'contested_1_stream'):
+                out, r_args, keep = rc.reid_crops_launch_args(
+                    *crops_cases[case])
+                print(f'reid_crops {case}, bands 0 and 1 of crop 0: {card}',
+                      flush=True)
+                breakdown(lib, CROPS_MARKS, {'crops': range(4)},
+                          {'crops': (0, 1)},
+                          lambda: lib.reid_crops_forward(*r_args))
+                del keep
 
     results = {'card': card, 'cases': {}}
-    for name, (cs, launch, lib_name, entry, _, _, wrapper) in \
+    for name, (cs, launch, lib_name, entry, _, _, wrapper, others_ok) in \
             kernels.items():
         for case, a in cs.items():
             outputs, args, keep = launch(a)
+            outputs = outputs if isinstance(outputs, (tuple, list)) \
+                else [outputs]
             named = [('this', getattr(mine[lib_name], entry))]
             got = run(named[0][1], args, outputs)
-            if other is not None:
-                theirs = run(getattr(other[lib_name], entry), args, outputs)
+            extra = [(tag, getattr(libs[lib_name], entry))
+                     for tag, (libs, bf16) in others.items()
+                     if others_ok or bf16]
+            for tag, fn in extra:
+                theirs = run(fn, args, outputs)
                 if not all(torch.equal(x, y) for x, y in zip(got, theirs)):
-                    raise AssertionError(f'{name} {case}: the other '
-                                         "checkout's outputs differ")
-                named.append(('other', getattr(other[lib_name], entry)))
+                    raise AssertionError(f'{name} {case}: {tag}\'s outputs '
+                                         'differ')
+                named.append((tag, fn))
             times = {tag: [] for tag, _ in named}
             for tag, fn in named + named[::-1]:
                 times[tag].append(smoke.lk_device_ms(
@@ -377,7 +449,7 @@ def main():
                 f'{tag} ' + ' / '.join(f'{t * 1e3:.2f}' for t in v)
                 for tag, v in times.items())
                 + ' (in turns'
-                + (', outputs equal bit for bit' if other else '')
+                + (', outputs equal bit for bit' if len(named) > 1 else '')
                 + f'); this wrapper {call * 1e3:.2f} us a call, host '
                 f'{host * 1e3:.2f} us (of it the C entry '
                 f'{entry_host * 1e3:.2f} us); {card}', flush=True)

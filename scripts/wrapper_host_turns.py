@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""The host's time a call of the YOLO postprocess's and the costs' wrappers
-(``ops.nms_waves.nms_select``, ``ops.assoc_costs.assoc_costs``) of this
-checkout and of other checkouts, in one process and in turns, on one
-NVIDIA GPU:
+"""The host's time a call of the YOLO postprocess's, the costs', the
+commit's and the ReID input's wrappers (``ops.nms_waves.nms_select``,
+``ops.assoc_costs.assoc_costs``, ``ops.assoc_commit.assoc_commit``,
+``ops.reid_crops.reid_crops``) of this checkout and of other checkouts, in
+one process and in turns, on one NVIDIA GPU:
 
     python3 scripts/wrapper_host_turns.py ROOT [ROOT ...] [--rounds N]
 
@@ -14,11 +15,16 @@ contested postprocess at 1 and 8 streams; tests/test_torch_assoc_costs.py's
 'full_width' costs (T = D = 128, H = 64, F = 512) at one stream without the
 stream axis (as ``tracker.assoc_costs_core`` passes it; skipped for a
 checkout that does not take it), with a stream axis of one, and at 8
-streams. Every checkout's outputs are first held equal to this one's, bit
-for bit. A round times each checkout once (``chip_smoke.host_ms``: 50 calls
-on the host clock with no sync inside, the median of 11 windows), in the
-order reversed every other round; the script prints each checkout's times
-in round order and their median, with the card's name and power limit.
+streams; tests/test_torch_assoc_commit.py's 'contested_full' commit (T =
+D = 128, H = 64, F = 512) at one stream without the stream axis (as
+``tracker.commit_core`` passes it) and at 8 streams; the ReID input of 64
+and 8 x 128 boxes on drifting 1280x720 frames (float32, which every
+checkout writes). Every checkout's outputs are first held equal to this
+one's, bit for bit. A round times each checkout once
+(``chip_smoke.host_ms``: 50 calls on the host clock with no sync inside,
+the median of 11 windows), in the order reversed every other round; the
+script prints each checkout's times in round order and their median, with
+the card's name and power limit.
 """
 import argparse
 import importlib
@@ -39,21 +45,22 @@ import chip_smoke as smoke  # noqa: E402
 
 def load_ops(root, tag):
     """ROOT's ``fastmot_tpu_torch/ops`` as the package ``tag``: its
-    (nms_waves, assoc_costs) modules."""
+    (nms_waves, assoc_costs, assoc_commit, reid_crops) modules."""
     path = Path(root).resolve() / 'fastmot_tpu_torch' / 'ops'
     spec = importlib.util.spec_from_file_location(
         tag, path / '__init__.py', submodule_search_locations=[str(path)])
     pkg = importlib.util.module_from_spec(spec)
     sys.modules[tag] = pkg
     spec.loader.exec_module(pkg)
-    return (importlib.import_module(f'{tag}.nms_waves'),
-            importlib.import_module(f'{tag}.assoc_costs'))
+    return tuple(importlib.import_module(f'{tag}.{name}') for name in
+                 ('nms_waves', 'assoc_costs', 'assoc_commit', 'reid_crops'))
 
 
 def cases():
     """{case: (wrapper's module index, arguments)}: the postprocess's
-    ``nms_select`` arguments and the costs' ``assoc_costs`` arguments (the
-    metric by name, which every checkout's wrapper takes)."""
+    ``nms_select`` arguments, the costs' ``assoc_costs`` arguments (the
+    metric by name, which every checkout's wrapper takes), the commit's and
+    the crops'."""
     import tests.test_torch_assoc_costs as tcost
     import tests.test_torch_nms_select as tsel
     from fastmot_tpu_torch import detector as detmod
@@ -82,6 +89,23 @@ def cases():
                 return tuple(a[0] for a in xs)
             out['assoc_costs, 1 stream without the axis'] = (1, params + (
                 one(states), one(hists), one(dets), embs[0], emb_cap))
+    commit1 = smoke.contested_commit_args(1)
+    out['assoc_commit, 1 stream without the axis'] = (2, commit1[:4] + tuple(
+        tuple(a[0] for a in x) if isinstance(x, tuple)
+        else x[0] if isinstance(x, torch.Tensor) and k != 9 else x
+        for k, x in enumerate(commit1[4:], 4)))
+    out[f'assoc_commit, {smoke.N_STREAMS} streams'] = (
+        2, smoke.contested_commit_args(smoke.N_STREAMS))
+    import tests.test_torch_reid_crops as tcrop
+    frames = torch.as_tensor(np.stack(smoke.textured_frames(
+        smoke.SIZE, smoke.N_STREAMS, seed=13)), device='cuda')
+    for n, k in ((1, 64), (smoke.N_STREAMS, 128)):
+        boxes = torch.as_tensor(np.stack([tcrop.edge_boxes(
+            rng, k, smoke.SIZE[1], smoke.SIZE[0]) for _ in range(n)]),
+            device='cuda')
+        out[f'reid_crops, {n} x {k} crops'] = (3, (
+            frames[0], boxes[0], (256, 128)) if n == 1 else (
+            frames, boxes, (256, 128)))
     return out
 
 
@@ -101,15 +125,16 @@ def main():
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True,
                           text=True, check=True).stdout.strip()
-    from fastmot_tpu_torch.ops import assoc_costs, nms_waves
-    checkouts = {'this': (nms_waves, assoc_costs)}
+    from fastmot_tpu_torch.ops import (assoc_commit, assoc_costs, nms_waves,
+                                       reid_crops)
+    checkouts = {'this': (nms_waves, assoc_costs, assoc_commit, reid_crops)}
     for i, root in enumerate(opts.roots):
         checkouts[f'{Path(root).name} ({root})'] = load_ops(root,
                                                            f'other_ops{i}')
     print(f'checkouts: {", ".join(checkouts)}; {card}', flush=True)
     for case, (which, args) in cases().items():
-        wrapper = {tag: (m[0].nms_select if which == 0
-                         else m[1].assoc_costs)
+        wrapper = {tag: (m[0].nms_select, m[1].assoc_costs,
+                         m[2].assoc_commit, m[3].reid_crops)[which]
                    for tag, m in checkouts.items()}
         want = flat(wrapper['this'](*args))
         fns = {}

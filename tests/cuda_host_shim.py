@@ -89,6 +89,8 @@ struct alignas(16) float4 { float x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) {
   return {x, y, z, w};
 }
+struct alignas(8) uint2 { unsigned x, y; };
+inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
 struct alignas(16) uint4 { unsigned x, y, z, w; };
 struct alignas(16) ulonglong2 { unsigned long long x, y; };
 struct uint3 { unsigned x, y, z; };

@@ -3,7 +3,8 @@ wrapper ``ops.assoc_commit.assoc_commit``, behind ``tracker.commit_core``
 and ``tracker.commit_batch`` on the card): the lifecycle decisions, the slot
 and history allocation and the state commit of ``tracker.commit_part`` for
 every stream of a call in one call of the kernel (its decisions a block a
-stream, then its wide rows a warp a row).
+stream, the inputs staged in shared memory, the matched Kalman updates 8
+lanes a slot, then its wide rows a warp a row).
 
 On the CPU the kernel's own source is built for the host with g++ through
 tests/cuda_host_shim.py (a launch's blocks in turn on a team of host
@@ -29,7 +30,12 @@ to the JAX package's ``_commit_part``:
   1e-5 of 0.5 could flip it; none does here).
 
 Every output of every seeded call is, to the bit, what the first design of
-the kernel gave (``OUTPUT_SHA256``).
+the kernel gave (``OUTPUT_SHA256``); so is every output of the edge cases
+(``EDGE_KINDS``, at their own block sizes: 128 slots on one warp, fewer
+lanes than 8 a slot; two tracks naming one rectify target; every slot held
+so that every creation and reinstate is dropped; sizes that are multiples
+of nothing, at two streams) against the sha256 a host build of the first
+design's source gave (``EDGE_SHA256``).
 
 On the card (marker ``cuda``; they skip without one, and JAX is imported
 only by the CPU test that needs it):
@@ -62,6 +68,9 @@ CASES = {'frame': (1, 32, 32, 16, 16, 4, 12),
          'three_streams': (3, 32, 32, 16, 24, 4, 12),
          'full_width': (1, 128, 128, 64, 512, 32, 50),
          'contested_full': (1, 128, 128, 64, 512, 32, 50)}
+# the edge cases' own shapes: sizes that are not multiples of 4, 8 or 16
+# (no 16-byte row is aligned), the second of two streams contested
+EDGE_SHAPES = {'odd_sizes': (2, 37, 29, 11, 20, 3, 9)}
 # the info vector's fields (MultiTracker._assoc_layout), by length
 INFO_INT = ('match_det', 'merge_src', 'dup', 'del_unconf', 'retire_age',
             'out_of_frame', 'hist_dst', 'reinstate_hist', 'create_det',
@@ -205,10 +214,11 @@ def commit_case(kind, seed=0, streams=None):
     """(states, hists, dets, embs, cascade_out, history_size) of a case,
     numpy with a leading stream axis (``streams`` of them in place of the
     case's own count: chip_smoke.py phase 20's 8 contested streams)."""
-    s, t, d, h, f, k, history_size = CASES[kind]
+    s, t, d, h, f, k, history_size = CASES.get(kind) or EDGE_SHAPES[kind]
     rng = np.random.default_rng(seed)
     streams = [one_stream(rng, t, d, h, f, k, kind.startswith('contested')
-                          or (kind == 'three_streams' and i == 1))
+                          or (kind in ('three_streams', 'odd_sizes')
+                              and i == 1))
                for i in range(streams or s)]
     return tuple(tuple(np.stack(x) for x in zip(*(st[g] for st in streams)))
                  if g != 3 else np.stack([st[3] for st in streams])
@@ -229,9 +239,18 @@ def plain(case):
                                FRAME_ID, T(FRAME), casc)
 
 
+# the kernel's bytes of staged inputs, appended to the host build
+STAGED_PROBE = '''
+extern "C" int staged_bytes_probe(int t, int d, int h) {
+  return staged_layout(t, d, h, nullptr);
+}
+'''
+
+
 @pytest.fixture(scope='module')
 def host_kernel(tmp_path_factory):
-    return ac.declare(build_host('assoc_commit', tmp_path_factory))
+    return ac.declare(build_host('assoc_commit', tmp_path_factory,
+                                 extra=STAGED_PROBE))
 
 
 def host_commit(lib, case, threads=32, device='cpu'):
@@ -345,6 +364,59 @@ OUTPUT_SHA256 = {
 }
 
 
+# cases at the kernel's edges, each with the block's thread count its host
+# build runs: 128 slots of a contested stream on one warp (fewer lanes than
+# 8 a slot), two tracks naming one rectify target (the plain scatter's last
+# write), every slot held so that every reinstate and creation is dropped,
+# and sizes that are multiples of nothing (37 slots, 29 detections, 11
+# history slots, 20 features, 3 keypoints) at 2 streams
+EDGE_THREADS = {'few_lanes': 32, 'duplicate_rect': 64, 'no_room': 32,
+                'odd_sizes': 96}
+EDGE_KINDS = tuple(EDGE_THREADS)
+
+
+def edge_case(kind):
+    """An edge case's (states, hists, dets, embs, cascade_out,
+    history_size), numpy with a leading stream axis."""
+    if kind == 'few_lanes':
+        return commit_case('contested_full', 11)
+    if kind == 'odd_sizes':
+        return commit_case('odd_sizes', 14)
+    if kind == 'duplicate_rect':
+        states, hists, dets, embs, casc, history_size = commit_case(
+            'frame', CASE_SEEDS['frame'])
+        rect = casc[4].copy()
+        i0, i1 = np.flatnonzero(rect[0] >= 0)[:2]
+        rect[0, i1] = rect[0, i0]
+        states[8][0, rect[0, i0]] = -5    # the target ended first: merges
+        return (states, hists, dets, embs, tuple(casc[:4]) + (rect,),
+                history_size)
+    if kind == 'no_room':
+        states, hists, dets, embs, casc, history_size = commit_case(
+            'contested', 12)
+        states[3][:] = True                   # every slot held: confirmed,
+        states[4][:] = 0                      # young, no rectify match
+        states[5][:] = np.maximum(states[5], CONFIRM)
+        rect = np.full_like(casc[4], -1)
+        return (states, hists, dets, embs, tuple(casc[:4]) + (rect,),
+                history_size)
+    raise ValueError(kind)
+
+
+# every output of each edge case's call, as a host build of the first
+# design's source gave it
+EDGE_SHA256 = {
+    'few_lanes':
+        'b3a474194f53a08eba919d20d2bb19d26b1c688a6833a03903f037d2b3e40eb3',
+    'duplicate_rect':
+        '70b4b8d4042f0f40c987adb1e695d33fc29e4b1f2c18920b04de6d312792654c',
+    'no_room':
+        '2045392db41e1c0eae1f2d3bb5a6351605f26ed78107214895f7190ce0d8cb93',
+    'odd_sizes':
+        '3378f783729e73b200da22d80f5afb9e5de2fc4d5907490719169f6fba08ed3f',
+}
+
+
 def test_cases_take_every_branch():
     """Between them the cases merge, duplicate, reinstate, drop creations
     beyond the free slots, exit the frame, save into the history stealing
@@ -387,19 +459,43 @@ def test_duplicate_rect_takes_the_last_write(host_kernel):
     """Two tracks naming one rectify target (which the finals never give):
     the kernel's merge source is the later track, as the plain version's
     scatter writes it on the CPU."""
-    case = commit_case('frame', CASE_SEEDS['frame'])
-    states, hists, dets, embs, casc, history_size = case
-    rect = casc[4].copy()
+    case = edge_case('duplicate_rect')
+    rect = case[4][4]
     i0, i1 = np.flatnonzero(rect[0] >= 0)[:2]
-    rect[0, i1] = rect[0, i0]
-    states[8][0, rect[0, i0]] = -5        # the target ended first: merges
-    case = (states, hists, dets, embs, tuple(casc[:4]) + (rect,),
-            history_size)
+    assert rect[0, i0] == rect[0, i1]
     got = host_commit(host_kernel, case)
     want = plain(case)
     i = split_info(want[2][0].numpy(), 32, 16)
     assert i['merge_src'][rect[0, i0]] == i1
     assert assert_commit_close(got, want, 'duplicate rect') == 0
+
+
+@pytest.mark.parametrize('kind', EDGE_KINDS)
+def test_host_edge_cases(host_kernel, kind):
+    """Each edge case at its block size: the plain version at this file's
+    rules, and the outputs a host build of the first design's source gave,
+    bit for bit."""
+    case = edge_case(kind)
+    got = host_commit(host_kernel, case, EDGE_THREADS[kind])
+    assert assert_commit_close(got, plain(case), kind) == 0
+    assert output_sha256(got) == EDGE_SHA256[kind]
+
+
+def test_staged_bytes_match_the_kernel(host_kernel):
+    """``ops.assoc_commit.staged_bytes``, which chip_smoke.py prints, is
+    the kernel's own count of its staged inputs' shared memory."""
+    for t, d, h in ((128, 128, 64), (37, 29, 11), (1, 1, 1), (256, 256,
+                                                              256)):
+        assert host_kernel.staged_bytes_probe(t, d, h) \
+            == ac.staged_bytes(t, d, h)
+
+
+def test_no_room_drops_every_creation():
+    """With every slot held, nothing is created or reinstated: every
+    request is counted in n_dropped; the saves still steal and evict."""
+    got = branches(plain(edge_case('no_room')))
+    assert got['creations'] == got['reinstates'] == 0
+    assert got['dropped'] > 0 and got['stolen'] > 0 and got['evicted'] > 0
 
 
 def test_host_one_stream_without_the_axis(host_kernel):
@@ -538,6 +634,17 @@ def test_kernel_matches_plain_version(cuda, kind):
            got[2].cpu())
     assert assert_commit_close(got, plain(case), kind) == 0
     assert output_sha256(got) == OUTPUT_SHA256[kind]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', EDGE_KINDS)
+def test_kernel_edge_cases(cuda, kind):
+    case = edge_case(kind)
+    got = host_commit(ac.assoc_commit_library(), case, None, cuda)
+    got = (tuple(a.cpu() for a in got[0]), tuple(a.cpu() for a in got[1]),
+           got[2].cpu())
+    assert assert_commit_close(got, plain(case), kind) == 0
+    assert output_sha256(got) == EDGE_SHA256[kind]
 
 
 @pytest.mark.cuda
