@@ -12,7 +12,7 @@ Phases, each raising on failure (the exit code is then non-zero):
    and one thread a point), the gap-commit kernel (csrc/gap_commit.cu),
    the preprocess kernel (csrc/flow_preprocess.cu), the gap-points
    kernel (csrc/gap_points.cu), the association solvers' kernels
-   (csrc/assoc_solvers.cu), the NMS, SSD-merge and YOLO postprocess
+   (csrc/assoc_solvers.cu), the NMS, merge, YOLO and SSD postprocess
    kernels (csrc/nms_waves.cu), the commit kernel (csrc/assoc_commit.cu),
    the costs kernel (csrc/assoc_costs.cu) and the ReID-input kernel
    (csrc/reid_crops.cu) from the sources in this checkout, one ``nvcc``
@@ -58,7 +58,12 @@ Phases, each raising on failure (the exit code is then non-zero):
    through ``SSDDetector._postprocess_device`` on the card and on the
    CPU, equal;
 9. SSD main path: phase 6 with ``detector_type='SSD'`` (SSDInceptionV2 in
-   a 4x2 tiling of 300x300 tiles, cfg/mot.json's ``ssd_detector_cfg``);
+   a 4x2 tiling of 300x300 tiles, cfg/mot.json's ``ssd_detector_cfg``),
+   then the SSD detector's stages alone (``ssd_stages_ms``: the tiling
+   preprocess, the net, ``decode_ssd``, the postprocess on the run's rows
+   and on tests/test_torch_ssd_post.py's crowded rows, the whole run; each
+   between CUDA events, its host time and its kernels from
+   ``torch.profiler``);
 10. int8 conv: ``models.quantize.int8_conv`` (im2col + ``torch._int_mm``)
    on the card against its CPU plain version at the main path's kinds of
    shape (YOLOv4-512's 3x3/2 after the stem, a 3x3 at 256x256x64, a 1x1
@@ -208,10 +213,13 @@ Phases, each raising on failure (the exit code is then non-zero):
    (``auction_lap_reference``, ``cascade_reference``,
    ``greedy_match_reference``, ``tracker.finals_reference``) on CUDA
    tensors, which must stay 0.
-20. the NMS kernel (csrc/nms_waves.cu: the overlap packed into bits by
-   many blocks, then a block a problem runs the waves to the end), the SSD
-   merge kernel (the same file: a block a problem runs the label rounds to
-   the fixpoint) and the commit kernel (csrc/assoc_commit.cu: the
+20. the generic NMS kernel (csrc/nms_waves.cu: the overlap packed into
+   bits by many blocks, then a block a problem runs the waves to the end;
+   ``geometry.greedy_suppress``, ``nms_mask``, ``diou_nms_mask``), the
+   generic merge kernel (the same file: a block a problem runs the label
+   rounds to the fixpoint; ``merge_labels``), which no main path runs (the
+   YOLO and SSD postprocesses have their own kernels, phases 21 and 22),
+   and the commit kernel (csrc/assoc_commit.cu: the
    decisions a block a stream, then the wide rows a warp a row): each
    against its plain version (``geometry.greedy_suppress_reference``,
    ``nms_waves.merge_labels_reference``, ``tracker.commit_part``) run on
@@ -232,9 +240,9 @@ Phases, each raising on failure (the exit code is then non-zero):
    a call (100 calls of the C entry between CUDA events, queued behind a
    sleep kernel), the wrapper's time and host time a call, the plain
    version's time on the card and the bound (``suppress_bound_ms``,
-   ``merge_bound_ms``, ``commit_bound_ms``). Phases 5-14 count the NMS
-   kernel's launches (one a detector run, for all of a call's streams),
-   the merge kernel's (one an SSD run) and the commit kernel's (one an
+   ``merge_bound_ms``, ``commit_bound_ms``). Phases 5-14 count the
+   generic NMS and merge kernels' launches (none), the SSD postprocess
+   kernels' (one an SSD detector run) and the commit kernel's (one an
    association frame, for all of a call's streams) (``expect_tail``), and
    calls of the plain versions on CUDA tensors, which must stay 0.
 21. the YOLO postprocess kernels (csrc/nms_waves.cu ``nms_select_forward``:
@@ -263,9 +271,28 @@ Phases, each raising on failure (the exit code is then non-zero):
    launches (``expect_frame``: the postprocess once a YOLO detector run,
    the costs once an association frame, the crops once an extraction,
    each for all of a call's streams), and calls of their plain versions
-   on CUDA tensors, which must stay 0; the YOLO detectors' NMS waves now
-   run inside the postprocess kernels, so ``greedy_suppress`` counts the
-   SSD's per-tile NMS alone.
+   on CUDA tensors, which must stay 0; the YOLO detectors' NMS waves run
+   inside the postprocess kernels;
+22. the SSD postprocess kernels (csrc/nms_waves.cu
+   ``ssd_postprocess_forward``: a block a tile computes the pixel boxes,
+   the gates and the NMS's dominance bits from the boxes and runs the
+   waves; by programmatic dependent launch one block compacts the kept
+   rows, orders them by x, sweeps their pairs for the cross-tile IoM
+   edges, joins components by union-find, collapses them and places the
+   rows by counting) against their plain version
+   (``detector.ssd_postprocess_reference``) on the CPU and on the card,
+   every output bit for bit, on the seeded cases of
+   tests/test_torch_ssd_post.py with their ``OUTPUT_SHA256``, phase 9's
+   own decoded rows, phase 8's rows and the crowded full-width rows; each
+   under ``set_sync_debug_mode('error')`` with the plain version's [n, n]
+   functions made to raise, its allocations' peak under an [n, n] bool
+   matrix, its two kernels counted by ``torch.profiler`` and no torch op
+   but allocations and views dispatched (``dispatched_ops``); two calls
+   equal; ptxas's registers, spills and shared memory; device, wrapper,
+   host and C-entry times a call, the plain time on the card and the bound
+   (``ssd_post_bound_ms``). Phases 5-14 count its calls (``expect_tail``:
+   one an SSD detector run) and the plain version's on CUDA tensors, which
+   must stay 0.
 
 The line before the last is a JSON object of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -636,13 +663,11 @@ def synth_tlbrs(frame_id, size, n=N_OBJECTS):
 
 def reset_lk():
     """Zeroes the LK kernels', the gap-commit kernel's, the preprocess
-    kernel's, the gap-points kernel's, the association solvers', the NMS
-    and merge kernels', the commit kernel's and the YOLO postprocess,
+    kernel's, the gap-points kernel's, the association solvers', the NMS,
+    merge, SSD postprocess and commit kernels' and the YOLO postprocess,
     costs and ReID-input kernels' launch counts."""
+    from fastmot_tpu_torch.multichip import tail_launches
     from fastmot_tpu_torch.ops import assignment as asg
-    from fastmot_tpu_torch.ops import assoc_commit as ac
-    from fastmot_tpu_torch.ops import geometry as geom
-    from fastmot_tpu_torch.ops import nms_waves as nw
     from fastmot_tpu_torch.ops.flow_kernels import lk_pyramidal, preprocess
     from fastmot_tpu_torch.ops.gap_commit import gap_commit
     from fastmot_tpu_torch.ops.gap_points import gap_points
@@ -650,8 +675,7 @@ def reset_lk():
     gap_commit.launches = preprocess.launches = gap_points.launches = 0
     asg.cascade_auction.launches = asg.greedy_match.launches = 0
     asg.greedy_finals.launches = 0
-    geom.greedy_suppress.launches = nw.merge_labels.launches = 0
-    ac.assoc_commit.launches = 0
+    tail_launches(reset=True)
     frame_counts(reset=True)
 
 
@@ -762,7 +786,7 @@ def phase_reference():
     expect_assoc('reference', assoc_n, (n_frames - 1) // 3)
     # the public detections go through no NMS; the tracker embeds them on
     # the device (update_device_fused)
-    expect_tail('reference', tail_n, 0, 0, (n_frames - 1) // 3)
+    expect_tail('reference', tail_n, 0, (n_frames - 1) // 3)
     expect_frame('reference', frame_counts(), 0, (n_frames - 1) // 3,
                  (n_frames - 1) // 3)
     cpu, gpu = runs
@@ -839,7 +863,7 @@ def phase_stream_reference():
     expect_flow('stream tracker', flow_n, n_frames, n_frames - 1)
     expect_assoc('stream tracker', assoc_n,
                  sum(1 for f in range(1, n_frames) if f % skip == 0))
-    expect_tail('stream tracker', tail_n, 0, 0,
+    expect_tail('stream tracker', tail_n, 0,
                 sum(1 for f in range(1, n_frames) if f % skip == 0))
     # the embeddings are given: no crops
     expect_frame('stream tracker', frame_counts(), 0,
@@ -901,7 +925,7 @@ def phase_legacy_api():
     expect_gap('legacy compute_flow', gap_launches(), 0)
     expect_flow('legacy compute_flow', flow_counts(), len(frames), 0)
     expect_assoc('legacy compute_flow', assoc_counts(), 0)
-    expect_tail('legacy compute_flow', tail_counts(), 0, 0, 0)
+    expect_tail('legacy compute_flow', tail_counts(), 0, 0)
     expect_frame('legacy compute_flow', frame_counts(), 0, 0, 0)
     _same_rows('legacy compute_flow + apply_kalman', *runs)
     log('reference: compute_flow + apply_kalman GPU == CPU on 4 frames, '
@@ -978,10 +1002,13 @@ def gap_stages_ms(mot, frames):
 
 
 def phase_main_path(detector_type='YOLO', tag='main path', int8=False,
-                    stages=False):
+                    stages=False, card=''):
     """Returns the OSBlock and LK kernels' launches, the step median and,
     with ``stages``, ``gap_stages_ms``'s and ``assoc_stages_ms``'s times
-    and arguments after the run."""
+    and arguments after the run. An SSD run then times the detector's
+    stages (``ssd_stages_ms`` on its last frame and on
+    tests/test_torch_ssd_post.py's crowded rows) and leaves its decoded
+    rows of that frame in ``STAGE_ARGS['ssd']`` (phase 22's)."""
     from fastmot_tpu_torch import MOT
     from fastmot_tpu_torch.detector import MAX_DETS, make_detections
     from fastmot_tpu_torch.models.layers import Conv
@@ -1108,8 +1135,7 @@ def phase_main_path(detector_type='YOLO', tag='main path', int8=False,
     # the SSD's per-tile NMS and merge; YOLO's whole postprocess in the
     # nms_select kernels
     ssd = detector_type == 'SSD'
-    expect_tail(tag, tail_n, n_detect if ssd else 0, n_detect if ssd else 0,
-                n_assoc)
+    expect_tail(tag, tail_n, n_detect if ssd else 0, n_assoc)
     expect_frame(tag, frame_n, 0 if ssd else n_detect, n_assoc, n_assoc)
     if int8:
         log(f'{tag}: int8_conv launches per association frame '
@@ -1118,6 +1144,20 @@ def phase_main_path(detector_type='YOLO', tag='main path', int8=False,
             f'{n_assoc} association frames)')
     out = {'osblock': launches, 'lk': lk,
            'median': statistics.median(step_ms)}
+    if ssd:
+        import tests.test_torch_ssd_post as ts
+        from fastmot_tpu_torch.models.ssd import decode_ssd
+        frame = torch.as_tensor(frames[-1], device='cuda')
+        crowded = tuple(torch.as_tensor(a, device='cuda')
+                        for a in ts.crowded_rows(0))
+        with torch.no_grad():
+            log_ssd_stages(tag, ssd_stages_ms(det, frame, crowded), card)
+            det_out = decode_ssd(*det.module(det.preprocess(frame)),
+                                 det._anchors, det.model.TOPK)
+        STAGE_ARGS['ssd'] = (
+            (det_out, det._tiles_f, det._scale, det.label_mask),
+            (det.conf_thresh, det.max_area, det.merge_thresh,
+             det.model.NMS_THRESH))
     if stages:
         out['gap stages'], out['gap args'], out['flow args'] = \
             gap_stages_ms(mot, frames)
@@ -1231,6 +1271,93 @@ def phase_ssd_postprocess():
     if not n:
         raise AssertionError('SSD postprocess kept nothing')
     log(f'ssd postprocess: card == CPU, {n} detections')
+
+
+def profiled_kernels(fn, iters=10, tries=5, expect=None):
+    """``fn``'s device work a call as ``torch.profiler`` traces it over
+    ``iters`` calls: (kernels launched, their summed device ms), each a
+    call, and the kernels' names. The profiler sometimes returns a trace
+    with fewer device events than were launched, or none: a trace without
+    ``expect`` kernels a call (without any, if ``expect`` is None) is
+    taken again, up to ``tries`` traces, and the last is returned."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if str(getattr(e, 'device_type', '')).endswith('CUDA')]
+        if len(kernels) == expect * iters if expect else kernels:
+            break
+    us = sum(e.time_range.end - e.time_range.start for e in kernels)
+    return len(kernels) / iters, us / iters / 1e3, {e.name for e in kernels}
+
+
+def dispatched_ops(fn):
+    """The names of the torch ops that ``fn`` dispatches (a
+    ``TorchDispatchMode`` log): ops that only allocate or view launch no
+    kernel."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    seen = set()
+
+    class Log(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen.add(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+    with Log():
+        fn()
+    return seen
+
+
+def ssd_stages_ms(det, frame, crowded, post=None):
+    """The SSD detector's stages alone on the card: the tiling preprocess,
+    the net, ``decode_ssd``, the postprocess on the run's own decoded rows
+    and on ``crowded`` ((det_out, tiles, scale, label_mask) on the card,
+    e.g. tests/test_torch_ssd_post.py's ``crowded_rows``), and the whole
+    ``det.run``. For each: its ms a call between CUDA events (the median of
+    20 after warm-up), the host's ms a call (no sync) and, from
+    ``torch.profiler``, its kernels a call and their device ms. ``post``:
+    the postprocess to run (by default the detector's; the whole run takes
+    it too)."""
+    from fastmot_tpu_torch.models.ssd import decode_ssd
+    post = post or det._postprocess_device
+    x = det.preprocess(frame)
+    locs, confs = det.module(x)
+    det_out = decode_ssd(locs, confs, det._anchors, det.model.TOPK)
+    scalars = (det.conf_thresh, det.max_area, det.merge_thresh,
+               det.model.NMS_THRESH)
+
+    def run():
+        with mock.patch.object(det, '_postprocess_device', post):
+            return det.run(frame)
+    stages = {
+        'tiling preprocess': lambda: det.preprocess(frame),
+        'net': lambda: det.module(x),
+        'decode_ssd': lambda: decode_ssd(locs, confs, det._anchors,
+                                         det.model.TOPK),
+        f'postprocess, the run\'s rows {tuple(det_out.shape)}':
+            lambda: post(det_out, det._tiles_f, det._scale, det.label_mask,
+                         *scalars),
+        f'postprocess, crowded rows {tuple(crowded[0].shape)}':
+            lambda: post(*crowded, *scalars),
+        'whole run': run,
+    }
+    out = {}
+    for name, fn in stages.items():
+        launches, kernel_ms, _ = profiled_kernels(fn)
+        out[name] = {'ms': cuda_ms(fn), 'host_ms': host_ms(fn),
+                     'launches': launches, 'kernel_ms': kernel_ms}
+    return out
+
+
+def log_ssd_stages(tag, stages, card):
+    for name, s in stages.items():
+        log(f'{tag} {name}: {s["ms"]:.4f} ms a call (CUDA events), host '
+            f'{s["host_ms"]:.4f} ms; {s["launches"]:.0f} kernels a call, '
+            f'{s["kernel_ms"]:.4f} ms of their device time; {card}')
 
 
 def phase_int8_conv():
@@ -1421,7 +1548,7 @@ def phase_multi_stream(single_ms, frames, dets, card, n_streams=N_STREAMS):
         f'reid_crops launches {frame_n}')
     expect_assoc('multi-stream', assoc_n, n_assoc)
     # frame 0's detector run, then one an association frame
-    expect_tail('multi-stream', tail_n, 0, 0, n_assoc)
+    expect_tail('multi-stream', tail_n, 0, n_assoc)
     expect_frame('multi-stream', frame_n, n_assoc + 1, n_assoc, n_assoc)
     expect_lk('multi-stream', lk, n_frames - 1)
     expect_gap('multi-stream', gap_n, n_frames - 1)
@@ -1608,7 +1735,7 @@ def phase_mesh(frames, dets, want_rows, single_multi_ms, n_streams=N_STREAMS):
     expect_gap('mesh (a)', gap_n, len(frames) - 1)
     expect_flow('mesh (a)', flow_n, len(frames), len(frames) - 1)
     expect_assoc('mesh (a)', assoc_n, n_assoc)
-    expect_tail('mesh (a)', tail_n, 0, 0, n_assoc)
+    expect_tail('mesh (a)', tail_n, 0, n_assoc)
     expect_frame('mesh (a)', frame_n, n_assoc + 1, n_assoc, n_assoc)
 
     t_b = time.perf_counter()
@@ -1631,7 +1758,7 @@ def phase_mesh(frames, dets, want_rows, single_multi_ms, n_streams=N_STREAMS):
                                            out['gap_points_launches']),
                     len(frames), len(frames) - 1)
         expect_assoc(f'mesh (b) rank {r}', out['assoc_launches'], n_assoc)
-        expect_tail(f'mesh (b) rank {r}', out['tail_launches'], 0, 0,
+        expect_tail(f'mesh (b) rank {r}', out['tail_launches'], 0,
                     n_assoc)
         expect_frame(f'mesh (b) rank {r}', out['frame_launches'],
                      n_assoc + 1, n_assoc, n_assoc)
@@ -1654,7 +1781,7 @@ def phase_mesh(frames, dets, want_rows, single_multi_ms, n_streams=N_STREAMS):
                              dry[0]['gap_points_launches']), 2, 1)
     expect_assoc('mesh (c)', dry[0]['assoc_launches'], 1)
     # the dryrun's association commits; its detector runs no NMS
-    expect_tail('mesh (c)', dry[0]['tail_launches'], 0, 0, 1)
+    expect_tail('mesh (c)', dry[0]['tail_launches'], 0, 1)
     # its costs; its embeddings are made up, its detector runs no NMS
     expect_frame('mesh (c)', dry[0]['frame_launches'], 0, 1, 0)
     log(f'mesh (c) dryrun_multichip(1) over NCCL: '
@@ -2042,29 +2169,37 @@ def lk_bound_ms(spec, prev, cur, valid, trace):
     return max(ops_ms, bytes_ms), ops_ms, bytes_ms, n_steps, pyramid_bytes
 
 
-def lk_device_ms(entry, args, n=LK_TIMED_LAUNCHES, reps=3, tag='lk'):
+def lk_device_ms(entry, args, n=LK_TIMED_LAUNCHES, reps=3, tag='lk',
+                 tries=3):
     """Device time per launch of the C entry ``entry(*args)``: ``n``
     launches between two CUDA events, queued behind ``torch.cuda._sleep``
     so that the card runs them back to back whatever the host's enqueue
-    rate; the median of ``reps`` windows. Raises on a launch error, or if
-    the host took longer to queue the launches than the card slept."""
+    rate; the median of ``reps`` windows. A window whose launches took the
+    host longer to queue than the card slept is taken again behind twice
+    the sleep, up to ``tries`` times (the host is shared and sometimes
+    slow). Raises on a launch error, or if the host never queued the
+    launches within the sleep."""
     if entry(*args):
         raise AssertionError(f'{tag}: launch failed')
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
-        s, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-        s.record()
-        torch.cuda._sleep(LK_SLEEP_CYCLES)
-        a.record()
-        t0 = time.perf_counter()
-        codes = [entry(*args) for _ in range(n)]
-        queued_ms = (time.perf_counter() - t0) * 1e3
-        b.record()
-        torch.cuda.synchronize()
-        if any(codes):
-            raise AssertionError(f'{tag}: launch failed ({set(codes)})')
-        if queued_ms >= s.elapsed_time(a):
+        for attempt in range(tries):
+            s, a, b = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(3))
+            s.record()
+            torch.cuda._sleep(LK_SLEEP_CYCLES << attempt)
+            a.record()
+            t0 = time.perf_counter()
+            codes = [entry(*args) for _ in range(n)]
+            queued_ms = (time.perf_counter() - t0) * 1e3
+            b.record()
+            torch.cuda.synchronize()
+            if any(codes):
+                raise AssertionError(f'{tag}: launch failed ({set(codes)})')
+            if queued_ms < s.elapsed_time(a):
+                break
+        else:
             raise AssertionError(f'{tag}: {n} launches took '
                                  f'{queued_ms:.3f} ms to queue, the sleep '
                                  f'{s.elapsed_time(a):.3f} ms')
@@ -2870,31 +3005,30 @@ def expect_assoc(tag, counts, frames):
 
 
 def tail_counts():
-    """The NMS kernel's, the SSD merge kernel's and the commit kernel's
-    launches since ``reset_lk``."""
-    from fastmot_tpu_torch.ops import assoc_commit as ac
-    from fastmot_tpu_torch.ops import geometry as geom
-    from fastmot_tpu_torch.ops import nms_waves as nw
-    return (geom.greedy_suppress.launches, nw.merge_labels.launches,
-            ac.assoc_commit.launches)
+    """The generic NMS and merge kernels', the SSD postprocess kernels' and
+    the commit kernel's launches since ``reset_lk``."""
+    from fastmot_tpu_torch.multichip import tail_launches
+    return tail_launches()
 
 
-# the NMS, merge and commit kernels' launches on the main paths (the
-# kernels line's counts)
-TAIL_NAMES = ('greedy_suppress', 'merge_labels', 'assoc_commit')
+# the NMS, merge, SSD postprocess and commit kernels' launches on the main
+# paths (the kernels line's counts)
+TAIL_NAMES = ('greedy_suppress', 'merge_labels', 'ssd_postprocess',
+              'assoc_commit')
 TAIL_LAUNCHES = Counter()
 
 
-def expect_tail(tag, counts, detections, merges, commits):
-    """The NMS kernel ran once a detector run (``detections``, for all of a
-    call's streams; the SSD's per-tile NMS one call too), the SSD merge
-    kernel once an SSD run (``merges``) and the commit kernel once an
-    association frame (``commits``), for all of a call's streams."""
-    want = (detections, merges, commits)
+def expect_tail(tag, counts, ssd_runs, commits):
+    """The SSD postprocess kernels ran once an SSD detector run
+    (``ssd_runs``) and the commit kernel once an association frame
+    (``commits``), for all of a call's streams; the generic NMS and merge
+    kernels, which no main path runs (the YOLO postprocess and the SSD's
+    have their own), not at all."""
+    want = (0, 0, ssd_runs, commits)
     if tuple(counts) != want:
-        raise AssertionError(f'{tag}: greedy_suppress, merge_labels and '
-                             f'assoc_commit launched {tuple(counts)} times, '
-                             f'expected {want}')
+        raise AssertionError(f'{tag}: greedy_suppress, merge_labels, '
+                             f'ssd_postprocess and assoc_commit launched '
+                             f'{tuple(counts)} times, expected {want}')
     for name, n in zip(TAIL_NAMES, counts):
         TAIL_LAUNCHES[name] += n
 
@@ -3841,7 +3975,8 @@ def phase_assoc_tail(main_args, multi_args, card, nvcc_out):
     import tests.test_torch_assoc_commit as tc
     import tests.test_torch_nms_kernel as tn
     from fastmot_tpu_torch import tracker as tr
-    from fastmot_tpu_torch.detector import SSDDetector, nms_and_gate
+    from fastmot_tpu_torch.detector import (SSDDetector, nms_and_gate,
+                                            ssd_postprocess_reference)
     from fastmot_tpu_torch.ops import assoc_commit as ac
     from fastmot_tpu_torch.ops import geometry as geom
     from fastmot_tpu_torch.ops import nms_waves as nw
@@ -3919,12 +4054,14 @@ def phase_assoc_tail(main_args, multi_args, card, nvcc_out):
     log("nms_and_gate, SSDDetector._postprocess_device, commit_core and "
         "commit_batch ran under set_sync_debug_mode('error')")
 
-    # (c) the cases timed: the main paths' and contested
+    # (c) the cases timed: the main paths' and contested; the merge's on
+    # phase 8's rows as the plain SSD postprocess makes them (the card's
+    # SSD path runs its own kernels)
     merges = []
     real_merge = nw.merge_labels
     with mock.patch.object(nw, 'merge_labels', lambda e, v: (
             merges.append((e, v)), real_merge(e, v))[1]):
-        SSDDetector._postprocess_device(*ssd_rows, *ssd_scalars)
+        ssd_postprocess_reference(*ssd_rows, *ssd_scalars)
     contested = [tuple(torch.as_tensor(a, device='cuda')
                        for a in tn.contested_nms(seed=s)) for s in range(8)]
 
@@ -3957,7 +4094,7 @@ def phase_assoc_tail(main_args, multi_args, card, nvcc_out):
         'slot, then the rows launch of ceil((T + H) / 8) blocks of 256 '
         'threads a stream, a warp a row')
 
-    out = {name: {} for name in TAIL_NAMES}
+    out = {name: {} for name in TAIL_NAMES if name != 'ssd_postprocess'}
     for case, a in suppress_cases.items():
         keep = geom.greedy_suppress(*a)
         same(f'greedy_suppress {case}: two calls', keep,
@@ -4049,21 +4186,27 @@ def time_kernel(name, case, entry, args, wrapper, plain, bound, card):
 
 
 def tail_kernel_entries(cases):
-    """The kernels line's entries of the NMS, merge and commit kernels: the
-    main path's case unsuffixed (the NMS's and the commit's one stream of
-    phase 6, the merge's SSD rows of phase 8), the other cases' numbers
-    suffixed."""
+    """The kernels line's entries of the NMS, merge, SSD postprocess and
+    commit kernels: the main path's case unsuffixed (the NMS's and the
+    commit's one stream of phase 6, the merge's SSD rows of phase 8, the
+    SSD postprocess's decoded rows of phase 9), the other cases' numbers
+    suffixed. The generic NMS and merge kernels run on no main path (the
+    YOLO and SSD postprocesses have their own kernels): their launches
+    are 0."""
     where = {'greedy_suppress': ('fastmot_tpu_torch/csrc/nms_waves.cu',
                                  'fastmot_tpu/ops/geometry.py:186',
                                  '1_stream'),
              'merge_labels': ('fastmot_tpu_torch/csrc/nms_waves.cu',
                               'fastmot_tpu/detector.py:511', 'ssd_rows'),
+             'ssd_postprocess': ('fastmot_tpu_torch/csrc/nms_waves.cu',
+                                 'fastmot_tpu/detector.py:435', 'ssd_main'),
              'assoc_commit': ('fastmot_tpu_torch/csrc/assoc_commit.cu',
                               'fastmot_tpu/tracker.py:779', '1_stream')}
     entries = []
     for name, (source, replaces, main_case) in where.items():
         entry = {'name': name, 'route': 'cuda', 'source': source,
                  'replaces': replaces, 'launches': TAIL_LAUNCHES[name],
+                 'on_main_path': TAIL_LAUNCHES[name] > 0,
                  'library_ms': None, 'case': main_case}
         for case, r in cases[name].items():
             key = '' if case == main_case else f'_{case}'
@@ -4071,6 +4214,174 @@ def tail_kernel_entries(cases):
             entry[f'roofline_share{key}'] = r['bound_ms'] / r['ms']
         entries.append(entry)
     return entries
+
+
+# ---------------------------------------------------------------------------
+# The SSD postprocess (phase 22)
+# ---------------------------------------------------------------------------
+
+def ssd_post_bound_ms(arrays, scalars):
+    """The least time an H100 could take for an SSD postprocess call
+    (CPU tensors of ``SSDDetector._postprocess_device``'s arguments): the
+    decoded rows, tiles, scale and label mask read once and the outputs
+    written once, over 3.35 TB/s, against ``IOU_OPS`` for each pair that
+    needs a quotient, over 67 TFLOP/s: each same-label pair of valid rows of
+    one tile (the NMS's IoU, each pair once) and each same-label pair of
+    kept rows of different tiles whose boxes intersect (the merge's IoM).
+    Returns (ms, what sets it) and the two pair counts."""
+    from fastmot_tpu_torch import detector as detmod
+    from fastmot_tpu_torch.ops import geometry as geom
+    from fastmot_tpu_torch.ops import nms_waves as nw
+    seen = {}
+    real_suppress, real_merge = geom.greedy_suppress, nw.merge_labels
+    real_iom = geom.iom_matrix
+    with mock.patch.object(geom, 'greedy_suppress', lambda ov, sc, va, th: (
+            seen.update(valid=va), real_suppress(ov, sc, va, th))[1]), \
+            mock.patch.object(nw, 'merge_labels', lambda e, va: (
+                seen.update(kept=va), real_merge(e, va))[1]), \
+            mock.patch.object(geom, 'iom_matrix', lambda t: (
+                seen.update(tlbr=t), real_iom(t))[1]):
+        outputs = detmod.ssd_postprocess_reference(*arrays, *scalars)
+    t, k = arrays[0].shape[:2]
+    tile = torch.arange(t * k) // k
+    label = arrays[0].reshape(-1, 7)[:, 1].to(torch.int32)
+    same = (label[:, None] == label[None, :]) & torch.ones(
+        t * k, t * k, dtype=torch.bool).triu(1)
+    same_tile = tile[:, None] == tile[None, :]
+    valid, kept = seen['valid'], seen['kept']
+    nms_pairs = int((same & same_tile & valid[:, None]
+                     & valid[None, :]).sum())
+    inter = geom._inter_area(seen['tlbr'][:, None, :],
+                             seen['tlbr'][None, :, :]) > 0
+    merge_pairs = int((same & ~same_tile & kept[:, None] & kept[None, :]
+                       & inter).sum())
+    nbytes = sum(a.numel() * a.element_size()
+                 for a in (*arrays, *outputs))
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    ops_ms = IOU_OPS * (nms_pairs + merge_pairs) / PEAK_F32 * 1e3
+    return (max(bytes_ms, ops_ms),
+            'bytes' if bytes_ms >= ops_ms else 'operations'), \
+        (nms_pairs, merge_pairs)
+
+
+def phase_ssd_post(real, card, nvcc_out):
+    """Phase 22: the SSD postprocess kernels (csrc/nms_waves.cu
+    ``ssd_postprocess_forward``) against their plain version
+    (``detector.ssd_postprocess_reference``) on the CPU and on the card,
+    every output bit for bit: the seeded cases of
+    tests/test_torch_ssd_post.py with their ``OUTPUT_SHA256``; phase 9's
+    own decoded rows (``real``), phase 8's rows and the crowded full-width
+    rows, each run through ``SSDDetector._postprocess_device`` under
+    ``set_sync_debug_mode('error')`` with the [n, n] functions of the plain
+    version (``bbox_ious``, ``iom_matrix``, ``greedy_suppress``,
+    ``merge_labels``) made to raise, its peak of allocated memory under an
+    [n, n] bool matrix, its kernels, as ``torch.profiler`` counts them, the
+    two of ``ssd_postprocess_forward``, and its torch ops allocations and
+    views only (``dispatched_ops``); two calls equal; ptxas's
+    registers, spills and shared memory; each case's device time (100 calls
+    of the C entry between CUDA events, behind a sleep kernel), wrapper
+    and host time a call, the plain version's time on the card and the
+    bound (``ssd_post_bound_ms``). Returns the cases' numbers for the
+    kernels line."""
+    import tests.test_torch_ssd_post as ts
+    from fastmot_tpu_torch.detector import (MAX_DETS, SSDDetector,
+                                            ssd_postprocess_reference)
+    from fastmot_tpu_torch.ops import geometry as geom
+    from fastmot_tpu_torch.ops import nms_waves as nw
+    t_phase = time.perf_counter()
+    for kernel, line in ptxas_kernels(nvcc_out['nms_waves']).items():
+        if 'ssd' in kernel:
+            log(f'nms_waves ptxas {kernel}: {line}')
+    lib = nw.nms_waves_library()
+    for kind in ts.KINDS:
+        arrays, scalars = ts.case(kind)
+        got = ts.host_post(lib, tuple(a.cuda() for a in arrays), scalars,
+                           None)
+        ts.assert_same(got, ts.plain(arrays, scalars), kind)
+        if ts.output_sha256(got) != ts.OUTPUT_SHA256[kind]:
+            raise AssertionError(f'ssd_postprocess {kind}: differs from the '
+                                 'recorded outputs')
+    log(f'ssd_postprocess on the seeded cases of {ts.__name__} '
+        f'({", ".join(ts.KINDS)}): == the plain version on the CPU bit for '
+        'bit, and == OUTPUT_SHA256')
+
+    cases = {'ssd_main': real,
+             'phase8_rows': (synthetic_ssd_rows(np.random.default_rng(42)),
+                             (0.5, 120000, 0.6, 0.5)),
+             'crowded': (ts.crowded_rows(0), ts.SCALARS)}
+    matrix_fns = [(geom, 'bbox_ious'), (geom, 'iom_matrix'),
+                  (geom, 'greedy_suppress'), (nw, 'merge_labels')]
+    out = {}
+    for case, (arrays, scalars) in cases.items():
+        on_card = tuple(torch.as_tensor(a).cuda() for a in arrays)
+        host = tuple(a.cpu() for a in on_card)
+        n = on_card[0].shape[0] * on_card[0].shape[1]
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        patches = [mock.patch.object(m, name, side_effect=AssertionError(
+            f'{name} ran on the card path')) for m, name in matrix_fns]
+        for patch in patches:
+            patch.start()
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            got = SSDDetector._postprocess_device(*on_card, *scalars)
+            torch.cuda.set_sync_debug_mode(0)
+            kernels, _, names = profiled_kernels(
+                lambda: SSDDetector._postprocess_device(*on_card, *scalars),
+                expect=2)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            for patch in patches:
+                patch.stop()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        if peak >= n * n:
+            raise AssertionError(f'ssd_postprocess {case}: {peak} B '
+                                 f'allocated, an [n, n] bool is {n * n} B')
+        ops = dispatched_ops(
+            lambda: SSDDetector._postprocess_device(*on_card, *scalars))
+        # every kernel traced is one of the two (a trace may lack some of
+        # the launches: the dispatch log shows that no torch op launched
+        # one)
+        if kernels > 2 or len(names) != 2 \
+                or not all('ssd_' in x for x in names) \
+                or not ops <= {'empty', 'view', 'as_strided', 'detach'}:
+            raise AssertionError(f'ssd_postprocess {case}: {kernels} kernels '
+                                 f'a call ({sorted(names)}), torch ops '
+                                 f'{sorted(ops)}; expected its 2 kernels and '
+                                 'no torch op but allocations and views')
+        ts.assert_same(got, ssd_postprocess_reference(*host, *scalars),
+                       f'{case} against the plain version on the CPU')
+        ts.assert_same(got, ssd_postprocess_reference(*on_card, *scalars),
+                       f'{case} against the plain version on the card')
+        ts.assert_same(got, SSDDetector._postprocess_device(*on_card,
+                                                            *scalars),
+                       f'{case}: two calls')
+        valid, after, waves, rounds, span, kept, edges = ts.plain_stats(
+            host, scalars)
+        bound, pairs = ssd_post_bound_ms(host, scalars)
+        log(f'ssd_postprocess {case}: {n} rows, {valid} valid, {after} after '
+            f'the NMS ({waves} waves), {kept} kept of {min(n, MAX_DETS)} '
+            f'out ({edges} merge edges, the plain merge {rounds} rounds, a '
+            f'component over {span} tiles at most; {pairs[0]} IoU pairs, '
+            f'{pairs[1]} IoM pairs); '
+            f'== plain on the CPU and on the card, bit for bit; two calls '
+            f'equal; no host sync; {kernels:g} kernels a call in the '
+            f'profiler\'s trace ({", ".join(sorted(names))}'
+            + ('' if kernels == 2 else '; the trace lacked some launches')
+            + f'), torch ops {sorted(ops)}; {peak} B allocated at the peak')
+        outputs, args, inputs = nw.ssd_postprocess_launch_args(
+            *on_card, *scalars, min(n, MAX_DETS))
+        out[case] = time_kernel(
+            'ssd_postprocess', case, lib.ssd_postprocess_forward, args,
+            lambda: SSDDetector._postprocess_device(*on_card, *scalars),
+            lambda: ssd_postprocess_reference(*on_card, *scalars), bound,
+            card)
+        out[case]['max_abs_err'] = 0.0
+        del inputs
+    log(f'ssd postprocess phase: {time.perf_counter() - t_phase:.1f} s')
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4677,6 +4988,7 @@ def main():
                  merge_labels_reference=nw.merge_labels_reference,
                  commit_part=tr.commit_part,
                  nms_and_gate_reference=detmod.nms_and_gate_reference,
+                 ssd_postprocess_reference=detmod.ssd_postprocess_reference,
                  assoc_costs_reference=tr.assoc_costs_reference,
                  reid_crops_reference=rc.reid_crops_reference)
     host_draws = [False]
@@ -4734,6 +5046,8 @@ def main():
                 'commit_part', lambda *a: a[4][0].is_cuda)), \
             mock.patch.object(detmod, 'nms_and_gate_reference', counted(
                 'nms_and_gate_reference', lambda det, *a: det.is_cuda)), \
+            mock.patch.object(detmod, 'ssd_postprocess_reference', counted(
+                'ssd_postprocess_reference', lambda det, *a: det.is_cuda)), \
             mock.patch.object(tr, 'assoc_costs_reference', counted(
                 'assoc_costs_reference', lambda *a: a[11].is_cuda)), \
             mock.patch.object(rc, 'reid_crops_reference', counted(
@@ -4748,7 +5062,7 @@ def main():
                          card)
         phase_zoo()
         phase_ssd_postprocess()
-        ssd = phase_main_path('SSD', 'ssd main path')
+        ssd = phase_main_path('SSD', 'ssd main path', card=card)
         launches += ssd['osblock']
         phase_int8_conv()
         phase_osnet_int8()
@@ -4780,9 +5094,10 @@ def main():
         f'preprocess and gap-points kernels {dict(FLOW_LAUNCHES)} times, '
         'their plain versions 0 times on the card; the cascade and greedy '
         f'kernels {dict(ASSOC_LAUNCHES)} times, the plain solvers 0 times '
-        f'on the card; the NMS, merge and commit kernels '
-        f'{dict(TAIL_LAUNCHES)} times, the plain NMS, merge and commit 0 '
-        'times on the card; the YOLO postprocess, costs and ReID-input '
+        f'on the card; the NMS, merge, SSD postprocess and commit kernels '
+        f'{dict(TAIL_LAUNCHES)} times, the plain NMS, merge, SSD '
+        'postprocess and commit 0 times on the card; the YOLO postprocess, '
+        'costs and ReID-input '
         f'kernels {dict(FRAME_LAUNCHES)} times, their plain versions 0 times '
         'on the card')
     if not all(FRAME_LAUNCHES[n] for n in FRAME_NAMES):
@@ -4790,8 +5105,9 @@ def main():
                              f'ReID-input kernels launched '
                              f'{dict(FRAME_LAUNCHES)} times; each must '
                              'launch')
-    if not all(TAIL_LAUNCHES[n] for n in TAIL_NAMES):
-        raise AssertionError(f'phases 5-14: the NMS, merge and commit '
+    if not TAIL_LAUNCHES['ssd_postprocess'] \
+            or not TAIL_LAUNCHES['assoc_commit']:
+        raise AssertionError(f'phases 5-14: the SSD postprocess and commit '
                              f'kernels launched {dict(TAIL_LAUNCHES)} times; '
                              'each must launch')
     cases, lanes = phase_lk(main_run['gap stages'], gap_ms, card)
@@ -4806,6 +5122,8 @@ def main():
     frame_cases = phase_frame_kernels(main_run['frame args'],
                                       STAGE_ARGS.pop('frame8'), card,
                                       nvcc_out)
+    tail_cases['ssd_postprocess'] = phase_ssd_post(STAGE_ARGS.pop('ssd'),
+                                                   card, nvcc_out)
     log(f'every phase passed in {time.perf_counter() - t0:.1f} s')
     print(json.dumps({'kernels': [{
         'name': 'osblock', 'route': 'cuda',

@@ -59,6 +59,19 @@
 // few word operations; and the final order ranks by comparison only the
 // boxes kept.
 //
+// The SSD postprocess (ssd_postprocess_forward) replaces the rest of
+// fastmot_tpu/detector.py:435 SSDDetector._postprocess_device: the pixel
+// boxes and gates, the per-tile NMS (a vmap of _greedy_suppress, :479) and
+// the cross-tile IoM merge (:490-511) with its collapse and order. Its
+// plain twin is detector.ssd_postprocess_reference. What bounds it is
+// latency again, and the pairs: the per-tile NMS is 8 blocks' work, the
+// merge one block's, whose M kept rows have M^2 pairs. So the NMS packs
+// dominance bits from the boxes as nms_select does, and the merge tests
+// only the pairs that a sweep along x leaves (the rows in buckets of
+// their left edges by a counting sort), lists the edges it finds and
+// joins their components by union-find, with no [n, n] relation in memory
+// and no rounds.
+//
 // Every loop strides by blockDim.x and takes whole warps, so a block of 32
 // or 64 threads computes what 1,024 compute (the tests' host build runs
 // such blocks, and a cluster's blocks together: tests/cuda_host_shim.py).
@@ -79,6 +92,8 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 // a pack block's columns, 8 threads each
 constexpr int kPackCols = 32;
 constexpr int kPackThreads = 8 * kPackCols;
+// the merge's sweep: the buckets of the kept rows' left edges
+constexpr int kSweepBuckets = 256;
 // the select launch's blocks a stream (a cluster) at most, and the rows a
 // block takes before the cluster grows
 constexpr int kSelectCluster = 8;
@@ -136,6 +151,12 @@ struct SelectParams {
   int keys_in_smem;                 // the select's keys in shared memory
   float conf_thresh, nms_thresh, max_area, min_ar;
 };
+
+// ssd_postprocess_forward's pointers, ints and floats
+enum SsdPtr { kPDet, kPTiles, kPScale, kPMask, kPScratch, kPOutTlbr,
+              kPOutLabel, kPOutConf, kPOutKeep };
+enum SsdInt { kPTileCount, kPRows, kPLabels, kPOut };
+enum SsdFloat { kPConfThresh, kPMaxArea, kPMergeThresh, kPNmsThresh };
 
 struct MergeParams {
   const unsigned char* edge;   // [B, N, N]
@@ -948,6 +969,444 @@ merge_labels_kernel(const MergeParams p) {
   for (int i = tid; i < n; i += nt) p.labels[row + i] = lbl[cur][i];
 }
 
+// ---------------------------------------------------------------------------
+// The SSD postprocess (ssd_postprocess_forward), two launches a call: the
+// per-tile NMS a block a tile, then the cross-tile merge and the order on
+// one block, behind it by a programmatic dependent launch
+// ---------------------------------------------------------------------------
+
+struct SsdParams {
+  const float* det;                 // [T, K, 7] decoded rows
+  const float* tiles;               // [T, 4] tlbr in region pixels
+  const float* scale;               // [2]
+  const unsigned char* label_mask;  // [L]
+  // scratch (ssd_scratch_words), written by the NMS launch: each row's
+  // pixel box, conf, int label and validity after the NMS
+  float* r_tlbr;                    // [n, 4]
+  float* r_conf;                    // [n]
+  int* r_label;                     // [n]
+  unsigned char* r_valid;           // [n]
+  // outputs, [M] (and 4)
+  float* out_tlbr;
+  int* out_label;
+  float* out_conf;
+  unsigned char* out_keep;
+  int tiles_n, k, n, labels, m;
+  float conf_thresh, max_area, merge_thresh, nms_thresh;
+};
+
+// geometry.bbox_ious' entry for boxes a and c, rounded step by step as its
+// torch ops round (the +1 convention, 0 where they do not intersect)
+__device__ __forceinline__ float iou_entry(const float* a, float area_a,
+                                           const float* c, float area_c) {
+  const float iw = (nan_min(a[2], c[2]) - nan_max(a[0], c[0])) + 1.0f;
+  const float ih = (nan_min(a[3], c[3]) - nan_max(a[1], c[1])) + 1.0f;
+  const float inter = (iw > 0.0f && ih > 0.0f) ? iw * ih : 0.0f;
+  const float uni = (area_a + area_c) - inter;
+  return inter > 0.0f ? inter / (uni > 0.0f ? uni : 1.0f) : 0.0f;
+}
+
+// geometry.iom_matrix's entry for boxes a and c at or above `thresh`: the
+// intersection over the smaller area, 0 where that area is not positive;
+// the quotient only where the boxes intersect
+__device__ __forceinline__ bool iom_at_least(const float* a, float area_a,
+                                             const float* c, float area_c,
+                                             float thresh) {
+  const float iw = (nan_min(a[2], c[2]) - nan_max(a[0], c[0])) + 1.0f;
+  const float ih = (nan_min(a[3], c[3]) - nan_max(a[1], c[1])) + 1.0f;
+  const float inter = (iw > 0.0f && ih > 0.0f) ? iw * ih : 0.0f;
+  const float least = nan_min(area_a, area_c);
+  if (!(inter > 0.0f && least > 0.0f)) return 0.0f >= thresh;
+  return inter / least >= thresh;
+}
+
+// the NMS launch's dynamic shared memory for K rows a tile: the dominance
+// bits [W][K], the boxes [K][4], the areas, the confs and the labels [K]
+inline int ssd_nms_smem_bytes(int k) {
+  return ((k + 31) / 32 * k + 7 * k) * static_cast<int>(sizeof(float));
+}
+
+// launch 1: a block a tile. A thread a row: the pixel box, rounded as the
+// torch ops round (multiply, add, multiply, half to even), its area and
+// the gates (the conf threshold, the label mask at the clamped label, 0 <
+// area <= max_area). Then the dominance bits of the tile's valid rows
+// straight from the boxes, a thread a quarter of a word of 32 rows and a
+// column (OR-ed into the word in shared memory): bit r of word w of
+// column j is set where row i = 32 w + r has j's label, comes before j in
+// greedy order (a higher conf, the lower index on ties; NaN comes before
+// nothing) and overlaps it past the NMS threshold. Among the valid rows,
+// whose confs are not NaN, that order is total, so the waves need no
+// other bits (run_waves<true>). Each row's box, conf, label and validity
+// after the NMS go to scratch
+__global__ void __launch_bounds__(kMaxThreads)
+ssd_nms_kernel(const SsdParams p) {
+  // the merge launch may start now; it waits for this grid's end
+  cudaTriggerProgrammaticLaunchCompletion();
+  extern __shared__ float smem_ssd_nms[];
+  __shared__ unsigned remaining[kMaxWords], wave[kMaxWords], kept[kMaxWords];
+  const int t = blockIdx.x, k = p.k, nw = (k + 31) / 32;
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
+  unsigned* bits = reinterpret_cast<unsigned*>(smem_ssd_nms);
+  float* box = smem_ssd_nms + nw * k;
+  float* area = box + 4 * k;
+  float* conf = area + k;
+  int* label = reinterpret_cast<int*>(conf + k);
+  const float* tile = p.tiles + 4 * t;
+  const float tw = (tile[2] - tile[0]) + 1.0f, th = (tile[3] - tile[1]) + 1.0f;
+  const float fx[4] = {tw, th, tw, th};
+  const float off[4] = {tile[0], tile[1], tile[0], tile[1]};
+  const float sc[4] = {p.scale[0], p.scale[1], p.scale[0], p.scale[1]};
+  const int rounds = (k + nt - 1) / nt;   // every lane the same count
+  for (int r = 0; r < rounds; ++r) {
+    const int j = r * nt + tid;
+    bool valid = false;
+    if (j < k) {
+      const float* d = p.det + (static_cast<size_t>(t) * k + j) * 7;
+      float* b = box + 4 * j;
+      for (int q = 0; q < 4; ++q) b[q] = rintf((d[3 + q] * fx[q] + off[q])
+                                               * sc[q]);
+      const int lab = static_cast<int>(d[1]);
+      const int at = lab < 0 ? 0 : (lab > p.labels - 1 ? p.labels - 1 : lab);
+      area[j] = box_area(b);
+      conf[j] = d[2];
+      label[j] = lab;
+      valid = conf[j] >= p.conf_thresh && p.label_mask[at]
+          && area[j] > 0.0f && area[j] <= p.max_area;
+    }
+    const unsigned v = __ballot_sync(kFull, valid);
+    if (lane == 0 && j < k) {
+      remaining[j >> 5] = v;
+      wave[j >> 5] = 0;
+      kept[j >> 5] = 0;
+    }
+  }
+  __syncthreads();   // the rows are staged
+  for (int x = tid; x < nw * k; x += nt) bits[x] = 0;
+  __syncthreads();
+  // a thread a quarter of a word (8 rows) and a column; the bits of a row
+  // or a column that is not valid are never read
+  for (int x = tid; x < 4 * nw * k; x += nt) {
+    const int j = x % k, q = (x / k) % 4, w = x / (4 * k);
+    unsigned word = 0;
+    unsigned rows = (remaining[j >> 5] >> (j & 31)) & 1u
+        ? remaining[w] & (0xFFu << (8 * q)) : 0u;
+    while (rows) {
+      const int i = 32 * w + __ffs(static_cast<int>(rows)) - 1;
+      rows &= rows - 1;
+      if (i != j && label[i] == label[j]
+          && (conf[i] > conf[j] || (conf[i] == conf[j] && i < j))
+          && iou_entry(box + 4 * i, area[i], box + 4 * j, area[j])
+              > p.nms_thresh)
+        word |= 1u << (i & 31);
+    }
+    if (word) atomicOr(&bits[w * k + j], word);
+  }
+  __syncthreads();   // the bits are whole
+  run_waves<true>(bits, nullptr, remaining, wave, kept, k, nw);
+  const size_t row0 = static_cast<size_t>(t) * k;
+  for (int j = tid; j < k; j += nt) {
+    for (int q = 0; q < 4; ++q) p.r_tlbr[(row0 + j) * 4 + q] = box[4 * j + q];
+    p.r_conf[row0 + j] = conf[j];
+    p.r_label[row0 + j] = label[j];
+    p.r_valid[row0 + j] = (kept[j >> 5] >> (j & 31)) & 1u;
+  }
+}
+
+// the merge launch's dynamic shared memory for n rows: a region that holds
+// the kept rows (M <= n) in the order of their left edges (boxes [n][4],
+// areas, tiles, labels, indices and their buckets' least left edges [n])
+// and the edges found [6 n], then the collapse's five keys [n], then the
+// order's keys and counts [n]; then the kept rows' boxes [n][4], areas,
+// confs, labels, tiles, indices and union-find parents [n] and a flag a
+// row [n]
+__host__ __device__ inline int ssd_region_bytes(int n) {
+  return round16(4 * 9 * n + 4 * 6 * n);
+}
+
+inline int ssd_merge_smem_bytes(int n) {
+  return ssd_region_bytes(n) + 4 * 10 * n + round16(n);
+}
+
+// the root of x's tree (the least index of its component once every
+// edge is joined); `parent` is changed by other threads meanwhile, each
+// change pointing a root at a lesser root
+__device__ __forceinline__ int uf_find(volatile int* parent, int x) {
+  for (int p = parent[x]; p != x; p = parent[x]) x = p;
+  return x;
+}
+
+// joins the trees of a and b: the greater root is pointed at the lesser
+// by a compare-and-swap that holds only while it is still a root
+__device__ void uf_unite(volatile int* parent, int a, int b) {
+  for (;;) {
+    a = uf_find(parent, a);
+    b = uf_find(parent, b);
+    if (a == b) return;
+    if (a > b) {
+      const int c = a;
+      a = b;
+      b = c;
+    }
+    if (atomicCAS(const_cast<int*>(parent + b), b, a) == b) return;
+  }
+}
+
+// the order bits of x with the row below (the least row first among equal
+// values when the largest key is taken) or its complement
+__device__ __forceinline__ unsigned long long min_key(float x, int a) {
+  return ~((static_cast<unsigned long long>(order_bits(x)) << 32)
+           | static_cast<unsigned>(a));
+}
+__device__ __forceinline__ unsigned long long max_key(float x, int a) {
+  return (static_cast<unsigned long long>(order_bits(x)) << 32)
+      | static_cast<unsigned>(~a);
+}
+__device__ __forceinline__ int min_row(unsigned long long key) {
+  return static_cast<int>(static_cast<unsigned>(~key));
+}
+__device__ __forceinline__ int max_row(unsigned long long key) {
+  return static_cast<int>(~static_cast<unsigned>(key));
+}
+
+// launch 2: one block. The rows the NMS kept, compacted in index order
+// (their places by the block's count), then copied in the order of their
+// left edges' buckets (a counting sort, each bucket's least left edge
+// beside its rows). A sweep along x tests each pair once, a warp a row
+// against the rows after it up to the first bucket that starts right of
+// its box (a pair whose IoM passes a positive threshold intersects, and
+// no row of a later bucket can), and lists each edge
+// (another tile, the same label, IoM at or above the merge threshold);
+// then a thread an edge joins their components by union-find that points
+// the greater root at the lesser (an edge past the list's room is joined
+// where it is found): each component's root is its
+// least member, the fixpoint of the plain version's min-label rounds,
+// whatever the order of the joins. Each component is collapsed onto that
+// member by 64-bit atomic maxima of keys that order the values and, among
+// equal values, put the least row first, which is the member a
+// scatter_reduce in index order keeps (the sign of a zero included): the
+// least top-left, the greatest bottom-right and the greatest conf, +0
+// where none is above 0. The kept rows are placed by counting the float
+// keys label * n + index (rounded as the torch ops round) below each
+// (count_keys), the others after them in index order; the first M places
+// written out
+__global__ void __launch_bounds__(kMaxThreads)
+ssd_merge_kernel(const SsdParams p) {
+  extern __shared__ unsigned long long smem_ssd_merge[];
+  __shared__ int scan[33];
+  __shared__ int n_edges;
+  __shared__ unsigned key_lo, key_hi;   // the kept rows' left edges' range
+  __shared__ int bucket_at[kSweepBuckets];
+  __shared__ unsigned bucket_lo[kSweepBuckets];
+  const int n = p.n, m = p.m;
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
+  unsigned char* region = reinterpret_cast<unsigned char*>(smem_ssd_merge);
+  // the kept rows in the order of their left edges' buckets
+  float* s_box = reinterpret_cast<float*>(region);   // [n][4]
+  float* s_area = s_box + 4 * n;
+  int* s_tile = reinterpret_cast<int*>(s_area + n);
+  int* s_label = s_tile + n;
+  int* s_row = s_label + n;
+  unsigned* s_lo = reinterpret_cast<unsigned*>(s_row + n);
+  unsigned* edges = s_lo + n;   // [6 n]
+  const int edge_cap = 6 * n;
+  unsigned long long* keys = smem_ssd_merge;   // [5][n]
+  unsigned long long* fin = smem_ssd_merge;    // [n] the order's keys
+  int* below = reinterpret_cast<int*>(fin + n);
+  float* box = reinterpret_cast<float*>(region + ssd_region_bytes(n));
+  float* area = box + 4 * n;
+  float* conf = area + n;
+  int* label = reinterpret_cast<int*>(conf + n);
+  int* tile = label + n;
+  int* row = tile + n;
+  int* lbl = row + n;
+  unsigned char* keep = reinterpret_cast<unsigned char*>(lbl + n);
+  // the NMS launch's rows
+  cudaGridDependencySynchronize();
+  const int rounds = (n + nt - 1) / nt;   // every lane the same count
+  int kept = 0;
+  if (tid == 0) {
+    n_edges = 0;
+    key_lo = 0xFFFFFFFFu;
+    key_hi = 0;
+  }
+  for (int x = tid; x < kSweepBuckets; x += nt) {
+    bucket_at[x] = 0;
+    bucket_lo[x] = 0xFFFFFFFFu;
+  }
+  for (int r = 0; r < rounds; ++r) {
+    const int i = r * nt + tid;
+    const bool valid = i < n && p.r_valid[i];
+    int all;
+    const int at = kept + block_exclusive_count(valid, scan, all);
+    if (i < n) keep[i] = 0;
+    if (valid) {
+      for (int q = 0; q < 4; ++q) box[4 * at + q] = p.r_tlbr[4 * i + q];
+      area[at] = box_area(box + 4 * at);
+      conf[at] = p.r_conf[i];
+      label[at] = p.r_label[i];
+      tile[at] = i / p.k;
+      row[at] = i;
+      lbl[at] = at;
+      const unsigned key = order_bits(box[4 * at]);
+      atomicMin(&key_lo, key);
+      atomicMax(&key_hi, key);
+    }
+    kept += all;
+  }
+  const int M = kept;
+  __syncthreads();   // the kept rows are staged
+  // a counting sort of the rows by bucket of their left edges' order
+  // bits (a bucket a monotone function of them), each bucket's least key
+  // beside it
+  const unsigned long long span = static_cast<unsigned long long>(key_hi)
+      - key_lo + 1;
+  for (int a = tid; a < M; a += nt) {
+    const unsigned key = order_bits(box[4 * a]);
+    const int b = static_cast<int>((key - key_lo) * static_cast<
+        unsigned long long>(kSweepBuckets) / span);
+    atomicAdd(&bucket_at[b], 1);
+    atomicMin(&bucket_lo[b], key);
+  }
+  __syncthreads();
+  if (tid < 32) {   // the buckets' starts: a warp's scan of their counts
+    constexpr int kPer = kSweepBuckets / 32;
+    int c[kPer], sum = 0;
+    for (int q = 0; q < kPer; ++q) {
+      c[q] = bucket_at[kPer * lane + q];
+      sum += c[q];
+    }
+    int inc = sum;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(kFull, inc, o);
+      if (lane >= o) inc += v;
+    }
+    int at = inc - sum;
+    for (int q = 0; q < kPer; ++q) {
+      bucket_at[kPer * lane + q] = at;
+      at += c[q];
+    }
+  }
+  __syncthreads();
+  for (int a = tid; a < M; a += nt) {
+    const unsigned key = order_bits(box[4 * a]);
+    const int b = static_cast<int>((key - key_lo) * static_cast<
+        unsigned long long>(kSweepBuckets) / span);
+    const int at = atomicAdd(&bucket_at[b], 1);
+    for (int q = 0; q < 4; ++q) s_box[4 * at + q] = box[4 * a + q];
+    s_area[at] = area[a];
+    s_tile[at] = tile[a];
+    s_label[at] = label[a];
+    s_row[at] = a;
+    s_lo[at] = bucket_lo[b];
+  }
+  __syncthreads();   // the rows in the order of their left edges' buckets
+  // a warp a row (neighbouring rows, whose edges join the same
+  // components, on different warps), its lanes on the rows after it until
+  // a bucket starts right of its box
+  volatile int* parent = lbl;
+  const bool sweep = p.merge_thresh > 0.0f;
+  for (int s = tid >> 5; s < M; s += nt >> 5) {
+    const float* ba = s_box + 4 * s;
+    const float area_a = s_area[s];
+    const int tile_a = s_tile[s], label_a = s_label[s], a = s_row[s];
+    const unsigned reach = order_bits(ba[2] + 1.0f);
+    for (int t0 = s + 1; t0 < M; t0 += 32) {
+      const int t = t0 + lane;
+      const bool past = t < M && sweep && s_lo[t] > reach;
+      if (t < M && !past && s_tile[t] != tile_a && s_label[t] == label_a
+          && iom_at_least(ba, area_a, s_box + 4 * t, s_area[t],
+                          p.merge_thresh)) {
+        const int b = s_row[t];
+        const int at = atomicAdd(&n_edges, 1);
+        if (at < edge_cap) edges[at] = (static_cast<unsigned>(a) << 16) | b;
+        else uf_unite(parent, a, b);
+      }
+      if (__ballot_sync(kFull, past)) break;
+    }
+  }
+  __syncthreads();   // every edge is listed
+  const int listed = n_edges < edge_cap ? n_edges : edge_cap;
+  for (int e = tid; e < listed; e += nt)
+    uf_unite(parent, static_cast<int>(edges[e] >> 16),
+             static_cast<int>(edges[e] & 0xFFFFu));
+  __syncthreads();   // every edge is joined
+  for (int a = tid; a < M; a += nt) parent[a] = uf_find(parent, a);
+  __syncthreads();   // each row's label is its component's least member
+  // the collapse
+  for (int x = tid; x < 5 * M; x += nt) keys[(x / M) * n + x % M] = 0;
+  __syncthreads();
+  for (int a = tid; a < M; a += nt) {
+    const int c = lbl[a];
+    const float* b = box + 4 * a;
+    atomicMax(&keys[c], min_key(b[0], a));
+    atomicMax(&keys[n + c], min_key(b[1], a));
+    atomicMax(&keys[2 * n + c], max_key(b[2], a));
+    atomicMax(&keys[3 * n + c], max_key(b[3], a));
+    atomicMax(&keys[4 * n + c], max_key(conf[a], a));
+  }
+  __syncthreads();   // every member's keys are in
+  // a component's values, read from its members' rows, replace its least
+  // member's own (no other component reads that row)
+  for (int a = tid; a < M; a += nt) {
+    if (lbl[a] != a) continue;
+    const float x1 = box[4 * min_row(keys[a])];
+    const float y1 = box[4 * min_row(keys[n + a]) + 1];
+    const float x2 = box[4 * max_row(keys[2 * n + a]) + 2];
+    const float y2 = box[4 * max_row(keys[3 * n + a]) + 3];
+    const float c = conf[max_row(keys[4 * n + a])];
+    box[4 * a] = x1;
+    box[4 * a + 1] = y1;
+    box[4 * a + 2] = x2;
+    box[4 * a + 3] = y2;
+    conf[a] = c > 0.0f ? c : 0.0f;
+    keep[row[a]] = 1;
+  }
+  // the kept rows' order keys, compacted in row order
+  const int reps_rounds = (M + nt - 1) / nt;   // every lane the same count
+  int reps = 0;
+  for (int r = 0; r < reps_rounds; ++r) {
+    const int a = r * nt + tid;
+    const bool rep = a < M && lbl[a] == a;
+    int all;
+    const int at = reps + block_exclusive_count(rep, scan, all);
+    if (rep) {
+      const float key = static_cast<float>(label[a]) * static_cast<float>(n)
+          + static_cast<float>(row[a]);
+      fin[at] = (static_cast<unsigned long long>(order_bits(key)) << 32)
+          | static_cast<unsigned>(a);
+    }
+    reps += all;
+  }
+  for (int x = tid; x < reps; x += nt) below[x] = 0;
+  __syncthreads();
+  count_keys<false>(fin, reps, fin, reps, below);
+  __syncthreads();
+  for (int x = tid; x < reps; x += nt) {
+    const int at = below[x];
+    if (at >= m) continue;
+    const int a = static_cast<int>(fin[x] & 0xFFFFFFFFu);
+    for (int q = 0; q < 4; ++q) p.out_tlbr[4 * at + q] = box[4 * a + q];
+    p.out_label[at] = label[a];
+    p.out_conf[at] = conf[a];
+    p.out_keep[at] = 1;
+  }
+  // the other rows after them, in index order
+  int carry = reps;
+  for (int r = 0; r < rounds; ++r) {
+    const int i = r * nt + tid;
+    const bool rest = i < n && !keep[i];
+    int all;
+    const int at = carry + block_exclusive_count(rest, scan, all);
+    if (rest && at < m) {
+      for (int q = 0; q < 4; ++q) p.out_tlbr[4 * at + q] = 0.0f;
+      p.out_label[at] = p.r_label[i];
+      p.out_conf[at] = 0.0f;
+      p.out_keep[at] = 0;
+    }
+    carry += all;
+  }
+}
+
 // the bytes of the waves launch's and the merge's dynamic shared memory
 // for n boxes or rows: the bits, then the scores or the two label rows
 inline int suppress_smem_bytes(int n) {
@@ -1149,6 +1608,82 @@ int nms_select_forward(const void* const* ptrs, const int* ints,
   cfg.blockDim = dim3(threads_for(p.k));
   cfg.dynamicSmemBytes = smem;
   e = cudaLaunchKernelEx(&cfg, nms_order_kernel, p);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The scratch words ssd_postprocess_forward takes for n rows: each row's
+// pixel box, conf and int label, then its validity bytes
+size_t ssd_postprocess_scratch_words(int n) {
+  return 6 * static_cast<size_t>(n) + (n + 3) / 4;
+}
+
+// One call of the SSD postprocess after the head decode for
+// ints[kPTileCount] tiles of ints[kPRows] decoded rows (n = tiles x rows,
+// at most kMaxN): the pixel boxes and gates, the per-tile class-aware NMS,
+// the cross-tile IoM merge and the first ints[kPOut] (at most n) rows in
+// the order of label, then index, the merged rows first. `ptrs` holds the
+// SsdPtr enum's pointers (the scratch ssd_postprocess_scratch_words'
+// words), floats the thresholds (the NMS threshold in [0, 1], so that no
+// pair of different tiles or labels, whose overlap is 0, exceeds it). Two
+// launches on `stream`, the second behind the first by a programmatic
+// dependent launch. Returns 0 or the first cudaError_t.
+int ssd_postprocess_forward(const void* const* ptrs, const int* ints,
+                            const float* floats, void* stream) {
+  SsdParams p = {};
+  p.tiles_n = ints[kPTileCount];
+  p.k = ints[kPRows];
+  p.labels = ints[kPLabels];
+  p.m = ints[kPOut];
+  p.conf_thresh = floats[kPConfThresh];
+  p.max_area = floats[kPMaxArea];
+  p.merge_thresh = floats[kPMergeThresh];
+  p.nms_thresh = floats[kPNmsThresh];
+  if (p.tiles_n < 1 || p.k < 1 || p.tiles_n > kMaxN / p.k || p.labels < 1
+      || !(p.nms_thresh >= 0.0f && p.nms_thresh <= 1.0f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.n = p.tiles_n * p.k;
+  if (p.m < 1 || p.m > p.n) return static_cast<int>(cudaErrorInvalidValue);
+  for (int q = 0; q <= kPOutKeep; ++q)
+    if (!ptrs[q]) return static_cast<int>(cudaErrorInvalidValue);
+  p.det = static_cast<const float*>(ptrs[kPDet]);
+  p.tiles = static_cast<const float*>(ptrs[kPTiles]);
+  p.scale = static_cast<const float*>(ptrs[kPScale]);
+  p.label_mask = static_cast<const unsigned char*>(ptrs[kPMask]);
+  float* scratch = static_cast<float*>(const_cast<void*>(ptrs[kPScratch]));
+  p.r_tlbr = scratch;
+  p.r_conf = scratch + 4 * p.n;
+  p.r_label = reinterpret_cast<int*>(scratch + 5 * p.n);
+  p.r_valid = reinterpret_cast<unsigned char*>(scratch + 6 * p.n);
+  p.out_tlbr = static_cast<float*>(const_cast<void*>(ptrs[kPOutTlbr]));
+  p.out_label = static_cast<int*>(const_cast<void*>(ptrs[kPOutLabel]));
+  p.out_conf = static_cast<float*>(const_cast<void*>(ptrs[kPOutConf]));
+  p.out_keep = static_cast<unsigned char*>(const_cast<void*>(ptrs[kPOutKeep]));
+  const int nms_smem = ssd_nms_smem_bytes(p.k);
+  cudaError_t e = cudaFuncSetAttribute(
+      ssd_nms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, nms_smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int merge_smem = ssd_merge_smem_bytes(p.n);
+  e = cudaFuncSetAttribute(ssd_merge_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           merge_smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.tiles_n);
+  cfg.blockDim = dim3(threads_for(4 * ((p.k + 31) / 32) * p.k));
+  cfg.dynamicSmemBytes = nms_smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  e = cudaLaunchKernelEx(&cfg, ssd_nms_kernel, p);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cfg.gridDim = dim3(1);
+  cfg.blockDim = dim3(kMaxThreads);   // the sweep's rows over every warp
+  cfg.dynamicSmemBytes = merge_smem;
+  e = cudaLaunchKernelEx(&cfg, ssd_merge_kernel, p);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

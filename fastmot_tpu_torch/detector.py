@@ -356,70 +356,93 @@ class SSDDetector(_NetworkDetector):
                             conf_thresh, max_area, merge_thresh,
                             nms_thresh=0.5):
         """Filter, pixel scaling, per-tile class-aware NMS, and the
-        cross-tile IoM merge, as padded tensor ops.
+        cross-tile IoM merge: padded (tlbr, label, conf, keep), class
+        ascending, then index, ``min(n, MAX_DETS)`` rows. On CUDA tensors
+        the whole of it runs in ``csrc/nms_waves.cu``
+        (``nms_waves.ssd_postprocess``: two launches, no host sync, no [n,
+        n] matrix); on CPU tensors ``ssd_postprocess_reference``; any other
+        device raises. The two agree bit for bit."""
+        device = det_out.device
+        if device.type == 'cpu':
+            return ssd_postprocess_reference(
+                det_out, tiles_f, scale, label_mask, conf_thresh, max_area,
+                merge_thresh, nms_thresh)
+        if device.type != 'cuda':
+            raise ValueError(f'ssd postprocess: unsupported device {device}')
+        n = det_out.shape[0] * det_out.shape[1]
+        return nms_waves.ssd_postprocess(
+            det_out, tiles_f, scale, label_mask, conf_thresh, max_area,
+            merge_thresh, nms_thresh, min(n, MAX_DETS))
 
-        The per-tile NMS is one ``greedy_suppress`` over all rows with the
-        overlap masked to the same tile and label: suppression acts only
-        on overlapping pairs, so this is the JAX package's per-tile vmap.
-        The merge takes connected components of the symmetric relation
-        "other tile, same label, IoM >= merge_thresh" by min-label
-        propagation to a fixpoint (``ops.nms_waves.merge_labels``); each
-        component collapses onto its lowest-index member with the enclosing
-        box and the highest confidence. On the card the NMS waves and the
-        propagation rounds run to their ends in ``csrc/nms_waves.cu``, so
-        the call makes no host sync."""
-        n_tiles, topk = det_out.shape[0], det_out.shape[1]
-        n = n_tiles * topk
-        dev = det_out.device
-        rows = det_out.reshape(n, 7)
-        tile_id = torch.arange(n, device=dev) // topk
-        label = rows[:, 1].to(torch.int32)
-        conf = rows[:, 2]
-        t = tiles_f[tile_id]
-        tw = t[:, 2] - t[:, 0] + 1.0
-        th = t[:, 3] - t[:, 1] + 1.0
-        xy_scale = torch.stack([tw, th, tw, th], -1)
-        off = torch.stack([t[:, 0], t[:, 1], t[:, 0], t[:, 1]], -1)
-        sc = torch.cat([scale, scale])
-        tlbr = torch.round((rows[:, 3:7] * xy_scale + off) * sc[None, :])
-        area = geom.area(tlbr)
-        valid = (conf >= conf_thresh) & \
-            label_mask[torch.clamp(label, 0, label_mask.shape[0] - 1).long()] \
-            & (area > 0) & (area <= max_area)
 
-        same_label = label[:, None] == label[None, :]
-        same_tile = tile_id[:, None] == tile_id[None, :]
-        overlap = torch.where(same_tile & same_label,
-                              geom.bbox_ious(tlbr, tlbr),
-                              torch.zeros((), device=dev))
-        valid = valid & geom.greedy_suppress(overlap, conf, valid,
-                                             nms_thresh)
+def ssd_postprocess_reference(det_out, tiles_f, scale, label_mask,
+                              conf_thresh, max_area, merge_thresh,
+                              nms_thresh=0.5):
+    """The plain version of ``SSDDetector._postprocess_device``: filter,
+    pixel scaling, per-tile class-aware NMS, and the cross-tile IoM merge,
+    as padded tensor ops.
 
-        edge = (geom.iom_matrix(tlbr) >= merge_thresh) & ~same_tile & \
-            same_label & valid[:, None] & valid[None, :]
-        idx = torch.arange(n, device=dev)
-        lbl = nms_waves.merge_labels(edge, valid)
+    The per-tile NMS is one ``greedy_suppress`` over all rows with the
+    overlap masked to the same tile and label: suppression acts only
+    on overlapping pairs, so this is the JAX package's per-tile vmap
+    (for ``nms_thresh`` >= 0, which no overlap of 0 exceeds).
+    The merge takes connected components of the symmetric relation
+    "other tile, same label, IoM >= merge_thresh" by min-label
+    propagation to a fixpoint (``ops.nms_waves.merge_labels``); each
+    component collapses onto its lowest-index member with the enclosing
+    box and the highest confidence."""
+    n_tiles, topk = det_out.shape[0], det_out.shape[1]
+    n = n_tiles * topk
+    dev = det_out.device
+    rows = det_out.reshape(n, 7)
+    tile_id = torch.arange(n, device=dev) // topk
+    label = rows[:, 1].to(torch.int32)
+    conf = rows[:, 2]
+    t = tiles_f[tile_id]
+    tw = t[:, 2] - t[:, 0] + 1.0
+    th = t[:, 3] - t[:, 1] + 1.0
+    xy_scale = torch.stack([tw, th, tw, th], -1)
+    off = torch.stack([t[:, 0], t[:, 1], t[:, 0], t[:, 1]], -1)
+    sc = torch.cat([scale, scale])
+    tlbr = torch.round((rows[:, 3:7] * xy_scale + off) * sc[None, :])
+    area = geom.area(tlbr)
+    valid = (conf >= conf_thresh) & \
+        label_mask[torch.clamp(label, 0, label_mask.shape[0] - 1).long()] \
+        & (area > 0) & (area <= max_area)
 
-        # collapse each component onto its representative; row n takes
-        # the invalid rows and is dropped (scatter mode='drop')
-        safe = torch.where(valid, lbl, n)
-        tl = torch.full((n + 1, 2), float('inf'), device=dev).scatter_reduce(
-            0, safe[:, None].expand(n, 2), tlbr[:, :2], 'amin')[:n]
-        br = torch.full((n + 1, 2), -float('inf'), device=dev) \
-            .scatter_reduce(0, safe[:, None].expand(n, 2), tlbr[:, 2:],
-                            'amax')[:n]
-        cmax = torch.zeros(n + 1, device=dev).scatter_reduce(
-            0, safe, conf, 'amax')[:n]
-        keep = valid & (lbl == idx)
-        out_tlbr = torch.where(keep[:, None], torch.cat([tl, br], 1),
-                               torch.zeros((), device=dev))
-        out_conf = torch.where(keep, cmax, torch.zeros((), device=dev))
+    same_label = label[:, None] == label[None, :]
+    same_tile = tile_id[:, None] == tile_id[None, :]
+    overlap = torch.where(same_tile & same_label,
+                          geom.bbox_ious(tlbr, tlbr),
+                          torch.zeros((), device=dev))
+    valid = valid & geom.greedy_suppress(overlap, conf, valid,
+                                         nms_thresh)
 
-        # class ascending, then index, padded to MAX_DETS
-        order_key = torch.where(keep, label.float() * n + idx.float(),
-                                torch.full((), float('inf'), device=dev))
-        order = torch.argsort(order_key, stable=True)[:MAX_DETS]
-        return out_tlbr[order], label[order], out_conf[order], keep[order]
+    edge = (geom.iom_matrix(tlbr) >= merge_thresh) & ~same_tile & \
+        same_label & valid[:, None] & valid[None, :]
+    idx = torch.arange(n, device=dev)
+    lbl = nms_waves.merge_labels(edge, valid)
+
+    # collapse each component onto its representative; row n takes
+    # the invalid rows and is dropped (scatter mode='drop')
+    safe = torch.where(valid, lbl, n)
+    tl = torch.full((n + 1, 2), float('inf'), device=dev).scatter_reduce(
+        0, safe[:, None].expand(n, 2), tlbr[:, :2], 'amin')[:n]
+    br = torch.full((n + 1, 2), -float('inf'), device=dev) \
+        .scatter_reduce(0, safe[:, None].expand(n, 2), tlbr[:, 2:],
+                        'amax')[:n]
+    cmax = torch.zeros(n + 1, device=dev).scatter_reduce(
+        0, safe, conf, 'amax')[:n]
+    keep = valid & (lbl == idx)
+    out_tlbr = torch.where(keep[:, None], torch.cat([tl, br], 1),
+                           torch.zeros((), device=dev))
+    out_conf = torch.where(keep, cmax, torch.zeros((), device=dev))
+
+    # class ascending, then index, padded to MAX_DETS
+    order_key = torch.where(keep, label.float() * n + idx.float(),
+                            torch.full((), float('inf'), device=dev))
+    order = torch.argsort(order_key, stable=True)[:MAX_DETS]
+    return out_tlbr[order], label[order], out_conf[order], keep[order]
 
 
 class PublicDetector(Detector):

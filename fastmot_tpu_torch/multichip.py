@@ -154,17 +154,18 @@ def dryrun_multichip(n_devices: int, device: str = 'cuda') -> list[dict]:
 
 
 def tail_launches(reset: bool = False) -> tuple:
-    """This process's NMS, SSD-merge and commit kernel launches
-    (``greedy_suppress``, ``merge_labels``, ``assoc_commit``); with
-    ``reset``, zeroed first."""
+    """This process's generic NMS and merge, SSD postprocess and commit
+    kernel calls (``greedy_suppress``, ``merge_labels``,
+    ``ssd_postprocess``, ``assoc_commit``); with ``reset``, zeroed
+    first."""
     from .ops import assoc_commit as ac
     from .ops import geometry as geom
     from .ops import nms_waves as nw
     if reset:
         geom.greedy_suppress.launches = nw.merge_labels.launches = 0
-        ac.assoc_commit.launches = 0
+        nw.ssd_postprocess.launches = ac.assoc_commit.launches = 0
     return (geom.greedy_suppress.launches, nw.merge_labels.launches,
-            ac.assoc_commit.launches)
+            nw.ssd_postprocess.launches, ac.assoc_commit.launches)
 
 
 def frame_launches(reset: bool = False) -> tuple:
@@ -185,10 +186,10 @@ def _dryrun_rank(n_devices: int, model_name: str, device: str) -> dict:
     """The multi-stream step on this rank: real cores, tiny shapes.
     Returns the ``dryrun ok`` line, this rank's feature slice, its LK,
     gap-commit, preprocess and gap-points kernel launches, its cascade,
-    greedy kernel and finals launches (``assoc_launches``), its NMS, merge
-    and commit launches (``tail_launches``), its postprocess, costs and
-    ReID-input calls (``frame_launches``) and, as numpy, the
-    association's costs, its matches (``col4row``), the tracks'
+    greedy kernel and finals launches (``assoc_launches``), its NMS, merge,
+    SSD postprocess and commit launches (``tail_launches``), its
+    postprocess, costs and ReID-input calls (``frame_launches``) and, as
+    numpy, the association's costs, its matches (``col4row``), the tracks'
     validity and the new history store."""
     from .detector import _resize_bilinear
     from .kalman import KalmanConfig, init_mats
@@ -449,9 +450,10 @@ def multi_stream_rank(inputs, n_streams, model_parallel, mot_kwargs,
     only) and the detections of ``inputs/dets.npz`` (``splice_detections``);
     returns this rank's ``local_streams``, rows, step times, OSBlock, LK,
     gap-commit, preprocess, gap-points, cascade and greedy kernel launches,
-    its NMS, merge and commit launches (``tail_launches``), its YOLO
-    postprocess, costs and ReID-input calls (``frame_launches``) and what
-    its detector's network found (``network_dets``)."""
+    its NMS, merge, SSD postprocess and commit launches
+    (``tail_launches``), its YOLO postprocess, costs and ReID-input calls
+    (``frame_launches``) and what its detector's network found
+    (``network_dets``)."""
     from .ops import assignment as asg
     from .ops.flow_kernels import lk_pyramidal, preprocess
     from .ops.gap_commit import gap_commit

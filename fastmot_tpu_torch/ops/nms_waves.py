@@ -25,6 +25,17 @@ sync and no [S, K, K] matrix. Its plain version is
 ``detector.nms_and_gate_reference``; the two agree bit for bit
 (tests/test_torch_nms_select.py). ``nms_select.launches`` counts its
 calls.
+
+``ssd_postprocess`` is ``SSDDetector._postprocess_device`` on the card: two
+launches (a block a tile computes the pixel boxes, the gates, the
+same-label IoU and greedy-order dominance bits from the boxes and runs the
+NMS waves; one block compacts the rows kept, builds the cross-tile IoM
+edges among them from the boxes, propagates each component's least index,
+collapses the components and places the rows by counting), no host sync
+and no [n, n] matrix. Its plain version is
+``detector.ssd_postprocess_reference``; the two agree bit for bit
+(tests/test_torch_ssd_post.py). ``ssd_postprocess.launches`` counts its
+calls.
 """
 from __future__ import annotations
 
@@ -55,6 +66,10 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.nms_select_forward.restype = ctypes.c_int
     lib.nms_select_scratch_words.argtypes = [ctypes.c_int] * 3
     lib.nms_select_scratch_words.restype = ctypes.c_size_t
+    lib.ssd_postprocess_forward.argtypes = SELECT_ARGTYPES
+    lib.ssd_postprocess_forward.restype = ctypes.c_int
+    lib.ssd_postprocess_scratch_words.argtypes = [ctypes.c_int]
+    lib.ssd_postprocess_scratch_words.restype = ctypes.c_size_t
     lib.nms_waves_error_string.argtypes = [ctypes.c_int]
     lib.nms_waves_error_string.restype = ctypes.c_char_p
     return lib
@@ -285,3 +300,95 @@ def nms_select(det_out, label_mask, conf_thresh: float, nms_thresh: float,
 nms_select.launches = 0
 # the count's owner, whatever a caller binds the module's name to
 _NMS_SELECT = nms_select
+
+
+SSD_MAX_ROWS = KERNEL_MAX_N   # the SSD postprocess's tiles x rows at most
+
+
+def ssd_scratch_words(n: int) -> int:
+    """4-byte words of ``ssd_postprocess_forward``'s scratch for ``n``
+    rows: each row's pixel box, conf and int label, then its validity
+    bytes."""
+    return 6 * n + (n + 3) // 4
+
+
+def ssd_postprocess_launch_args(det_out, tiles_f, scale, label_mask,
+                                conf_thresh: float, max_area: float,
+                                merge_thresh: float, nms_thresh: float,
+                                out: int):
+    """One call of the SSD postprocess as ``ssd_postprocess_forward`` takes
+    it: ``(outputs, args, inputs)``. ``det_out`` [T, K, 7] float32 decoded
+    rows, ``tiles_f`` [T, 4] and ``scale`` [2] float32, ``label_mask`` [L]
+    bool, all on one device; n = T x K rows, at most ``SSD_MAX_ROWS``;
+    ``out`` the outputs (at most n); the three thresholds in [0, 1] and
+    ``max_area`` >= 0. ``outputs`` = (tlbr [out, 4] float32, label [out]
+    int32, conf [out] float32, keep [out] bool) are written by the call (on
+    the current CUDA stream for CUDA tensors), views of one allocation that
+    also holds the scratch; ``inputs`` are the (contiguous) tensors and
+    that allocation the arguments point at, to keep alive with them. Raises
+    ValueError on a wrong dtype, shape or device, sizes out of range or a
+    threshold outside its range."""
+    if not isinstance(det_out, torch.Tensor) or det_out.dim() != 3 \
+            or det_out.shape[-1] != 7:
+        _fault('det_out must be [T, K, 7]')
+    device = det_out.device
+    t, k = int(det_out.shape[0]), int(det_out.shape[1])
+    n = t * k
+    if not 1 <= n <= SSD_MAX_ROWS or not 1 <= out <= n:
+        _fault(f'{t} tiles of {k} rows, {out} out: the kernel takes 1 to '
+               f'{SSD_MAX_ROWS} rows in all and 1 <= out <= rows')
+    for name, x in (('conf_thresh', conf_thresh),
+                    ('merge_thresh', merge_thresh),
+                    ('nms_thresh', nms_thresh)):
+        if not 0.0 <= x <= 1.0:
+            _fault(f'{name} {x} is outside [0, 1]')
+    if not max_area >= 0:
+        _fault(f'max_area {max_area} is negative')
+    if not isinstance(label_mask, torch.Tensor) or label_mask.dim() != 1 \
+            or label_mask.numel() < 1:
+        _fault('label_mask must be [L], L >= 1')
+    inputs = [_check(det_out, 'det_out', torch.float32, det_out.shape,
+                     device),
+              _check(tiles_f, 'tiles_f', torch.float32, (t, 4), device),
+              _check(scale, 'scale', torch.float32, (2,), device),
+              _check(label_mask, 'label_mask', torch.bool,
+                     label_mask.shape, device)]
+    # one allocation: the outputs, then the scratch
+    outputs, at, buf = carve(device, (
+        (torch.float32, (out, 4)), (torch.int32, (out,)),
+        (torch.float32, (out,)), (torch.bool, (out,)),
+        4 * ssd_scratch_words(n)))
+    outputs = tuple(outputs[:4])
+    inputs.append(buf)
+    args = ((ctypes.c_uint64 * 9)(*(x.data_ptr() for x in inputs[:4]),
+                                  at[4], *at[:4]),
+            c_ints(t, k, int(label_mask.numel()), out),
+            c_floats(conf_thresh, max_area, merge_thresh, nms_thresh),
+            _stream(device))
+    return outputs, args, inputs
+
+
+def ssd_postprocess(det_out, tiles_f, scale, label_mask, conf_thresh: float,
+                    max_area: float, merge_thresh: float, nms_thresh: float,
+                    out: int):
+    """``SSDDetector._postprocess_device`` on CUDA tensors: two launches of
+    ``csrc/nms_waves.cu``'s ``ssd_postprocess_forward`` (the per-tile NMS a
+    block a tile, then the merge and the order on one block), with no host
+    sync and no [n, n] matrix (``ssd_postprocess_launch_args``' checks
+    apply). Returns (tlbr, label, conf, keep), views of one allocation;
+    raises if the kernels cannot be built or launched."""
+    outputs, args, _ = ssd_postprocess_launch_args(
+        det_out, tiles_f, scale, label_mask, conf_thresh, max_area,
+        merge_thresh, nms_thresh, out)
+    lib = nms_waves_library()
+    code = lib.ssd_postprocess_forward(*args)
+    if code:
+        raise RuntimeError('ssd_postprocess kernel: '
+                           + lib.nms_waves_error_string(code).decode())
+    _SSD_POSTPROCESS.launches += 1
+    return outputs
+
+
+ssd_postprocess.launches = 0
+# the count's owner, whatever a caller binds the module's name to
+_SSD_POSTPROCESS = ssd_postprocess

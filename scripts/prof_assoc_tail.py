@@ -42,6 +42,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as smoke  # noqa: E402
@@ -62,6 +63,31 @@ NMS_MARKS = [
     ('merge start', '@#pragma unroll 4\n  for (int x = tid; x < n * nw;'),
     ('edges staged', 'lbl[0][i] = p.valid[row + i] ? i : n;\n@'),
     ('round', '    cur ^= 1;\n@'),
+]
+SSD_MARKS = [
+    ('nms start', '@  const float* tile = p.tiles + 4 * t;'),
+    ('rows staged', '  __syncthreads();   // the rows are staged\n@'),
+    ('bits whole', '  __syncthreads();   // the bits are whole\n@'),
+    ('waves end', '  run_waves<true>(bits, nullptr, remaining, wave, kept, k, '
+                  'nw);\n@'),
+    ('nms end', '    p.r_valid[row0 + j] = (kept[j >> 5] >> (j & 31)) & 1u;'
+                '\n  }\n@}'),
+    ('merge start', "@  // the NMS launch's rows\n"
+                    '  cudaGridDependencySynchronize();'),
+    ('nms done', "  // the NMS launch's rows\n"
+                 '  cudaGridDependencySynchronize();\n@'),
+    ('compacted', '  __syncthreads();   // the kept rows are staged\n@'),
+    ('sorted', "  __syncthreads();   // the rows in the order of their left "
+               "edges' buckets\n@"),
+    ('listed', '  __syncthreads();   // every edge is listed\n@'),
+    ('joined', '  __syncthreads();   // every edge is joined\n@'),
+    ('labelled', "  __syncthreads();   // each row's label is its "
+                 "component's least member\n@"),
+    ('collapsed', "  __syncthreads();   // every member's keys are in\n@"),
+    ('ordered', '  count_keys<false>(fin, reps, fin, reps, below);\n'
+                '  __syncthreads();\n@'),
+    ('merge end', '      p.out_keep[at] = 0;\n    }\n    carry += all;\n'
+                  '  }\n@}'),
 ]
 COMMIT_MARKS = [
     ('start', '  const int T = p.t, D = p.d, H = p.h;\n@'),
@@ -170,6 +196,116 @@ def commit_cases(streams):
                 smoke.contested_commit_args(streams)}
 
 
+def other_package(root):
+    """ROOT's ``fastmot_tpu_torch`` imported whole under another name
+    (its kernels built from ROOT's sources into ROOT's csrc/build): its
+    ``detector`` module."""
+    import importlib
+    import importlib.util
+    name = 'fastmot_tpu_torch_' + ''.join(
+        c if c.isalnum() else '_' for c in os.path.basename(
+            os.path.abspath(root)))
+    pkg = os.path.join(root, 'fastmot_tpu_torch')
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(pkg, '__init__.py'),
+        submodule_search_locations=[pkg])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return importlib.import_module(f'{name}.detector')
+
+
+def ssd_post(opts, card):
+    """``--only ssd_post``: the SSD detector's stages (chip_smoke.
+    ssd_stages_ms) on chip_smoke.py phase 9's detector (SSDInceptionV2,
+    cfg/mot.json's 4 x 2 tiles, random weights) and frame, and on
+    tests/test_torch_ssd_post.py's crowded rows; with ``--other``, each
+    checkout's ``SSDDetector._postprocess_device`` held equal to this
+    one's bit for bit, then the stages in turns (this, the others, then
+    the same backwards), the same detector and inputs for all."""
+    import json
+
+    import tests.test_torch_ssd_post as ts
+    from fastmot_tpu_torch.detector import SSDDetector
+    from fastmot_tpu_torch.models.ssd import decode_ssd
+    from fastmot_tpu_torch.utils import ConfigDecoder
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, 'cfg', 'mot.json')) as f:
+        mot_cfg = json.load(f, cls=ConfigDecoder)['mot_cfg']
+    det = SSDDetector(smoke.SIZE, mot_cfg['class_ids'], device='cuda',
+                      **mot_cfg['ssd_detector_cfg'])
+    frame = torch.as_tensor(smoke.textured_frames(smoke.SIZE, 1)[0],
+                            device='cuda')
+    crowded = tuple(torch.as_tensor(a, device='cuda')
+                    for a in ts.crowded_rows(0))
+    scalars = (det.conf_thresh, det.max_area, det.merge_thresh,
+               det.model.NMS_THRESH)
+    with torch.no_grad():
+        det_out = decode_ssd(*det.module(det.preprocess(frame)),
+                             det._anchors, det.model.TOPK)
+    cases = {'the run\'s rows': (det_out, det._tiles_f, det._scale,
+                                 det.label_mask),
+             'crowded rows': crowded,
+             'phase 8\'s rows': tuple(torch.as_tensor(a, device='cuda')
+                                     for a in smoke.synthetic_ssd_rows(
+                                         np.random.default_rng(42)))}
+    designs = [('this', SSDDetector._postprocess_device)] + [
+        (r, other_package(r).SSDDetector._postprocess_device)
+        for r in opts.other]
+    for case, a in cases.items():
+        want = designs[0][1](*a, *scalars)
+        for tag, post in designs[1:]:
+            if any(not torch.equal(x, y)
+                   for x, y in zip(want, post(*a, *scalars))):
+                raise AssertionError(f'ssd postprocess, {case}: {tag}\'s '
+                                     'outputs differ')
+        print(f'ssd postprocess, {case} {tuple(a[0].shape)}: '
+              f'{int(want[3].sum())} kept'
+              + (', every checkout\'s outputs equal bit for bit'
+                 if len(designs) > 1 else ''), flush=True)
+    for tag, post in designs + designs[::-1]:
+        with torch.no_grad():
+            stages = smoke.ssd_stages_ms(det, frame, crowded, post)
+        smoke.log_ssd_stages(f'ssd stages ({tag})', stages, card)
+
+    # this checkout's kernels alone: stamps, then device, wrapper and host
+    # times a call
+    from fastmot_tpu_torch.detector import MAX_DETS
+    from fastmot_tpu_torch.ops import nms_waves as nw
+
+    def out_rows(a):
+        return min(a[0].shape[0] * a[0].shape[1], MAX_DETS)
+    if not opts.no_stamps:
+        lib_s = nw.declare(kernel_stamps.stamped_library(
+            'nms_waves', [t for _, t in SSD_MARKS]))
+        for case, a in cases.items():
+            outputs, args, inputs = nw.ssd_postprocess_launch_args(
+                *a, *scalars, out_rows(a))
+            print(f'ssd_postprocess stamps, {case}: the NMS launch\'s '
+                  'blocks 0 and 7, then the merge block (block 0\'s pairs '
+                  'across the two launches span two SMs\' clocks); '
+                  f'{card}', flush=True)
+            breakdown(lib_s, SSD_MARKS,
+                      lambda: lib_s.ssd_postprocess_forward(*args),
+                      blocks=(0, 7))
+            del inputs
+    lib = nw.nms_waves_library()
+    for case, a in cases.items():
+        m = out_rows(a)
+        outputs, args, inputs = nw.ssd_postprocess_launch_args(
+            *a, *scalars, m)
+        dev = smoke.lk_device_ms(lib.ssd_postprocess_forward, args,
+                                 n=opts.iters, tag=f'ssd {case}')
+        call = smoke.launches_ms(lambda: nw.ssd_postprocess(*a, *scalars, m))
+        host = smoke.host_ms(lambda: nw.ssd_postprocess(*a, *scalars, m))
+        entry = smoke.host_ms(lambda: lib.ssd_postprocess_forward(*args))
+        print(f'ssd_postprocess {case}: device {dev * 1e3:.2f} us a call; '
+              f'the wrapper {call * 1e3:.2f} us a call, host '
+              f'{host * 1e3:.2f} us (of it the C entry {entry * 1e3:.2f} '
+              f'us); {card}', flush=True)
+        del inputs
+
+
 def commit_library(root, tag):
     """ROOT's csrc/assoc_commit.cu built with this checkout's flags."""
     import ctypes
@@ -190,7 +326,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--other', action='append', default=[],
                     help='the root of a checkout to compare (repeatable)')
-    ap.add_argument('--only', choices=('commit',), help='the commit alone')
+    ap.add_argument('--only', choices=('commit', 'ssd_post'),
+                    help='the commit alone, or the SSD postprocess alone')
     ap.add_argument('--no-stamps', action='store_true')
     ap.add_argument('--iters', type=int, default=100)
     opts = ap.parse_args()
@@ -207,6 +344,9 @@ def main():
                           text=True).stdout.strip()
     print(f'card: {card}; torch {torch.__version__}', flush=True)
     smoke.phase_build()
+    if opts.only == 'ssd_post':
+        ssd_post(opts, card)
+        return
     stamped = [] if opts.no_stamps else [('this', ac.declare(
         kernel_stamps.stamped_library(
             'assoc_commit', [m for _, m in COMMIT_MARKS])), COMMIT_MARKS)]

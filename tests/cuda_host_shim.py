@@ -39,13 +39,12 @@ csrc/flow_preprocess.cu, csrc/gap_points.cu and csrc/assoc_solvers.cu:
   block, run as above (one team, the blocks in turn, one dynamic shared
   memory that they take in turn), and ``this_cluster()`` in them is a
   cluster of one block;
-- the atomics (32-bit, and 64-bit ``atomicMax``) are the compiler's
-  ``__atomic`` builtins; the asynchronous copies into shared memory
-  (``cp.async``, ``cp.async.bulk`` and their mbarrier) sit in the kernels
-  under ``__CUDA_ARCH__`` beside plain copies, which the host build takes;
-  the
-  programmatic-dependent-launch calls do nothing, since the launches
-  already run one after another;
+- the atomics (32-bit, ``atomicCAS`` on ints, and 64-bit ``atomicMax``)
+  are the compiler's ``__atomic`` builtins; the asynchronous copies into
+  shared memory (``cp.async``, ``cp.async.bulk`` and their mbarrier) sit in
+  the kernels under ``__CUDA_ARCH__`` beside plain copies, which the host
+  build takes; the programmatic-dependent-launch calls do nothing, since
+  the launches already run one after another;
 - ``-ffp-contract=off`` rounds every product and sum on its own, as the
   card's build under ``-fmad=false`` does, so the two builds agree bit for
   bit.
@@ -154,6 +153,11 @@ inline unsigned atomicOr(unsigned* p, unsigned v) {
 }
 inline unsigned atomicAnd(unsigned* p, unsigned v) {
   return __atomic_fetch_and(p, v, __ATOMIC_RELAXED);
+}
+inline int atomicCAS(int* p, int compare, int v) {
+  __atomic_compare_exchange_n(p, &compare, v, false, __ATOMIC_SEQ_CST,
+                              __ATOMIC_SEQ_CST);
+  return compare;   // the old value
 }
 inline unsigned atomicMin(unsigned* p, unsigned v) {
   unsigned old = __atomic_load_n(p, __ATOMIC_RELAXED);
