@@ -1,0 +1,7 @@
+"""Synchronised time of the association-frame steps of the traced window:
+all of their time over their count."""
+from motbench.measure import mean_ms
+
+
+def read(ctx):
+    return mean_ms(ctx.window["steps"].get("assoc", []))
