@@ -23,6 +23,7 @@ from .device import torch_device
 from .models.quantize import quantize_module
 from .ops import geometry as geom
 from .ops import nms_waves
+from .utils import profiler
 
 MAX_DETS = 128      # padded capacity of the final detection set
 MAX_RAW = 1024      # candidates entering NMS after confidence filtering
@@ -65,6 +66,7 @@ class Detector(abc.ABC):
 
 
 def _padded_to_host(padded) -> np.recarray:
+    profiler.count('host_syncs', len(padded))
     tlbr, label, conf, valid = (t.cpu().numpy() for t in padded)
     return make_detections(tlbr[valid].astype(float),
                            label[valid].astype(int),
@@ -519,5 +521,6 @@ class PublicDetector(Detector):
             labels[:n] = det.label[:n]
             confs[:n] = det.conf[:n]
             valid[:n] = True
+        profiler.count('host_syncs', 4)     # the four uploads
         return tuple(torch.as_tensor(a, device=self.device)
                      for a in (tlbrs, labels, confs, valid))

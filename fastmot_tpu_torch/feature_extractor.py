@@ -21,6 +21,8 @@ from .models.quantize import dynamic_ranges, quantize_module
 from .ops import reid_crops as rc
 # the JAX module's public name, which the port's surface keeps
 from .ops.reid_crops import crop_resize_batch  # noqa: F401
+from .utils import profiler
+from .utils.profiler import Profiler
 
 
 def _bucket(n: int, lo: int = 16) -> int:
@@ -89,6 +91,7 @@ class FeatureExtractor:
             return
         boxes = np.zeros((_bucket(n), 4), np.float32)
         boxes[:n] = tlbrs
+        profiler.count('host_syncs', 2)     # the boxes' and mask's uploads
         valid = torch.as_tensor(np.arange(len(boxes)) < n,
                                 device=self.device)
         frame = torch.as_tensor(frame, device=self.device)
@@ -110,22 +113,25 @@ class FeatureExtractor:
         """Stream-batched device variant: frames [S, H, W, 3], boxes [S, D,
         4], valid [S, D] -> pending [S, D, F], one OSNet call on the
         [S * D] crops."""
-        self._n = int(tlbrs_dev.shape[0]) * int(tlbrs_dev.shape[1])
-        self._pending = extract_core(self.module, self.out_hw, frames_dev,
-                                     tlbrs_dev, valid_dev)
+        with Profiler('reid'):
+            self._n = int(tlbrs_dev.shape[0]) * int(tlbrs_dev.shape[1])
+            self._pending = extract_core(self.module, self.out_hw,
+                                         frames_dev, tlbrs_dev, valid_dev)
 
     def postprocess(self):
         """[N, D] float32 numpy embeddings of the last extract_async."""
         out = self._pending
         self._pending = None
-        return out if isinstance(out, np.ndarray) else \
-            out[:self._n].cpu().numpy()
+        if isinstance(out, np.ndarray):
+            return out
+        profiler.count('host_syncs')
+        return out[:self._n].cpu().numpy()
 
     def postprocess_device(self):
         """The pending embeddings as a device tensor (row i aligns with box
         i; [S, D, F] after ``extract_async_batch``), no synchronisation."""
-        out = self._pending
-        self._pending = None
+        with Profiler('reid'):
+            out, self._pending = self._pending, None
         return out
 
     def null_embeddings(self, detections):

@@ -21,9 +21,14 @@ from .detector import PublicDetector
 from .device import torch_device
 from .feature_extractor import FeatureExtractor
 from .tracker import MultiTracker, cfg_kwargs
-from .utils import Profiler
+from .utils import profiler
+from .utils.profiler import Profiler
 
 LOGGER = logging.getLogger(__name__)
+
+# the program's spans, in the order ``print_timing_info`` prints them
+SPANS = ('step', 'stage', 'detector', 'detector.post', 'flow', 'reid',
+         'assoc', 'sync', 'sync.fetch', 'sync.replay')
 
 
 class DetectorType(enum.Enum):
@@ -118,15 +123,25 @@ class MOT:
 
     def _upload(self, frame) -> torch.Tensor:
         # a copy: buffered frames outlive the caller's (reused) array
-        return torch.as_tensor(frame).to(self.device, copy=True)
+        with Profiler('stage'):
+            frame = torch.as_tensor(frame)
+            if frame.device.type == 'cpu':
+                profiler.count('host_syncs')
+            return frame.to(self.device, copy=True)
 
     def _flush_gaps(self):
         if not self._gap_buf:
             return
         buf, self._gap_buf = self._gap_buf, []
-        with Profiler('track'):
+        with Profiler('flow'):
             self.tracker.track_chain([f for f, _ in buf],
                                      [i for _, i in buf])
+
+    def _kind(self):
+        if self.frame_count == 0:
+            return 'init'
+        return 'assoc' if self.frame_count % self.detector_frame_skip == 0 \
+            else 'gap'
 
     def _device_path(self):
         return len(self.extractors) == 1 and \
@@ -137,46 +152,56 @@ class MOT:
         """Run the tracker on the next frame."""
         self._flush_gaps()
         detections = []
-        frame_dev = self._upload(frame)
-        if self.frame_count == 0:
-            detections = self.detector(frame_dev)
-            self.tracker.init(frame_dev, detections)
-        elif self.frame_count % self.detector_frame_skip == 0:
-            device_path = not self.draw and self._device_path()
-            with Profiler('preproc'):
-                self.detector.detect_async(frame_dev)
-            with Profiler('detect'):
-                with Profiler('track'):
-                    self.tracker.track(frame_dev, self.frame_count)
-                if device_path:
-                    det_dev = self.detector.postprocess_device()
-                else:
+        kind = self._kind()
+        with Profiler('step', step=self.frame_count, kind=kind):
+            frame_dev = self._upload(frame)
+            if kind == 'init':
+                with Profiler('detector'):
+                    self.detector.detect_async(frame_dev)
+                with Profiler('detector.post'):
                     detections = self.detector.postprocess()
-            with Profiler('extract'):
-                if not device_path:
-                    cls_bboxes = self._split_bboxes_by_cls(
-                        detections.tlbr, detections.label, self.class_ids)
-                    for extractor, bboxes in zip(self.extractors,
-                                                 cls_bboxes):
-                        extractor.extract_async(frame_dev, bboxes)
-                    embeddings = [ex.postprocess() for ex in self.extractors]
-                    embeddings = np.concatenate(embeddings) \
-                        if len(embeddings) > 1 else embeddings[0]
-            with Profiler('assoc'):
-                if device_path:
-                    self.tracker.update_device_fused(
-                        self.frame_count, frame_dev, det_dev,
-                        self.extractors[0])
-                else:
-                    self.tracker.update(self.frame_count, detections,
-                                        embeddings)
-        else:
-            with Profiler('track'):
-                self.tracker.track(frame_dev, self.frame_count)
+                self.tracker.init(frame_dev, detections)
+            elif kind == 'assoc':
+                detections = self._associate(frame_dev)
+            else:
+                with Profiler('flow'):
+                    self.tracker.track(frame_dev, self.frame_count)
 
         if self.draw:
             self._draw(frame, detections)
         self.frame_count += 1
+
+    def _associate(self, frame_dev):
+        """A detection frame's work after the upload; returns the host
+        detections (empty on the device path)."""
+        device_path = not self.draw and self._device_path()
+        detections = []
+        with Profiler('detector'):
+            self.detector.detect_async(frame_dev)
+        with Profiler('flow'):
+            self.tracker.track(frame_dev, self.frame_count)
+        with Profiler('detector.post'):
+            if device_path:
+                det_dev = self.detector.postprocess_device()
+            else:
+                detections = self.detector.postprocess()
+        if device_path:
+            with Profiler('assoc'):
+                self.tracker.update_device_fused(
+                    self.frame_count, frame_dev, det_dev,
+                    self.extractors[0])
+            return detections
+        with Profiler('reid'):
+            cls_bboxes = self._split_bboxes_by_cls(
+                detections.tlbr, detections.label, self.class_ids)
+            for extractor, bboxes in zip(self.extractors, cls_bboxes):
+                extractor.extract_async(frame_dev, bboxes)
+            embeddings = [ex.postprocess() for ex in self.extractors]
+            embeddings = np.concatenate(embeddings) \
+                if len(embeddings) > 1 else embeddings[0]
+        with Profiler('assoc'):
+            self.tracker.update(self.frame_count, detections, embeddings)
+        return detections
 
     @torch.no_grad()
     def step_batch(self, frames):
@@ -189,41 +214,36 @@ class MOT:
                 self.step(frame)
             return
         for frame in frames:
-            if self.frame_count == 0:
+            kind = self._kind()
+            if kind == 'init' or (kind == 'assoc'
+                                  and not self._device_path()):
                 self.step(frame)
-            elif self.frame_count % self.detector_frame_skip == 0:
-                if not self._device_path():
-                    self.step(frame)
-                    continue
+                continue
+            with Profiler('step', step=self.frame_count, kind=kind):
                 frame_dev = self._upload(frame)
-                with Profiler('preproc'):
-                    self.detector.detect_async(frame_dev)
-                self._gap_buf.append((frame_dev, self.frame_count))
-                with Profiler('detect'):
+                if kind == 'assoc':
+                    with Profiler('detector'):
+                        self.detector.detect_async(frame_dev)
+                    self._gap_buf.append((frame_dev, self.frame_count))
                     self._flush_gaps()
-                    det_dev = self.detector.postprocess_device()
-                with Profiler('assoc'):
-                    self.tracker.update_device_fused(
-                        self.frame_count, frame_dev, det_dev,
-                        self.extractors[0])
-                self.frame_count += 1
-            else:
-                self._gap_buf.append((self._upload(frame), self.frame_count))
-                self.frame_count += 1
+                    with Profiler('detector.post'):
+                        det_dev = self.detector.postprocess_device()
+                    with Profiler('assoc'):
+                        self.tracker.update_device_fused(
+                            self.frame_count, frame_dev, det_dev,
+                            self.extractors[0])
+                else:
+                    self._gap_buf.append((frame_dev, self.frame_count))
+            self.frame_count += 1
 
     @staticmethod
     def print_timing_info():
+        """Each span's mean self time (its length less its child spans'),
+        so that no time is counted twice."""
         LOGGER.debug('=================Timing Stats=================')
-        LOGGER.debug(f"{'track time:':<37}"
-                     f"{Profiler.get_avg_millis('track'):>6.3f} ms")
-        LOGGER.debug(f"{'preprocess time:':<37}"
-                     f"{Profiler.get_avg_millis('preproc'):>6.3f} ms")
-        LOGGER.debug(f"{'detect/flow time:':<37}"
-                     f"{Profiler.get_avg_millis('detect'):>6.3f} ms")
-        LOGGER.debug(f"{'feature extract/kalman filter time:':<37}"
-                     f"{Profiler.get_avg_millis('extract'):>6.3f} ms")
-        LOGGER.debug(f"{'association time:':<37}"
-                     f"{Profiler.get_avg_millis('assoc'):>6.3f} ms")
+        for name in SPANS:
+            LOGGER.debug(f"{name + ' self time:':<37}"
+                         f"{Profiler.get_avg_self_millis(name):>6.3f} ms")
 
     @staticmethod
     def _split_bboxes_by_cls(bboxes, labels, class_ids):

@@ -40,6 +40,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiler
+
 MAX_FLOW_TRACKS = 128
 KP_PER_TRACK = 32
 BG_KP = 256
@@ -981,6 +983,7 @@ def flow_points_core(spec: FlowSpec, prev_state, t_tlbrs, t_valid, t_kps,
 def lk_core(spec: FlowSpec, prev_u8, cur_u8, all_prev, all_valid):
     """One batched pyramidal-LK solve for all points (full-res coords); with
     a leading stream axis, one solve for every stream's points."""
+    profiler.count('host_syncs')        # the constant's blocking upload
     opt_scale = torch.tensor(spec.opt_scale, dtype=torch.float32,
                              device=all_prev.device)
     cur_scaled, status, err = lk_pyramidal(prev_u8, cur_u8,

@@ -32,7 +32,8 @@ from ..device import torch_device
 from ..feature_extractor import FeatureExtractor
 from ..models.quantize import dynamic_ranges
 from ..tracker import cfg_kwargs
-from ..utils import Profiler
+from ..utils import profiler
+from ..utils.profiler import Profiler
 from .stream_tracker import StreamTracker
 
 
@@ -57,13 +58,17 @@ class BatchedYOLODetector:
 
     def detect_async(self, frames):
         """``frames`` [S, H, W, 3] uint8 BGR."""
-        with dynamic_ranges(process_group=self.range_group):
+        with Profiler('detector'), \
+                dynamic_ranges(process_group=self.range_group):
             self._pending = self._single.run(
                 torch.as_tensor(frames, device=self.device))
 
     def postprocess(self):
-        """Per-stream host recarrays, from one transfer."""
-        tlbr, label, conf, valid = (t.cpu().numpy() for t in self._pending)
+        """Per-stream host recarrays, from four device-to-host reads."""
+        with Profiler('detector.post'):
+            profiler.count('host_syncs', len(self._pending))
+            tlbr, label, conf, valid = (t.cpu().numpy()
+                                        for t in self._pending)
         self._pending = None
         out = []
         for s in range(tlbr.shape[0]):
@@ -76,7 +81,8 @@ class BatchedYOLODetector:
     def postprocess_device_batch(self):
         """Padded per-stream device tensors (tlbr [S, D, 4], label, conf,
         valid [S, D]), no host sync."""
-        out, self._pending = self._pending, None
+        with Profiler('detector.post'):
+            out, self._pending = self._pending, None
         return out
 
 
@@ -139,46 +145,51 @@ class MultiStreamMOT:
         self.stream_tracker.reset(cap_dt)
 
     def _stage_frames(self, frames):
-        """This rank's streams of the global batch, on the device."""
+        """This rank's streams of the global batch, on the device: one
+        blocking upload from host frames."""
         assert len(frames) == self.n_streams
         mine = self.local_streams
-        if isinstance(frames, (list, tuple)):
-            frames = frames[mine.start:mine.stop]
-            if all(isinstance(f, torch.Tensor) for f in frames):
-                return torch.stack(frames).to(self.device)
-            frames = np.stack(frames)
-        elif not isinstance(frames, torch.Tensor):
-            # a copy of this rank's streams (the batch may be a read-only
-            # memory map)
-            frames = np.array(frames[mine.start:mine.stop])
-        else:
-            frames = frames[mine.start:mine.stop]
-        return torch.as_tensor(frames).to(self.device, copy=True)
+        with Profiler('stage'):
+            copy = True
+            if isinstance(frames, (list, tuple)):
+                frames = frames[mine.start:mine.stop]
+                if all(isinstance(f, torch.Tensor) for f in frames):
+                    frames, copy = torch.stack(frames), False
+                else:
+                    frames = np.stack(frames)
+            elif not isinstance(frames, torch.Tensor):
+                # a copy of this rank's streams (the batch may be a
+                # read-only memory map)
+                frames = np.array(frames[mine.start:mine.stop])
+            else:
+                frames = frames[mine.start:mine.stop]
+            frames = torch.as_tensor(frames)
+            if frames.device.type == 'cpu':
+                profiler.count('host_syncs')
+            return frames.to(self.device, copy=copy)
 
     @torch.no_grad()
     def step(self, frames):
-        frames_dev = self._stage_frames(frames)
-        if self.frame_count == 0:
-            self.detector.detect_async(frames_dev)
-            all_dets = self.detector.postprocess()
-            self.stream_tracker.init(frames_dev, all_dets)
-        elif self.frame_count % self.detector_frame_skip == 0:
-            with Profiler('preproc'):
+        f = self.frame_count
+        kind = 'init' if f == 0 else \
+            'assoc' if f % self.detector_frame_skip == 0 else 'gap'
+        with Profiler('step', step=f, kind=kind):
+            frames_dev = self._stage_frames(frames)
+            if kind == 'init':
                 self.detector.detect_async(frames_dev)
-            with Profiler('detect'):
+                all_dets = self.detector.postprocess()
+                self.stream_tracker.init(frames_dev, all_dets)
+            elif kind == 'assoc':
+                self.detector.detect_async(frames_dev)
                 # the gap step of every stream, then the detections
                 self.stream_tracker.track(frames_dev)
                 det_b = self.detector.postprocess_device_batch()
-            with Profiler('extract'):
                 self.extractor.extract_async_batch(
                     frames_dev, det_b[0], det_b[3])
                 emb_b = self.extractor.postprocess_device()
-            with Profiler('assoc'):
                 # one pass for ALL streams' associations; the decisions
                 # replay into the host mirrors at the next sync()
-                self.stream_tracker.update_device(self.frame_count, det_b,
-                                                  emb_b)
-        else:
-            with Profiler('track'):
+                self.stream_tracker.update_device(f, det_b, emb_b)
+            else:
                 self.stream_tracker.track(frames_dev)
         self.frame_count += 1

@@ -52,6 +52,8 @@ from ..track import Track
 from ..tracker import (MAX_DETS, MAX_TRACKS, MultiTracker,
                        assoc_costs_batch, commit_batch, fetch_infos,
                        finals_core, stages_scan_core)
+from ..utils import profiler
+from ..utils.profiler import Profiler
 from .streams import axis_size
 
 __all__ = ['StreamTracker']
@@ -97,8 +99,12 @@ class StreamTracker:
     # -- helpers -------------------------------------------------------------
 
     def _put(self, arrays):
-        return tuple(torch.as_tensor(np.stack(a), device=self.device)
-                     for a in zip(*arrays))
+        """Each array of the per-stream tuples, stacked: a blocking upload
+        each."""
+        out = tuple(torch.as_tensor(np.stack(a), device=self.device)
+                    for a in zip(*arrays))
+        profiler.count('host_syncs', len(out))
+        return out
 
     def _stack_from_mirrors(self):
         """Stack every stream's host state arrays into one upload."""
@@ -119,6 +125,7 @@ class StreamTracker:
         parts = [torch.empty_like(t)
                  for _ in range(dist.get_world_size(self._group))]
         dist.all_gather(parts, t, group=self._group)
+        profiler.count('host_syncs', 2)     # the upload and the read
         return torch.stack(parts).cpu().tolist()
 
     def _claim_ids(self, counts):
@@ -177,6 +184,7 @@ class StreamTracker:
         if n:
             tlbrs = np.zeros((MAX_DETS, 4), np.float32)
             tlbrs[:n] = detections.tlbr[:n]
+            profiler.count('host_syncs', 3)     # the upload, two reads
             means, covs = (t.cpu().numpy() for t in kf.create(
                 trk.kf_cfg, torch.as_tensor(tlbrs, device=trk.device)))
             for i, det in enumerate(detections[:n]):
@@ -193,6 +201,10 @@ class StreamTracker:
     def track(self, frames, frame_id=None):
         """Tracking-only frame for ALL streams. ``frames``: [S, H, W, 3]
         uint8 BGR."""
+        with Profiler('flow'):
+            self._track(frames, frame_id)
+
+    def _track(self, frames, frame_id):
         frames = torch.as_tensor(frames, device=self.device)
         if self._prev_pre is None:
             self._prev_pre = self._preprocess(frames)
@@ -210,6 +222,7 @@ class StreamTracker:
         if self.mesh is not None:
             t = torch.tensor(max_active, device=self.mesh.device_type)
             dist.all_reduce(t, dist.ReduceOp.MAX, group=self._group)
+            profiler.count('host_syncs', 2)     # the upload and the read
             max_active = int(t)
         # one budget for the whole batch: the densest stream picks
         f_cap = fk.flow_budget(max_active)
@@ -240,6 +253,10 @@ class StreamTracker:
 
         ``det_batch``: (tlbr [S, D, 4], label [S, D], conf [S, D], valid
         [S, D]); ``emb_batch``: [S, D, F]."""
+        with Profiler('assoc'):
+            self._update_device(frame_id, det_batch, emb_batch)
+
+    def _update_device(self, frame_id, det_batch, emb_batch):
         if self._dirty:
             self._stack_from_mirrors()
         t0 = self.trackers[0]
@@ -275,7 +292,12 @@ class StreamTracker:
                      for (_, _, info) in trk._pending]
         if not all_infos:
             return
-        fetched = fetch_infos(all_infos)
+        with Profiler('sync'):
+            fetched = fetch_infos(all_infos)
+            with Profiler('sync.replay'):
+                self._replay(fetched)
+
+    def _replay(self, fetched):
         per_stream, off = [], 0
         for trk in self.trackers:
             n = len(trk._pending)

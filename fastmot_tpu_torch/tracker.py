@@ -59,6 +59,8 @@ from .ops import gap_commit as gc
 from .ops import gap_points as gp
 from .ops import geometry as geom
 from .track import Track
+from .utils import profiler
+from .utils.profiler import Profiler
 
 LOGGER = logging.getLogger(__name__)
 
@@ -149,7 +151,9 @@ def fetch_infos(infos):
     dev_infos = [info for info in infos if info is not None]
     if not dev_infos:
         return list(infos)
-    flat = torch.cat(dev_infos).cpu().numpy()
+    with Profiler('sync.fetch'):
+        profiler.count('host_syncs')
+        flat = torch.cat(dev_infos).cpu().numpy()
     out, off = [], 0
     for info in infos:
         if info is None:
@@ -905,6 +909,7 @@ class MultiTracker:
         if n:
             tlbrs = np.zeros((MAX_DETS, 4), np.float32)
             tlbrs[:n] = detections.tlbr[:n]
+            profiler.count('host_syncs', 3)     # the upload, two reads
             means, covs = (t.cpu().numpy() for t in kf.create(
                 self.kf_cfg, torch.as_tensor(tlbrs, device=self.device)))
             for i, det in enumerate(detections[:n]):
@@ -982,6 +987,7 @@ class MultiTracker:
             d_valid[:n_det] = True
             if embeddings is not None and len(embeddings):
                 d_emb[:n_det] = embeddings[:n_det]
+        profiler.count('host_syncs', 5)     # the detections' uploads
         det_dev = tuple(torch.as_tensor(a, device=self.device)
                         for a in (d_tlbrs, d_labels, d_conf, d_valid))
         self.update_device(frame_id, det_dev,
@@ -1050,11 +1056,17 @@ class MultiTracker:
         With ``snapshots=True``, returns ``{frame_id: [(trk_id, tlbr)]}``
         of the confirmed+active tracks after each tagged frame's replay."""
         pending, self._pending = self._pending, []
-        result = {} if snapshots else None
         if not pending:
-            return result
-        if infos is None:
+            return {} if snapshots else None
+        if infos is not None:
+            return self._replay(pending, infos, snapshots)
+        with Profiler('sync'):
             infos = fetch_infos([info for _, _, info in pending])
+            with Profiler('sync.replay'):
+                return self._replay(pending, infos, snapshots)
+
+    def _replay(self, pending, infos, snapshots):
+        result = {} if snapshots else None
         entries = [((kind, meta), flat) for (kind, meta, _), flat
                    in zip(pending, infos)]
         for k, ((kind, meta), flat) in enumerate(entries):
@@ -1336,6 +1348,7 @@ class MultiTracker:
         after legacy-path mutations). One batched H2D."""
         self._dev_state = tuple(torch.as_tensor(a, device=self.device)
                                 for a in self._host_state_arrays())
+        profiler.count('host_syncs', len(self._dev_state))
         self._ensure_hist_store(reset=True)
         self._mirrors_dirty = False
 
@@ -1396,6 +1409,7 @@ class MultiTracker:
             return
         self._hist_store = tuple(torch.as_tensor(a, device=self.device)
                                  for a in self._host_hist_arrays(reset))
+        profiler.count('host_syncs', len(self._hist_store))
 
     def _host_hist_arrays(self, reset=False):
         """Padded numpy image of the device history store; with ``reset``
