@@ -21,8 +21,8 @@ from .detector import PublicDetector
 from .device import torch_device
 from .feature_extractor import FeatureExtractor
 from .tracker import MultiTracker, cfg_kwargs
-from .utils import profiler
 from .utils.profiler import Profiler
+from .utils.staging import FrameStager
 
 LOGGER = logging.getLogger(__name__)
 
@@ -94,6 +94,9 @@ class MOT:
         if draw:
             from .utils.visualization import Visualizer
             self.visualizer = Visualizer(**cfg_kwargs(visualizer_cfg))
+        # a fresh device tensor a frame: buffered gap frames outlive the
+        # caller's (reused) array
+        self._stage = FrameStager(self.device)
         self.frame_count = 0
         # gap frames buffered by step_batch across calls; flushed by the
         # next detection frame, step(), visible_tracks/flush_tracks or reset
@@ -121,14 +124,6 @@ class MOT:
         self.frame_count = 0
         self.tracker.reset(cap_dt)
 
-    def _upload(self, frame) -> torch.Tensor:
-        # a copy: buffered frames outlive the caller's (reused) array
-        with Profiler('stage'):
-            frame = torch.as_tensor(frame)
-            if frame.device.type == 'cpu':
-                profiler.count('host_syncs')
-            return frame.to(self.device, copy=True)
-
     def _flush_gaps(self):
         if not self._gap_buf:
             return
@@ -154,7 +149,7 @@ class MOT:
         detections = []
         kind = self._kind()
         with Profiler('step', step=self.frame_count, kind=kind):
-            frame_dev = self._upload(frame)
+            frame_dev = self._stage(frame)
             if kind == 'init':
                 with Profiler('detector'):
                     self.detector.detect_async(frame_dev)
@@ -220,7 +215,7 @@ class MOT:
                 self.step(frame)
                 continue
             with Profiler('step', step=self.frame_count, kind=kind):
-                frame_dev = self._upload(frame)
+                frame_dev = self._stage(frame)
                 if kind == 'assoc':
                     with Profiler('detector'):
                         self.detector.detect_async(frame_dev)

@@ -34,6 +34,7 @@ from ..models.quantize import dynamic_ranges
 from ..tracker import cfg_kwargs
 from ..utils import profiler
 from ..utils.profiler import Profiler
+from ..utils.staging import FrameStager
 from .stream_tracker import StreamTracker
 
 
@@ -122,6 +123,7 @@ class MultiStreamMOT:
             device=self.device,
             range_group=None if mesh is None else mesh.get_group('streams'),
             **cfg_kwargs(yolo_detector_cfg))
+        self._stage = FrameStager(self.device)
         self.frame_count = 0
 
     @property
@@ -145,28 +147,12 @@ class MultiStreamMOT:
         self.stream_tracker.reset(cap_dt)
 
     def _stage_frames(self, frames):
-        """This rank's streams of the global batch, on the device: one
-        blocking upload from host frames."""
+        """This rank's streams of the global batch, on the device
+        (``FrameStager``: host frames through a pinned ring, no host
+        sync)."""
         assert len(frames) == self.n_streams
         mine = self.local_streams
-        with Profiler('stage'):
-            copy = True
-            if isinstance(frames, (list, tuple)):
-                frames = frames[mine.start:mine.stop]
-                if all(isinstance(f, torch.Tensor) for f in frames):
-                    frames, copy = torch.stack(frames), False
-                else:
-                    frames = np.stack(frames)
-            elif not isinstance(frames, torch.Tensor):
-                # a copy of this rank's streams (the batch may be a
-                # read-only memory map)
-                frames = np.array(frames[mine.start:mine.stop])
-            else:
-                frames = frames[mine.start:mine.stop]
-            frames = torch.as_tensor(frames)
-            if frames.device.type == 'cpu':
-                profiler.count('host_syncs')
-            return frames.to(self.device, copy=copy)
+        return self._stage(frames[mine.start:mine.stop])
 
     @torch.no_grad()
     def step(self, frames):

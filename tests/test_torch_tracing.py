@@ -163,7 +163,8 @@ def test_sync_holds_one_fetch_then_one_replay(traced):
 
 
 def test_host_syncs_count_each_wait(traced):
-    """One staging upload a step; on the init step the detector's four
+    """Every real wait, and no staging: the frames go through the staging
+    ring with no wait of their own. On the init step the detector's four
     reads, on each stream with detections the Kalman init's upload and two
     reads, and the restack's upload of every state and history array; on
     each tracked step the upload of ``lk_core``'s constant; one fetch a
@@ -171,7 +172,7 @@ def test_host_syncs_count_each_wait(traced):
     recs, counted, mot = traced[2], traced[4], traced[5]
     st = mot.stream_tracker
     restack = len(st._dev_state) + len(st._hist_store)
-    want = {'init': 1 + 4 + 3 * N_STREAMS + restack, 'gap': 2, 'assoc': 2}
+    want = {'init': 4 + 3 * N_STREAMS + restack, 'gap': 1, 'assoc': 1}
     steps = sorted((r for r in recs if r.name == 'step'),
                    key=lambda r: r.start)
     got = [_subtree_syncs(recs, r) for r in steps]
